@@ -1,0 +1,297 @@
+// Shared mainloop of the port's NT GEMM kernels (dense FP8 and masked grouped).
+//
+// Replaces the Pallas mainloop of deepgemm_tpu/kernels/dense.py
+// (_build_dense_gemm) and kernels/grouped.py (_build_masked), including the
+// exact f32 promotion step of deepgemm_tpu/kernels/common.py:27-52:
+//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p.
+//
+// d[g, m, n] = sum_k a[g, m, k] * b[g, n, k]   (a, b k-major; d bf16)
+//
+// Design (simple and right first; wgmma/TMA/warp specialisation come later):
+//   * One block computes a kBM x BN output tile of one group; 8 warps in a
+//     2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made of
+//     mma.sync m16n8 tiles with f32 accumulation (bf16: m16n8k16, fp8 e4m3:
+//     m16n8k32, sm_89+).
+//   * A stage holds 128 BYTES of k for every row of A and B (64 bf16 or 128
+//     fp8 values), so a scaled stage is exactly one 128-deep scale block.
+//     kStages stages are kept in flight with cp.async (zero-filled past the
+//     row count and past K), rows padded by 16 bytes so the fragment loads
+//     hit 32 distinct banks.
+//   * Scaled (fp8) instantiation: each stage's product goes to a fresh f32
+//     partial that is scaled and added to the accumulator in the reference
+//     multiply order, with explicit _rn intrinsics so nothing is contracted
+//     into an FMA. SFB is read as the caller holds it, one f32 per gran_n
+//     rows of B (128: the 128x128 block scales) and 128-deep k block.
+//   * Masked instantiation: the block reads masked_m[g] on the device and
+//     returns at once when its first row is at or past it. The host never
+//     reads masked_m, so the launch is CUDA-graph safe. Rows at or past
+//     masked_m[g] inside a live tile are computed from whatever A holds
+//     there and are unspecified, as in the masked contract.
+//
+// What bounds it on the H100: at the model's masked shapes (max_m 40) each
+// expert's weights are streamed once, ~3 flop per byte for fp8, so HBM
+// bytes bound it (3.35 TB/s); a dense 4096^3 product is tensor-core bound.
+// mma.sync reaches a fraction of the wgmma peak; that is later work.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dgt {
+
+constexpr int kBM = 64;                 // output rows per block
+constexpr int kKBytes = 128;            // bytes of k per stage per row
+constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+
+template <int BN>
+constexpr int smem_bytes() { return kStages * (kBM + BN) * kPitch; }
+
+struct GemmArgs {
+    const uint8_t* a;        // [G, M, K] bf16 or e4m3, k-major
+    const uint8_t* b;        // [G, N, K] same type as a, k-major
+    const float* sfa;        // [G, M, ceil(K/128)] or nullptr (unscaled)
+    const float* sfb;        // [G, ceil(N/gran_n), ceil(K/128)] or nullptr
+    const int* masked_m;     // [G] or nullptr (dense: every row is live)
+    __nv_bfloat16* d;        // [G, M, N]
+    int M, N, K;
+    int sfb_shift;           // log2(gran_n): rows of B per row of sfb (128 -> 7, 1 -> 0)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+    const int src_size = valid ? 16 : 0;   // 0 -> the 16 bytes are zero-filled
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_size));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(const uint8_t* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Both instructions take the same fragment bytes: per thread (group g = lane/4,
+// t = lane%4) A regs are rows {g, g+8} x byte offsets {4t, 16+4t} of a
+// 32-byte k slice, B regs are row n=g at byte offsets {4t, 16+4t}.
+struct MmaBf16 {     // m16n8k16, bf16 in, f32 accumulate
+    static constexpr int kElemBytes = 2;
+    __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+};
+
+struct MmaE4m3 {     // m16n8k32, e4m3 in, f32 accumulate
+    static constexpr int kElemBytes = 1;
+    __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+};
+
+template <class Mma, bool kScaled, int BN>
+__global__ void __launch_bounds__(kThreads)
+gemm_nt_kernel(const GemmArgs p) {
+    static_assert(!kScaled || Mma::kElemBytes == 1, "scales go with fp8 operands");
+    static_assert(BN % 32 == 0, "each warp owns BN/4 columns in n8 tiles");
+    constexpr int kWN = BN / 4;          // warp tile width
+    constexpr int kNT = kWN / 8;         // n8 tiles per warp
+    extern __shared__ __align__(16) uint8_t smem[];
+
+    const int g = blockIdx.z;
+    const int m0 = blockIdx.y * kBM;
+    const int n0 = blockIdx.x * BN;
+    if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
+
+    const int64_t row_bytes = static_cast<int64_t>(p.K) * Mma::kElemBytes;
+    const uint8_t* a = p.a + static_cast<int64_t>(g) * p.M * row_bytes;
+    const uint8_t* b = p.b + static_cast<int64_t>(g) * p.N * row_bytes;
+    const int num_kt = static_cast<int>((row_bytes + kKBytes - 1) / kKBytes);
+
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int wm = (warp / 4) * 32;
+    const int wn = (warp % 4) * kWN;
+    const int gr = lane >> 2, tg = lane & 3;
+
+    // One stage: rows [0, kBM) are A's tile rows, [kBM, kBM + BN) B's; each
+    // row is 8 chunks of 16 bytes.
+    auto load_stage = [&](int slot, int kt) {
+        uint8_t* s = smem + slot * (kBM + BN) * kPitch;
+        const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
+        #pragma unroll
+        for (int c = tid; c < (kBM + BN) * 8; c += kThreads) {
+            const int r = c >> 3, ch = c & 7;
+            const int64_t kb = kb0 + ch * 16;
+            const bool is_a = r < kBM;
+            const int grow = is_a ? m0 + r : n0 + (r - kBM);
+            const uint8_t* base = is_a ? a : b;
+            const bool valid = grow < (is_a ? p.M : p.N) && kb < row_bytes;
+            const uint8_t* src = valid ? base + grow * row_bytes + kb : base;
+            cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
+        }
+    };
+
+    float acc[2][kNT][4];
+    float part[2][kNT][4];
+    #pragma unroll
+    for (int i = 0; i < 2; ++i)
+        #pragma unroll
+        for (int j = 0; j < kNT; ++j)
+            #pragma unroll
+            for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+    #pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < num_kt) load_stage(s, s);
+        cp_async_commit();
+    }
+
+    const int ksf = (p.K + 127) / 128;
+    for (int kt = 0; kt < num_kt; ++kt) {
+        cp_async_wait<kStages - 2>();
+        __syncthreads();   // stage kt landed; every warp is done with kt - 1
+        {
+            const int nk = kt + kStages - 1;
+            if (nk < num_kt) load_stage(nk % kStages, nk);
+            cp_async_commit();
+        }
+        const uint8_t* sa = smem + (kt % kStages) * (kBM + BN) * kPitch;
+        const uint8_t* sb = sa + kBM * kPitch;
+
+        if constexpr (kScaled) {
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j)
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
+        }
+
+        #pragma unroll
+        for (int kk = 0; kk < kKBytes; kk += 32) {
+            uint32_t af[2][4], bfr[kNT][2];
+            #pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const uint8_t* pa = sa + (wm + i * 16 + gr) * kPitch + kk + tg * 4;
+                af[i][0] = ld_shared_u32(pa);
+                af[i][1] = ld_shared_u32(pa + 8 * kPitch);
+                af[i][2] = ld_shared_u32(pa + 16);
+                af[i][3] = ld_shared_u32(pa + 8 * kPitch + 16);
+            }
+            #pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+                const uint8_t* pb = sb + (wn + j * 8 + gr) * kPitch + kk + tg * 4;
+                bfr[j][0] = ld_shared_u32(pb);
+                bfr[j][1] = ld_shared_u32(pb + 16);
+            }
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j) {
+                    if constexpr (kScaled) Mma::mma(part[i][j], af[i], bfr[j]);
+                    else Mma::mma(acc[i][j], af[i], bfr[j]);
+                }
+        }
+
+        if constexpr (kScaled) {
+            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]
+            const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
+            const float* sfa = p.sfa + static_cast<int64_t>(g) * p.M * ksf;
+            const float* sfb = p.sfb + static_cast<int64_t>(g) * nsf * ksf + kt;
+            float sa_v[2][2], sb_v[kNT][2];
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int row = m0 + wm + i * 16 + gr + h * 8;
+                    sa_v[i][h] = row < p.M ? __ldg(sfa + static_cast<int64_t>(row) * ksf + kt) : 0.f;
+                }
+            #pragma unroll
+            for (int j = 0; j < kNT; ++j)
+                #pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = n0 + wn + j * 8 + tg * 2 + e;
+                    sb_v[j][e] = col < p.N
+                        ? __ldg(sfb + static_cast<int64_t>(col >> p.sfb_shift) * ksf) : 0.f;
+                }
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j)
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) {
+                        const float t = __fmul_rn(__fmul_rn(part[i][j][v], sb_v[j][v & 1]),
+                                                  sa_v[i][v >> 1]);
+                        acc[i][j][v] = __fadd_rn(acc[i][j][v], t);
+                    }
+        }
+    }
+    cp_async_wait<0>();
+
+    // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
+    __nv_bfloat16* d = p.d + static_cast<int64_t>(g) * p.M * p.N;
+    #pragma unroll
+    for (int i = 0; i < 2; ++i)
+        #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = m0 + wm + i * 16 + gr + h * 8;
+            if (row >= p.M) continue;
+            #pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+                const int col = n0 + wn + j * 8 + tg * 2;
+                if (col >= p.N) continue;   // N is even: col + 1 < N too
+                *reinterpret_cast<__nv_bfloat162*>(d + static_cast<int64_t>(row) * p.N + col) =
+                    __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            }
+        }
+}
+
+template <class Mma, bool kScaled, int BN>
+inline cudaError_t launch_gemm_nt(const GemmArgs& p, int num_groups, cudaStream_t stream) {
+    auto kernel = gemm_nt_kernel<Mma, kScaled, BN>;
+    constexpr int smem = smem_bytes<BN>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, num_groups);
+    gemm_nt_kernel<Mma, kScaled, BN><<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+// block_n is 128 or 64 (the tile chooser's two widths).
+template <class Mma, bool kScaled>
+inline cudaError_t launch_gemm_nt_bn(const GemmArgs& p, int num_groups, int block_n,
+                                     cudaStream_t stream) {
+    if (block_n == 128) return launch_gemm_nt<Mma, kScaled, 128>(p, num_groups, stream);
+    if (block_n == 64) return launch_gemm_nt<Mma, kScaled, 64>(p, num_groups, stream);
+    return cudaErrorInvalidValue;
+}
+
+}  // namespace dgt
+
+extern "C" const char* dgt_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

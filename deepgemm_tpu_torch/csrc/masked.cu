@@ -1,0 +1,33 @@
+// Masked m-grouped NT GEMM, bf16 or scaled FP8:
+//   d[g, :masked_m[g]] = a[g] . b[g]^T   (fp8: the f32 promotion per 128-k block)
+// Replaces deepgemm_tpu/kernels/grouped.py:_build_masked (pl.pallas_call at
+// grouped.py:576). The mainloop and its notes are in gemm_mainloop.cuh; each
+// block reads masked_m[g] on the device and skips m-tiles past it.
+
+#include "gemm_mainloop.cuh"
+
+// a [G, max_m, k], b [G, n, k] (both bf16, or both e4m3 with
+// sfa [G, max_m, ceil(k/128)] f32 and sfb [G, ceil(n/gran_n), ceil(k/128)] f32
+// with gran_n = 1 << sfb_shift), masked_m [G] int32 on the device,
+// d [G, max_m, n] bf16. Returns the cudaError_t of the launch (0 = success).
+extern "C" int dgt_masked_gemm_nt(const void* a, const void* b, const void* sfa,
+                                  const void* sfb, const void* masked_m, void* d,
+                                  int num_groups, int max_m, int n, int k, int is_fp8,
+                                  int sfb_shift, int block_n, void* stream) {
+    dgt::GemmArgs p;
+    p.a = static_cast<const uint8_t*>(a);
+    p.b = static_cast<const uint8_t*>(b);
+    p.sfa = static_cast<const float*>(sfa);
+    p.sfb = static_cast<const float*>(sfb);
+    p.masked_m = static_cast<const int*>(masked_m);
+    p.d = static_cast<__nv_bfloat16*>(d);
+    p.M = max_m;
+    p.N = n;
+    p.K = k;
+    p.sfb_shift = sfb_shift;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true>(p, num_groups, block_n, s)
+               : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false>(p, num_groups, block_n, s);
+    return static_cast<int>(err);
+}

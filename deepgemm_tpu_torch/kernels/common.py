@@ -1,0 +1,66 @@
+"""The plain PyTorch form of the exact FP8 promotion step
+(deepgemm_tpu/kernels/common.py:27-52), shared by the plain versions of the
+dense and masked kernels."""
+
+from typing import Sequence
+
+import torch
+
+from ..utils.math import ceil_div
+
+
+def use_plain(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain version runs), False for CUDA tensors
+    (the kernel launches). All tensors must share one device; any other
+    device raises."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f'operands on several devices: {sorted(map(str, devices))}')
+    dev = devices.pop()
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {dev}')
+    return dev.type == 'cpu'
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
+                  shape: Sequence[int]):
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor of
+    ``shape``: what the CUDA kernels take."""
+    if t.dtype != dtype:
+        raise TypeError(f'{name}: dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: shape {tuple(t.shape)}, expected {tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: must be contiguous')
+    if t.data_ptr() % 16:
+        raise ValueError(f'{name}: data must be 16-byte aligned')
+
+
+def sfb_shift(gran_n: int) -> int:
+    """log2 of SFB's row granularity, as the kernels take it (a power of
+    two: 1 per channel, 128 per block)."""
+    if gran_n < 1 or gran_n & (gran_n - 1):
+        raise ValueError(f'gran_n must be a power of two, got {gran_n}')
+    return gran_n.bit_length() - 1
+
+
+def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: torch.Tensor,
+                  sfb: torch.Tensor, gran_n: int = 128, gran_k: int = 128) -> torch.Tensor:
+    """f32 ``sum_s (a_s @ b_s^T) * sfb[s] (per column) * sfa[s] (per row)``
+    over the 128-deep k sub-blocks ``s``, in that multiply order.
+
+    ``a`` [..., m, k] and ``b`` [..., n, k] are e4m3 (or any float type);
+    ``sfa`` is [..., m, ksf], ``sfb`` [..., ceil(n/gran_n), ksf] (one scale
+    per ``gran_n`` rows of ``b``). The products run in f32 on upcast
+    operands, which is exact for e4m3 inputs; on a CUDA card TF32 must be
+    off (``torch.backends.cuda.matmul.allow_tf32`` is False by default)."""
+    n, k = b.shape[-2:]
+    total = None
+    for s in range(ceil_div(k, gran_k)):
+        a_s = a[..., s * gran_k:(s + 1) * gran_k].float()
+        b_s = b[..., s * gran_k:(s + 1) * gran_k].float()
+        p = torch.matmul(a_s, b_s.transpose(-1, -2))
+        sfb_s = sfb[..., s].repeat_interleave(gran_n, dim=-1)[..., None, :n]
+        term = (p * sfb_s) * sfa[..., :, s:s + 1]
+        total = term if total is None else total + term
+    return total

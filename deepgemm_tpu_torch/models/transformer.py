@@ -1,0 +1,160 @@
+"""Flagship model: a DeepSeek-V3-style MoE decoder on the port's kernels.
+Counterpart of deepgemm_tpu/models/transformer.py (inference at one rank).
+
+RMSNorm -> attention -> RMSNorm -> top-k routed SwiGLU MoE, per layer. The
+expert GEMMs run through the masked grouped kernel; every other product is
+a plain f32 ``torch.matmul`` on upcast bf16 operands, rounded to bf16 where
+the JAX model rounds (routing is a top-k over ``x @ router.T``, so a
+rounding moved upstream can flip an expert choice). On a CUDA card TF32
+must stay off for those f32 products (PyTorch's default).
+
+Parameters are a plain dict of tensors with the JAX package's layout.
+Still to be ported: ``train_step``, the mega MoE and multi-rank meshes.
+"""
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..parallel.moe import MoEConfig, ep_moe_forward
+from ..runtime.config import resolve_device
+from ..utils.math import per_block_cast_to_fp8
+
+# f32 elements drawn per randn call in init_params (1 GiB of f32)
+_INIT_CHUNK_ELEMS = 1 << 28
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab: int = 32768
+    hidden: int = 1024
+    num_layers: int = 2
+    num_heads: int = 8
+    head_dim: int = 128
+    num_experts: int = 8
+    topk: int = 2
+    moe_intermediate: int = 512
+    capacity_factor: float = 4.0
+    use_fp8: bool = False          # fp8 expert weights and activations
+    use_kernels: bool = False      # see MoEConfig.use_kernels
+
+    @property
+    def qkv_dim(self):
+        return self.num_heads * self.head_dim
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(num_experts=self.num_experts, hidden=self.hidden,
+                         intermediate=self.moe_intermediate, topk=self.topk,
+                         capacity_factor=self.capacity_factor,
+                         use_fp8=self.use_fp8, use_kernels=self.use_kernels)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random weights made on ``device`` (default: the CUDA card) from a
+    ``torch.Generator`` seeded with ``seed``, at the JAX package's scales:
+    N(0, 1/fan_in) bf16 matrices, 0.02 for the embedding and the f32
+    router, ones for the norms. Large tensors are drawn in chunks."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, scale=None):
+        scale = scale or (1.0 / math.sqrt(shape[-1]))
+        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        flat = out.view(-1, shape[-1])
+        step = max(1, _INIT_CHUNK_ELEMS // shape[-1])
+        for r0 in range(0, flat.shape[0], step):
+            rows = min(step, flat.shape[0] - r0)
+            draw = torch.randn((rows, shape[-1]), generator=gen, device=dev)
+            flat[r0:r0 + rows] = (draw * scale).to(torch.bfloat16)
+        return out
+
+    params = {
+        'embed': w(cfg.vocab, cfg.hidden, scale=0.02),
+        'final_norm': torch.ones(cfg.hidden, dtype=torch.float32, device=dev),
+        'layers': [],
+    }
+    for _ in range(cfg.num_layers):
+        router = torch.randn((cfg.num_experts, cfg.hidden), generator=gen, device=dev) * 0.02
+        params['layers'].append({
+            'ln1': torch.ones(cfg.hidden, dtype=torch.float32, device=dev),
+            'ln2': torch.ones(cfg.hidden, dtype=torch.float32, device=dev),
+            'wqkv': w(3 * cfg.qkv_dim, cfg.hidden),
+            'wo': w(cfg.hidden, cfg.qkv_dim),
+            'router': router,
+            'w1': w(cfg.num_experts, 2 * cfg.moe_intermediate, cfg.hidden),
+            'w2': w(cfg.num_experts, cfg.hidden, cfg.moe_intermediate),
+        })
+    return params
+
+
+def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., k] @ w [n, k]^T in f32 (bf16 operands upcast exactly)."""
+    return torch.matmul(x.float(), w.float().t())
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma).to(x.dtype)
+
+
+def attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Causal multi-head attention, bf16 in and out, f32 inside."""
+    b, s, _ = x.shape
+    qkv = _linear_f32(x, wqkv).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
+               for t in qkv.split(cfg.qkv_dim, dim=-1))
+    scores = torch.einsum('bqnd,bknd->bnqk', q.float(), k.float())
+    scores = scores / math.sqrt(cfg.head_dim)
+    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    scores = scores.masked_fill(~causal, float('-inf'))
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
+    ctx = torch.einsum('bnqk,bknd->bqnd', probs.float(), v.float()).to(torch.bfloat16)
+    return _linear_f32(ctx.reshape(b, s, cfg.qkv_dim), wo).to(torch.bfloat16)
+
+
+def quantize_experts(w: torch.Tensor):
+    """[E, N, K] bf16 -> (e4m3 [E, N, K], f32 128x128 block scales
+    [E, N/128, K/128]), one expert at a time so the f32 temporaries stay at
+    one expert's size."""
+    e_count, n, k = w.shape
+    q = torch.empty((e_count, n, k), dtype=torch.float8_e4m3fn, device=w.device)
+    sf = torch.empty((e_count, -(-n // 128), -(-k // 128)), dtype=torch.float32,
+                     device=w.device)
+    for e in range(e_count):
+        q[e], sf[e] = per_block_cast_to_fp8(w[e], use_ue8m0=False)
+    return q, sf
+
+
+def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    """Router + MoE at one rank. With ``use_fp8`` the expert weights are
+    quantized in this call, as the JAX model does, and freed on return."""
+    b, s, h = x.shape
+    tokens = x.reshape(b * s, h)
+    logits = tokens.float() @ layer['router'].t()
+    topk_w, topk_idx = torch.topk(logits, cfg.topk, dim=-1)
+    topk_w = torch.softmax(topk_w, dim=-1)
+    w1, w2, w1_sf, w2_sf = layer['w1'], layer['w2'], None, None
+    if cfg.use_fp8:
+        w1, w1_sf = quantize_experts(w1)
+        w2, w2_sf = quantize_experts(w2)
+    y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf,
+                          cfg.moe_cfg())
+    return y.reshape(b, s, h)
+
+
+@torch.no_grad()
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """tokens [b, s] int -> logits [b, s, vocab] f32, on the parameters'
+    device."""
+    embed = params['embed']
+    x = embed[tokens.to(embed.device)]
+    for layer in params['layers']:
+        x = x + attention(rms_norm(x, layer['ln1']), layer['wqkv'], layer['wo'], cfg)
+        x = x + moe_block(rms_norm(x, layer['ln2']), layer, cfg)
+    x = rms_norm(x, params['final_norm'])
+    return _linear_f32(x, embed)

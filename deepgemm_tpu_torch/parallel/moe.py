@@ -1,0 +1,122 @@
+"""MoE layer at one rank (ep = 1): dispatch -> expert GEMMs -> combine.
+Counterpart of deepgemm_tpu/parallel/moe.py:36-237.
+
+With one rank the all-to-alls of the JAX version are the identity, so
+tokens are scattered straight into per-expert capacity slots
+``[E, cap, H]``. Pairs past an expert's capacity are dropped, as in the
+static-shape JAX plan. Nothing here syncs the host.
+"""
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.grouped import masked_gemm, masked_gemm_plain
+from ..utils.math import align, ceil_div, per_token_cast_to_fp8
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    hidden: int
+    intermediate: int
+    topk: int
+    capacity_factor: float = 1.5
+    use_fp8: bool = True
+    # True: the expert GEMMs launch the masked kernel (CUDA tensors) or its
+    # plain version (CPU tensors). False: the plain version on any device,
+    # the port's own reference path (the JAX package's False is its XLA path).
+    use_kernels: bool = True
+
+
+def swiglu_apply_weight(gate_up: torch.Tensor, row_weights: torch.Tensor,
+                        clamp: float = 256.0) -> torch.Tensor:
+    """SwiGLU + clamp + per-row (top-k) weight, in f32."""
+    inter = gate_up.shape[-1] // 2
+    gate = gate_up[..., :inter].float()
+    up = gate_up[..., inter:].float()
+    act = (F.silu(gate) * up).clamp(-clamp, clamp)
+    return act * row_weights[..., None]
+
+
+def moe_capacity(num_tokens: int, topk: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """Per-expert slot capacity, aligned for the grouped kernels."""
+    return align(int(ceil_div(num_tokens * topk, num_experts)
+                     * capacity_factor) + 1, 8)
+
+
+def dispatch_indices(topk_idx: torch.Tensor, num_experts: int, capacity: int):
+    """Static-shape dispatch plan: for each (token, k) pair, its expert and
+    its slot among the pairs of that expert (in pair order). Returns
+    (expert, slot, kept, num_dropped); slots >= capacity are dropped."""
+    expert = topk_idx.reshape(-1).long()                       # [T*K]
+    order = torch.argsort(expert, stable=True)
+    inv = torch.argsort(order, stable=True)
+    sorted_e = expert[order]
+    ids = torch.arange(num_experts, device=expert.device)
+    group_start = torch.searchsorted(sorted_e, ids)
+    slot_sorted = torch.arange(expert.numel(), device=expert.device) - group_start[sorted_e]
+    slot = slot_sorted[inv]
+    kept = slot < capacity
+    return expert, slot, kept, (~kept).sum()
+
+
+def ep_moe_forward(x: torch.Tensor, topk_idx: torch.Tensor,
+                   topk_weights: torch.Tensor, w1, w1_sf, w2, w2_sf,
+                   cfg: MoEConfig):
+    """x [T, H] bf16; topk_idx [T, K]; topk_weights [T, K] f32;
+    w1 [E, 2I, H], w2 [E, H, I] (e4m3 with [E, ., .] block scales, or bf16
+    with sf None). Returns (y [T, H] bf16, num_dropped [1])."""
+    t_count, hidden = x.shape
+    k = topk_idx.shape[1]
+    num_experts = cfg.num_experts
+    cap = moe_capacity(t_count, k, num_experts, cfg.capacity_factor)
+    expert, slot, kept, num_dropped = dispatch_indices(topk_idx, num_experts, cap)
+
+    pair_t = torch.arange(t_count, device=x.device).repeat_interleave(k)
+    pair_w = topk_weights.reshape(-1).float()
+
+    # Scatter into [E * cap (+1 drop row), H]: dropped pairs land on the
+    # extra last row, which the prefix view leaves out (the JAX scatter's
+    # mode='drop').
+    dest = torch.where(kept, expert * cap + slot, num_experts * cap)
+    a1 = x.new_zeros((num_experts * cap + 1, hidden))
+    a1.index_put_((dest,), x[pair_t])
+    row_w = torch.zeros(num_experts * cap + 1, dtype=torch.float32, device=x.device)
+    row_w.index_put_((dest,), pair_w)
+    a1 = a1[:num_experts * cap].view(num_experts, cap, hidden)
+    row_w = row_w[:num_experts * cap].view(num_experts, cap)
+
+    gate_up = _expert_gemm(a1, w1, w1_sf, cfg)                   # [E, cap, 2I]
+    act = swiglu_apply_weight(gate_up, row_w).to(torch.bfloat16)
+    y_exp = _expert_gemm(act, w2, w2_sf, cfg)                    # [E, cap, H]
+
+    # Combine: weighted rows back to their tokens (weights applied in
+    # SwiGLU). Token t owns pairs t*K .. t*K+K-1, so the JAX scatter-add is
+    # a sum over k, taken here in pair order without atomics: the same
+    # inputs give the same bits on every run (a changed last bit can flip a
+    # later layer's expert choice).
+    y_pairs = y_exp[expert, slot.clamp(0, cap - 1)]
+    y_pairs = torch.where(kept[:, None], y_pairs, torch.zeros_like(y_pairs))
+    y_pairs = y_pairs.view(t_count, k, hidden).float()
+    out = torch.zeros((t_count, hidden), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out += y_pairs[:, j]
+    return out.to(torch.bfloat16), num_dropped.reshape(1)
+
+
+def _expert_gemm(a_bf16: torch.Tensor, w: torch.Tensor, w_sf, cfg: MoEConfig
+                 ) -> torch.Tensor:
+    """Per-expert GEMM [E, R, K] @ [E, N, K]^T -> [E, R, N] bf16 through the
+    masked kernel with every row live. FP8 (``w_sf`` given): activations are
+    quantized per token; the weights' 128x128 block scales go in as they are."""
+    e_count, rows, k_dim = a_bf16.shape
+    gemm = masked_gemm if cfg.use_kernels else masked_gemm_plain
+    full = torch.full((e_count,), rows, dtype=torch.int32, device=a_bf16.device)
+    if w_sf is None:
+        return gemm(a_bf16, w, full)
+    aq, asf = per_token_cast_to_fp8(a_bf16.reshape(-1, k_dim), use_ue8m0=False)
+    return gemm(aq.view(e_count, rows, k_dim), w, full,
+                sfa=asf.view(e_count, rows, -1), sfb=w_sf)

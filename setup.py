@@ -36,7 +36,9 @@ setup(
     version='0.1.0',
     description='TPU-native block-scaled GEMM engine (DeepGEMM capabilities '
                 'on JAX/Pallas)',
-    packages=find_packages(include=['deepgemm_tpu', 'deepgemm_tpu.*']),
+    packages=find_packages(include=['deepgemm_tpu', 'deepgemm_tpu.*',
+                                    'deepgemm_tpu_torch', 'deepgemm_tpu_torch.*']),
+    package_data={'deepgemm_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=['jax', 'numpy'],
     cmdclass={'build_py': BuildWithNativeSource},

@@ -28,3 +28,8 @@ import pytest
 @pytest.fixture(autouse=True)
 def _seed():
     np.random.seed(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'gpu: needs a CUDA card (the PyTorch port\'s kernels); skips without one')

@@ -1,0 +1,66 @@
+"""The port's fp8_gemm_nt (the dense kernel's plain version on the CPU)
+against the JAX package's fp8_gemm_nt (the Pallas kernel in interpret mode)
+on the same numpy inputs."""
+
+import numpy as np
+import jax.numpy as jnp
+import ml_dtypes
+import pytest
+import torch
+
+import deepgemm_tpu as dg
+import deepgemm_tpu_torch as dgt
+from deepgemm_tpu_torch.kernels import dense
+from deepgemm_tpu_torch.models.convert import tensor_from_numpy
+from deepgemm_tpu_torch.testing import calc_diff
+
+
+def _quantized_pair(m, n, k, seed=0):
+    rng = np.random.RandomState(seed)
+    a = jnp.asarray(rng.randn(m, k).astype(ml_dtypes.bfloat16))
+    b = jnp.asarray(rng.randn(n, k).astype(ml_dtypes.bfloat16))
+    a_q = dg.per_token_cast_to_fp8(a, use_ue8m0=False)
+    b_q = dg.per_block_cast_to_fp8(b, use_ue8m0=False)
+    to_t = lambda pair: tuple(tensor_from_numpy(np.asarray(v), 'cpu') for v in pair)
+    return a, b, a_q, b_q, to_t(a_q), to_t(b_q)
+
+
+def test_fp8_gemm_nt_matches_jax_with_k_tail():
+    m, n, k = 32, 256, 320            # k tail: the last 128-block is half full
+    a, b, a_q, b_q, a_t, b_t = _quantized_pair(m, n, k)
+    d_jax = np.asarray(dg.fp8_gemm_nt(a_q, b_q), np.float32)
+    dense.launches = 0
+    d_port = dgt.fp8_gemm_nt(a_t, b_t)
+    assert dense.launches == 0                 # CPU tensors: the plain version
+    assert d_port.dtype == torch.bfloat16 and tuple(d_port.shape) == (m, n)
+    assert calc_diff(d_port, d_jax) < 1e-5
+    ref = np.asarray(a, np.float64) @ np.asarray(b, np.float64).T
+    assert calc_diff(d_port, ref) < 1e-3       # fp8 quantization error only
+
+
+def test_fp8_gemm_nt_k_zero():
+    a = (torch.zeros(8, 0, dtype=torch.float8_e4m3fn), torch.zeros(8, 0))
+    b = (torch.zeros(16, 0, dtype=torch.float8_e4m3fn), torch.zeros(1, 0))
+    d = dgt.fp8_gemm_nt(a, b)
+    d_jax = dg.fp8_gemm_nt((jnp.zeros((8, 0), jnp.float8_e4m3fn), jnp.zeros((8, 0))),
+                           (jnp.zeros((16, 0), jnp.float8_e4m3fn), jnp.zeros((1, 0))))
+    assert tuple(d.shape) == d_jax.shape == (8, 16)
+    assert d.dtype == torch.bfloat16 and not d.float().any()
+
+
+def test_bf16_gemm_nt_matches_jax():
+    rng = np.random.RandomState(1)
+    a = rng.randn(16, 192).astype(ml_dtypes.bfloat16)
+    b = rng.randn(64, 192).astype(ml_dtypes.bfloat16)
+    d_jax = np.asarray(dg.bf16_gemm_nt(jnp.asarray(a), jnp.asarray(b)), np.float32)
+    d_port = dgt.bf16_gemm_nt(tensor_from_numpy(a, 'cpu'), tensor_from_numpy(b, 'cpu'))
+    assert calc_diff(d_port, d_jax) < 1e-5
+
+
+def test_unported_variants_raise():
+    _, _, _, _, a_t, b_t = _quantized_pair(16, 128, 128)
+    with pytest.raises(NotImplementedError):
+        dgt.fp8_gemm_nt(a_t, b_t, c=torch.zeros(16, 128))
+    packed = (b_t[0], b_t[1].to(torch.int32))
+    with pytest.raises(NotImplementedError):
+        dgt.fp8_gemm_nt(a_t, packed)

@@ -1,0 +1,68 @@
+"""Ground rules of the PyTorch/CUDA port that hold on any machine: it imports
+nothing of JAX or of the JAX package, its entry points refuse to run on the
+CPU unasked, and its modules import without building anything."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import deepgemm_tpu_torch as dgt
+from deepgemm_tpu_torch.heuristics.configs import get_gemm_config
+from deepgemm_tpu_torch.models import convert, transformer
+from deepgemm_tpu_torch.runtime import build
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / 'deepgemm_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for name in _imported_modules(path):
+        top = name.split('.')[0]
+        assert top not in ('jax', 'jaxlib', 'deepgemm_tpu'), f'{path} imports {name}'
+
+
+def test_entry_points_refuse_cpu_unasked():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    cfg = transformer.ModelConfig(vocab=16, hidden=128, num_layers=1, num_heads=1,
+                                  head_dim=64, num_experts=2, topk=1,
+                                  moe_intermediate=128)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.params_from_jax({'w': torch.zeros(2).numpy()})
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        dgt.resolve_device()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        dgt.get_num_sms()
+
+
+def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
+    monkeypatch.setenv('DGT_BUILD_DIR', str(tmp_path))
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(p.parent == tmp_path for p in paths.values())
+    assert len({p.name for p in paths.values()}) == len(build.SOURCES)
+    assert not any(p.exists() for p in paths.values())   # nothing built at import
+
+
+@pytest.mark.parametrize('m,n,groups,block_n', [
+    (4096, 4096, 1, 128),      # 2048 blocks at 128 wide
+    (128, 4096, 1, 64),        # 64 blocks at 128 wide: too few for 132 SMs
+    (40, 4096, 256, 128),      # the masked L1 shape
+    (40, 7168, 256, 128),      # the masked L2 shape
+])
+def test_tile_chooser(m, n, groups, block_n):
+    cfg = get_gemm_config(m, n, groups, num_sms=132)
+    assert cfg.block_n == block_n and cfg.block_m == 64
+    assert cfg.smem_bytes <= 232448
