@@ -1,22 +1,34 @@
 """deepgemm_tpu_torch: the PyTorch/CUDA port of deepgemm_tpu for one NVIDIA
 H100 (sm_90a).
 
-This slice holds the FP8 dense NT GEMM and the masked grouped GEMM (each a
-hand-written CUDA kernel with a plain PyTorch version beside it), the
-quantization contract, and the MoE transformer forward at one rank.
+It holds the FP8 dense NT GEMM (bf16 or f32 out), the masked and the
+contiguous grouped GEMMs and the k-grouped GEMM (each a hand-written CUDA
+kernel with a plain PyTorch version beside it), the quantization contract,
+the differentiable FP8 matmuls, and the MoE transformer at one rank: the
+serving forward and the FP8 SGD training step.
 Entry points run on the CUDA card unless the caller passes ``device='cpu'``.
 Importing the package builds and loads nothing: kernels build at first use.
 """
 
+from .kernels.common import plain_versions
 from .kernels.dense import dense_fp8_gemm_nt
-from .kernels.grouped import masked_gemm
-from .models.transformer import ModelConfig, forward, init_params
+from .kernels.grouped import contiguous_gemm, masked_gemm
+from .kernels.k_grouped import k_grouped_gemm
+from .models.transformer import (ModelConfig, forward, init_params, loss_fn,
+                                 train_step)
+from .ops.autograd import fp8_dense, fp8_grouped_matmul, fp8_matmul
 from .ops.gemm import bf16_gemm_nt, fp8_fp4_gemm_nt, fp8_gemm_nt
-from .ops.m_grouped import (m_grouped_bf16_gemm_nt_masked,
+from .ops.k_grouped import (k_grouped_bf16_gemm_tn_contiguous,
+                            k_grouped_fp8_gemm_tn_contiguous)
+from .ops.m_grouped import (m_grouped_bf16_gemm_nt_contiguous,
+                            m_grouped_bf16_gemm_nt_masked,
+                            m_grouped_fp8_fp4_gemm_nt_contiguous,
                             m_grouped_fp8_fp4_gemm_nt_masked,
+                            m_grouped_fp8_gemm_nt_contiguous,
                             m_grouped_fp8_gemm_nt_masked)
 from .runtime.config import get_num_sms, resolve_device, set_num_sms
 from .testing.numeric import calc_diff
 from .utils.math import (align, ceil_div, ceil_to_ue8m0, pack_ue8m0_to_int,
                          per_block_cast_to_fp8, per_channel_cast_to_fp8,
-                         per_token_cast_to_fp8, unpack_ue8m0_from_int)
+                         per_token_cast_to_fp8, quantize_experts,
+                         unpack_ue8m0_from_int)

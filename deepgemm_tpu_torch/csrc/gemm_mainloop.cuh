@@ -1,43 +1,66 @@
-// Shared mainloop of the port's NT GEMM kernels (dense FP8 and masked grouped).
+// Shared mainloop of the port's NT GEMM kernels: dense FP8, masked grouped,
+// contiguous grouped and k-grouped.
 //
-// Replaces the Pallas mainloop of deepgemm_tpu/kernels/dense.py
-// (_build_dense_gemm) and kernels/grouped.py (_build_masked), including the
-// exact f32 promotion step of deepgemm_tpu/kernels/common.py:27-52:
+// Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
+// (_build_dense_gemm), kernels/grouped.py (_build_masked, _build_contiguous)
+// and kernels/k_grouped.py (_build_k_grouped), including the exact f32
+// promotion step of deepgemm_tpu/kernels/common.py:27-52:
 //     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p.
 //
-// d[g, m, n] = sum_k a[g, m, k] * b[g, n, k]   (a, b k-major; d bf16)
+// d[m, n] = c[m, n] + sum_k a[m, k] * b[n, k]   (a, b k-major; c optional)
 //
 // Design (simple and right first; wgmma/TMA/warp specialisation come later):
-//   * One block computes a kBM x BN output tile of one group; 8 warps in a
+//   * One block computes a kBM x BN output tile of one problem; 8 warps in a
 //     2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made of
 //     mma.sync m16n8 tiles with f32 accumulation (bf16: m16n8k16, fp8 e4m3:
 //     m16n8k32, sm_89+).
 //   * A stage holds 128 BYTES of k for every row of A and B (64 bf16 or 128
 //     fp8 values), so a scaled stage is exactly one 128-deep scale block.
 //     kStages stages are kept in flight with cp.async (zero-filled past the
-//     row count and past K), rows padded by 16 bytes so the fragment loads
-//     hit 32 distinct banks.
+//     row count and past the problem's depth), rows padded by 16 bytes so
+//     the fragment loads hit 32 distinct banks.
 //   * Scaled (fp8) instantiation: each stage's product goes to a fresh f32
 //     partial that is scaled and added to the accumulator in the reference
 //     multiply order, with explicit _rn intrinsics so nothing is contracted
-//     into an FMA. SFB is read as the caller holds it, one f32 per gran_n
-//     rows of B (128: the 128x128 block scales) and 128-deep k block.
-//   * Masked instantiation: the block reads masked_m[g] on the device and
-//     returns at once when its first row is at or past it. The host never
-//     reads masked_m, so the launch is CUDA-graph safe. Rows at or past
-//     masked_m[g] inside a live tile are computed from whatever A holds
-//     there and are unspecified, as in the masked contract.
+//     into an FMA. A stage's scales are read after its MMAs. SFB holds one
+//     f32 per gran_n rows of B (128: the 128x128 block scales; 1: per
+//     channel). Where the scales lie is fixed by the Layout at compile time:
+//     m-major as the casts make them (SFA [.., M, ksf], SFB [.., nsf, ksf])
+//     for kBatched and kContiguous, k-first [nsf_total, M|N] for kKGrouped.
+//   * Which problem a block computes is the Layout's business, read on the
+//     device only (no call syncs the host, every launch is graph safe):
+//       kBatched    grid z = group; a, b, d advance by a group stride. With
+//                   masked_m the block returns at once when its first row is
+//                   at or past masked_m[g]; rows past it inside a live tile
+//                   are unspecified, as in the masked contract.
+//       kContiguous A and d are the concatenated row blocks of all groups;
+//                   the m-tile's group is tile_gid[m-tile] (B's group), and
+//                   rows at or past tile_row_end[m-tile] are written as
+//                   zero (a tile wholly past it skips the mainloop).
+//       kKGrouped   grid z = group; the group's depth is k_size[g] columns
+//                   of A and B from column k_start[g] (16-element aligned),
+//                   its scales start at scale block sf_start[g]; an empty
+//                   group writes c (or zero).
+//   * Output bf16 or f32 (OutT). With c (k-grouped), the accumulator starts
+//     from c, as the JAX kernel starts its. What only one layout needs (c,
+//     the zero rows, k-first scales, a row stride apart from the depth) is
+//     decided at compile time, so the other layouts carry no branch or
+//     runtime stride for it.
 //
-// What bounds it on the H100: at the model's masked shapes (max_m 40) each
-// expert's weights are streamed once, ~3 flop per byte for fp8, so HBM
-// bytes bound it (3.35 TB/s); a dense 4096^3 product is tensor-core bound.
-// mma.sync reaches a fraction of the wgmma peak; that is later work.
+// What bounds it on the H100: the model's grouped GEMMs stream each expert's
+// weights once at a few hundred operations per weight byte or fewer (bytes
+// bound, 3.35 TB/s); the k-grouped wgrad writes a [G, m, n] output at 256
+// operations per written element (bytes bound); a dense 4096^3 product is
+// tensor-core bound. mma.sync reaches a fraction of the wgmma peak; that is
+// later work.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dgt {
 
@@ -50,16 +73,33 @@ constexpr int kThreads = 256;
 template <int BN>
 constexpr int smem_bytes() { return kStages * (kBM + BN) * kPitch; }
 
+enum class Layout { kBatched, kContiguous, kKGrouped };
+
 struct GemmArgs {
-    const uint8_t* a;        // [G, M, K] bf16 or e4m3, k-major
-    const uint8_t* b;        // [G, N, K] same type as a, k-major
-    const float* sfa;        // [G, M, ceil(K/128)] or nullptr (unscaled)
-    const float* sfb;        // [G, ceil(N/gran_n), ceil(K/128)] or nullptr
-    const int* masked_m;     // [G] or nullptr (dense: every row is live)
-    __nv_bfloat16* d;        // [G, M, N]
-    int M, N, K;
-    int sfb_shift;           // log2(gran_n): rows of B per row of sfb (128 -> 7, 1 -> 0)
+    const uint8_t* a;        // bf16 or e4m3, k-major: [G, M, K] or [M, K]; kKGrouped [M, ldk]
+    const uint8_t* b;        // same type as a, k-major: [G, N, K]; kKGrouped [N, ldk]
+    const float* sfa;        // f32 scales of A, or nullptr (unscaled)
+    const float* sfb;        // f32 scales of B, or nullptr
+    const float* c;          // kKGrouped: f32 [G, M, N] accumulator input, or nullptr
+    void* d;                 // OutT; [G, M, N] (kBatched, kKGrouped) or [M, N]
+    int M, N, K;             // K: the depth of every problem (not kKGrouped)
+    int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
+    int64_t ldk;             // kKGrouped: row stride of A and of B, elements
+    const int* masked_m;     // kBatched: [G] live rows, or nullptr (all rows live)
+    const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile
+    const int* tile_row_end; // kContiguous: [ceil(M / kBM)] rows at or past it are zero, or nullptr
+    const int* k_start;      // kKGrouped: [G] first column of the group in A and B
+    const int* k_size;       // kKGrouped: [G] depth of the group
+    const int* sf_start;     // kKGrouped: [G] first scale block of the group
 };
+
+// Offset of the scale of (row r, k block kb) within one problem's scales:
+// m-major [rows, ksf], or k-first [nsf_total, rows] for kKGrouped.
+template <Layout kLayout>
+__device__ __forceinline__ int64_t sf_offset(int r, int kb, int ksf, int rows) {
+    if constexpr (kLayout == Layout::kKGrouped) return static_cast<int64_t>(kb) * rows + r;
+    else return static_cast<int64_t>(r) * ksf + kb;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -111,24 +151,70 @@ struct MmaE4m3 {     // m16n8k32, e4m3 in, f32 accumulate
     }
 };
 
-template <class Mma, bool kScaled, int BN>
+template <class OutT>
+__device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
+    if constexpr (std::is_same<OutT, float>::value) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+    } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+    }
+}
+
+template <class Mma, bool kScaled, int BN, Layout kLayout, class OutT>
 __global__ void __launch_bounds__(kThreads)
 gemm_nt_kernel(const GemmArgs p) {
     static_assert(!kScaled || Mma::kElemBytes == 1, "scales go with fp8 operands");
     static_assert(BN % 32 == 0, "each warp owns BN/4 columns in n8 tiles");
     constexpr int kWN = BN / 4;          // warp tile width
     constexpr int kNT = kWN / 8;         // n8 tiles per warp
+    constexpr int kE = Mma::kElemBytes;
     extern __shared__ __align__(16) uint8_t smem[];
 
-    const int g = blockIdx.z;
     const int m0 = blockIdx.y * kBM;
     const int n0 = blockIdx.x * BN;
-    if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
 
-    const int64_t row_bytes = static_cast<int64_t>(p.K) * Mma::kElemBytes;
-    const uint8_t* a = p.a + static_cast<int64_t>(g) * p.M * row_bytes;
-    const uint8_t* b = p.b + static_cast<int64_t>(g) * p.N * row_bytes;
-    const int num_kt = static_cast<int>((row_bytes + kKBytes - 1) / kKBytes);
+    // The block's problem: operands, depth, scales and output.
+    const uint8_t* a = p.a;
+    const uint8_t* b = p.b;
+    const float* sfa = p.sfa;
+    const float* sfb = p.sfb;
+    int depth = p.K;
+    int row_end = p.M;
+    int64_t d_off = 0;                   // elements of d (and c) before this problem
+    const int ksf = (p.K + 127) / 128;   // m-major scales: k blocks per row
+    const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
+    if constexpr (kLayout == Layout::kBatched) {
+        const int g = blockIdx.z;
+        if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
+        a += static_cast<int64_t>(g) * p.M * p.K * kE;
+        b += static_cast<int64_t>(g) * p.N * p.K * kE;
+        if constexpr (kScaled) {
+            sfa += static_cast<int64_t>(g) * p.M * ksf;
+            sfb += static_cast<int64_t>(g) * nsf * ksf;
+        }
+        d_off = static_cast<int64_t>(g) * p.M * p.N;
+    } else if constexpr (kLayout == Layout::kContiguous) {
+        const int gid = p.tile_gid[blockIdx.y];
+        b += static_cast<int64_t>(gid) * p.N * p.K * kE;
+        if constexpr (kScaled) sfb += static_cast<int64_t>(gid) * nsf * ksf;
+        if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[blockIdx.y]);
+        if (m0 >= row_end) depth = 0;    // the whole tile is written as zero
+    } else {
+        const int g = blockIdx.z;
+        const int64_t k0 = p.k_start[g];
+        depth = p.k_size[g];
+        a += k0 * kE;
+        b += k0 * kE;
+        if constexpr (kScaled) {
+            sfa += static_cast<int64_t>(p.sf_start[g]) * p.M;
+            sfb += static_cast<int64_t>(p.sf_start[g]) * p.N;
+        }
+        d_off = static_cast<int64_t>(g) * p.M * p.N;
+    }
+
+    const int64_t ld_bytes = (kLayout == Layout::kKGrouped ? p.ldk : p.K) * kE;
+    const int64_t k_bytes = static_cast<int64_t>(depth) * kE;
+    const int num_kt = static_cast<int>((k_bytes + kKBytes - 1) / kKBytes);
 
     const int tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
@@ -148,20 +234,30 @@ gemm_nt_kernel(const GemmArgs p) {
             const bool is_a = r < kBM;
             const int grow = is_a ? m0 + r : n0 + (r - kBM);
             const uint8_t* base = is_a ? a : b;
-            const bool valid = grow < (is_a ? p.M : p.N) && kb < row_bytes;
-            const uint8_t* src = valid ? base + grow * row_bytes + kb : base;
+            const bool valid = grow < (is_a ? p.M : p.N) && kb < k_bytes;
+            const uint8_t* src = valid ? base + grow * ld_bytes + kb : base;
             cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
         }
     };
 
     float acc[2][kNT][4];
     float part[2][kNT][4];
+    // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
     #pragma unroll
     for (int i = 0; i < 2; ++i)
         #pragma unroll
         for (int j = 0; j < kNT; ++j)
             #pragma unroll
-            for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+            for (int v = 0; v < 4; ++v) {
+                float init = 0.f;
+                if (kLayout == Layout::kKGrouped && p.c != nullptr) {
+                    const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
+                    const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
+                    if (row < p.M && col < p.N)
+                        init = __ldg(p.c + d_off + static_cast<int64_t>(row) * p.N + col);
+                }
+                acc[i][j][v] = init;
+            }
 
     #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
@@ -169,7 +265,6 @@ gemm_nt_kernel(const GemmArgs p) {
         cp_async_commit();
     }
 
-    const int ksf = (p.K + 127) / 128;
     for (int kt = 0; kt < num_kt; ++kt) {
         cp_async_wait<kStages - 2>();
         __syncthreads();   // stage kt landed; every warp is done with kt - 1
@@ -217,17 +312,16 @@ gemm_nt_kernel(const GemmArgs p) {
         }
 
         if constexpr (kScaled) {
-            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]
-            const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
-            const float* sfa = p.sfa + static_cast<int64_t>(g) * p.M * ksf;
-            const float* sfb = p.sfb + static_cast<int64_t>(g) * nsf * ksf + kt;
+            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a row
+            // or column past the edge reads its scale as zero
             float sa_v[2][2], sb_v[kNT][2];
             #pragma unroll
             for (int i = 0; i < 2; ++i)
                 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int row = m0 + wm + i * 16 + gr + h * 8;
-                    sa_v[i][h] = row < p.M ? __ldg(sfa + static_cast<int64_t>(row) * ksf + kt) : 0.f;
+                    sa_v[i][h] = row < p.M
+                        ? __ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)) : 0.f;
                 }
             #pragma unroll
             for (int j = 0; j < kNT; ++j)
@@ -235,7 +329,7 @@ gemm_nt_kernel(const GemmArgs p) {
                 for (int e = 0; e < 2; ++e) {
                     const int col = n0 + wn + j * 8 + tg * 2 + e;
                     sb_v[j][e] = col < p.N
-                        ? __ldg(sfb + static_cast<int64_t>(col >> p.sfb_shift) * ksf) : 0.f;
+                        ? __ldg(sfb + sf_offset<kLayout>(col >> p.sfb_shift, kt, ksf, p.N)) : 0.f;
                 }
             #pragma unroll
             for (int i = 0; i < 2; ++i)
@@ -251,43 +345,60 @@ gemm_nt_kernel(const GemmArgs p) {
     }
     cp_async_wait<0>();
 
-    // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
-    __nv_bfloat16* d = p.d + static_cast<int64_t>(g) * p.M * p.N;
+    OutT* d = static_cast<OutT*>(p.d) + d_off;
     #pragma unroll
     for (int i = 0; i < 2; ++i)
         #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int row = m0 + wm + i * 16 + gr + h * 8;
             if (row >= p.M) continue;
+            const bool zero = kLayout == Layout::kContiguous && row >= row_end;
             #pragma unroll
             for (int j = 0; j < kNT; ++j) {
                 const int col = n0 + wn + j * 8 + tg * 2;
                 if (col >= p.N) continue;   // N is even: col + 1 < N too
-                *reinterpret_cast<__nv_bfloat162*>(d + static_cast<int64_t>(row) * p.N + col) =
-                    __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+                store_pair(d + static_cast<int64_t>(row) * p.N + col,
+                           zero ? 0.f : acc[i][j][2 * h], zero ? 0.f : acc[i][j][2 * h + 1]);
             }
         }
 }
 
-template <class Mma, bool kScaled, int BN>
-inline cudaError_t launch_gemm_nt(const GemmArgs& p, int num_groups, cudaStream_t stream) {
-    auto kernel = gemm_nt_kernel<Mma, kScaled, BN>;
+template <class Mma, bool kScaled, int BN, Layout kLayout, class OutT>
+inline cudaError_t launch_gemm_nt(const GemmArgs& p, int grid_z, cudaStream_t stream) {
+    auto kernel = gemm_nt_kernel<Mma, kScaled, BN, kLayout, OutT>;
     constexpr int smem = smem_bytes<BN>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, num_groups);
-    gemm_nt_kernel<Mma, kScaled, BN><<<grid, kThreads, smem, stream>>>(p);
+    const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, grid_z);
+    kernel<<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
 // block_n is 128 or 64 (the tile chooser's two widths).
-template <class Mma, bool kScaled>
-inline cudaError_t launch_gemm_nt_bn(const GemmArgs& p, int num_groups, int block_n,
+template <class Mma, bool kScaled, Layout kLayout, class OutT>
+inline cudaError_t launch_gemm_nt_bn(const GemmArgs& p, int grid_z, int block_n,
                                      cudaStream_t stream) {
-    if (block_n == 128) return launch_gemm_nt<Mma, kScaled, 128>(p, num_groups, stream);
-    if (block_n == 64) return launch_gemm_nt<Mma, kScaled, 64>(p, num_groups, stream);
+    if (block_n == 128) return launch_gemm_nt<Mma, kScaled, 128, kLayout, OutT>(p, grid_z, stream);
+    if (block_n == 64) return launch_gemm_nt<Mma, kScaled, 64, kLayout, OutT>(p, grid_z, stream);
     return cudaErrorInvalidValue;
+}
+
+// The arguments of a k-major A [.., m, k] and B [.., n, k] with the scales as
+// the casts make them: SFA [.., m, ksf], SFB [.., ceil(n / gran_n), ksf].
+inline GemmArgs nt_args(const void* a, const void* b, const void* sfa, const void* sfb,
+                        void* d, int m, int n, int k, int sfb_shift) {
+    GemmArgs p = {};
+    p.a = static_cast<const uint8_t*>(a);
+    p.b = static_cast<const uint8_t*>(b);
+    p.sfa = static_cast<const float*>(sfa);
+    p.sfb = static_cast<const float*>(sfb);
+    p.d = d;
+    p.M = m;
+    p.N = n;
+    p.K = k;
+    p.sfb_shift = sfb_shift;
+    return p;
 }
 
 }  // namespace dgt

@@ -14,20 +14,14 @@ extern "C" int dgt_masked_gemm_nt(const void* a, const void* b, const void* sfa,
                                   const void* sfb, const void* masked_m, void* d,
                                   int num_groups, int max_m, int n, int k, int is_fp8,
                                   int sfb_shift, int block_n, void* stream) {
-    dgt::GemmArgs p;
-    p.a = static_cast<const uint8_t*>(a);
-    p.b = static_cast<const uint8_t*>(b);
-    p.sfa = static_cast<const float*>(sfa);
-    p.sfb = static_cast<const float*>(sfb);
+    dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, max_m, n, k, sfb_shift);
     p.masked_m = static_cast<const int*>(masked_m);
-    p.d = static_cast<__nv_bfloat16*>(d);
-    p.M = max_m;
-    p.N = n;
-    p.K = k;
-    p.sfb_shift = sfb_shift;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    constexpr auto kBatched = dgt::Layout::kBatched;
     const cudaError_t err =
-        is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true>(p, num_groups, block_n, s)
-               : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false>(p, num_groups, block_n, s);
+        is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, __nv_bfloat16>(
+                     p, num_groups, block_n, s)
+               : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false, kBatched, __nv_bfloat16>(
+                     p, num_groups, block_n, s);
     return static_cast<int>(err);
 }

@@ -1,25 +1,44 @@
-"""The plain PyTorch form of the exact FP8 promotion step
-(deepgemm_tpu/kernels/common.py:27-52), shared by the plain versions of the
-dense and masked kernels."""
+"""What the kernels' wrappers share: the choice between a kernel and its
+plain PyTorch version, the operand checks, and the plain form of the exact
+FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52)."""
 
+import contextlib
 from typing import Sequence
 
 import torch
 
+from ..heuristics.configs import MK_ALIGNMENT
 from ..utils.math import ceil_div
+
+_plain_on_cuda = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While open, every wrapper runs its kernel's plain PyTorch version on
+    CUDA tensors too, and launches nothing. For holding a kernel against its
+    plain version on the card (``chip_smoke.py``, the GPU tests); nothing
+    else opens it, and it never opens by itself: a kernel that fails to
+    build or launch raises."""
+    global _plain_on_cuda
+    before, _plain_on_cuda = _plain_on_cuda, True
+    try:
+        yield
+    finally:
+        _plain_on_cuda = before
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (the plain version runs), False for CUDA tensors
-    (the kernel launches). All tensors must share one device; any other
-    device raises."""
+    """True for CPU tensors, or any tensors inside :func:`plain_versions`
+    (the plain version runs); False for CUDA tensors (the kernel launches).
+    All tensors must share one device; any other device raises."""
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f'operands on several devices: {sorted(map(str, devices))}')
     dev = devices.pop()
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {dev}')
-    return dev.type == 'cpu'
+    return dev.type == 'cpu' or _plain_on_cuda
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -34,6 +53,23 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f'{name}: must be contiguous')
     if t.data_ptr() % 16:
         raise ValueError(f'{name}: data must be 16-byte aligned')
+
+
+def select_rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[index]`` along dim 0, for e4m3 tensors too (through a byte view)."""
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).index_select(0, index).view(t.dtype)
+    return t.index_select(0, index)
+
+
+def psum_group_starts(ends: torch.Tensor) -> torch.Tensor:
+    """First row of each group of a psum layout (per-group end rows): the
+    previous group's end aligned up to the 128-row mk alignment, 0 for the
+    first group. A group whose start passes its end is empty."""
+    prev = torch.cat([ends.new_zeros(1), ends[:-1]])
+    starts = (prev + MK_ALIGNMENT - 1) // MK_ALIGNMENT * MK_ALIGNMENT
+    starts[0] = 0
+    return starts
 
 
 def sfb_shift(gran_n: int) -> int:

@@ -1,8 +1,8 @@
-"""Masked m-grouped NT GEMM (MoE expert GEMM), bf16 or scaled FP8: the
-wrapper of the CUDA kernel, its plain PyTorch version and its launch counts.
+"""Grouped NT GEMMs for the MoE experts, bf16 or scaled FP8: the wrappers of
+the CUDA kernels, their plain PyTorch versions and their launch counts.
 
-Replaces: deepgemm_tpu/kernels/grouped.py:_build_masked (``pl.pallas_call``
-at grouped.py:576).
+Masked (decode). Replaces: deepgemm_tpu/kernels/grouped.py:_build_masked
+(``pl.pallas_call`` at grouped.py:576).
 Kernel: csrc/masked.cu on the mainloop of csrc/gemm_mainloop.cuh, one
 instantiation for bf16 and one for e4m3 with the f32 promotion.
 Bound on the H100: the model's expert GEMMs have max_m = 40 rows per expert
@@ -12,6 +12,21 @@ grid has one block per (n-tile, m-tile, expert): 8192 blocks at the L1
 shape, enough to keep every SM's 4-stage cp.async ring full of weight
 bytes; m-tiles at or past ``masked_m[g]`` exit before loading anything.
 ``masked_m`` is read on the device only, so no call syncs the host.
+
+Contiguous (prefill and training). Replaces:
+deepgemm_tpu/kernels/grouped.py:_build_contiguous (``pl.pallas_call`` at
+grouped.py:240), NT layout (k-major B).
+Kernel: csrc/contiguous.cu on the same mainloop. Each 64-row m-tile's group
+and its group's end row come from :func:`compute_tile_gids`, a few device
+ops on ``grouped_layout``: the host never reads the layout. The JAX
+kernel's static equal-group and compare-chain paths are host-side speed
+variants of the same function, so this one device-side lookup serves them
+all. Bound on the H100: at the training step's shapes (256 experts of 128
+rows against 4096 x 7168 or 7168 x 2048 weights) each expert's fp8 weights
+are read once for 128 rows, 256 operations per weight byte, below the
+H100's ~590 fp8 operations per HBM byte, so weight bytes bound it. The grid
+is one block per (n-tile, m-tile); the two m-tiles of an expert read its
+weights one after the other, the second mostly from L2.
 """
 
 import ctypes
@@ -19,14 +34,17 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import get_gemm_config
+from ..heuristics.configs import BLOCK_M, MK_ALIGNMENT, get_gemm_config
 from ..runtime import build
 from ..runtime.config import get_num_sms
 from ..utils.math import ceil_div
-from .common import check_operand, promote_block, sfb_shift, use_plain
+from .common import (check_operand, promote_block, psum_group_starts, select_rows,
+                     sfb_shift, use_plain)
 
-# Kernel launches per instantiation since the counts were last set to 0.
+# Kernel launches per instantiation since the counts were last set to 0:
+# the masked kernel and the contiguous kernel.
 launches = {'bf16': 0, 'fp8': 0}
+contiguous_launches = {'bf16': 0, 'fp8': 0}
 
 # Upcast at most this many bytes of f32 weights at once in the plain version
 # (all 256 experts of a DeepSeek-V3 layer at once would take 30 GB).
@@ -37,6 +55,14 @@ def _entry():
     fn = build.load('masked').dgt_masked_gemm_nt
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _contiguous_entry():
+    fn = build.load('contiguous').dgt_contiguous_gemm_nt
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,4 +133,134 @@ def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('masked'), code, 'masked_gemm')
     launches['fp8' if is_fp8 else 'bf16'] += 1
+    return d
+
+
+def compute_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int,
+                      block_m: int, use_psum_layout: bool):
+    """Per-m-tile (group id, group end row), int32 [ceil(m / block_m)] each,
+    by device ops alone (counterpart of
+    deepgemm_tpu/kernels/grouped.py:compute_tile_gids).
+
+    ``grouped_layout`` is per-row group ids with -1 padding ([m]), or, with
+    ``use_psum_layout``, per-group end rows ([G]; group g starts at the
+    previous end aligned up to the 128-row mk alignment). ``block_m`` must
+    divide that alignment, so a tile holds the rows of one group; a tile of
+    padding rows only takes the group before it, whose end row precedes the
+    tile (the zero-padding epilogue then blanks it whole)."""
+    assert MK_ALIGNMENT % block_m == 0, (MK_ALIGNMENT, block_m)
+    dev = grouped_layout.device
+    layout = grouped_layout.long()
+    tile_starts = torch.arange(ceil_div(m, block_m), device=dev) * block_m
+    if use_psum_layout:
+        ends = layout
+        starts = psum_group_starts(ends)
+        gids = torch.searchsorted(starts, tile_starts, right=True) - 1
+        gids = gids.clamp(0, num_groups - 1)
+        row_ends = ends[gids]
+    else:
+        ids = layout
+        carried = torch.cummax(ids, dim=0).values.clamp(min=0)
+        gids = carried[tile_starts]
+        contrib = torch.where(ids >= 0, torch.arange(1, m + 1, device=dev), 0)
+        ends_real = torch.zeros(num_groups, dtype=torch.long, device=dev).scatter_reduce(
+            0, ids.clamp(min=0), contrib, 'amax')
+        row_ends = ends_real[gids]
+    return gids.int(), row_ends.int()
+
+
+def contiguous_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                          sfa: Optional[torch.Tensor] = None,
+                          sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
+                          use_psum_layout: bool = False,
+                          ensure_zero_padding: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the same per-tile group
+    lookup, then each tile's rows against its group's B (gathered a chunk
+    of tiles at a time), rows past the group's end zeroed on request."""
+    m, k = a.shape
+    num_groups, n, _ = b.shape
+    gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
+                                       use_psum_layout)
+    tiles = gids.numel()
+    rows = tiles * BLOCK_M
+
+    def tiled(t):                       # [m, w] -> [tiles, BLOCK_M, w], zero rows past m
+        out = torch.zeros((rows, t.shape[1]), dtype=t.dtype, device=t.device)
+        out[:m] = t
+        return out.view(tiles, BLOCK_M, t.shape[1])
+
+    a_t = tiled(a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a).view(a.dtype)
+    sfa_t = None if sfa is None else tiled(sfa)
+    d = torch.empty((tiles, BLOCK_M, n), dtype=torch.bfloat16, device=a.device)
+    chunk = max(1, _PLAIN_CHUNK_BYTES // max(1, n * k * 4))
+    for t0 in range(0, tiles, chunk):
+        sl = slice(t0, t0 + chunk)
+        g = gids[sl].long()
+        b_c = select_rows(b, g)
+        if sfa is None:
+            part = torch.matmul(a_t[sl].float(), b_c.float().transpose(1, 2))
+        else:
+            part = promote_block(a_t[sl], b_c, sfa_t[sl], select_rows(sfb, g), gran_n)
+        d[sl] = part.to(torch.bfloat16)
+    d = d.view(rows, n)[:m]
+    if ensure_zero_padding:
+        row_end = row_ends.repeat_interleave(BLOCK_M)[:m]
+        live = torch.arange(m, device=a.device) < row_end
+        d = torch.where(live[:, None], d, torch.zeros((), dtype=d.dtype, device=d.device))
+    return d
+
+
+def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                    sfa: Optional[torch.Tensor] = None, sfb: Optional[torch.Tensor] = None,
+                    gran_n: int = 128, use_psum_layout: bool = False,
+                    ensure_zero_padding: bool = False) -> torch.Tensor:
+    """d[m, n] bf16 = a[m, k] @ b[gid(m-tile)][n, k]^T over the contiguous
+    layout (see :func:`compute_tile_gids`).
+
+    ``a`` [m, k] and ``b`` [G, n, k] are both bf16 (no scales) or both e4m3
+    with f32 scales ``sfa`` [m, ceil(k/128)] and ``sfb``
+    [G, ceil(n/gran_n), ceil(k/128)] (the promotion). ``grouped_layout``
+    (int32, on the operands' device) is per-row ids [m] or, with
+    ``use_psum_layout``, per-group end rows [G]. With
+    ``ensure_zero_padding`` the rows past their group's end are zero;
+    without it they hold whatever a's padding rows give.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if use_plain(a, b, grouped_layout, sfa, sfb):
+        return contiguous_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
+                                     use_psum_layout, ensure_zero_padding)
+    m, k = a.shape
+    num_groups, n = b.shape[:2]
+    is_fp8 = a.dtype == torch.float8_e4m3fn
+    dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
+    shift = sfb_shift(gran_n)
+    check_operand(a, 'a', dtype, (m, k))
+    check_operand(b, 'b', dtype, (num_groups, n, k))
+    check_operand(grouped_layout, 'grouped_layout', torch.int32,
+                  (num_groups,) if use_psum_layout else (m,))
+    if is_fp8:
+        if sfa is None or sfb is None:
+            raise ValueError('fp8 operands need sfa and sfb')
+        ksf = ceil_div(k, 128)
+        check_operand(sfa, 'sfa', torch.float32, (m, ksf))
+        check_operand(sfb, 'sfb', torch.float32, (num_groups, ceil_div(n, gran_n), ksf))
+    elif sfa is not None or sfb is not None:
+        raise ValueError('scales go with e4m3 operands only')
+    if min(num_groups, m, n, k) == 0 or k % 16 or n % 2:
+        raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
+                         f'even n; got G={num_groups}, m={m}, n={n}, k={k}')
+    gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
+                                       use_psum_layout)
+    cfg = get_gemm_config(m, n, 1, num_sms=get_num_sms(a.device))
+    d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    fn = _contiguous_entry()
+    code = fn(a.data_ptr(), b.data_ptr(),
+              sfa.data_ptr() if is_fp8 else None,
+              sfb.data_ptr() if is_fp8 else None,
+              gids.data_ptr(), row_ends.data_ptr() if ensure_zero_padding else None,
+              d.data_ptr(), m, n, k, int(is_fp8), shift, cfg.block_n,
+              torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(build.load('contiguous'), code, 'contiguous_gemm')
+    contiguous_launches['fp8' if is_fp8 else 'bf16'] += 1
     return d

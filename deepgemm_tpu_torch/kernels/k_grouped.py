@@ -1,0 +1,193 @@
+"""K-grouped GEMM (the MoE weight gradient), bf16 or FP8 with per-channel
+scales: the wrapper of the CUDA kernel, its plain PyTorch version and its
+launch counts.
+
+Replaces: deepgemm_tpu/kernels/k_grouped.py:_build_k_grouped
+(``pl.pallas_call`` at k_grouped.py:237).
+Kernel: csrc/k_grouped.cu on the mainloop of csrc/gemm_mainloop.cuh. Like
+the JAX wrapper (k_grouped.py:438-440) this one turns the TN operands
+k-major with one copy; the copy also places every group on a 16-element
+aligned column (the kernel's 16-byte loads), so any group sizes work. The
+kernel then runs the NT mainloop over each group's own k range, one grid
+slice per group, with the group's compacted k-first scales.
+Bound on the H100: at the training step's wgrad shapes (256 groups of 128
+rows into [4096, 7168] or [7168, 2048] per group) each output element takes
+256 operations and is written once, 2 bytes in bf16 or 4 in f32, so the
+output's bytes bound it (15 GB in bf16 at L1). The bf16 epilogue exists for
+that: it rounds the same f32 sum once, the bits of f32-then-cast without the
+f32 tensor.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..heuristics.configs import get_gemm_config
+from ..runtime import build
+from ..runtime.config import get_num_sms
+from ..utils.math import align, ceil_div
+from .common import check_operand, psum_group_starts, use_plain
+
+# Kernel launches per operand type since the counts were last set to 0.
+launches = {'bf16': 0, 'fp8': 0}
+
+_GRAN_K = 128           # scale block depth: one stage of the fp8 mainloop
+_COL_ALIGN = 16         # elements: each group's first column in the k-major copy
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry():
+    fn = build.load('k_grouped').dgt_k_grouped_gemm_nt
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def compute_k_group_metadata(grouped_layout: torch.Tensor, use_psum_layout: bool,
+                             gran_k: int = _GRAN_K):
+    """Per-group (first row, depth, first scale row), int64 [G] each, by
+    device ops alone: the counterpart of
+    deepgemm_tpu/kernels/k_grouped.py:compute_k_tile_metadata, which turns
+    the same three per group into a table per k-tile. This kernel walks each
+    group's own k range, so the per-group values are all it needs.
+
+    ``grouped_layout`` is per-group depths [G] (groups packed back to back)
+    or, with ``use_psum_layout``, per-group end rows [G] (group g starts at
+    the previous end aligned up to the 128-row mk alignment; a group whose
+    aligned start passes its end is empty). Scales are compacted per group:
+    ceil(depth / gran_k) rows each, in group order."""
+    layout = grouped_layout.long()
+    if use_psum_layout:
+        starts = psum_group_starts(layout)
+        sizes = (layout - starts).clamp(min=0)
+    else:
+        sizes = layout
+        starts = torch.cumsum(sizes, 0) - sizes
+    sf_rows = (sizes + gran_k - 1) // gran_k
+    sf_starts = torch.cumsum(sf_rows, 0) - sf_rows
+    return starts, sizes, sf_starts
+
+
+def _k_major(x: torch.Tensor, starts: torch.Tensor, sizes: torch.Tensor):
+    """TN operand x [total_k, dim] -> k-major [dim, ldk] with group g at
+    column ``pstarts[g]`` (16-element aligned) and zeros elsewhere. One
+    row gather and one transposing copy, on the device. Returns
+    (k-major tensor, pstarts, ldk)."""
+    total_k, dim = x.shape
+    num_groups = sizes.numel()
+    if total_k == 0:
+        ldk = _COL_ALIGN * (num_groups + 1)
+        return torch.zeros((dim, ldk), dtype=x.dtype, device=x.device), starts, ldk
+    padded = (sizes + _COL_ALIGN - 1) // _COL_ALIGN * _COL_ALIGN
+    pstarts = torch.cumsum(padded, 0) - padded
+    ldk = align(total_k, _COL_ALIGN) + _COL_ALIGN * num_groups
+    rows = torch.arange(total_k, device=x.device)
+    g = (torch.searchsorted(starts, rows, right=True) - 1).clamp(0, num_groups - 1)
+    local = rows - starts[g]
+    live = (local >= 0) & (local < sizes[g])
+    dest = torch.where(live, pstarts[g] + local, ldk)
+    # source row of each k-major column; total_k marks a zero column
+    src = torch.full((ldk + 1,), total_k, dtype=torch.long, device=x.device)
+    src.scatter_(0, dest, rows)
+    src = src[:ldk]
+    raw = x.view(torch.uint8) if x.element_size() == 1 else x.view(torch.int16)
+    gathered = raw.index_select(0, src.clamp(max=total_k - 1))
+    gathered.masked_fill_((src == total_k)[:, None], 0)
+    return gathered.t().contiguous().view(x.dtype), pstarts, ldk
+
+
+def k_grouped_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                         c: Optional[torch.Tensor] = None,
+                         sfa: Optional[torch.Tensor] = None,
+                         sfb: Optional[torch.Tensor] = None,
+                         use_psum_layout: bool = False,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: per group, the f32 sum from
+    ``c[g]`` (or zero) of each 128-deep block's product, scaled as
+    ``(p * sfb[row]) * sfa[row]`` for fp8. Reads the group sizes on the
+    host (a sync), which the kernel never does."""
+    total_k, m = a.shape
+    n = b.shape[1]
+    num_groups = grouped_layout.numel()
+    starts, sizes, sf_starts = (t.tolist() for t in compute_k_group_metadata(
+        grouped_layout, use_psum_layout))
+    d = torch.empty((num_groups, m, n), dtype=out_dtype, device=a.device)
+    for g in range(num_groups):
+        acc = (c[g].float().clone() if c is not None
+               else torch.zeros((m, n), dtype=torch.float32, device=a.device))
+        for j in range(ceil_div(sizes[g], _GRAN_K)):
+            lo = starts[g] + j * _GRAN_K
+            hi = starts[g] + min(sizes[g], (j + 1) * _GRAN_K)
+            p = torch.matmul(a[lo:hi].float().t(), b[lo:hi].float())
+            if sfa is not None:
+                row = sf_starts[g] + j
+                p = (p * sfb[row][None, :]) * sfa[row][:, None]
+            acc += p
+        d[g] = acc.to(out_dtype)
+    return d
+
+
+def k_grouped_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                   c: Optional[torch.Tensor] = None, sfa: Optional[torch.Tensor] = None,
+                   sfb: Optional[torch.Tensor] = None, use_psum_layout: bool = False,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """d[g] = c[g] + a[ks_g]^T @ b[ks_g], f32 accumulation, [G, m, n] in
+    ``out_dtype`` (f32, the op's contract, or bf16: the same sum rounded
+    once).
+
+    ``a`` [total_k, m] and ``b`` [total_k, n] (MN-major, TN layout) are
+    both bf16 or both e4m3 with per-channel f32 scales ``sfa``
+    [nsf_total, m] and ``sfb`` [nsf_total, n], k-first and compacted per
+    group (see :func:`compute_k_group_metadata`). ``grouped_layout`` [G]
+    int32 lies on the operands' device; ``c`` [G, m, n] f32 or None (zero).
+    An empty group gives c[g] (or zero). Rows of a and b outside every
+    group are not read.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if out_dtype not in _OUT_DTYPES:
+        raise NotImplementedError(f'output dtype {out_dtype}: f32 or bf16 only')
+    if use_plain(a, b, grouped_layout, c, sfa, sfb):
+        return k_grouped_gemm_plain(a, b, grouped_layout, c, sfa, sfb, use_psum_layout,
+                                    out_dtype)
+    total_k, m = a.shape
+    n = b.shape[1]
+    num_groups = grouped_layout.numel()
+    is_fp8 = a.dtype == torch.float8_e4m3fn
+    dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
+    check_operand(a, 'a', dtype, (total_k, m))
+    check_operand(b, 'b', dtype, (total_k, n))
+    check_operand(grouped_layout, 'grouped_layout', torch.int32, (num_groups,))
+    if c is not None:
+        check_operand(c, 'c', torch.float32, (num_groups, m, n))
+    if is_fp8:
+        if sfa is None or sfb is None:
+            raise ValueError('fp8 operands need sfa and sfb')
+        nsf = sfa.shape[0]
+        check_operand(sfa, 'sfa', torch.float32, (nsf, m))
+        check_operand(sfb, 'sfb', torch.float32, (nsf, n))
+    elif sfa is not None or sfb is not None:
+        raise ValueError('scales go with e4m3 operands only')
+    if min(num_groups, m, n) == 0 or n % 2:
+        raise ValueError(f'the kernel takes non-empty outputs and even n; '
+                         f'got G={num_groups}, m={m}, n={n}')
+    starts, sizes, sf_starts = compute_k_group_metadata(grouped_layout, use_psum_layout)
+    a_km, pstarts, ldk = _k_major(a, starts, sizes)
+    b_km = _k_major(b, starts, sizes)[0]
+    pstarts, sizes, sf_starts = (t.int().contiguous() for t in (pstarts, sizes, sf_starts))
+    cfg = get_gemm_config(m, n, num_groups, num_sms=get_num_sms(a.device))
+    d = torch.empty((num_groups, m, n), dtype=out_dtype, device=a.device)
+    fn = _entry()
+    code = fn(a_km.data_ptr(), b_km.data_ptr(),
+              sfa.data_ptr() if is_fp8 else None,
+              sfb.data_ptr() if is_fp8 else None,
+              c.data_ptr() if c is not None else None,
+              pstarts.data_ptr(), sizes.data_ptr(), sf_starts.data_ptr(), d.data_ptr(),
+              num_groups, m, n, ldk, int(is_fp8), int(out_dtype == torch.float32),
+              cfg.block_n, torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(build.load('k_grouped'), code, 'k_grouped_gemm')
+    launches['fp8' if is_fp8 else 'bf16'] += 1
+    return d

@@ -1,11 +1,13 @@
 """Carry parameters across from the JAX package: a tree (dicts and lists)
 of numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it, becomes
-the same tree of tensors on ``device``, bit for bit.
+the same tree of tensors on ``device``, bit for bit; and walk such trees
+in the JAX package's leaf order, to hold the port's parameters and
+gradients against JAX's leaf by leaf.
 
 bf16 travels as an int16 view and e4m3 as a uint8 view, so neither numpy
 nor this module needs ``ml_dtypes``."""
 
-from typing import Any
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -37,3 +39,23 @@ def params_from_jax(tree: Any, device=None) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(tree, device)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts and lists, in ``jax.tree.leaves`` order
+    (dict keys sorted), so a port tree and a JAX tree line up leaf by leaf."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """The same tree with ``fn`` applied to every leaf, leaves visited in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)

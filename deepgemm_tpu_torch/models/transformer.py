@@ -1,29 +1,33 @@
 """Flagship model: a DeepSeek-V3-style MoE decoder on the port's kernels.
-Counterpart of deepgemm_tpu/models/transformer.py (inference at one rank).
+Counterpart of deepgemm_tpu/models/transformer.py at one rank: serving
+(``forward``) and the SGD training step (``loss_fn``, ``train_step``).
 
-RMSNorm -> attention -> RMSNorm -> top-k routed SwiGLU MoE, per layer. The
-expert GEMMs run through the masked grouped kernel; every other product is
-a plain f32 ``torch.matmul`` on upcast bf16 operands, rounded to bf16 where
-the JAX model rounds (routing is a top-k over ``x @ router.T``, so a
-rounding moved upstream can flip an expert choice). On a CUDA card TF32
-must stay off for those f32 products (PyTorch's default).
+RMSNorm -> attention -> RMSNorm -> top-k routed SwiGLU MoE, per layer.
+Serving runs the expert GEMMs through the masked grouped kernel. FP8
+training (``use_fp8_training``) runs the attention projections through the
+differentiable FP8 dense op, and with ``use_kernels`` the expert GEMMs
+through the differentiable FP8 grouped op (contiguous and k-grouped
+kernels). Every other product is a plain f32 ``torch.matmul`` on upcast
+bf16 operands, rounded to bf16 where the JAX model rounds (routing is a
+top-k over ``x @ router.T``, so a rounding moved upstream can flip an
+expert choice). On a CUDA card TF32 must stay off for those f32 products
+(PyTorch's default).
 
 Parameters are a plain dict of tensors with the JAX package's layout.
-Still to be ported: ``train_step``, the mega MoE and multi-rank meshes.
+Still to be ported: the mega MoE and multi-rank meshes.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
+from ..ops.autograd import fp8_dense
 from ..parallel.moe import MoEConfig, ep_moe_forward
 from ..runtime.config import resolve_device
-from ..utils.math import per_block_cast_to_fp8
-
-# f32 elements drawn per randn call in init_params (1 GiB of f32)
-_INIT_CHUNK_ELEMS = 1 << 28
+from ..utils.math import _CHUNK_ELEMS, quantize_experts
+from .convert import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +41,12 @@ class ModelConfig:
     topk: int = 2
     moe_intermediate: int = 512
     capacity_factor: float = 4.0
-    use_fp8: bool = False          # fp8 expert weights and activations
+    use_fp8: bool = False          # fp8 expert weights and activations (with use_kernels)
     use_kernels: bool = False      # see MoEConfig.use_kernels
+    # FP8 training: attention projections through the differentiable fp8
+    # dense op; with use_kernels also the expert GEMMs through the grouped
+    # autograd op (see MoEConfig.fp8_training)
+    use_fp8_training: bool = False
 
     @property
     def qkv_dim(self):
@@ -48,7 +56,8 @@ class ModelConfig:
         return MoEConfig(num_experts=self.num_experts, hidden=self.hidden,
                          intermediate=self.moe_intermediate, topk=self.topk,
                          capacity_factor=self.capacity_factor,
-                         use_fp8=self.use_fp8, use_kernels=self.use_kernels)
+                         use_fp8=self.use_fp8, use_kernels=self.use_kernels,
+                         fp8_training=self.use_fp8_training and self.use_kernels)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -63,7 +72,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
         scale = scale or (1.0 / math.sqrt(shape[-1]))
         out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
         flat = out.view(-1, shape[-1])
-        step = max(1, _INIT_CHUNK_ELEMS // shape[-1])
+        step = max(1, _CHUNK_ELEMS // shape[-1])
         for r0 in range(0, flat.shape[0], step):
             rows = min(step, flat.shape[0] - r0)
             draw = torch.randn((rows, shape[-1]), generator=gen, device=dev)
@@ -102,9 +111,13 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """Causal multi-head attention, bf16 in and out, f32 inside."""
+    """Causal multi-head attention, bf16 in and out, f32 inside; the two
+    projections through the FP8 dense op with ``use_fp8_training``."""
     b, s, _ = x.shape
-    qkv = _linear_f32(x, wqkv).to(torch.bfloat16)
+    if cfg.use_fp8_training:
+        qkv = fp8_dense(x, wqkv)
+    else:
+        qkv = _linear_f32(x, wqkv).to(torch.bfloat16)
     q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
                for t in qkv.split(cfg.qkv_dim, dim=-1))
     scores = torch.einsum('bqnd,bknd->bnqk', q.float(), k.float())
@@ -113,44 +126,36 @@ def attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
     scores = scores.masked_fill(~causal, float('-inf'))
     probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
     ctx = torch.einsum('bnqk,bknd->bqnd', probs.float(), v.float()).to(torch.bfloat16)
-    return _linear_f32(ctx.reshape(b, s, cfg.qkv_dim), wo).to(torch.bfloat16)
-
-
-def quantize_experts(w: torch.Tensor):
-    """[E, N, K] bf16 -> (e4m3 [E, N, K], f32 128x128 block scales
-    [E, N/128, K/128]), one expert at a time so the f32 temporaries stay at
-    one expert's size."""
-    e_count, n, k = w.shape
-    q = torch.empty((e_count, n, k), dtype=torch.float8_e4m3fn, device=w.device)
-    sf = torch.empty((e_count, -(-n // 128), -(-k // 128)), dtype=torch.float32,
-                     device=w.device)
-    for e in range(e_count):
-        q[e], sf[e] = per_block_cast_to_fp8(w[e], use_ue8m0=False)
-    return q, sf
+    ctx = ctx.reshape(b, s, cfg.qkv_dim)
+    if cfg.use_fp8_training:
+        return fp8_dense(ctx, wo)
+    return _linear_f32(ctx, wo).to(torch.bfloat16)
 
 
 def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
-    """Router + MoE at one rank. With ``use_fp8`` the expert weights are
-    quantized in this call, as the JAX model does, and freed on return."""
+    """Router + MoE at one rank. On the FP8 serving path (``use_fp8`` and
+    ``use_kernels``, not training) the expert weights are quantized in this
+    call, as the JAX model does, and freed on return; FP8 training
+    quantizes inside the grouped autograd op, so the weights stay bf16
+    leaves that receive their gradients."""
     b, s, h = x.shape
     tokens = x.reshape(b * s, h)
     logits = tokens.float() @ layer['router'].t()
     topk_w, topk_idx = torch.topk(logits, cfg.topk, dim=-1)
     topk_w = torch.softmax(topk_w, dim=-1)
     w1, w2, w1_sf, w2_sf = layer['w1'], layer['w2'], None, None
-    if cfg.use_fp8:
+    moe_cfg = cfg.moe_cfg()
+    if cfg.use_fp8 and cfg.use_kernels and not moe_cfg.fp8_training:
         w1, w1_sf = quantize_experts(w1)
         w2, w2_sf = quantize_experts(w2)
-    y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf,
-                          cfg.moe_cfg())
+    y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg)
     return y.reshape(b, s, h)
 
 
-@torch.no_grad()
-def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
+def logits_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
     """tokens [b, s] int -> logits [b, s, vocab] f32, on the parameters'
-    device."""
+    device; differentiable (the JAX package's ``forward``)."""
     embed = params['embed']
     x = embed[tokens.to(embed.device)]
     for layer in params['layers']:
@@ -158,3 +163,52 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
         x = x + moe_block(rms_norm(x, layer['ln2']), layer, cfg)
     x = rms_norm(x, params['final_norm'])
     return _linear_f32(x, embed)
+
+
+@torch.no_grad()
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Serving: :func:`logits_fn` without an autograd graph."""
+    return logits_fn(params, tokens, cfg)
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token negative log-likelihood, f32 scalar."""
+    logp = torch.log_softmax(logits_fn(params, tokens, cfg), dim=-1)
+    targets = targets.to(logp.device).long()
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
+def _sgd_(p: torch.Tensor, g: torch.Tensor, lr: float):
+    """p <- (p.f32 - lr * g.f32).to(p.dtype) in place, a slice of the leading
+    dim at a time (one expert of an expert weight, or rows of the embedding):
+    elementwise, so no bit changes, and the f32 temporaries stay small."""
+    rows = p.shape[0] if p.dim() else 1
+    pv, gv = p.view(rows, -1), g.reshape(rows, -1)
+    step = max(1, _CHUNK_ELEMS // max(1, pv.shape[1]))
+    for r0 in range(0, rows, step):
+        sl = slice(r0, r0 + step)
+        pv[sl] = (pv[sl].float() - lr * gv[sl].float()).to(p.dtype)
+
+
+def train_step(params: Dict[str, Any], tokens: torch.Tensor, targets: torch.Tensor,
+               cfg: ModelConfig, lr: float = 1e-3) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One SGD step: returns (the loss before the step, the parameters).
+
+    The new parameters are ``(p.f32 - lr * g.f32).to(p.dtype)`` as in the
+    JAX package, but written IN PLACE into ``params`` (which is returned):
+    at DeepSeek-V3 widths a second copy of the weights would not fit beside
+    the weights and their gradients on one card. Each gradient is freed
+    once its parameter is updated."""
+    leaves = tree_leaves(params)
+    live = [p.detach().requires_grad_() for p in leaves]     # aliases, same storage
+    it = iter(live)
+    loss = loss_fn(tree_map(lambda _: next(it), params), tokens, targets, cfg)
+    grads = list(torch.autograd.grad(loss, live))
+    del live
+    with torch.no_grad():
+        for i, p in enumerate(leaves):
+            _sgd_(p, grads[i], lr)
+            grads[i] = None
+    return loss.detach(), params

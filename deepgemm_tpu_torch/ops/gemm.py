@@ -2,9 +2,10 @@
 
 ``fp8_gemm_nt`` takes ``(a, sfa)`` and ``(b, sfb)`` pairs of e4m3 operands
 and f32 scales and runs the hand-written dense kernel with the exact f32
-promotion. Bare bf16 operands go to ``torch.matmul``, as the JAX package
-leaves them to XLA. Every function returns its result; ``d`` is only a
-dtype template. Still to be ported: the NN/TN/TT layouts, C accumulation,
+promotion, into bf16 or (with an f32 ``d`` template, as the FP8 wgrad asks)
+f32. Bare bf16 operands go to ``torch.matmul``, as the JAX package leaves
+them to XLA. Every function returns its result; ``d`` is only a dtype
+template. Still to be ported: the NN/TN/TT layouts, C accumulation,
 packed-UE8M0 scales (the 'dequant' strategy) and FP4 operands.
 """
 
@@ -23,10 +24,11 @@ def _split_pair(x) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     return x, None
 
 
-def _out_dtype_of(d) -> torch.dtype:
+def _out_dtype_of(d, allowed=(torch.bfloat16,)) -> torch.dtype:
+    """The output dtype a ``d`` template (tensor, dtype or None) asks for."""
     dtype = torch.bfloat16 if d is None else getattr(d, 'dtype', d)
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(f'only bf16 output is ported (got {dtype})')
+    if dtype not in allowed:
+        raise NotImplementedError(f'output dtype {dtype} is not ported (ported: {allowed})')
     return dtype
 
 
@@ -40,18 +42,18 @@ def fp8_fp4_gemm_nt(a, b, d=None, c=None, recipe=None, recipe_a=None,
     b_val, sfb = _split_pair(b)
     m, k = a_val.shape
     n = b_val.shape[0]
-    out_dtype = _out_dtype_of(d)
+    out_dtype = _out_dtype_of(d, (torch.bfloat16, torch.float32))
     if k == 0 or m == 0 or n == 0:
         return torch.zeros((m, n), dtype=out_dtype, device=a_val.device)
     if sfa is None:
-        return bf16_gemm_nt(a_val, b_val, d)
+        return bf16_gemm_nt(a_val, b_val, out_dtype)
 
     recipe_a, recipe_b = resolve_recipes(recipe, recipe_a, recipe_b)
     if recipe_a[1] != 128 or recipe_b[1] != 128:
         raise NotImplementedError(f'only gran_k 128 is ported (got {recipe_a}, {recipe_b})')
     sfa = transform_sfa(sfa, m, k, recipe_a[1])
     sfb = transform_sfb(sfb, n, k, recipe_b)
-    return dense_fp8_gemm_nt(a_val, b_val, sfa, sfb, gran_n=recipe_b[0])
+    return dense_fp8_gemm_nt(a_val, b_val, sfa, sfb, gran_n=recipe_b[0], out_dtype=out_dtype)
 
 
 fp8_gemm_nt = fp8_fp4_gemm_nt

@@ -1,18 +1,63 @@
-"""Masked m-grouped GEMM public API (counterpart of the masked half of
-deepgemm_tpu/ops/m_grouped.py).
+"""M-grouped GEMM public API (counterpart of deepgemm_tpu/ops/m_grouped.py),
+NT layout: the contiguous and the masked layouts.
 
-``a``/``d`` are [G, max_m, .]; only rows < masked_m[g] are meaningful, and
-``masked_m`` is never read on the host (CUDA-graph safe decode). The
-kernel reads B's block scales ``[G, nsf, ksf]`` as they are, so the JAX
+Contiguous: ``a`` is [m, k] k-major, the concatenation of per-group row
+blocks, each starting on a multiple of the 128-row mk alignment;
+``grouped_layout`` is per-row group ids with -1 padding, or per-group end
+rows with ``use_psum_layout``. It stays on the device: the kernel's tile
+lookup never reads it on the host.
+
+Masked: ``a``/``d`` are [G, max_m, .]; only rows < masked_m[g] are
+meaningful, and ``masked_m`` is never read on the host (CUDA-graph safe
+decode).
+
+The kernels read B's block scales ``[G, nsf, ksf]`` as they are, so the JAX
 package's ``_grouped_sfb_t`` (a per-n expansion) has no counterpart here.
-The contiguous layouts are not ported yet.
+The NN (MN-major B) contiguous layout is not ported yet.
 """
 
 import torch
 
-from ..kernels.grouped import masked_gemm
+from ..kernels.grouped import contiguous_gemm, masked_gemm
 from .gemm import _out_dtype_of, _split_pair
-from .sf_layout import _require_f32, resolve_recipes, transform_sfb
+from .sf_layout import _require_f32, resolve_recipes, transform_sfa, transform_sfb
+
+
+def m_grouped_fp8_fp4_gemm_nt_contiguous(a, b, d=None, grouped_layout=None, recipe=None,
+                                         recipe_a=None, recipe_b=None, compiled_dims='nk',
+                                         disable_ue8m0_cast=False, use_psum_layout=False,
+                                         ensure_zero_padding=False) -> torch.Tensor:
+    """Contiguous grouped NT GEMM of (e4m3, f32 scale) pairs, or of bare
+    bf16 tensors: d[m, n] bf16 = a[m, k] @ b[group(m)][n, k]^T. With
+    ``ensure_zero_padding`` the rows past their group's end are zero."""
+    del compiled_dims, disable_ue8m0_cast
+    a_val, sfa = _split_pair(a)
+    b_val, sfb = _split_pair(b)
+    m, k = a_val.shape
+    num_groups, n = b_val.shape[:2]
+    _out_dtype_of(d)
+    kw = dict(use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
+    if sfa is None:
+        return contiguous_gemm(a_val, b_val, grouped_layout, **kw)
+
+    recipe_a, recipe_b = resolve_recipes(recipe, recipe_a, recipe_b)
+    if recipe_a[1] != 128 or recipe_b[1] != 128:
+        raise NotImplementedError(f'only gran_k 128 is ported (got {recipe_a}, {recipe_b})')
+    sfa = transform_sfa(sfa, m, k, recipe_a[1])
+    sfb = transform_sfb(sfb, n, k, recipe_b, num_groups)
+    return contiguous_gemm(a_val, b_val, grouped_layout, sfa=sfa, sfb=sfb,
+                           gran_n=recipe_b[0], **kw)
+
+
+def m_grouped_bf16_gemm_nt_contiguous(a, b, d=None, grouped_layout=None, compiled_dims='nk',
+                                      use_psum_layout=False, ensure_zero_padding=False
+                                      ) -> torch.Tensor:
+    return m_grouped_fp8_fp4_gemm_nt_contiguous(
+        a, b, d, grouped_layout, compiled_dims=compiled_dims,
+        use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
+
+
+m_grouped_fp8_gemm_nt_contiguous = m_grouped_fp8_fp4_gemm_nt_contiguous
 
 
 def m_grouped_fp8_fp4_gemm_nt_masked(a, b, d=None, masked_m=None, expected_m=None,

@@ -4,7 +4,8 @@ Counterpart of deepgemm_tpu/parallel/moe.py:36-237.
 With one rank the all-to-alls of the JAX version are the identity, so
 tokens are scattered straight into per-expert capacity slots
 ``[E, cap, H]``. Pairs past an expert's capacity are dropped, as in the
-static-shape JAX plan. Nothing here syncs the host.
+static-shape JAX plan. Nothing here syncs the host. Dispatch, SwiGLU and
+combine are differentiable, for the training step.
 """
 
 import dataclasses
@@ -12,7 +13,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..kernels.grouped import masked_gemm, masked_gemm_plain
+from ..kernels.grouped import masked_gemm
+from ..ops.autograd import fp8_grouped_matmul
 from ..utils.math import align, ceil_div, per_token_cast_to_fp8
 
 
@@ -24,10 +26,16 @@ class MoEConfig:
     topk: int
     capacity_factor: float = 1.5
     use_fp8: bool = True
-    # True: the expert GEMMs launch the masked kernel (CUDA tensors) or its
-    # plain version (CPU tensors). False: the plain version on any device,
-    # the port's own reference path (the JAX package's False is its XLA path).
+    # True: the expert GEMMs go through the masked kernel (inference), whose
+    # wrapper takes its plain version for CPU tensors. False: the
+    # differentiable path, a bf16 einsum in f32, as the JAX package's XLA
+    # path. (Holding the kernels against their plain versions on the card
+    # is kernels.common.plain_versions's job, not this flag's.)
     use_kernels: bool = True
+    # FP8 training: the expert GEMMs go through the differentiable grouped
+    # op (ops/autograd.fp8_grouped_matmul: contiguous grouped kernel forward
+    # and dgrad, k-grouped kernel wgrad) on bf16 weights.
+    fp8_training: bool = False
 
 
 def swiglu_apply_weight(gate_up: torch.Tensor, row_weights: torch.Tensor,
@@ -109,14 +117,29 @@ def ep_moe_forward(x: torch.Tensor, topk_idx: torch.Tensor,
 
 def _expert_gemm(a_bf16: torch.Tensor, w: torch.Tensor, w_sf, cfg: MoEConfig
                  ) -> torch.Tensor:
-    """Per-expert GEMM [E, R, K] @ [E, N, K]^T -> [E, R, N] bf16 through the
-    masked kernel with every row live. FP8 (``w_sf`` given): activations are
-    quantized per token; the weights' 128x128 block scales go in as they are."""
+    """Per-expert GEMM [E, R, K] @ [E, N, K]^T -> [E, R, N] bf16, as the JAX
+    package's _expert_gemm (deepgemm_tpu/parallel/moe.py:186-219).
+
+    bf16 weights (``w_sf`` None): with ``fp8_training`` the differentiable
+    FP8 grouped op over equal groups of R rows; with ``use_kernels`` the
+    masked kernel with every row live; else the bf16 einsum in f32.
+    FP8 weights (``w_sf`` given, the serving path): activations are
+    quantized per token and the weights' 128x128 block scales go into the
+    masked kernel as they are."""
     e_count, rows, k_dim = a_bf16.shape
-    gemm = masked_gemm if cfg.use_kernels else masked_gemm_plain
-    full = torch.full((e_count,), rows, dtype=torch.int32, device=a_bf16.device)
+    full = lambda: torch.full((e_count,), rows, dtype=torch.int32, device=a_bf16.device)
     if w_sf is None:
-        return gemm(a_bf16, w, full)
+        if cfg.fp8_training:
+            assert rows % 128 == 0, (
+                rows, 'fp8_training needs 128-aligned per-expert row blocks '
+                '(pick a capacity with cap % 128 == 0)')
+            ids = torch.arange(e_count, dtype=torch.int32,
+                               device=a_bf16.device).repeat_interleave(rows)
+            out = fp8_grouped_matmul(a_bf16.reshape(e_count * rows, k_dim), w, ids)
+            return out.reshape(e_count, rows, -1).to(torch.bfloat16)
+        if cfg.use_kernels:
+            return masked_gemm(a_bf16, w, full())
+        return torch.matmul(a_bf16.float(), w.float().transpose(1, 2)).to(torch.bfloat16)
     aq, asf = per_token_cast_to_fp8(a_bf16.reshape(-1, k_dim), use_ue8m0=False)
-    return gemm(aq.view(e_count, rows, k_dim), w, full,
-                sfa=asf.view(e_count, rows, -1), sfb=w_sf)
+    return masked_gemm(aq.view(e_count, rows, k_dim), w, full(),
+                       sfa=asf.view(e_count, rows, -1), sfb=w_sf)

@@ -14,6 +14,8 @@ import torch.nn.functional as F
 
 FP8_MAX = 448.0     # max finite magnitude of e4m3fn
 FP8_AMAX_EPS = 1e-4
+# f32 elements per chunk of a large elementwise pass (1 GiB of f32)
+_CHUNK_ELEMS = 1 << 28
 
 
 def ceil_div(x: int, y: int) -> int:
@@ -86,12 +88,33 @@ def per_channel_cast_to_fp8(x: torch.Tensor, use_ue8m0: bool,
 
 def per_block_cast_to_fp8(x: torch.Tensor, use_ue8m0: bool,
                           gran_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """gran_k x gran_k (weight) quantization: SF [ceil(m/g), ceil(n/g)]."""
-    assert x.dim() == 2
-    m, n = x.shape
+    """gran_k x gran_k (weight) quantization: SF [..., ceil(m/g), ceil(n/g)].
+    Leading dims are independent matrices, each cast exactly as alone."""
+    assert x.dim() >= 2
+    *lead, m, n = x.shape
     pm, pn = align(m, gran_k), align(n, gran_k)
     x_view = F.pad(x, (0, pn - n, 0, pm - m)).reshape(
-        pm // gran_k, gran_k, pn // gran_k, gran_k)
-    sf = _amax_sf(x_view, (1, 3), use_ue8m0)
-    x_scaled = cast_to_fp8(x_view * (1.0 / sf)).reshape(pm, pn)[:m, :n]
-    return x_scaled.contiguous(), sf.reshape(pm // gran_k, pn // gran_k)
+        *lead, pm // gran_k, gran_k, pn // gran_k, gran_k)
+    sf = _amax_sf(x_view, (-3, -1), use_ue8m0)
+    x_scaled = cast_to_fp8(x_view * (1.0 / sf)).reshape(*lead, pm, pn)[..., :m, :n]
+    return x_scaled.contiguous(), sf.reshape(*lead, pm // gran_k, pn // gran_k)
+
+
+def quantize_experts(w: torch.Tensor, transpose: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[E, N, K] bf16 -> (e4m3 [E, N, K], f32 128x128 block scales
+    [E, N/128, K/128]); with ``transpose``, each expert's transpose
+    [E, K, N] is cast instead, without a transposed copy of ``w``. A few
+    experts at a time, so the f32 temporaries stay near ``_CHUNK_ELEMS``
+    elements; bitwise what per_block_cast_to_fp8 gives expert by expert."""
+    e_count = w.shape[0]
+    n, k = w.shape[1:] if not transpose else w.shape[:0:-1]
+    q = torch.empty((e_count, n, k), dtype=torch.float8_e4m3fn, device=w.device)
+    sf = torch.empty((e_count, ceil_div(n, 128), ceil_div(k, 128)), dtype=torch.float32,
+                     device=w.device)
+    step = max(1, _CHUNK_ELEMS // max(1, n * k))
+    for e0 in range(0, e_count, step):
+        part = w[e0:e0 + step]
+        q[e0:e0 + step], sf[e0:e0 + step] = per_block_cast_to_fp8(
+            part.transpose(1, 2) if transpose else part, use_ue8m0=False)
+    return q, sf

@@ -9,10 +9,14 @@ imports):
 import pytest
 import torch
 
-from deepgemm_tpu_torch.kernels import dense, grouped
+from deepgemm_tpu_torch.kernels import dense, grouped, k_grouped
+from deepgemm_tpu_torch.kernels.common import plain_versions
 from deepgemm_tpu_torch.models import transformer as tt
+from deepgemm_tpu_torch.models.convert import tree_leaves, tree_map
 from deepgemm_tpu_torch.testing import calc_diff
-from deepgemm_tpu_torch.utils.math import per_block_cast_to_fp8, per_token_cast_to_fp8
+from deepgemm_tpu_torch.utils.math import (align, per_block_cast_to_fp8,
+                                           per_channel_cast_to_fp8, per_token_cast_to_fp8,
+                                           quantize_experts)
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +73,108 @@ def test_masked_kernel_matches_plain(gen, fp8):
     assert calc_diff(d[rows], ref[rows]) < 1e-5
 
 
+def test_dense_kernel_f32_output(gen):
+    """The wgrad's shape class: per-channel B scales, f32 out; the bf16
+    output is the same sum rounded once."""
+    m, n, k = 192, 256, 384
+    aq, sfa = per_token_cast_to_fp8(_randn(gen, m, k), use_ue8m0=False)
+    bq, sfb = per_token_cast_to_fp8(_randn(gen, n, k), use_ue8m0=False)
+    d32 = dense.dense_fp8_gemm_nt(aq, bq, sfa, sfb, gran_n=1, out_dtype=torch.float32)
+    d16 = dense.dense_fp8_gemm_nt(aq, bq, sfa, sfb, gran_n=1)
+    ref = dense.dense_fp8_gemm_nt_plain(aq, bq, sfa, sfb, gran_n=1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert d32.dtype == torch.float32 and calc_diff(d32, ref) < 1e-5
+    assert torch.equal(d16, d32.to(torch.bfloat16))
+
+
+def _contiguous_case(gen, rows, n, k, fp8, use_psum_layout):
+    """Groups of ``rows`` live rows, each padded to 128 with NONZERO rows."""
+    aligned = [align(r, 128) for r in rows]
+    m = sum(aligned)
+    a, b = _randn(gen, m, k), _randn(gen, len(rows), n, k)
+    ids = torch.full((m,), -1, dtype=torch.int32)
+    ends, start = [], 0
+    for g, (r, span) in enumerate(zip(rows, aligned)):
+        ids[start:start + r] = g
+        ends.append(start + r)
+        start += span
+    layout = torch.tensor(ends, dtype=torch.int32) if use_psum_layout else ids
+    kw = {}
+    if fp8:
+        a, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+        b, sfb = quantize_experts(b)
+        kw = dict(sfa=sfa, sfb=sfb)
+    return a, b, layout.cuda(), kw, (ids >= 0).cuda()
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('use_psum_layout,ensure_zero_padding',
+                         [(False, True), (True, False), (True, True)])
+def test_contiguous_kernel_matches_plain(gen, fp8, use_psum_layout, ensure_zero_padding):
+    a, b, layout, kw, live = _contiguous_case(gen, (70, 0, 200, 130), 200, 320, fp8,
+                                              use_psum_layout)
+    kw.update(use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
+    before = dict(grouped.contiguous_launches)
+    d = grouped.contiguous_gemm(a, b, layout, **kw)
+    ref = grouped.contiguous_gemm_plain(a, b, layout, **kw)
+    torch.cuda.synchronize()
+    kind = 'fp8' if fp8 else 'bf16'
+    assert grouped.contiguous_launches[kind] == before[kind] + 1
+    rows = slice(None) if ensure_zero_padding else live
+    assert calc_diff(d[rows], ref[rows]) < 1e-5
+    if ensure_zero_padding:
+        assert not d[~live].float().any()
+
+
+def _k_grouped_case(gen, sizes, m, n, fp8, use_psum_layout):
+    """TN operands over groups of ``sizes`` rows (16-row-unaligned among
+    them), gap rows nonzero; fp8 with each group cast on its own, its
+    scales compacted k-first."""
+    starts, ends, start = [], [], 0
+    for sz in sizes:
+        starts.append(start)
+        ends.append(start + sz)
+        start = align(start + sz, 128) if use_psum_layout else start + sz
+    total_k = align(ends[-1], 128) + (64 if use_psum_layout else 0)
+    a, b = _randn(gen, total_k, m), _randn(gen, total_k, n)
+    layout = torch.tensor(ends if use_psum_layout else sizes, dtype=torch.int32, device='cuda')
+    if not fp8:
+        return a, b, layout, {}
+    ops = []
+    for x in (a, b):
+        q = x.to(torch.float8_e4m3fn)
+        sfs = []
+        for st, sz in zip(starts, sizes):
+            if sz:
+                xg = torch.zeros((align(sz, 128), x.shape[1]), dtype=x.dtype, device='cuda')
+                xg[:sz] = x[st:st + sz]
+                qg, sg = per_channel_cast_to_fp8(xg, use_ue8m0=False)
+                q[st:st + sz] = qg[:sz]
+                sfs.append(sg)
+        ops.append((q, torch.cat(sfs)))
+    (aq, sfa), (bq, sfb) = ops
+    return aq, bq, layout, dict(sfa=sfa, sfb=sfb)
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('use_psum_layout,with_c', [(False, False), (True, True)])
+def test_k_grouped_kernel_matches_plain(gen, fp8, use_psum_layout, with_c):
+    g_sizes, m, n = (200, 0, 37, 256), 96, 200
+    a, b, layout, kw = _k_grouped_case(gen, g_sizes, m, n, fp8, use_psum_layout)
+    c = torch.randn((len(g_sizes), m, n), generator=gen, device='cuda') if with_c else None
+    kw.update(c=c, use_psum_layout=use_psum_layout)
+    before = dict(k_grouped.launches)
+    d = k_grouped.k_grouped_gemm(a, b, layout, **kw)
+    d16 = k_grouped.k_grouped_gemm(a, b, layout, out_dtype=torch.bfloat16, **kw)
+    ref = k_grouped.k_grouped_gemm_plain(a, b, layout, **kw)
+    torch.cuda.synchronize()
+    kind = 'fp8' if fp8 else 'bf16'
+    assert k_grouped.launches[kind] == before[kind] + 2
+    assert d.dtype == torch.float32 and calc_diff(d, ref) < 1e-5
+    assert torch.equal(d[1], c[1] if with_c else torch.zeros_like(d[1]))     # the empty group
+    assert torch.equal(d16, d.to(torch.bfloat16))      # bf16 epilogue: f32 rounded once
+
+
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(gen):
     a = _randn(gen, 16, 200)                       # k % 16 != 0
     aq, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
@@ -86,13 +192,43 @@ def test_one_layer_forward_kernel_matches_plain(gen, use_fp8):
     must agree (with more layers an expert choice can flip at a near tie)."""
     base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
                 num_experts=8, topk=2, moe_intermediate=256, capacity_factor=8.0,
-                use_fp8=use_fp8)
+                use_fp8=use_fp8, use_kernels=True)
     params = tt.init_params(tt.ModelConfig(**base), seed=0)
     tokens = torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
     before = dict(grouped.launches)
-    lk = tt.forward(params, tokens, tt.ModelConfig(**base, use_kernels=True))
-    lp = tt.forward(params, tokens, tt.ModelConfig(**base, use_kernels=False))
+    lk = tt.forward(params, tokens, tt.ModelConfig(**base))
+    with plain_versions():
+        lp = tt.forward(params, tokens, tt.ModelConfig(**base))
     kind = 'fp8' if use_fp8 else 'bf16'
     assert grouped.launches[kind] == before[kind] + 2
     assert torch.isfinite(lk).all()
     assert calc_diff(lk, lp) < 1e-5
+
+
+def test_train_step_kernel_matches_plain(gen):
+    """A whole FP8 training step at a tiny size: through the kernels (dense
+    6, contiguous 4, k-grouped 2 launches) and through their plain versions
+    from the same parameters: the loss, every updated parameter and every
+    update (new - old) agree."""
+    base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
+                num_experts=8, topk=2, moe_intermediate=256, capacity_factor=7.9,
+                use_fp8_training=True, use_kernels=True)
+    cfg = tt.ModelConfig(**base)           # 64 tokens, top-2 of 8: cap 128
+    params = tt.init_params(cfg, seed=0)
+    old = tree_leaves(tree_map(torch.clone, params))
+    tokens, targets = (torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
+                       for _ in range(2))
+    dense.launches = 0
+    grouped.contiguous_launches.update(bf16=0, fp8=0)
+    k_grouped.launches.update(bf16=0, fp8=0)
+    loss_k, new_k = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg, lr=5e-2)
+    torch.cuda.synchronize()
+    assert (dense.launches, grouped.contiguous_launches['fp8'], k_grouped.launches['fp8']) == (6, 4, 2)
+    with plain_versions():
+        loss_p, new_p = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg,
+                                      lr=5e-2)
+    assert (dense.launches, grouped.contiguous_launches['fp8'], k_grouped.launches['fp8']) == (6, 4, 2)
+    assert torch.isfinite(loss_k) and calc_diff(loss_k, loss_p) < 1e-5
+    for i, (k, p, o) in enumerate(zip(tree_leaves(new_k), tree_leaves(new_p), old)):
+        assert calc_diff(k, p) < 1e-5, i
+        assert calc_diff(k.float() - o.float(), p.float() - o.float()) < 1e-5, i

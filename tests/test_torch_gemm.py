@@ -38,6 +38,21 @@ def test_fp8_gemm_nt_matches_jax_with_k_tail():
     assert calc_diff(d_port, ref) < 1e-3       # fp8 quantization error only
 
 
+def test_fp8_gemm_nt_f32_out_per_channel_matches_jax():
+    """The FP8 wgrad's call: per-channel B scales (recipe (1, 1, 128)) into
+    an f32 output."""
+    rng = np.random.RandomState(2)
+    a = jnp.asarray(rng.randn(64, 160).astype(ml_dtypes.bfloat16))
+    b = jnp.asarray(rng.randn(96, 160).astype(ml_dtypes.bfloat16))
+    a_q = dg.per_token_cast_to_fp8(a, use_ue8m0=False)
+    b_q = dg.per_token_cast_to_fp8(b, use_ue8m0=False)
+    d_jax = np.asarray(dg.fp8_gemm_nt(a_q, b_q, d=jnp.zeros((), jnp.float32), recipe=(1, 1, 128)))
+    to_t = lambda pair: tuple(tensor_from_numpy(np.asarray(v), 'cpu') for v in pair)
+    d_port = dgt.fp8_gemm_nt(to_t(a_q), to_t(b_q), d=torch.float32, recipe=(1, 1, 128))
+    assert d_port.dtype == torch.float32 and d_jax.dtype == np.float32
+    assert calc_diff(d_port, d_jax) < 1e-5
+
+
 def test_fp8_gemm_nt_k_zero():
     a = (torch.zeros(8, 0, dtype=torch.float8_e4m3fn), torch.zeros(8, 0))
     b = (torch.zeros(16, 0, dtype=torch.float8_e4m3fn), torch.zeros(1, 0))

@@ -1,6 +1,7 @@
-"""The port's masked grouped GEMM (the kernel's plain version on the CPU),
-bf16 and scaled fp8, against the JAX package's m_grouped masked ops (the
-Pallas kernel in interpret mode) on the same numpy inputs, valid rows only."""
+"""The port's masked and contiguous grouped GEMMs (the kernels' plain
+versions on the CPU), bf16 and scaled fp8, against the JAX package's
+m_grouped ops (the Pallas kernels in interpret mode) on the same numpy
+inputs."""
 
 import numpy as np
 import jax
@@ -90,3 +91,66 @@ def test_masked_rejects_mixed_operands():
     a, b = _inputs()
     with pytest.raises(ValueError):
         grouped.masked_gemm(_t(a), _t(b), _t(MASKED_M).to('meta'))
+
+
+# Contiguous layout: three uneven groups (70, 200 and 130 live rows), each
+# padded to the 128-row alignment, with NONZERO padding rows, so the zero
+# padding epilogue has something to blank.
+C_ROWS = (70, 200, 130)
+C_N, C_K = 128, 256
+
+
+def _contiguous_inputs(use_psum_layout, seed=3):
+    rng = np.random.RandomState(seed)
+    aligned = [-(-r // 128) * 128 for r in C_ROWS]
+    m = sum(aligned)
+    a = rng.randn(m, C_K).astype(ml_dtypes.bfloat16)
+    b = rng.randn(len(C_ROWS), C_N, C_K).astype(ml_dtypes.bfloat16)
+    ids = np.full(m, -1, np.int32)
+    ends, start = [], 0
+    for g, (rows, span) in enumerate(zip(C_ROWS, aligned)):
+        ids[start:start + rows] = g
+        ends.append(start + rows)
+        start += span
+    layout = np.asarray(ends, np.int32) if use_psum_layout else ids
+    return jnp.asarray(a), jnp.asarray(b), layout, ids >= 0
+
+
+@pytest.mark.parametrize('use_fp8,use_psum_layout,ensure_zero_padding', [
+    (True, False, True), (True, True, True), (False, False, False), (False, True, True)])
+def test_contiguous_matches_jax(use_fp8, use_psum_layout, ensure_zero_padding):
+    a, b, layout, live = _contiguous_inputs(use_psum_layout)
+    kw = dict(use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
+    if use_fp8:
+        aq = dg.per_token_cast_to_fp8(a, use_ue8m0=False)
+        bq = jax.vmap(lambda w: dg.per_block_cast_to_fp8(w, use_ue8m0=False))(b)
+        d_jax = dg.m_grouped_fp8_gemm_nt_contiguous(aq, bq, grouped_layout=jnp.asarray(layout), **kw)
+        to_t = lambda pair: tuple(_t(v) for v in pair)
+        d_port = dgt.m_grouped_fp8_gemm_nt_contiguous(to_t(aq), to_t(bq),
+                                                      grouped_layout=_t(layout), **kw)
+    else:
+        d_jax = dg.m_grouped_bf16_gemm_nt_contiguous(a, b, grouped_layout=jnp.asarray(layout), **kw)
+        d_port = dgt.m_grouped_bf16_gemm_nt_contiguous(_t(a), _t(b), grouped_layout=_t(layout), **kw)
+    assert grouped.contiguous_launches == {'bf16': 0, 'fp8': 0}   # CPU: the plain version
+    assert d_port.dtype == torch.bfloat16 and tuple(d_port.shape) == (len(live), C_N)
+    d_jax = np.asarray(d_jax, np.float32)
+    rows = slice(None) if ensure_zero_padding else live
+    assert calc_diff(d_port.float().numpy()[rows], d_jax[rows]) < 1e-5
+    if ensure_zero_padding:
+        assert not d_port[torch.from_numpy(~live)].float().any()
+    ref = np.zeros_like(d_jax)
+    a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    for g, idx in enumerate(np.split(np.flatnonzero(live), np.cumsum(C_ROWS)[:-1])):
+        ref[idx] = a64[idx] @ b64[g].T
+    assert calc_diff(d_port.float().numpy()[live], ref[live]) < (1e-3 if use_fp8 else 1e-5)
+
+
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_tile_gids_follow_the_layout(use_psum_layout):
+    """64-row tiles of the 128-aligned layout above: 2 tiles of group 0
+    (the second all padding), 4 of group 1, 4 of group 2; each tile's end
+    row is its group's last live row + 1."""
+    _, _, layout, _ = _contiguous_inputs(use_psum_layout)
+    gids, row_ends = grouped.compute_tile_gids(_t(layout), 3, 640, 64, use_psum_layout)
+    assert gids.tolist() == [0, 0, 1, 1, 1, 1, 2, 2, 2, 2]
+    assert row_ends.tolist() == [70] * 2 + [328] * 4 + [514] * 4

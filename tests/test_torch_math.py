@@ -71,3 +71,17 @@ def test_cast_to_fp8_saturates():
     x = np.array([[-1e6, -448.0, -1.0, 0.0, 0.3, 447.9, 500.0, 1e9]], np.float32)
     assert_bitwise_equal(tm.cast_to_fp8(torch.from_numpy(x)),
                          np.asarray(jm.cast_to_fp8(jnp.asarray(x))), 'cast')
+
+
+@pytest.mark.parametrize('transpose', [False, True])
+def test_quantize_experts_bitwise(transpose, monkeypatch):
+    """The batched per-expert cast, two experts per chunk, against the JAX
+    package's per-expert per_block_cast_to_fp8 (of each expert's transpose
+    for the dgrad)."""
+    w_j, w_t = _bf16_pair((5, 200, 136), seed=7)
+    per = [jm.per_block_cast_to_fp8(w_j[e].T if transpose else w_j[e], use_ue8m0=False)
+           for e in range(5)]
+    want = (np.stack([np.asarray(q) for q, _ in per]), np.stack([np.asarray(f) for _, f in per]))
+    monkeypatch.setattr(tm, '_CHUNK_ELEMS', 2 * 200 * 136)
+    got = tm.quantize_experts(w_t, transpose=transpose)
+    _check(want, got, f'quantize_experts(transpose={transpose})')

@@ -10,6 +10,7 @@ import torch
 
 import deepgemm_tpu_torch as dgt
 from deepgemm_tpu_torch.heuristics.configs import get_gemm_config
+from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.models import convert, transformer
 from deepgemm_tpu_torch.runtime import build
 
@@ -61,8 +62,28 @@ def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
     (128, 4096, 1, 64),        # 64 blocks at 128 wide: too few for 132 SMs
     (40, 4096, 256, 128),      # the masked L1 shape
     (40, 7168, 256, 128),      # the masked L2 shape
+    (32768, 4096, 1, 128),     # the contiguous L1 forward of the training step
+    (256, 7168, 1, 64),        # contiguous, 4 x 56 blocks at 128 wide: too few
+    (4096, 7168, 256, 128),    # the k-grouped L1 wgrad of the training step
 ])
 def test_tile_chooser(m, n, groups, block_n):
     cfg = get_gemm_config(m, n, groups, num_sms=132)
     assert cfg.block_n == block_n and cfg.block_m == 64
     assert cfg.smem_bytes <= 232448
+
+
+def test_plain_versions_switch_is_explicit_and_scoped():
+    """The switch is off unless a caller opens it, nests, and closes again
+    on the way out of an error; CPU tensors take the plain versions either
+    way, and devices other than the CPU and CUDA raise."""
+    assert not common._plain_on_cuda
+    assert common.use_plain(torch.zeros(2))
+    with pytest.raises(KeyError):
+        with dgt.plain_versions():
+            with dgt.plain_versions():
+                assert common._plain_on_cuda
+            assert common._plain_on_cuda
+            raise KeyError
+    assert not common._plain_on_cuda
+    with pytest.raises(ValueError):
+        common.use_plain(torch.zeros(2, device='meta'))
