@@ -5,7 +5,7 @@
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
-  2. the build: the four CUDA libraries with nvcc, in parallel, from csrc/;
+  2. the build: the seven CUDA libraries with nvcc, in parallel, from csrc/;
   3. the dense FP8 kernel against its plain version at 4096^3 and
      128x4096x7168, then the library entry fp8_gemm_nt (launches counted);
   4. the masked grouped kernel, bf16 and fp8, against its plain version at
@@ -31,7 +31,23 @@ Phases, one line each (a failure in any phase exits non-zero):
      rows of each dense call), a finite loss that falls from step 1 to 3,
      seconds per step, tokens/s and peak memory; one more step under
      torch.profiler; then each call's kernel, plain version and bf16
-     PyTorch yardstick timed at the step's full shapes.
+     PyTorch yardstick timed at the step's full shapes;
+  7. the serving engine over the lightning indexer: 64 slots, the indexer
+     at DeepSeek-V3.2-Exp widths (64 heads x 128, top-2048, e4m3 pages of 64
+     tokens), attention streams of 128 heads x 128 bf16; 64 prompts of
+     4096-7936 tokens prefilled, 8 decode steps, one request finished and a
+     new one (6000 tokens) admitted before step 4: launches per step (paged
+     MQA 1, attention 1, MQA logits 0), step 1's paged MQA call and 8 rows of
+     its attention against their plain versions, the zero-copy entry on step
+     1's cache (its own path) bitwise equal to the gather entry, the compute
+     step twice bitwise equal, the same script through the plain versions
+     (outputs compared where the top-k selections agree), two requests alone
+     in a fresh engine bitwise equal (batch invariance); step times,
+     tokens/s, peak memory, a profile of one step, each kernel timed at its
+     full shape; then the prefill path (indexer_sparse_attention on the last
+     64 rows of an 8192-token prompt: MQA logits 1, attention 1, each held to
+     its plain version) and the MQA logits kernel at the JAX bench's prefill
+     shape (2048 x 8192, 64 heads x 128) against its plain version.
 Then one JSON line of kernel numbers, the card's nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -340,10 +356,11 @@ def walk(params, tokens, cfg):
     return layers, logits, reached
 
 
-def profile(fn, label, what):
+def profile(fn, label, what, host_ops=0):
     """One call of ``fn`` under torch.profiler: its wall time, the time of
-    the device's own events (kernels, copies, sets) summed, and the names
-    that take the most of it."""
+    the device's own events (kernels, copies, sets) summed, the names that
+    take the most of it, and the ``host_ops`` host operations that take the
+    most host time of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -366,6 +383,10 @@ def profile(fn, label, what):
         f'device_idle_share={1 - device_ms / wall_ms:.4f} ({what}, under the profiler)')
     for name, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f'  {us / 1e3:10.3f} ms device, {calls:6d} calls: {name[:130]}')
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_ops]
+    for e in host:
+        log(f'  {e.self_cpu_time_total / 1e3:10.3f} ms host (self), {e.count:6d} calls: '
+            f'{e.key[:130]}')
 
 
 def phase_forward(seed):
@@ -722,6 +743,525 @@ def phase_train(seed, arch):
     return entries, {kind: seen[kind] for kind in CALL_NAMES}
 
 
+# Phase 7: the continuous-batching engine over the lightning indexer. The
+# indexer at DeepSeek-V3.2-Exp's published widths (its config.json:
+# index_n_heads 64, index_head_dim 128, index_topk 2048), an e4m3 cache with
+# one f32 scale a token in pages of 64 tokens; the attention streams at the
+# flagship's 128 heads x 128 in bf16 (V3.2 decodes with MLA over a 576-wide
+# shared latent; the engine's contract is per-head K/V of one shape).
+SERVE = dict(max_slots=64, max_pages_per_seq=128, num_blocks=8256, block_kv=64,
+             num_heads=128, head_dim=128, index_heads=64, index_dim=128, topk=2048)
+SERVE_STEPS = 8
+PROMPT_RANGE = (4096, 7936)
+LATE = dict(request=64, prompt=6000, step=4, finishes=1)   # at step 4: 1 finishes, 64 comes
+INVARIANCE_REQUESTS = (0, 64)
+ATTN_CHECK_ROWS = 8          # seeded slots whose attention is held to the plain version
+PREFILL_LEN, PREFILL_ROWS = 8192, 64
+MQA_BENCH = (2048, 8192, 64, 128)       # sq, skv, h, d (bench.py:723)
+
+
+def token_id(request, step):
+    return 100 * request + step
+
+
+def _hashed_uniform(tokens, n):
+    """[slots, n] f32 uniform in [-sqrt(3), sqrt(3)] (unit variance): a 32-bit
+    integer hash of each slot's token and each element's index, so every
+    value depends on its token and index alone."""
+    idx = torch.arange(n, device=tokens.device, dtype=torch.int64)
+    x = ((tokens.long()[:, None] + 7919) * 0x9E3779B1 + idx * 0x85EBCA77) & 0xFFFFFFFF
+    for _ in range(2):
+        x = ((x ^ (x >> 16)) * 0x45D9F3B) & 0xFFFFFFFF
+    x = x ^ (x >> 16)
+    return (x.float() * 2.0 ** -32 - 0.5) * math.sqrt(12.0)
+
+
+def decode_streams(tokens):
+    """One decode step's streams for a [slots] token batch (the engine's
+    embed_fn; a server plugs the model's projections in here): each slot's
+    a hash of its token alone, so a sequence's streams never depend on the
+    batch, made by a few elementwise launches for the whole batch."""
+    h, d = SERVE['num_heads'], SERVE['head_dim']
+    hi, di = SERVE['index_heads'], SERVE['index_dim']
+    sizes = (h * d, hi * di, hi, h * d, h * d, di, 1)
+    q, iq, iw, k, v, ik, isf = torch.split(_hashed_uniform(tokens, sum(sizes)), sizes, dim=1)
+    s = tokens.shape[0]
+    return (q.reshape(s, h, d).bfloat16(), iq.reshape(s, hi, di).bfloat16(), iw * hi ** -0.5,
+            k.reshape(s, h, d).bfloat16(), v.reshape(s, h, d).bfloat16(),
+            ik.to(torch.float8_e4m3fn), isf[:, 0].abs() * 0.01 + 0.005)
+
+
+def prompt_streams(seed, request, t):
+    """A prompt's k, v [t, h, d] bf16, index keys [t, di] e4m3 and scales [t]."""
+    h, d, di = SERVE['num_heads'], SERVE['head_dim'], SERVE['index_dim']
+    g = torch.Generator(device='cuda').manual_seed(seed * 1000 + request)
+    k = torch.randn((t, h, d), generator=g, device='cuda').bfloat16()
+    v = torch.randn((t, h, d), generator=g, device='cuda').bfloat16()
+    ik = torch.randn((t, di), generator=g, device='cuda').clamp(-448, 448).to(torch.float8_e4m3fn)
+    return k, v, ik, torch.rand(t, generator=g, device='cuda') * 0.01 + 0.005
+
+
+ALL_KINDS = ('paged', 'mqa', 'attn', 'topk')
+
+
+@contextlib.contextmanager
+def serving_hooks(records, seed, kinds=ALL_KINDS):
+    """While open, the indexer's calls of ``kinds`` are recorded: the paged
+    MQA call and the MQA logits call with clones of their inputs and output,
+    the attention call with clones of ATTN_CHECK_ROWS seeded rows of its
+    inputs and output, each top-k selection (sorted per row). The wrappers
+    are called as they are, once each."""
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.models import indexer
+    gen = torch.Generator().manual_seed(seed)
+    clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def paged_call(args, kw, out):
+        return dict(kind='paged', args=tuple(map(clone, args)), kw=dict(kw), out=out.clone())
+
+    def mqa_call(args, kw, out):
+        return dict(kind='mqa', args=tuple(map(clone, args)), kw=dict(kw), out=out.clone())
+
+    def attn_call(args, kw, out):
+        q, k_sel, v_sel, valid, scale = args
+        rows = torch.randperm(q.shape[0], generator=gen)[:ATTN_CHECK_ROWS].sort().values.cuda()
+        return dict(kind='attn', rows=rows, scale=scale, out=out[rows].clone(),
+                    args=tuple(x[rows].clone() for x in (q, k_sel, v_sel, valid)),
+                    shape=(q.shape[0], *k_sel.shape[1:]))
+
+    def topk_call(args, kw, out):
+        return dict(kind='topk', sel=out[0].sort(dim=1).values, valid=out[1].clone())
+
+    hooks = [hook for hook in ((paged_mqa, 'paged_mqa_logits', paged_call),
+                               (mqa_logits, 'mqa_logits', mqa_call),
+                               (sparse_attn, 'gathered_attention', attn_call),
+                               (indexer, '_topk_indices', topk_call))
+             if hook[2].__name__.split('_')[0] in kinds]
+    originals = [(module, name, getattr(module, name)) for module, name, _ in hooks]
+
+    def recording(fn, record):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            records.append(record(args, kw, out))
+            return out
+        return call
+
+    for (module, name, record), (_, _, fn) in zip(hooks, originals):
+        setattr(module, name, recording(fn, record))
+    try:
+        yield
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+
+def prompt_lengths(seed):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, (SERVE['max_slots'],),
+                            generator=g).tolist()
+    out = dict(enumerate(lengths))
+    out[LATE['request']] = LATE['prompt']
+    return out
+
+
+def serve(seed, requests, on_step=None):
+    """Drives a fresh engine through the phase's script for ``requests``
+    (a subset of the 64 prompts and the late one): admission and prefill,
+    SERVE_STEPS decode steps, request LATE['finishes'] finished and request
+    LATE['request'] admitted and prefilled before step LATE['step'].
+    ``on_step(step, engine, tokens)`` runs around each step's call (a context
+    manager factory, or None). Returns (engine, outputs by (request, step),
+    the slot of each request by step, seconds per step, active slots per
+    step, prefill seconds)."""
+    from deepgemm_tpu_torch.serving import ContinuousBatcher
+    lengths = prompt_lengths(seed)
+    engine = ContinuousBatcher(**SERVE, embed_fn=decode_streams, device='cuda')
+    ids, outs, slots, seconds, active, prefill_s = {}, {}, {}, [], [], 0.0
+
+    def admit(request):
+        nonlocal prefill_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids[request] = engine.admit(lengths[request])
+        require(ids[request] is not None, f'request {request} was not admitted')
+        engine.prefill(ids[request], *prompt_streams(seed, request, lengths[request]))
+        torch.cuda.synchronize()
+        prefill_s += time.perf_counter() - t0
+
+    for request in requests:
+        if request != LATE['request']:
+            admit(request)
+    for step in range(1, SERVE_STEPS + 1):
+        if step == LATE['step']:
+            if LATE['finishes'] in ids:
+                engine.finish(ids.pop(LATE['finishes']))
+            if LATE['request'] in requests:
+                admit(LATE['request'])
+        tokens = {sid: token_id(r, step) for r, sid in ids.items()}
+        slots[step] = {r: engine._seq(sid).slot for r, sid in ids.items()}
+        ctx = on_step(step, engine, tokens) if on_step else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            res = engine.step(tokens)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        active.append(len(tokens))
+        for r, sid in ids.items():
+            outs[r, step] = res[sid].clone()
+    return engine, outs, slots, seconds, active, prefill_s
+
+
+def free_engine(engine):
+    engine.cache = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_paged(rec):
+    """Step 1's paged MQA call: the kernel's output against its plain
+    version on the same inputs (calc_diff over the finite entries, -inf at
+    the same places), then the zero-copy entry through the user's entry
+    point on the same cache (its own path: counts at 0 just before, read just
+    after), bitwise equal. Returns (the diff, the max error, zero-copy
+    launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    q, kv, sf, w, ctx, bt, max_len = rec['args']
+    with plain_versions():
+        want = paged_mqa.paged_mqa_logits(*rec['args'], **rec['kw'])
+    got = rec['out']
+    require(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+            'paged MQA: -inf at other places than the plain version')
+    fin = ~torch.isneginf(want)
+    diff, err = compare(got[fin], want[fin])
+    require(diff < TOL, f'paged MQA: calc_diff {diff} against the plain version')
+    paged_mqa.launches.update(gather=0, paged=0)
+    mqa_logits.launches = sparse_attn.launches = 0
+    zero_copy = dgt.fp8_fp4_paged_mqa_logits((q, None), (kv, sf), w, ctx, bt, None, max_len,
+                                             strategy='paged')
+    torch.cuda.synchronize()
+    zc_counts = dict(paged_mqa.launches, mqa=mqa_logits.launches, attn=sparse_attn.launches)
+    require(zc_counts == dict(gather=0, paged=1, mqa=0, attn=0),
+            f'the zero-copy path launched {zc_counts}')
+    require(torch.equal(zero_copy, got), 'the zero-copy entry differs from the gather entry')
+    zc_diff, zc_err = compare(zero_copy[fin], want[fin])
+    log(f'phase 7 check paged MQA step 1 [{got.shape[0]} rows x {max_len}]: calc_diff={diff:.3e} '
+        f'(limit {TOL}, {int(fin.sum())} finite entries, -inf at the same places) '
+        f'max_abs_err={err:.4g}; zero-copy path launches={zc_counts}, bitwise equal to gather, '
+        f'against the plain version calc_diff={zc_diff:.3e} max_abs_err={zc_err:.4g}')
+    return (diff, err), (zc_diff, zc_err), zc_counts['paged']
+
+
+def check_attention(rec, label):
+    from deepgemm_tpu_torch.kernels import sparse_attn
+    q, k_sel, v_sel, valid = rec['args']
+    want = sparse_attn.gathered_attention_plain(q, k_sel, v_sel, valid, rec['scale'])
+    diff, err = compare(rec['out'], want)
+    require(diff < TOL, f'attention ({label}): calc_diff {diff} against the plain version')
+    log(f'phase 7 check attention {label} on {ATTN_CHECK_ROWS} seeded rows '
+        f'{rec["rows"].tolist()} of {list(rec["shape"])}: calc_diff={diff:.3e} (limit {TOL}) '
+        f'max_abs_err={err:.4g}')
+    return diff, err
+
+
+def time_decode_kernels(rec_paged, engine, arch):
+    """The decode path's kernels at their full shapes on step 1's inputs (the
+    paged MQA entries) and on the engine's current state (the attention over
+    all 64 slots' selected rows): kernel, plain version, library yardstick,
+    bound. Returns {name: numbers}."""
+    import torch.nn.functional as F
+    from deepgemm_tpu_torch.kernels import paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.models import indexer
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    q, kv, sf, w, ctx, bt, max_len = rec_paged['args']
+    b, nn, h, d = q.shape
+    hi = paged_mqa.row_bounds(ctx, nn)
+    bt = bt.int().clamp(0, kv.shape[0] - 1)
+    kv_lin, sf_lin = paged_mqa.linearise(kv, sf, bt)
+    need = int(ctx.clamp(max=max_len).sum())            # cache rows the data needs
+    nbytes = need * (d + 4) + q.numel() + w.numel() * 4 + hi.numel() * 4 + b * nn * max_len * 4
+    bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, fp8=True)
+    q16, kv16 = q.view(b, nn * h, d).bfloat16(), kv_lin.bfloat16()
+    library_ms = bench_kernel(lambda: torch.bmm(q16, kv16.transpose(1, 2)), iters=10)
+    gather_ms = bench_kernel(lambda: paged_mqa.linearise(kv, sf, bt), iters=10)
+    out = {}
+    for name, fn in (('gather', lambda: paged_mqa.paged_mqa_logits_gather(
+                         q, kv_lin, sf_lin, w, hi, max_len)),
+                     ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
+                         q, kv, sf, w, hi, bt, max_len))):
+        ms = bench_kernel(fn, iters=20)
+        with plain_versions():
+            plain_ms = bench_kernel(fn, iters=2, warmup=1)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+                         bound_by=bound[1], shape=[b, nn, h, d, max_len], cache_rows=need)
+        log(f'phase 7 time paged MQA {name} [B={b} next_n={nn} h={h} d={d} max_len={max_len}, '
+            f'{need} cache rows]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+            f'library_ms(torch.bmm bf16 q x kv_lin^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+            f'({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}'
+            + (f' (the linearising gather before it: {gather_ms:.4f} ms)'
+               if name == 'gather' else ' (its plain version linearises the pages first)'))
+    del q16, kv16, kv_lin, sf_lin
+
+    # the attention over the current state's selection, all slots
+    c = engine.cache
+    tokens = torch.arange(SERVE['max_slots'], device='cuda', dtype=torch.int32) + 9000
+    qd, iq, iw = decode_streams(tokens)[:3]
+    ctx_now = torch.from_numpy(engine.context_lens).cuda()
+    bt_now = torch.from_numpy(engine.block_table).cuda()
+    logits = paged_mqa.paged_mqa_logits(indexer._index_q_fp8(iq)[:, None], c.ik_pages,
+                                        c.isf_pages, iw, ctx_now, bt_now, engine.max_context_len)
+    sel, valid = indexer._topk_indices(logits, SERVE['topk'])
+    pos = sel.long()
+    tok = (bt_now.long().gather(1, pos // SERVE['block_kv']) * SERVE['block_kv']
+           + pos % SERVE['block_kv']).reshape(-1)
+    rows, t = sel.shape
+    h_a, d_a = SERVE['num_heads'], SERVE['head_dim']
+    flat_gather = lambda: (c.k_pages.view(-1, h_a, d_a).index_select(0, tok),
+                           c.v_pages.view(-1, h_a, d_a).index_select(0, tok))
+    gather_attn_ms = bench_kernel(flat_gather, iters=3)
+    k_sel, v_sel = (x.view(rows, t, h_a, d_a) for x in flat_gather())
+    scale = d_a ** -0.5
+    ms = bench_kernel(lambda: sparse_attn.gathered_attention(qd, k_sel, v_sel, valid, scale),
+                      iters=5)
+    sub = slice(0, ATTN_CHECK_ROWS)
+    plain_ms = bench_kernel(lambda: sparse_attn.gathered_attention_plain(
+        qd[sub], k_sel[sub], v_sel[sub], valid[sub], scale), iters=2, warmup=1)
+    mask = valid[:, None, None, :]
+    library_ms = bench_kernel(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None, :], k_sel.transpose(1, 2), v_sel.transpose(1, 2), attn_mask=mask,
+        scale=scale), iters=3)
+    n_valid = int(valid.sum())
+    nbytes = 2 * n_valid * h_a * d_a * 2 + 2 * qd.numel() * 2 + valid.numel()
+    bound = arch.bound_ms(nbytes, 4 * n_valid * h_a * d_a, fp8=False)
+    out['attn'] = dict(ms=ms, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS,
+                       library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
+                       shape=[rows, t, h_a, d_a], flat_gather_ms=gather_attn_ms)
+    log(f'phase 7 time attention [{rows} rows, topk {t}, h {h_a}, d {d_a}; {n_valid} valid]: '
+        f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) '
+        f'library_ms(F.scaled_dot_product_attention over the gathered rows)={library_ms:.4f} '
+        f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}; the flat token '
+        f'gather before it {gather_attn_ms:.4f} ms')
+    return out
+
+
+def phase_prefill(seed, arch):
+    """The prefill path: indexer_sparse_attention on the last PREFILL_ROWS
+    query rows of one PREFILL_LEN-token prompt (counts at 0 just before,
+    read just after: MQA logits 1, attention 1), each call held to its plain
+    version; then the MQA logits kernel at the JAX bench's prefill shape
+    against its plain version, and both shapes timed."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
+    h, d, hi, di = (SERVE[k] for k in ('num_heads', 'head_dim', 'index_heads', 'index_dim'))
+    g = torch.Generator(device='cuda').manual_seed(seed + 7)
+    n, rows = PREFILL_LEN, PREFILL_ROWS
+    k = torch.randn((n, h, d), generator=g, device='cuda').bfloat16()
+    v = torch.randn((n, h, d), generator=g, device='cuda').bfloat16()
+    q = torch.randn((rows, h, d), generator=g, device='cuda').bfloat16()
+    iq = torch.randn((rows, hi, di), generator=g, device='cuda').bfloat16()
+    ikv = torch.randn((n, di), generator=g, device='cuda').bfloat16()
+    iw = torch.randn((rows, hi), generator=g, device='cuda') * hi ** -0.5
+    ks = torch.zeros(rows, dtype=torch.int32, device='cuda')
+    ke = torch.arange(n - rows + 1, n + 1, dtype=torch.int32, device='cuda')   # causal
+    records = []
+    paged_mqa.launches.update(gather=0, paged=0)
+    mqa_logits.launches = sparse_attn.launches = 0
+    with serving_hooks(records, seed):
+        out = dgt.indexer_sparse_attention(q, k, v, iq, ikv, iw, ks, ke, SERVE['topk'])
+    torch.cuda.synchronize()
+    counts = dict(mqa=mqa_logits.launches, attn=sparse_attn.launches, **paged_mqa.launches)
+    require(counts == dict(mqa=1, attn=1, gather=0, paged=0), f'prefill launches {counts}')
+    require(tuple(out.shape) == (rows, h, d) and torch.isfinite(out.float()).all().item(),
+            f'prefill output {tuple(out.shape)} not finite')
+    by_kind = {r['kind']: r for r in records}
+    rec = by_kind['mqa']
+    with plain_versions():
+        want = mqa_logits.mqa_logits(*rec['args'], **rec['kw'])
+    require(torch.equal(torch.isneginf(rec['out']), torch.isneginf(want)),
+            'prefill MQA logits: -inf at other places than the plain version')
+    fin = ~torch.isneginf(want)
+    diff, err = compare(rec['out'][fin], want[fin])
+    require(diff < TOL, f'prefill MQA logits: calc_diff {diff} against the plain version')
+    check_attention(by_kind['attn'], 'prefill')
+    log(f'phase 7 prefill: indexer_sparse_attention on the last {rows} rows of a {n}-token '
+        f'prompt: launches={counts}; MQA logits calc_diff={diff:.3e} (limit {TOL}) '
+        f'max_abs_err={err:.4g}')
+    iq8 = cast_to_fp8(iq.float())
+    ikv8, isf = per_custom_dims_cast_to_fp8(ikv, (0,), use_ue8m0=False)
+    entries = {}
+    for label, (qq, kv8, sf, w, lo, hi_) in (
+            ('path', (iq8, ikv8, isf, iw, ks, ke)),
+            ('bench', bench_mqa_inputs(seed))):
+        sq, skv = qq.shape[0], kv8.shape[0]
+        fn = lambda: mqa_logits.mqa_logits(qq, kv8, w, lo, hi_, kv_sf=sf)
+        if label == 'bench':
+            got = fn()
+            with plain_versions():
+                want = fn()
+            require(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+                    'bench MQA logits: -inf at other places than the plain version')
+            fin = ~torch.isneginf(want)
+            bdiff, berr = compare(got[fin], want[fin])
+            require(bdiff < TOL, f'bench MQA logits: calc_diff {bdiff} against the plain version')
+            del got, want, fin
+        ms = bench_kernel(fn, iters=10)
+        with plain_versions():
+            plain_ms = bench_kernel(fn, iters=1, warmup=1)
+        q16 = qq.view(sq * hi, di).bfloat16()
+        kv16 = kv8.bfloat16()
+        library_ms = bench_kernel(lambda: torch.matmul(q16, kv16.t()), iters=10)
+        del q16, kv16
+        pairs = int((hi_ - lo).clamp(min=0).sum())         # (row, column) pairs in a window
+        nbytes = (qq.numel() + kv8.numel() + sf.numel() * 4 + w.numel() * 4 + 8 * sq
+                  + sq * skv * 4)
+        bound = arch.bound_ms(nbytes, 2 * pairs * hi * di, fp8=True)
+        entries[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound[0], bound_by=bound[1], shape=[sq, skv, hi, di],
+                              max_abs_err=err if label == 'path' else berr,
+                              check_calc_diff=diff if label == 'path' else bdiff)
+        log(f'phase 7 time MQA logits {label} [sq={sq} skv={skv} h={hi} d={di}, {pairs} '
+            f'window pairs]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+            f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+            f'({bound[1]}) TFLOPS={2 * pairs * hi * di / ms / 1e9:.1f}'
+            + (f'; calc_diff against plain {bdiff:.3e} (limit {TOL})' if label == 'bench' else ''))
+    return entries, counts
+
+
+def bench_mqa_inputs(seed):
+    """The JAX bench's prefill shape: q [2048, 64, 128] e4m3, kv [8192, 128]
+    e4m3 with its per-token scales, causal windows (bench.py:723-733)."""
+    from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
+    sq, skv, h, d = MQA_BENCH
+    g = torch.Generator(device='cuda').manual_seed(seed + 8)
+    q = cast_to_fp8(torch.randn((sq, h, d), generator=g, device='cuda'))
+    kv, sf = per_custom_dims_cast_to_fp8(torch.randn((skv, d), generator=g, device='cuda'),
+                                         (0,), use_ue8m0=False)
+    w = torch.randn((sq, h), generator=g, device='cuda')
+    ks = torch.zeros(sq, dtype=torch.int32, device='cuda')
+    ke = torch.arange(sq, dtype=torch.int32, device='cuda') + (skv - sq)
+    return q, kv, sf, w, ks, ke
+
+
+def phase_serve(seed, arch):
+    """The decode path at full width; see the module docstring. Returns the
+    kernel entries' numbers and counts."""
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.models.indexer import indexer_sparse_decode
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    requests = list(range(SERVE['max_slots'])) + [LATE['request']]
+    records = []
+
+    def hooks(step, engine, tokens):
+        return serving_hooks(records, seed, ALL_KINDS if step == 1 else ('topk',))
+
+    # the main path: counts at 0 just before the engine's run, read just after
+    paged_mqa.launches.update(gather=0, paged=0)
+    mqa_logits.launches = sparse_attn.launches = 0
+    engine, outs, slots, seconds, active, prefill_s = serve(seed, requests, hooks)
+    counts = dict(gather=paged_mqa.launches['gather'], paged=paged_mqa.launches['paged'],
+                  mqa=mqa_logits.launches, attn=sparse_attn.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict(gather=SERVE_STEPS, paged=0, mqa=0, attn=SERVE_STEPS)
+    require(counts == want, f'decode launches {counts}, expected {want}')
+    for key, out in outs.items():
+        require(tuple(out.shape) == (SERVE['num_heads'], SERVE['head_dim'])
+                and torch.isfinite(out.float()).all().item(), f'output {key} not finite')
+    tokens_per_s = sum(active[1:]) / sum(seconds[1:])
+    stub_tokens = torch.arange(SERVE['max_slots'], device='cuda', dtype=torch.int32) + 9200
+    stub_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_streams(stub_tokens)
+        torch.cuda.synchronize()
+        stub_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f'phase 7 decode: {len(requests)} requests, prompts {PROMPT_RANGE[0]}-{PROMPT_RANGE[1]} '
+        f'tokens (prefill {prefill_s:.2f} s in all), {SERVE_STEPS} steps, request '
+        f'{LATE["finishes"]} finished and request {LATE["request"]} ({LATE["prompt"]} tokens) '
+        f'admitted before step {LATE["step"]}: launches={counts} (per step paged MQA 1, '
+        f'attention 1, MQA logits 0); seconds per step {[round(s, 5) for s in seconds]} '
+        f'(step 1 with the recording of its kernel calls); tokens/s={tokens_per_s:.1f} '
+        f'(active slots / step time, steps 2-{SERVE_STEPS}); peak_mem={peak_gb:.2f} GB; '
+        f'the stand-in embed_fn alone for {SERVE["max_slots"]} slots, 5 calls, ms '
+        f'{[round(t, 4) for t in stub_ms]}')
+    by_kind = {}
+    for r in records:
+        by_kind.setdefault(r['kind'], r)
+    paged_errors, zc_errors, zc_launches = check_paged(by_kind['paged'])
+    attn_errors = check_attention(by_kind['attn'], 'decode step 1')
+
+    # the compute step twice on the same state: the same bits
+    c = engine.cache
+    streams = decode_streams(torch.arange(SERVE['max_slots'], device='cuda',
+                                          dtype=torch.int32) + 9100)
+    compute = lambda: indexer_sparse_decode(
+        streams[0][:, None], (c.k_pages, c.v_pages), (c.ik_pages, c.isf_pages),
+        streams[1][:, None], streams[2], torch.from_numpy(engine.context_lens).cuda(),
+        torch.from_numpy(engine.block_table).cuda(), engine.max_context_len, SERVE['topk'])
+    first, second = compute(), compute()
+    require(torch.equal(first, second), 'the compute step differs run to run')
+    del first, second
+    log('phase 7 determinism: the compute step twice on the same state: bitwise equal')
+
+    profile(lambda: engine.step({sid.seq_id: token_id(sid.seq_id, 99) for sid in engine._slots
+                                 if sid is not None}), 'decode step',
+            f'one step of {sum(s is not None for s in engine._slots)} active slots', host_ops=8)
+    timing = time_decode_kernels(by_kind['paged'], engine, arch)
+    records = [r for r in records if r['kind'] == 'topk']
+    del by_kind
+    free_engine(engine)
+    del engine, c
+
+    # the same script through the plain versions: their selections and outputs
+    plain_records = []
+    with plain_versions():
+        engine, plain_outs, _, plain_seconds, _, _ = serve(
+            seed, requests, lambda step, engine, tokens: serving_hooks(plain_records, seed,
+                                                                      ('topk',)))
+    free_engine(engine)
+    del engine
+    sets_k = [r for r in records if r['kind'] == 'topk']
+    sets_p = [r for r in plain_records if r['kind'] == 'topk']
+    differ, agree_k, agree_p = 0, [], []
+    for step in range(1, SERVE_STEPS + 1):
+        sk, sp = sets_k[step - 1]['sel'], sets_p[step - 1]['sel']
+        for r, slot in slots[step].items():
+            if torch.equal(sk[slot], sp[slot]):
+                agree_k.append(outs[r, step].float())
+                agree_p.append(plain_outs[r, step].float())
+            else:
+                differ += 1
+    free_diff = compare(torch.stack(agree_k), torch.stack(agree_p))[0]
+    require(free_diff < TOL, f'decode outputs over agreeing selections: calc_diff {free_diff}')
+    log(f'phase 7 kernels vs plain, free-running: {differ} of {len(outs)} (request, step) '
+        f'selections differ; over the {len(agree_k)} that agree, calc_diff={free_diff:.3e} '
+        f'(limit {TOL}); the plain path steps took '
+        f'{[round(s, 4) for s in plain_seconds]} s')
+
+    # batch invariance at full width: two requests alone in a fresh 64-slot engine
+    engine, solo, solo_slots, _, _, _ = serve(seed, list(INVARIANCE_REQUESTS))
+    free_engine(engine)
+    del engine
+    require(solo.keys() <= outs.keys() and len(solo) > 0, 'batch invariance: no outputs')
+    for key, out in solo.items():
+        require(torch.equal(out, outs[key]), f'batch invariance: {key} differs alone')
+    log(f'phase 7 batch invariance: requests {INVARIANCE_REQUESTS} alone in a fresh '
+        f'{SERVE["max_slots"]}-slot engine (slots {solo_slots[SERVE_STEPS]} instead of '
+        f'{ {r: slots[SERVE_STEPS][r] for r in INVARIANCE_REQUESTS} }): {len(solo)} outputs, '
+        f'bitwise equal')
+    return dict(timing=timing, counts=counts, zc_launches=zc_launches,
+                errors=dict(paged=paged_errors, zero_copy=zc_errors, attn=attn_errors),
+                tokens_per_s=tokens_per_s, peak_gb=peak_gb)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -754,6 +1294,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     train, train_counts = phase_train(args.seed, H100_SXM)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    served = phase_serve(args.seed, H100_SXM)
+    torch.cuda.synchronize()
+    prefill, prefill_counts = phase_prefill(args.seed, H100_SXM)
+    torch.cuda.synchronize()
 
     # Each kernel's numbers are those of the path that runs it: the masked
     # kernels the serving forward (phase 5), the others the training step
@@ -775,6 +1320,30 @@ def main(argv=None) -> int:
                train['contiguous']),
         kernel('k_grouped_gemm_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
                train_counts['k_grouped'], train['k_grouped']),
+    ]
+    # phase 7: the MQA logits kernel's numbers are the prefill path's call,
+    # with the JAX bench's prefill shape beside; the others are the decode
+    # path's (the zero-copy entry: its own path on step 1's cache)
+    timing, errors = served['timing'], served['errors']
+
+    def indexer_kernel(name, source, replaces, launches, err, entry, **extra):
+        return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
+                    replaces=replaces, launches=launches, max_abs_err=err, **entry, **extra)
+
+    kernels += [
+        indexer_kernel('mqa_logits', 'mqa_logits.cu', 'deepgemm_tpu/kernels/mqa_logits.py:133',
+                       prefill_counts['mqa'], prefill['path']['max_abs_err'],
+                       {k: v for k, v in prefill['path'].items() if k != 'max_abs_err'},
+                       bench_shape=prefill['bench']),
+        indexer_kernel('paged_mqa_logits_gather', 'paged_mqa.cu',
+                       'deepgemm_tpu/kernels/paged_mqa.py:166', served['counts']['gather'],
+                       errors['paged'][1], timing['gather']),
+        indexer_kernel('paged_mqa_logits_paged', 'paged_mqa.cu',
+                       'deepgemm_tpu/kernels/paged_mqa.py:382', served['zc_launches'],
+                       errors['zero_copy'][1], timing['paged']),
+        indexer_kernel('sparse_attention', 'sparse_attn.cu',
+                       'deepgemm_tpu/kernels/sparse_attn.py:104', served['counts']['attn'],
+                       errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn']),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

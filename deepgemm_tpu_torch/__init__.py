@@ -2,10 +2,12 @@
 H100 (sm_90a).
 
 It holds the FP8 dense NT GEMM (bf16 or f32 out), the masked and the
-contiguous grouped GEMMs and the k-grouped GEMM (each a hand-written CUDA
-kernel with a plain PyTorch version beside it), the quantization contract,
-the differentiable FP8 matmuls, and the MoE transformer at one rank: the
-serving forward and the FP8 SGD training step.
+contiguous grouped GEMMs, the k-grouped GEMM, the indexer's MQA logits
+(prefill and paged decode) and the sparse attention over the selected rows
+(each a hand-written CUDA kernel with a plain PyTorch version beside it),
+the quantization contract, the differentiable FP8 matmuls, the MoE
+transformer at one rank (the serving forward and the FP8 SGD training step)
+and the continuous-batching serving engine over the lightning indexer.
 Entry points run on the CUDA card unless the caller passes ``device='cpu'``.
 Importing the package builds and loads nothing: kernels build at first use.
 """
@@ -14,8 +16,12 @@ from .kernels.common import plain_versions
 from .kernels.dense import dense_fp8_gemm_nt
 from .kernels.grouped import contiguous_gemm, masked_gemm
 from .kernels.k_grouped import k_grouped_gemm
+from .models.indexer import indexer_sparse_attention, indexer_sparse_decode
 from .models.transformer import (ModelConfig, forward, init_params, loss_fn,
                                  train_step)
+from .ops.attention import (clean_logits_, fp8_fp4_mqa_logits,
+                            fp8_fp4_paged_mqa_logits, fp8_mqa_logits,
+                            fp8_paged_mqa_logits, split_fused_kv_cache)
 from .ops.autograd import fp8_dense, fp8_grouped_matmul, fp8_matmul
 from .ops.gemm import bf16_gemm_nt, fp8_fp4_gemm_nt, fp8_gemm_nt
 from .ops.k_grouped import (k_grouped_bf16_gemm_tn_contiguous,
@@ -27,8 +33,9 @@ from .ops.m_grouped import (m_grouped_bf16_gemm_nt_contiguous,
                             m_grouped_fp8_gemm_nt_contiguous,
                             m_grouped_fp8_gemm_nt_masked)
 from .runtime.config import get_num_sms, resolve_device, set_num_sms
+from .serving import ContinuousBatcher, PageAllocator, PagedCache, SequenceState
 from .testing.numeric import calc_diff
 from .utils.math import (align, ceil_div, ceil_to_ue8m0, pack_ue8m0_to_int,
                          per_block_cast_to_fp8, per_channel_cast_to_fp8,
-                         per_token_cast_to_fp8, quantize_experts,
-                         unpack_ue8m0_from_int)
+                         per_custom_dims_cast_to_fp8, per_token_cast_to_fp8,
+                         quantize_experts, unpack_ue8m0_from_int)

@@ -100,6 +100,21 @@ def per_block_cast_to_fp8(x: torch.Tensor, use_ue8m0: bool,
     return x_scaled.contiguous(), sf.reshape(*lead, pm // gran_k, pn // gran_k)
 
 
+def per_custom_dims_cast_to_fp8(x: torch.Tensor, dims, use_ue8m0: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One scale per index of the kept ``dims``, amax over all other dims
+    (the indexer's per-token kv cast): returns the e4m3 tensor and the f32
+    scales with every unit dim squeezed."""
+    keep = set(dims)
+    reduce = tuple(i for i in range(x.dim()) if i not in keep)
+    if reduce:
+        sf = _amax_sf(x, reduce, use_ue8m0)
+    else:       # amax over no dim (torch's dim=() would reduce them all)
+        sf = x.abs().float().clamp(min=FP8_AMAX_EPS) / FP8_MAX
+        sf = ceil_to_ue8m0(sf) if use_ue8m0 else sf
+    return cast_to_fp8(x * (1.0 / sf)), sf.squeeze()
+
+
 def quantize_experts(w: torch.Tensor, transpose: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[E, N, K] bf16 -> (e4m3 [E, N, K], f32 128x128 block scales

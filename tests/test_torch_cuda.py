@@ -9,10 +9,12 @@ imports):
 import pytest
 import torch
 
-from deepgemm_tpu_torch.kernels import dense, grouped, k_grouped
+from deepgemm_tpu_torch.kernels import (dense, grouped, k_grouped, mqa_logits, paged_mqa,
+                                        sparse_attn)
 from deepgemm_tpu_torch.kernels.common import plain_versions
 from deepgemm_tpu_torch.models import transformer as tt
 from deepgemm_tpu_torch.models.convert import tree_leaves, tree_map
+from deepgemm_tpu_torch.serving import ContinuousBatcher
 from deepgemm_tpu_torch.testing import calc_diff
 from deepgemm_tpu_torch.utils.math import (align, per_block_cast_to_fp8,
                                            per_channel_cast_to_fp8, per_token_cast_to_fp8,
@@ -232,3 +234,150 @@ def test_train_step_kernel_matches_plain(gen):
     for i, (k, p, o) in enumerate(zip(tree_leaves(new_k), tree_leaves(new_p), old)):
         assert calc_diff(k, p) < 1e-5, i
         assert calc_diff(k.float() - o.float(), p.float() - o.float()) < 1e-5, i
+
+
+# ---- the indexer kernels and the serving engine -------------------------------------
+
+def _fp8(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device='cuda') * scale).clamp(-448, 448).to(
+        torch.float8_e4m3fn)
+
+
+def _same_logits(got, want):
+    """-inf at the same places, calc_diff < 1e-5 over the rest."""
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = ~torch.isneginf(want)
+    assert calc_diff(got[fin], want[fin]) < 1e-5
+
+
+@pytest.mark.parametrize('sq,skv,h,d,layout', [(37, 300, 64, 128, 'full'),
+                                               (40, 520, 8, 64, 'full'),
+                                               (33, 256, 16, 128, 'compressed'),
+                                               (20, 200, 4, 32, 'ragged')])
+def test_mqa_logits_kernel_matches_plain(gen, sq, skv, h, d, layout):
+    q, kv = _fp8(gen, sq, h, d), _fp8(gen, skv, d)
+    sf = torch.rand(skv, generator=gen, device='cuda') + 0.5
+    w = torch.randn(sq, h, generator=gen, device='cuda')
+    ks = torch.randint(0, skv // 2, (sq,), generator=gen, device='cuda', dtype=torch.int32)
+    ke = ks + torch.randint(1, skv // 2, (sq,), generator=gen, device='cuda', dtype=torch.int32)
+    if layout != 'ragged':
+        ks.zero_()
+    maxk = int((ke - ks).max()) if layout != 'full' else 0
+    before = mqa_logits.launches
+    got = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf, max_seqlen_k=maxk)
+    with plain_versions():
+        want = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf, max_seqlen_k=maxk)
+    torch.cuda.synchronize()
+    assert mqa_logits.launches == before + 1
+    if layout == 'full':
+        _same_logits(got, want)
+    else:
+        assert calc_diff(got, want) < 1e-5
+        assert not got[torch.arange(maxk, device='cuda')[None, :] >= (ke - ks)[:, None]].any()
+
+
+@pytest.mark.parametrize('next_n,ctx_2d', [(1, False), (2, False), (2, True)])
+def test_paged_mqa_kernels_match_plain_and_each_other(gen, next_n, ctx_2d):
+    """The gather entry against the plain version; the zero-copy entry
+    bitwise equal to the gather entry."""
+    b, h, d, bkv, mb, nb = 5, 64, 128, 64, 6, 40
+    q = _fp8(gen, b, next_n, h, d)
+    w = torch.rand(b * next_n, h, generator=gen, device='cuda')
+    kv, sf = _fp8(gen, nb, bkv, d), torch.rand(nb, bkv, generator=gen, device='cuda')
+    bt = torch.randperm(nb, generator=gen, device='cuda')[:b * mb].view(b, mb).int()
+    shape = (b, next_n) if ctx_2d else (b,)
+    ctx = torch.randint(next_n + 1, bkv * mb, shape, generator=gen, device='cuda',
+                        dtype=torch.int32)
+    ctx.view(-1)[0] = 0                                     # a free slot
+    args = (q, kv, sf, w, ctx, bt, bkv * mb)
+    before = dict(paged_mqa.launches)
+    got = {s: paged_mqa.paged_mqa_logits(*args, strategy=s) for s in ('gather', 'paged')}
+    with plain_versions():
+        want = paged_mqa.paged_mqa_logits(*args)
+    torch.cuda.synchronize()
+    assert paged_mqa.launches == {s: before[s] + 1 for s in before}
+    _same_logits(got['gather'], want)
+    assert torch.equal(got['paged'], got['gather'])
+
+
+@pytest.mark.parametrize('d', [64, 128, 256])
+def test_sparse_attention_kernel_matches_plain(gen, d):
+    rows, t, h = 6, 300, 12
+    q = _randn(gen, rows, h, d)
+    k, v = _randn(gen, rows, t, h, d), _randn(gen, rows, t, h, d)
+    valid = torch.rand(rows, t, generator=gen, device='cuda') > 0.3
+    valid[2] = False                                        # no valid position: 0
+    k[1][~valid[1]] = float('nan')                          # unselected: never read
+    v[3][~valid[3]] = float('inf')
+    before = sparse_attn.launches
+    got = sparse_attn.gathered_attention(q, k, v, valid, d ** -0.5)
+    with plain_versions():
+        want = sparse_attn.gathered_attention(q, k, v, valid, d ** -0.5)
+    torch.cuda.synchronize()
+    assert sparse_attn.launches == before + 1
+    assert torch.isfinite(got).all() and not got[2].any()
+    assert calc_diff(got, want) < 1e-5
+
+
+ENGINE = dict(max_slots=4, max_pages_per_seq=6, num_blocks=32, block_kv=64, num_heads=4,
+              head_dim=128, index_heads=8, index_dim=128, topk=32)
+
+
+def _token_streams(tokens):
+    """Each slot's decode streams from a generator seeded by its token."""
+    h, d, hi, di = (ENGINE[k] for k in ('num_heads', 'head_dim', 'index_heads', 'index_dim'))
+    sizes = (h * d, hi * di, hi, h * d, h * d, di, 1)
+    out = []
+    for tok in tokens.tolist():
+        g = torch.Generator(device='cuda').manual_seed(7919 + tok)
+        out.append(torch.randn(sum(sizes), generator=g, device='cuda'))
+    q, iq, iw, k, v, ik, isf = torch.split(torch.stack(out), sizes, dim=1)
+    s = tokens.shape[0]
+    return (q.reshape(s, h, d).bfloat16(), iq.reshape(s, hi, di).bfloat16(), iw.abs(),
+            k.reshape(s, h, d).bfloat16(), v.reshape(s, h, d).bfloat16(),
+            ik.clamp(-448, 448).to(torch.float8_e4m3fn), isf[:, 0].abs() + 0.5)
+
+
+def _prompt(seed, t):
+    h, d, di = ENGINE['num_heads'], ENGINE['head_dim'], ENGINE['index_dim']
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    k, v = (torch.randn(t, h, d, generator=g, device='cuda').bfloat16() for _ in range(2))
+    ik = torch.randn(t, di, generator=g, device='cuda').to(torch.float8_e4m3fn)
+    return k, v, ik, torch.rand(t, generator=g, device='cuda') + 0.5
+
+
+def _run(seqs, steps=5):
+    """A fresh engine through ``steps`` decode steps; seqs: (label, seed,
+    prompt length, the step it joins at). Returns the outputs by (label, step)."""
+    eng = ContinuousBatcher(**ENGINE, embed_fn=_token_streams, device='cuda')
+    outs, ids = {}, {}
+    for step in range(steps):
+        for label, seed, t, first in seqs:
+            if step == first:
+                ids[label] = eng.admit(t)
+                eng.prefill(ids[label], *_prompt(seed, t))
+        seeds = {label: seed for label, seed, _, _ in seqs}
+        res = eng.step({sid: 1000 * seeds[label] + step for label, sid in ids.items()})
+        for label, sid in ids.items():
+            outs[label, step] = res[sid]
+    return outs
+
+
+def test_tiny_engine_kernels_match_plain_and_are_batch_invariant(gen):
+    """A tiny engine through the kernels (paged MQA 1, sparse attention 1
+    launch a step) and through their plain versions: outputs within 1e-5;
+    each of two sequences alone in a fresh engine gives the same bits."""
+    seqs = [('a', 1, 200, 0), ('b', 2, 90, 0), ('c', 3, 300, 2)]
+    before = (paged_mqa.launches['gather'], sparse_attn.launches, mqa_logits.launches)
+    outs = _run(seqs)
+    torch.cuda.synchronize()
+    assert (paged_mqa.launches['gather'], sparse_attn.launches, mqa_logits.launches) == (
+        before[0] + 5, before[1] + 5, before[2])
+    with plain_versions():
+        plain = _run(seqs)
+    for key, out in outs.items():
+        assert torch.isfinite(out.float()).all()
+        assert calc_diff(out, plain[key]) < 1e-5, key
+    for alone in (seqs[0], seqs[2]):
+        for key, out in _run([alone]).items():
+            assert torch.equal(out, outs[key]), key

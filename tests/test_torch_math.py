@@ -85,3 +85,13 @@ def test_quantize_experts_bitwise(transpose, monkeypatch):
     monkeypatch.setattr(tm, '_CHUNK_ELEMS', 2 * 200 * 136)
     got = tm.quantize_experts(w_t, transpose=transpose)
     _check(want, got, f'quantize_experts(transpose={transpose})')
+
+
+@pytest.mark.parametrize('use_ue8m0', [False, True])
+@pytest.mark.parametrize('shape,dims', [((96, 128), (0,)), ((6, 4, 64), (0, 1)), ((3, 32), (0, 1))])
+def test_per_custom_dims_cast_bitwise(shape, dims, use_ue8m0):
+    """The indexer's per-token kv cast: one scale per index of the kept dims
+    (all dims kept: one scale per element)."""
+    xj, xt = _bf16_pair(shape, seed=8)
+    _check(jm.per_custom_dims_cast_to_fp8(xj, dims, use_ue8m0=use_ue8m0),
+           tm.per_custom_dims_cast_to_fp8(xt, dims, use_ue8m0=use_ue8m0), 'per_custom_dims')

@@ -47,6 +47,10 @@ def test_entry_points_refuse_cpu_unasked():
         dgt.resolve_device()
     with pytest.raises(RuntimeError, match='no CUDA device'):
         dgt.get_num_sms()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        dgt.ContinuousBatcher(max_slots=1, max_pages_per_seq=1, num_blocks=1, block_kv=64,
+                              num_heads=1, head_dim=64, index_heads=1, index_dim=32, topk=1,
+                              embed_fn=None)
 
 
 def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
