@@ -5,7 +5,7 @@
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
-  2. the build: the seven CUDA libraries with nvcc, in parallel, from csrc/;
+  2. the build: the eight CUDA libraries with nvcc, in parallel, from csrc/;
   3. the dense FP8 kernel against its plain version at 4096^3 and
      128x4096x7168, then the library entry fp8_gemm_nt (launches counted);
   4. the masked grouped kernel, bf16 and fp8, against its plain version at
@@ -48,6 +48,19 @@ Phases, one line each (a failure in any phase exits non-zero):
      64 rows of an 8192-token prompt: MQA logits 1, attention 1, each held to
      its plain version) and the MQA logits kernel at the JAX bench's prefill
      shape (2048 x 8192, 64 heads x 128) against its plain version.
+  8. the mega MoE forward: the model at the phase 5 widths (2 layers) with
+     use_mega and the fused comm on three [2, 64] batches, with bf16 act
+     and with DGT_MEGA_ACT_FP8=1: launches per forward (mega 1 a layer,
+     masked 0), tokens/s, finite logits, each layer's fused MoE output
+     against its plain version (calc_diff < TOL) and against the unfused
+     path on the same input (< 1e-3 with bf16 act, < 1e-4 with fp8 act),
+     a profile; the 'xla' comm (mega_chunks=2, which moves no bit at one
+     rank) bitwise equal to the unfused forward, 2 masked launches a layer
+     and no mega launch; then the kernel's five instances (bf16, fp8 and FP4 weights,
+     bf16 and fp8 act) at one layer's full shapes: each against its plain
+     version, twice bitwise, FP4 bitwise the fp8 instance fed the decoded
+     weights, packed bitwise raw, each timed beside its bound, its plain
+     version, the unfused layer and two bf16 torch.bmm with F.silu between.
 Then one JSON line of kernel numbers, the card's nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -1262,6 +1275,264 @@ def phase_serve(seed, arch):
                 tokens_per_s=tokens_per_s, peak_gb=peak_gb)
 
 
+# Phase 8: the mega MoE forward at DeepSeek-V3 widths (the phase 5 widths,
+# 2 of 61 layers) through the fused expert-block kernel, one launch a layer.
+MEGA_MODES = {            # instance: (scaled, FP4 weights, fp8 act)
+    'bf16': (False, False, False), 'fp8': (True, False, False),
+    'fp8_act_fp8': (True, False, True), 'fp4': (True, True, False),
+    'fp4_act_fp8': (True, True, True)}
+MEGA_UNFUSED_LIMIT = {'0': 1e-3, '1': 1e-4}   # tests/test_mega_moe.py:252-257
+MEGA_CAP = 40             # moe_capacity(128 tokens, top-8, 256 experts, factor 8)
+
+
+@contextlib.contextmanager
+def env(name, value):
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = before
+
+
+def mega_walk(params, tokens, cfg_fused, cfg_unfused):
+    """Layer by layer on the fused path's own states: each layer's fused MoE
+    output against its plain version (plain_versions) and against the
+    unfused path (masked kernels) on the same input. Returns (per-layer
+    (plain diff, unfused diff), the walked logits)."""
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.models.transformer import attention, moe_block, rms_norm
+    from deepgemm_tpu_torch.testing import calc_diff
+    x = params['embed'][tokens]
+    diffs = []
+    for layer in params['layers']:
+        h = x + attention(rms_norm(x, layer['ln1']), layer['wqkv'], layer['wo'], cfg_fused)
+        moe_in = rms_norm(h, layer['ln2'])
+        y = moe_block(moe_in, layer, cfg_fused)
+        with plain_versions():
+            y_plain = moe_block(moe_in, layer, cfg_fused)
+        y_unfused = moe_block(moe_in, layer, cfg_unfused)
+        require(torch.isfinite(y.float()).all().item(), 'fused MoE output not finite')
+        diffs.append((calc_diff(y, y_plain), calc_diff(y, y_unfused)))
+        x = h + y
+    embed = params['embed'].float()
+    return diffs, torch.matmul(rms_norm(x, params['final_norm']).float(), embed.t())
+
+
+def fp4_blocks(w, experts=16):
+    """Per-128x128-block e2m1 codes of bf16 w [E, n, k] in the planar-128
+    layout (int8 [E, n, k/2]) and their f32 scales, a few experts at a time."""
+    from deepgemm_tpu_torch.utils.math import _quantize_to_fp4_e2m1, pack_fp4_planar
+    e, n, k = w.shape
+    codes = torch.empty((e, n, k // 2), dtype=torch.int8, device=w.device)
+    sf = torch.empty((e, n // 128, k // 128), dtype=torch.float32, device=w.device)
+    for e0 in range(0, e, experts):
+        wf = w[e0:e0 + experts].float().view(-1, n // 128, 128, k // 128, 128)
+        s = wf.abs().amax(dim=(2, 4)).clamp(min=1e-4) / 6.0
+        sf[e0:e0 + experts] = s
+        codes[e0:e0 + experts] = pack_fp4_planar(
+            _quantize_to_fp4_e2m1((wf / s[:, :, None, :, None]).view(-1, n, k)))
+        del wf
+    return codes, sf
+
+
+def decode_fp4(w, experts=16):
+    from deepgemm_tpu_torch.kernels.fused_moe import decode_fp4_planar
+    out = torch.empty((*w.shape[:-1], 2 * w.shape[-1]), dtype=torch.float8_e4m3fn,
+                      device=w.device)
+    for e0 in range(0, w.shape[0], experts):
+        out[e0:e0 + experts] = decode_fp4_planar(w[e0:e0 + experts])
+    return out
+
+
+def mega_modes(w1, w2, gen, arch):
+    """The kernel's five instances at one layer's full shapes (E=256,
+    cap=40, hidden 7168, intermediate 2048) on the layer's weights and
+    seeded slot rows: each against its plain version, twice bitwise, FP4
+    bitwise the fp8 instance fed the decoded weights, the packed call
+    bitwise the raw one; then each timed beside its bound, its plain
+    version, the unfused layer (masked L1, swiglu_apply_weight, masked L2)
+    and two bf16 torch.bmm with F.silu between. Returns {mode: numbers}."""
+    import torch.nn.functional as F
+    from deepgemm_tpu_torch.kernels import fused_moe, grouped
+    from deepgemm_tpu_torch.parallel.moe import swiglu_apply_weight
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    e_count, two_i, hidden = w1.shape
+    inter, cap = two_i // 2, MEGA_CAP
+    x = randn_bf16((e_count, cap, hidden), gen, 1.0)
+    rw = torch.rand((e_count, cap), generator=gen, device='cuda')
+    xq, xsf = per_token_cast_to_fp8(x.view(-1, hidden), use_ue8m0=False)
+    xq, xsf = xq.view(e_count, cap, hidden), xsf.view(e_count, cap, -1)
+    full = torch.full((e_count,), cap, dtype=torch.int32, device='cuda')
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
+    flops = 2 * e_count * cap * (two_i * hidden + hidden * inter)
+    library_ms = bench_kernel(lambda: torch.bmm(
+        (lambda gu: F.silu(gu[..., :inter]) * gu[..., inter:])(
+            torch.bmm(x, w1.transpose(1, 2))).to(torch.bfloat16), w2.transpose(1, 2)), iters=3)
+    weights = {'bf16': (w1, None, w2, None)}
+    weights['fp8'] = (*quantize_experts(w1), *quantize_experts(w2))
+    weights['fp4'] = (*fp4_blocks(w1), *fp4_blocks(w2))
+    out = {}
+    for mode, (scaled, w_fp4, act_fp8) in MEGA_MODES.items():
+        a1, s1, a2, s2 = weights['fp4' if w_fp4 else 'fp8' if scaled else 'bf16']
+        args = (xq, xsf, rw, a1, s1, a2, s2) if scaled else (x, None, rw, a1, None, a2, None)
+        kw = dict(w_fp4=w_fp4, act_fp8=act_fp8, silu_tanh=scaled and not act_fp8)
+        kernel = lambda: fused_moe.mega_local(*args, **kw)
+        y, again = kernel(), kernel()
+        ref = fused_moe.mega_local_plain(*args, **kw)
+        torch.cuda.synchronize()
+        diff, err = compare(y, ref)
+        require(diff < TOL, f'mega {mode}: calc_diff {diff} against the plain version')
+        require(torch.equal(y, again), f'mega {mode}: two calls differ')
+        checks = ['twice bitwise equal']
+        # the weights as e4m3 (FP4 decoded): the fp8 instance's and the unfused layer's
+        d1, d2 = (decode_fp4(a1), decode_fp4(a2)) if w_fp4 else (a1, a2)
+        if w_fp4:
+            y8 = fused_moe.mega_local(xq, xsf, rw, d1, s1, d2, s2, **dict(kw, w_fp4=False))
+            torch.cuda.synchronize()
+            require(torch.equal(y, y8), f'mega {mode}: FP4 differs from the decoded fp8 weights')
+            checks.append('bitwise equal to fp8 fed the decoded weights')
+            del y8
+        if mode == 'fp8':
+            pk = fused_moe.pack_mega_weights(a1, a2, s1, s2, act_fp8=False)
+            packed = fused_moe.fused_mega_moe(xq[None], rw[None], send_sf=xsf[None], packed=pk)
+            raw = fused_moe.fused_mega_moe(xq[None], rw[None], a1, a2, send_sf=xsf[None],
+                                           w1_sf=s1, w2_sf=s2, act_fp8=False)
+            torch.cuda.synchronize()
+            require(torch.equal(packed, raw) and torch.equal(raw[0], y),
+                    'mega fp8: packed, raw and the kernel call differ')
+            checks.append('packed bitwise equal to raw')
+            del pk, packed, raw
+        ms = bench_kernel(kernel, iters=5)
+        plain_ms = bench_kernel(lambda: fused_moe.mega_local_plain(*args, **kw), iters=1, warmup=0)
+
+        def unfused():
+            if not scaled:
+                gu = grouped.masked_gemm(x, d1, full)
+                return grouped.masked_gemm(swiglu_apply_weight(gu, rw).to(torch.bfloat16), d2, full)
+            gu = grouped.masked_gemm(xq, d1, full, sfa=xsf, sfb=s1)
+            act = swiglu_apply_weight(gu, rw).to(torch.bfloat16)
+            aq, asf = per_token_cast_to_fp8(act.view(-1, inter), use_ue8m0=False)
+            return grouped.masked_gemm(aq.view(e_count, cap, inter), d2, full,
+                                       sfa=asf.view(e_count, cap, -1), sfb=s2)
+        unfused_ms = bench_kernel(unfused, iters=3)
+        del d1, d2
+        bound = arch.bound_ms(nbytes(*args) + 2 * y.numel(), flops, fp8=scaled)
+        out[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+                         bound_ms=bound[0], bound_by=bound[1], unfused_ms=unfused_ms,
+                         check_calc_diff=diff, shape=[e_count, cap, hidden, inter])
+        log(f'phase 8 mode {mode} [E={e_count} cap={cap} H={hidden} I={inter}]: calc_diff={diff:.3e} '
+            f'(limit {TOL}) max_abs_err={err:.4g}, {", ".join(checks)}; kernel_ms={ms:.4f} '
+            f'plain_ms={plain_ms:.4f} unfused_layer_ms(masked L1 + swiglu_apply_weight + masked '
+            f'L2{" on the decoded weights" if w_fp4 else ""})={unfused_ms:.4f} '
+            f'library_ms(bf16 torch.bmm, F.silu(gate) * up, torch.bmm)={library_ms:.4f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={(nbytes(*args) + 2 * y.numel()) / ms / 1e6:.1f} '
+            f'TFLOPS={flops / ms / 1e9:.1f}')
+        del y, again, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mega(seed, arch):
+    """The mega MoE forward through the model's entry point; see the module
+    docstring. Returns (timing by mode, launches of the main path)."""
+    from deepgemm_tpu_torch.kernels import dense, fused_moe, grouped
+    from deepgemm_tpu_torch.models.transformer import ModelConfig, forward, init_params
+    from deepgemm_tpu_torch.testing import calc_diff
+    t0 = time.perf_counter()
+    params = init_params(ModelConfig(**V3), seed=seed + 9, device='cuda')
+    torch.cuda.synchronize()
+    log(f'phase 8 init: {time.perf_counter() - t0:.2f} s, '
+        f'{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights on the card')
+    gen = torch.Generator(device='cuda').manual_seed(seed + 10)
+    batches = [torch.randint(0, V3['vocab'], BATCH_SHAPE, generator=gen, device='cuda')
+               for _ in range(BATCHES)]
+    cfg_unfused = ModelConfig(**V3, use_fp8=True, use_kernels=True)
+    cfg_fused = ModelConfig(**V3, use_fp8=True, use_kernels=True, use_mega=True,
+                            mega_comm='fused')
+    layers = V3['num_layers']
+    launches = {}
+    for act in ('0', '1'):
+        kind = 'fp8_act_fp8' if act == '1' else 'fp8'
+        with env('DGT_MEGA_ACT_FP8', act):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            # the main path: counts at 0 just before, read just after
+            for key in fused_moe.launches:
+                fused_moe.launches[key] = 0
+            grouped.launches.update(bf16=0, fp8=0)
+            dense.launches = 0
+            logits, seconds = [], []
+            for tokens in batches:
+                t0 = time.perf_counter()
+                logits.append(forward(params, tokens, cfg_fused))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            seen = dict(mega=dict(fused_moe.launches), masked=sum(grouped.launches.values()),
+                        dense=dense.launches)
+            want = dict(mega=dict({k: 0 for k in fused_moe.launches}, **{kind: layers * BATCHES}),
+                        masked=0, dense=0)
+            require(seen == want, f'mega forward (act {kind}): launches {seen}, expected {want}')
+            launches[kind] = seen['mega'][kind]
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            tokens_per_s = (BATCHES - 1) * BATCH_SHAPE[0] * BATCH_SHAPE[1] / sum(seconds[1:])
+            log(f'phase 8 forward mega fused, act {"fp8" if act == "1" else "bf16"}: launches '
+                f'{seen} (per forward: mega {layers}, masked 0) tokens/s={tokens_per_s:.1f} '
+                f'(batches 2-{BATCHES} of {BATCH_SHAPE}; seconds per batch '
+                f'{[round(v, 4) for v in seconds]}, the first with warm-up, fp8 weight '
+                f'quantization in every call) peak_mem={peak_gb:.2f} GB')
+            limit = MEGA_UNFUSED_LIMIT[act]
+            for i, (tokens, lk) in enumerate(zip(batches, logits)):
+                require(tuple(lk.shape) == (*BATCH_SHAPE, V3['vocab']), f'logits {tuple(lk.shape)}')
+                require(torch.isfinite(lk).all().item(), 'mega forward: logits not finite')
+                diffs, walked = mega_walk(params, tokens, cfg_fused, cfg_unfused)
+                require(torch.equal(walked, lk), 'mega forward: the walk differs from forward')
+                plain_d = [d for d, _ in diffs]
+                unfused_d = [d for _, d in diffs]
+                require(max(plain_d) < TOL and max(unfused_d) < limit,
+                        f'mega act {kind}: per layer against plain {plain_d} (limit {TOL}), '
+                        f'against unfused {unfused_d} (limit {limit})')
+                log(f'  batch {i}: per layer fused MoE vs plain {[f"{d:.3e}" for d in plain_d]} '
+                    f'(limit {TOL}), vs unfused (masked kernels) {[f"{d:.3e}" for d in unfused_d]} '
+                    f'(limit {limit}); the walk equals forward bitwise')
+            del logits
+    profile(lambda: forward(params, batches[0], cfg_fused), 'forward mega fused', 'one [2, 64] batch')
+
+    # the 'xla' comm (2 chunks, which move no bit at one rank): bitwise the
+    # unfused forward, through the masked kernel
+    cfg_xla = ModelConfig(**V3, use_fp8=True, use_kernels=True, use_mega=True, mega_comm='xla',
+                          mega_chunks=2)
+    grouped.launches.update(bf16=0, fp8=0)
+    for key in fused_moe.launches:
+        fused_moe.launches[key] = 0
+    l_xla = forward(params, batches[0], cfg_xla)
+    torch.cuda.synchronize()
+    xla_masked, xla_mega = sum(grouped.launches.values()), sum(fused_moe.launches.values())
+    l_unfused = forward(params, batches[0], cfg_unfused)
+    torch.cuda.synchronize()
+    require(xla_masked == 2 * layers and xla_mega == 0,
+            f"mega 'xla': masked launches {xla_masked}, mega launches {xla_mega}; "
+            f"expected {2 * layers} (2 a layer) and 0")
+    require(torch.equal(l_xla, l_unfused), "mega 'xla' (2 chunks) differs from the unfused forward")
+    log(f"phase 8 mega 'xla' comm, 2 chunks: logits bitwise equal to the unfused forward "
+        f"(masked launches {xla_masked}, required {2 * layers}: 2 a layer; mega launches "
+        f"{xla_mega}, required 0); fused against unfused logits "
+        f"calc_diff {calc_diff(forward(params, batches[0], cfg_fused), l_unfused):.3e}")
+    del l_xla, l_unfused
+    layer0 = params['layers'][0]
+    w1, w2 = layer0['w1'], layer0['w2']
+    del params, layer0
+    torch.cuda.empty_cache()
+    timing = mega_modes(w1, w2, gen, arch)
+    del w1, w2
+    torch.cuda.empty_cache()
+    return timing, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1298,6 +1569,9 @@ def main(argv=None) -> int:
     served = phase_serve(args.seed, H100_SXM)
     torch.cuda.synchronize()
     prefill, prefill_counts = phase_prefill(args.seed, H100_SXM)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mega, mega_launches = phase_mega(args.seed, H100_SXM)
     torch.cuda.synchronize()
 
     # Each kernel's numbers are those of the path that runs it: the masked
@@ -1345,6 +1619,14 @@ def main(argv=None) -> int:
                        'deepgemm_tpu/kernels/sparse_attn.py:104', served['counts']['attn'],
                        errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn']),
     ]
+    # phase 8: the main path's instance (fp8 weights, bf16 act) with the
+    # other four beside it; launches are the default forward's
+    kernels.append(dict(name='mega_local_moe', route='cuda',
+                        source='deepgemm_tpu_torch/csrc/mega_local.cu',
+                        replaces='deepgemm_tpu/kernels/fused_moe.py:690',
+                        launches=mega_launches['fp8'],
+                        act_fp8_forward_launches=mega_launches['fp8_act_fp8'],
+                        **mega['fp8'], modes=mega))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -5,15 +5,19 @@ It holds the FP8 dense NT GEMM (bf16 or f32 out), the masked and the
 contiguous grouped GEMMs, the k-grouped GEMM, the indexer's MQA logits
 (prefill and paged decode) and the sparse attention over the selected rows
 (each a hand-written CUDA kernel with a plain PyTorch version beside it),
-the quantization contract, the differentiable FP8 matmuls, the MoE
-transformer at one rank (the serving forward and the FP8 SGD training step)
-and the continuous-batching serving engine over the lightning indexer.
+the fused MoE expert block of the mega MoE (L1, SwiGLU, L2 in one kernel;
+bf16, FP8 or planar FP4 weights), the quantization contract with the FP4
+casts and packers, the differentiable FP8 matmuls, the MoE transformer at
+one rank (the serving forward, with the mega MoE, and the FP8 SGD training
+step) and the continuous-batching serving engine over the lightning
+indexer.
 Entry points run on the CUDA card unless the caller passes ``device='cpu'``.
 Importing the package builds and loads nothing: kernels build at first use.
 """
 
 from .kernels.common import plain_versions
 from .kernels.dense import dense_fp8_gemm_nt
+from .kernels.fused_moe import MegaPackedWeights, pack_mega_weights
 from .kernels.grouped import contiguous_gemm, masked_gemm
 from .kernels.k_grouped import k_grouped_gemm
 from .models.indexer import indexer_sparse_attention, indexer_sparse_decode
@@ -32,10 +36,18 @@ from .ops.m_grouped import (m_grouped_bf16_gemm_nt_contiguous,
                             m_grouped_fp8_fp4_gemm_nt_masked,
                             m_grouped_fp8_gemm_nt_contiguous,
                             m_grouped_fp8_gemm_nt_masked)
+from .parallel.mega import (SymmBuffer, bf16_mega_moe, fp8_fp4_mega_moe,
+                            get_ring_limit_for_mega_moe, get_symm_buffer_size_for_mega_moe,
+                            get_token_alignment_for_mega_moe, transform_weights_for_mega_moe)
 from .runtime.config import get_num_sms, resolve_device, set_num_sms
 from .serving import ContinuousBatcher, PageAllocator, PagedCache, SequenceState
 from .testing.numeric import calc_diff
-from .utils.math import (align, ceil_div, ceil_to_ue8m0, pack_ue8m0_to_int,
-                         per_block_cast_to_fp8, per_channel_cast_to_fp8,
-                         per_custom_dims_cast_to_fp8, per_token_cast_to_fp8,
-                         quantize_experts, unpack_ue8m0_from_int)
+from .utils.math import (align, cast_back_from_fp4, ceil_div, ceil_to_ue8m0,
+                         pack_fp4_planar, pack_ue8m0_to_int, per_block_cast_to_fp8,
+                         per_channel_cast_to_fp8, per_custom_dims_cast_to_fp8,
+                         per_token_cast_to_fp4, per_token_cast_to_fp8, quantize_experts,
+                         repack_fp4_to_planar, transpose_packed_fp4, unpack_fp4_planar,
+                         unpack_ue8m0_from_int)
+
+# the reference's Python-level name (deep_gemm/__init__.py)
+get_symm_buffer_for_mega_moe = SymmBuffer

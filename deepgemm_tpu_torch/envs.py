@@ -5,6 +5,7 @@
 | ``DGT_NVCC``      | path of the CUDA compiler (default ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on ``PATH``) |
 | ``DGT_BUILD_DIR`` | where the kernels' shared libraries are built (default ``deepgemm_tpu_torch/_build``) |
 | ``DGT_SPARSE_GATHER`` | the decode's token gather: only ``flat`` (the default) is ported; any other value raises (``pallas`` is the next slice) |
+| ``DGT_MEGA_ACT_FP8`` | the mega block's act between L1 and L2: ``1`` fp8 (requantized per 128), ``0`` or unset bf16 |
 
 All are read lazily, at each use, never at import.
 """
@@ -19,4 +20,10 @@ def nvcc() -> Optional[str]:
 
 def build_dir() -> Optional[str]:
     return os.environ.get('DGT_BUILD_DIR')
+
+
+def mega_act_fp8() -> Optional[str]:
+    """``DGT_MEGA_ACT_FP8``: '1' requantizes the mega block's act to fp8
+    between L1 and L2, '0' keeps it bf16 (the default when unset)."""
+    return os.environ.get('DGT_MEGA_ACT_FP8')
 

@@ -3,7 +3,7 @@ plain PyTorch version, the operand checks, and the plain form of the exact
 FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52)."""
 
 import contextlib
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -80,13 +80,14 @@ def sfb_shift(gran_n: int) -> int:
     return gran_n.bit_length() - 1
 
 
-def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: torch.Tensor,
+def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor],
                   sfb: torch.Tensor, gran_n: int = 128, gran_k: int = 128) -> torch.Tensor:
     """f32 ``sum_s (a_s @ b_s^T) * sfb[s] (per column) * sfa[s] (per row)``
     over the 128-deep k sub-blocks ``s``, in that multiply order.
 
     ``a`` [..., m, k] and ``b`` [..., n, k] are e4m3 (or any float type);
-    ``sfa`` is [..., m, ksf], ``sfb`` [..., ceil(n/gran_n), ksf] (one scale
+    ``sfa`` is [..., m, ksf] (None: ``a`` is unscaled, as the mega block's
+    bf16 act), ``sfb`` [..., ceil(n/gran_n), ksf] (one scale
     per ``gran_n`` rows of ``b``). The products run in f32 on upcast
     operands, which is exact for e4m3 inputs; on a CUDA card TF32 must be
     off (``torch.backends.cuda.matmul.allow_tf32`` is False by default)."""
@@ -97,6 +98,8 @@ def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: torch.Tensor,
         b_s = b[..., s * gran_k:(s + 1) * gran_k].float()
         p = torch.matmul(a_s, b_s.transpose(-1, -2))
         sfb_s = sfb[..., s].repeat_interleave(gran_n, dim=-1)[..., None, :n]
-        term = (p * sfb_s) * sfa[..., :, s:s + 1]
+        term = p * sfb_s
+        if sfa is not None:
+            term = term * sfa[..., :, s:s + 1]
         total = term if total is None else total + term
     return total

@@ -13,17 +13,23 @@ top-k over ``x @ router.T``, so a rounding moved upstream can flip an
 expert choice). On a CUDA card TF32 must stay off for those f32 products
 (PyTorch's default).
 
+With ``use_mega`` the MoE block runs the mega pipeline at one rank
+(parallel/mega.py): 'xla', the unfused expert block (at one rank the
+bits of the plain MoE path), or 'fused', the fused expert-block kernel
+(csrc/mega_local.cu) in one launch a layer.
+
 Parameters are a plain dict of tensors with the JAX package's layout.
-Still to be ported: the mega MoE and multi-rank meshes.
+Still to be ported: multi-rank meshes (ROADMAP.md, the multi-GPU tier).
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..ops.autograd import fp8_dense
+from ..parallel.mega import mega_moe_forward
 from ..parallel.moe import MoEConfig, ep_moe_forward
 from ..runtime.config import resolve_device
 from ..utils.math import _CHUNK_ELEMS, quantize_experts
@@ -43,6 +49,9 @@ class ModelConfig:
     capacity_factor: float = 4.0
     use_fp8: bool = False          # fp8 expert weights and activations (with use_kernels)
     use_kernels: bool = False      # see MoEConfig.use_kernels
+    use_mega: bool = False         # the mega MoE pipeline (inference)
+    mega_chunks: Optional[int] = None  # None or > 0; moves no bit at one rank
+    mega_comm: str = 'xla'         # 'xla' | 'fused' ('pallas' raises: multi-GPU tier)
     # FP8 training: attention projections through the differentiable fp8
     # dense op; with use_kernels also the expert GEMMs through the grouped
     # autograd op (see MoEConfig.fp8_training)
@@ -135,9 +144,10 @@ def attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
 def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
     """Router + MoE at one rank. On the FP8 serving path (``use_fp8`` and
     ``use_kernels``, not training) the expert weights are quantized in this
-    call, as the JAX model does, and freed on return; FP8 training
-    quantizes inside the grouped autograd op, so the weights stay bf16
-    leaves that receive their gradients."""
+    call, as the JAX model does, and freed on return; the fused mega path
+    takes them without a repack (its kernel pairs gate and up rows by
+    address). FP8 training quantizes inside the grouped autograd op, so the
+    weights stay bf16 leaves that receive their gradients."""
     b, s, h = x.shape
     tokens = x.reshape(b * s, h)
     logits = tokens.float() @ layer['router'].t()
@@ -148,7 +158,11 @@ def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig) -> torch
     if cfg.use_fp8 and cfg.use_kernels and not moe_cfg.fp8_training:
         w1, w1_sf = quantize_experts(w1)
         w2, w2_sf = quantize_experts(w2)
-    y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg)
+    if cfg.use_mega:
+        y, _ = mega_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg,
+                                num_chunks=cfg.mega_chunks, comm=cfg.mega_comm)
+    else:
+        y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg)
     return y.reshape(b, s, h)
 
 

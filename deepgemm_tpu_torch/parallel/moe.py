@@ -48,6 +48,18 @@ def swiglu_apply_weight(gate_up: torch.Tensor, row_weights: torch.Tensor,
     return act * row_weights[..., None]
 
 
+def swiglu_apply_weight_to_fp8(gate_up: torch.Tensor, row_weights: torch.Tensor,
+                               gran_k: int = 128):
+    """SwiGLU + weight, then the per-token FP8 requant of the bf16 result:
+    the unfused form of the mega block's act-fp8 epilogue. Returns (e4m3
+    [..., I], f32 scales [..., I / gran_k])."""
+    act = swiglu_apply_weight(gate_up, row_weights)
+    shape = act.shape
+    q, sf = per_token_cast_to_fp8(act.reshape(-1, shape[-1]).to(torch.bfloat16),
+                                  use_ue8m0=False, gran_k=gran_k)
+    return q.reshape(shape), sf.reshape(*shape[:-1], -1)
+
+
 def moe_capacity(num_tokens: int, topk: int, num_experts: int,
                  capacity_factor: float) -> int:
     """Per-expert slot capacity, aligned for the grouped kernels."""
@@ -71,48 +83,74 @@ def dispatch_indices(topk_idx: torch.Tensor, num_experts: int, capacity: int):
     return expert, slot, kept, (~kept).sum()
 
 
+def ep_dispatch_indices(topk_idx: torch.Tensor, num_experts: int, e_local: int,
+                        capacity: int):
+    """The plan as the JAX package's ``dispatch_indices`` gives it
+    (deepgemm_tpu/parallel/moe.py:89-110): (rank, local expert, slot, kept,
+    num_dropped) of each pair. At one rank (``e_local == num_experts``) the
+    rank is 0 and the local expert the expert."""
+    expert, slot, kept, num_dropped = dispatch_indices(topk_idx, num_experts, capacity)
+    return expert // e_local, expert % e_local, slot, kept, num_dropped
+
+
+def local_expert_recv_stats(topk_idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """This step's routed-pair count of each expert, int32 [E], at one rank
+    (the JAX package's ``local_expert_recv_stats``): capacity drops
+    included, as the mega kernel's receive accounting counts them."""
+    return torch.bincount(topk_idx.reshape(-1).long(),
+                          minlength=cfg.num_experts).to(torch.int32)
+
+
+def scatter_to_slots(x: torch.Tensor, pair_w: torch.Tensor, expert: torch.Tensor,
+                     slot: torch.Tensor, kept: torch.Tensor, num_experts: int, cap: int,
+                     k: int, fill_x: float = 0.0):
+    """Each kept pair's row of ``x`` [T, W] (token t owns pairs t*k ..
+    t*k+k-1) and its weight into [E, cap, W] and [E, cap]; empty slots hold
+    rows of ``fill_x`` and weight 0. Dropped pairs land on an extra last
+    row that the prefix view leaves out (the JAX scatter's mode='drop')."""
+    t_count, width = x.shape
+    pair_t = torch.arange(t_count, device=x.device).repeat_interleave(k)
+    dest = torch.where(kept, expert * cap + slot, num_experts * cap)
+    rows = x.new_full((num_experts * cap + 1, width), fill_x)
+    rows.index_put_((dest,), x[pair_t])
+    row_w = torch.zeros(num_experts * cap + 1, dtype=pair_w.dtype, device=x.device)
+    row_w.index_put_((dest,), pair_w)
+    return (rows[:num_experts * cap].view(num_experts, cap, width),
+            row_w[:num_experts * cap].view(num_experts, cap))
+
+
+def combine_pairs(y_exp: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+                  kept: torch.Tensor, t_count: int, k: int) -> torch.Tensor:
+    """Weighted rows [E, cap, H] back to their tokens, bf16 [T, H]. The JAX
+    scatter-add is a sum over k, taken here in pair order in f32 without
+    atomics: the same inputs give the same bits on every run (a changed
+    last bit can flip a later layer's expert choice)."""
+    cap, hidden = y_exp.shape[1:]
+    y_pairs = y_exp[expert, slot.clamp(0, cap - 1)]
+    y_pairs = torch.where(kept[:, None], y_pairs, torch.zeros_like(y_pairs))
+    y_pairs = y_pairs.view(t_count, k, hidden).float()
+    out = torch.zeros((t_count, hidden), dtype=torch.float32, device=y_exp.device)
+    for j in range(k):
+        out += y_pairs[:, j]
+    return out.to(torch.bfloat16)
+
+
 def ep_moe_forward(x: torch.Tensor, topk_idx: torch.Tensor,
                    topk_weights: torch.Tensor, w1, w1_sf, w2, w2_sf,
                    cfg: MoEConfig):
     """x [T, H] bf16; topk_idx [T, K]; topk_weights [T, K] f32;
     w1 [E, 2I, H], w2 [E, H, I] (e4m3 with [E, ., .] block scales, or bf16
     with sf None). Returns (y [T, H] bf16, num_dropped [1])."""
-    t_count, hidden = x.shape
+    t_count = x.shape[0]
     k = topk_idx.shape[1]
-    num_experts = cfg.num_experts
-    cap = moe_capacity(t_count, k, num_experts, cfg.capacity_factor)
-    expert, slot, kept, num_dropped = dispatch_indices(topk_idx, num_experts, cap)
-
-    pair_t = torch.arange(t_count, device=x.device).repeat_interleave(k)
-    pair_w = topk_weights.reshape(-1).float()
-
-    # Scatter into [E * cap (+1 drop row), H]: dropped pairs land on the
-    # extra last row, which the prefix view leaves out (the JAX scatter's
-    # mode='drop').
-    dest = torch.where(kept, expert * cap + slot, num_experts * cap)
-    a1 = x.new_zeros((num_experts * cap + 1, hidden))
-    a1.index_put_((dest,), x[pair_t])
-    row_w = torch.zeros(num_experts * cap + 1, dtype=torch.float32, device=x.device)
-    row_w.index_put_((dest,), pair_w)
-    a1 = a1[:num_experts * cap].view(num_experts, cap, hidden)
-    row_w = row_w[:num_experts * cap].view(num_experts, cap)
-
+    cap = moe_capacity(t_count, k, cfg.num_experts, cfg.capacity_factor)
+    expert, slot, kept, num_dropped = dispatch_indices(topk_idx, cfg.num_experts, cap)
+    a1, row_w = scatter_to_slots(x, topk_weights.reshape(-1).float(), expert, slot, kept,
+                                 cfg.num_experts, cap, k)
     gate_up = _expert_gemm(a1, w1, w1_sf, cfg)                   # [E, cap, 2I]
     act = swiglu_apply_weight(gate_up, row_w).to(torch.bfloat16)
     y_exp = _expert_gemm(act, w2, w2_sf, cfg)                    # [E, cap, H]
-
-    # Combine: weighted rows back to their tokens (weights applied in
-    # SwiGLU). Token t owns pairs t*K .. t*K+K-1, so the JAX scatter-add is
-    # a sum over k, taken here in pair order without atomics: the same
-    # inputs give the same bits on every run (a changed last bit can flip a
-    # later layer's expert choice).
-    y_pairs = y_exp[expert, slot.clamp(0, cap - 1)]
-    y_pairs = torch.where(kept[:, None], y_pairs, torch.zeros_like(y_pairs))
-    y_pairs = y_pairs.view(t_count, k, hidden).float()
-    out = torch.zeros((t_count, hidden), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        out += y_pairs[:, j]
-    return out.to(torch.bfloat16), num_dropped.reshape(1)
+    return combine_pairs(y_exp, expert, slot, kept, t_count, k), num_dropped.reshape(1)
 
 
 def _expert_gemm(a_bf16: torch.Tensor, w: torch.Tensor, w_sf, cfg: MoEConfig

@@ -133,3 +133,111 @@ def quantize_experts(w: torch.Tensor, transpose: bool = False
         q[e0:e0 + step], sf[e0:e0 + step] = per_block_cast_to_fp8(
             part.transpose(1, 2) if transpose else part, use_ue8m0=False)
     return q, sf
+
+
+# ---------------------------------------------------------------------------
+# FP4 (e2m1): codes in int8 bytes, two a byte (deepgemm_tpu/utils/math.py:140-274)
+# ---------------------------------------------------------------------------
+
+FP4_MAX = 6.0       # max magnitude of e2m1
+_FP4_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+# midpoints between consecutive e2m1 magnitudes (round-to-nearest boundaries)
+_FP4_BOUNDARIES = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
+
+
+def _quantize_to_fp4_e2m1(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> e2m1 4-bit codes (sign bit 3, magnitude bits 0-2), int8."""
+    ax = x.abs()
+    code = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for boundary in _FP4_BOUNDARIES:
+        code += (ax > boundary).to(torch.int32)
+    sign = (x < 0) & (code != 0)
+    return (code | (sign.to(torch.int32) << 3)).to(torch.int8)
+
+
+def _dequantize_from_fp4_e2m1(codes: torch.Tensor) -> torch.Tensor:
+    """4-bit e2m1 codes (any int type) -> f32 values; code 0x8 gives +0."""
+    codes = codes.to(torch.int32)
+    value_idx = codes & 0x07
+    sign = (codes & 0x08) != 0
+    table = torch.tensor(_FP4_VALUES, dtype=torch.float32, device=codes.device)
+    value = table[value_idx.long()]
+    return torch.where(sign & (value_idx != 0), -value, value)
+
+
+def _pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return ((lo & 0x0F) | ((hi & 0x0F) << 4)).to(torch.int8)
+
+
+def per_token_cast_to_fp4(x: torch.Tensor, use_ue8m0: bool, gran_k: int = 128,
+                          use_packed_ue8m0: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1 x gran_k FP4 quantization; codes packed two a byte along n, the
+    first in the low nibble. SF [m, ceil(n / gran_k)] f32, or packed UE8M0
+    int32 (padded with 1.0 to a multiple of 4 scales)."""
+    m, n = x.shape
+    assert n % 2 == 0
+    assert not use_packed_ue8m0 or use_ue8m0
+    padded_n = align(n, gran_k)
+    x_view = F.pad(x, (0, padded_n - n)).reshape(m, -1, gran_k)
+    amax = x_view.abs().float().amax(dim=2).clamp(min=FP8_AMAX_EPS)
+    sf = amax / FP4_MAX
+    sf = ceil_to_ue8m0(sf) if use_ue8m0 else sf
+    codes = _quantize_to_fp4_e2m1(x_view * (1.0 / sf)[:, :, None])
+    codes2 = codes.reshape(m, padded_n // 2, 2).to(torch.int32)
+    packed = _pack_nibbles(codes2[:, :, 0], codes2[:, :, 1])[:, :n // 2]
+    if use_packed_ue8m0:
+        num_sf = sf.shape[-1]
+        if num_sf % 4:
+            sf = F.pad(sf, (0, align(num_sf, 4) - num_sf), value=1.0)
+        return packed.contiguous(), pack_ue8m0_to_int(sf)
+    return packed.contiguous(), sf
+
+
+def unpack_fp4_codes(packed: torch.Tensor) -> torch.Tensor:
+    """int8 packed codes [.., n/2] -> int32 codes [.., n] (low nibble first)."""
+    p = packed.to(torch.int32)
+    codes = torch.stack([p & 0x0F, (p >> 4) & 0x0F], dim=-1)
+    return codes.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def transpose_packed_fp4(a: torch.Tensor) -> torch.Tensor:
+    """Transpose a 2D packed-FP4 code matrix [m, n/2] -> [n, m/2]."""
+    assert a.dtype == torch.int8 and a.dim() == 2
+    m, n2 = a.shape
+    assert m % 2 == 0
+    codes_t = unpack_fp4_codes(a).t().reshape(n2 * 2, m // 2, 2)
+    return _pack_nibbles(codes_t[:, :, 0], codes_t[:, :, 1])
+
+
+def pack_fp4_planar(codes: torch.Tensor) -> torch.Tensor:
+    """e2m1 codes [.., k] (k % 256 == 0) -> the planar-128 int8 layout
+    [.., k/2]: within each 256-code group, byte j holds codes j (low
+    nibble) and 128 + j (high nibble)."""
+    k = codes.shape[-1]
+    assert k % 256 == 0, k
+    c = codes.to(torch.int32).reshape(*codes.shape[:-1], k // 256, 2, 128)
+    return _pack_nibbles(c[..., 0, :], c[..., 1, :]).reshape(*codes.shape[:-1], k // 2)
+
+
+def unpack_fp4_planar(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_fp4_planar` -> int32 codes [.., k]."""
+    k2 = packed.shape[-1]
+    p = packed.to(torch.int32).reshape(*packed.shape[:-1], k2 // 128, 128)
+    return torch.stack([p & 0x0F, (p >> 4) & 0x0F], dim=-2).reshape(*packed.shape[:-1], k2 * 2)
+
+
+def repack_fp4_to_planar(packed_interleaved: torch.Tensor) -> torch.Tensor:
+    """Adjacent-pair packing (:func:`per_token_cast_to_fp4`) -> planar-128."""
+    return pack_fp4_planar(unpack_fp4_codes(packed_interleaved))
+
+
+def cast_back_from_fp4(packed: torch.Tensor, sf: torch.Tensor, gran_k: int = 128,
+                       use_packed_ue8m0: bool = False) -> torch.Tensor:
+    """Dequantize packed FP4 [m, n/2] + SF back to f32 [m, n]."""
+    n = packed.shape[1] * 2
+    if use_packed_ue8m0:
+        sf = unpack_ue8m0_from_int(sf)
+    values = _dequantize_from_fp4_e2m1(unpack_fp4_codes(packed))
+    group_idx = torch.arange(n, device=packed.device) // gran_k
+    return values * sf[:, group_idx]

@@ -381,3 +381,111 @@ def test_tiny_engine_kernels_match_plain_and_are_batch_invariant(gen):
     for alone in (seqs[0], seqs[2]):
         for key, out in _run([alone]).items():
             assert torch.equal(out, outs[key]), key
+
+
+# ---- the fused mega expert block ----------------------------------------------------
+
+_MEGA_MODES = {'bf16': (False, False, False), 'fp8': (True, False, False),
+               'fp8_act_fp8': (True, False, True), 'fp4': (True, True, False),
+               'fp4_act_fp8': (True, True, True)}
+
+
+def _fp4_blocks(w):
+    """Per-128x128-block e2m1 codes of w [E, n, k] (planar-128 int8) and
+    their f32 scales."""
+    from deepgemm_tpu_torch.utils.math import _quantize_to_fp4_e2m1, pack_fp4_planar
+    e, n, k = w.shape
+    wf = w.float().view(e, n // 128, 128, k // 128, 128)
+    sf = wf.abs().amax(dim=(2, 4)).clamp(min=1e-4) / 6.0
+    codes = _quantize_to_fp4_e2m1((wf / sf[:, :, None, :, None]).view(e, n, k))
+    return pack_fp4_planar(codes), sf
+
+
+def _mega_case(gen, mode, e=3, cap=40, hidden=256, inter=512):
+    scaled, w_fp4, act_fp8 = _MEGA_MODES[mode]
+    x = _randn(gen, e, cap, hidden)
+    x[:, cap - 5:] = 0                                    # empty slots
+    rw = torch.rand((e, cap), generator=gen, device='cuda')
+    w1 = _randn(gen, e, 2 * inter, hidden) * 0.05
+    w2 = _randn(gen, e, hidden, inter) * 0.05
+    if not scaled:
+        return (x, None, rw, w1, None, w2, None), {}
+    xq, xsf = per_token_cast_to_fp8(x.view(-1, hidden), use_ue8m0=False)
+    xq, xsf = xq.view(e, cap, hidden), xsf.view(e, cap, -1)
+    if w_fp4:
+        (w1q, w1sf), (w2q, w2sf) = _fp4_blocks(w1), _fp4_blocks(w2)
+    else:
+        (w1q, w1sf), (w2q, w2sf) = quantize_experts(w1), quantize_experts(w2)
+    return (xq, xsf, rw, w1q, w1sf, w2q, w2sf), dict(w_fp4=w_fp4, act_fp8=act_fp8)
+
+
+@pytest.mark.parametrize('cap', [40, 100])           # one row block of 48; three, the last of 4
+@pytest.mark.parametrize('mode', list(_MEGA_MODES))
+def test_mega_kernel_matches_plain(gen, mode, cap):
+    """Each instance against its plain version, both silu forms; the same
+    call twice gives the same bits."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    args, kw = _mega_case(gen, mode, cap=cap)
+    for silu_tanh in (False, True):
+        before = fused_moe.launches[mode]
+        y = fused_moe.mega_local(*args, silu_tanh=silu_tanh, **kw)
+        again = fused_moe.mega_local(*args, silu_tanh=silu_tanh, **kw)
+        ref = fused_moe.mega_local_plain(*args, silu_tanh=silu_tanh, **kw)
+        torch.cuda.synchronize()
+        assert fused_moe.launches[mode] == before + 2
+        assert torch.isfinite(y.float()).all()
+        assert torch.equal(y, again)
+        assert calc_diff(y, ref) < 1e-5, silu_tanh
+
+
+@pytest.mark.parametrize('act_fp8', [False, True])
+def test_mega_kernel_fp4_is_bitwise_the_predecoded_fp8(gen, act_fp8):
+    from deepgemm_tpu_torch.kernels import fused_moe
+    (x, xsf, rw, w1, w1sf, w2, w2sf), _ = _mega_case(gen, 'fp4', cap=72)
+    y4 = fused_moe.mega_local(x, xsf, rw, w1, w1sf, w2, w2sf, w_fp4=True, act_fp8=act_fp8)
+    y8 = fused_moe.mega_local(x, xsf, rw, fused_moe.decode_fp4_planar(w1), w1sf,
+                              fused_moe.decode_fp4_planar(w2), w2sf, act_fp8=act_fp8)
+    torch.cuda.synchronize()
+    assert torch.equal(y4, y8)
+
+
+def test_mega_kernel_refusals_raise(gen):
+    """A launch the card refuses (more shared memory than a block may use)
+    raises from the C entry's error code; the wrapper refuses it first."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.runtime import build
+    inter = 40960                     # the act scales of 48 rows overflow shared memory
+    (x, _, rw, w1, _, w2, _), _ = _mega_case(gen, 'bf16', hidden=128, inter=inter)
+    with pytest.raises(ValueError, match='shared memory'):
+        fused_moe.mega_local(x, None, rw, w1, None, w2, None)
+    y = torch.empty_like(x)
+    act = torch.empty(3 * 40 * inter * 2, dtype=torch.uint8, device='cuda')
+    code = fused_moe._entry()(x.data_ptr(), None, rw.data_ptr(), w1.data_ptr(), None,
+                              w2.data_ptr(), None, act.data_ptr(), y.data_ptr(), 3, 40, 128,
+                              inter, 0, 0, 0, 256.0, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        build.check(build.load('mega_local'), code, 'mega_local')
+
+
+@pytest.mark.parametrize('comm', ['fused', 'xla'])
+def test_one_layer_mega_forward(gen, comm):
+    """The fp8 model through the mega MoE: 'fused' launches the mega kernel
+    once a layer and the masked kernel never, within JAX's fused-vs-unfused
+    limit of the unfused forward; 'xla' is bitwise the unfused forward."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
+                num_experts=8, topk=2, moe_intermediate=256, capacity_factor=8.0,
+                use_fp8=True, use_kernels=True)
+    params = tt.init_params(tt.ModelConfig(**base), seed=0)
+    tokens = torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
+    unfused = tt.forward(params, tokens, tt.ModelConfig(**base))
+    before = (dict(fused_moe.launches), dict(grouped.launches))
+    mega = tt.forward(params, tokens, tt.ModelConfig(**base, use_mega=True, mega_comm=comm))
+    torch.cuda.synchronize()
+    if comm == 'fused':
+        assert fused_moe.launches['fp8'] == before[0]['fp8'] + 1
+        assert grouped.launches == before[1]
+        assert calc_diff(mega, unfused) < 1e-3
+    else:
+        assert fused_moe.launches == before[0]
+        assert torch.equal(mega, unfused)

@@ -95,3 +95,50 @@ def test_per_custom_dims_cast_bitwise(shape, dims, use_ue8m0):
     xj, xt = _bf16_pair(shape, seed=8)
     _check(jm.per_custom_dims_cast_to_fp8(xj, dims, use_ue8m0=use_ue8m0),
            tm.per_custom_dims_cast_to_fp8(xt, dims, use_ue8m0=use_ue8m0), 'per_custom_dims')
+
+
+# ---- FP4 (e2m1) helpers -------------------------------------------------
+
+@pytest.mark.parametrize('use_ue8m0,use_packed_ue8m0', [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize('shape', [(8, 256), (5, 200)])
+def test_per_token_cast_to_fp4_bitwise(shape, use_ue8m0, use_packed_ue8m0):
+    xj, xt = _bf16_pair(shape, seed=11)
+    _check(jm.per_token_cast_to_fp4(xj, use_ue8m0=use_ue8m0, use_packed_ue8m0=use_packed_ue8m0),
+           tm.per_token_cast_to_fp4(xt, use_ue8m0=use_ue8m0, use_packed_ue8m0=use_packed_ue8m0),
+           'per_token_fp4')
+
+
+def test_fp4_code_helpers_bitwise():
+    """Quantize and dequantize every code (signed zero included, which
+    decodes to +0), the planar-128 pack and its inverse, the repack from
+    adjacent pairs, the transpose and the cast back."""
+    rng = np.random.RandomState(12)
+    vals = (rng.randn(6, 512) * 3).astype(np.float32)
+    vals[0, :17] = [0.0, -0.0, 0.25, -0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0, 7.0, -7.0,
+                    -0.1, 0.1, -5.0, 6.0, -6.0]
+    codes_j = jm._quantize_to_fp4_e2m1(jnp.asarray(vals))
+    codes_t = tm._quantize_to_fp4_e2m1(torch.from_numpy(vals))
+    assert_bitwise_equal(codes_t, np.asarray(codes_j), 'codes')
+    all_codes = np.arange(16, dtype=np.int8)
+    assert_bitwise_equal(tm._dequantize_from_fp4_e2m1(torch.from_numpy(all_codes)),
+                         np.asarray(jm._dequantize_from_fp4_e2m1(jnp.asarray(all_codes))), 'dequant')
+    planar_j = jm.pack_fp4_planar(codes_j.astype(jnp.int32))
+    planar_t = tm.pack_fp4_planar(codes_t.to(torch.int32))
+    assert_bitwise_equal(planar_t, np.asarray(planar_j), 'planar')
+    assert_bitwise_equal(tm.unpack_fp4_planar(planar_t), np.asarray(jm.unpack_fp4_planar(planar_j)),
+                         'unplanar')
+    xj, xt = _bf16_pair((6, 512), seed=13)
+    pj, sj = jm.per_token_cast_to_fp4(xj, use_ue8m0=False)
+    pt, st = tm.per_token_cast_to_fp4(xt, use_ue8m0=False)
+    assert_bitwise_equal(tm.unpack_fp4_codes(pt), np.asarray(jm.unpack_fp4_codes(pj)), 'unpack')
+    assert_bitwise_equal(tm.repack_fp4_to_planar(pt), np.asarray(jm.repack_fp4_to_planar(pj)),
+                         'repack')
+    assert_bitwise_equal(tm.transpose_packed_fp4(pt), np.asarray(jm.transpose_packed_fp4(pj)),
+                         'transpose')
+    assert_bitwise_equal(tm.cast_back_from_fp4(pt, st), np.asarray(jm.cast_back_from_fp4(pj, sj)),
+                         'cast_back')
+    pj8, sj8 = jm.per_token_cast_to_fp4(xj, use_ue8m0=True, use_packed_ue8m0=True)
+    pt8, st8 = tm.per_token_cast_to_fp4(xt, use_ue8m0=True, use_packed_ue8m0=True)
+    assert_bitwise_equal(tm.cast_back_from_fp4(pt8, st8, use_packed_ue8m0=True),
+                         np.asarray(jm.cast_back_from_fp4(pj8, sj8, use_packed_ue8m0=True)),
+                         'cast_back_packed')

@@ -135,3 +135,26 @@ def test_init_params_on_cpu_when_asked():
     assert abs(w1.float().std().item() - 128 ** -0.5) < 0.01
     again = tt.init_params(tt.ModelConfig(**_SIZE), seed=3, device='cpu')
     assert torch.equal(again['layers'][0]['w1'], w1)
+
+
+_MEGA = dict(_SIZE, num_layers=2)
+
+
+@pytest.mark.parametrize('comm,use_fp8', [('fused', True), ('xla', True), ('fused', False)])
+def test_mega_forward_matches_jax(comm, use_fp8):
+    """The 2-layer model through the mega MoE at one rank, against the JAX
+    model's (its fused kernel in Pallas interpret mode on a one-device
+    mesh, the default bf16 act)."""
+    params_np = jax.tree.map(np.asarray, jt.init_params(jt.ModelConfig(**_MEGA)))
+    tokens = np.random.RandomState(3).randint(0, _MEGA['vocab'], (2, 16)).astype(np.int32)
+    cfg = dict(_MEGA, use_fp8=use_fp8, use_kernels=True, use_mega=True, mega_comm=comm)
+    logits_jax = np.asarray(jt.forward(jax.tree.map(jnp.asarray, params_np), jnp.asarray(tokens),
+                                       jt.ModelConfig(**cfg)))
+    logits = tt.forward(params_from_jax(params_np, device='cpu'), torch.from_numpy(tokens),
+                        tt.ModelConfig(**cfg))
+    assert torch.isfinite(logits).all() and tuple(logits.shape) == (2, 16, _MEGA['vocab'])
+    assert calc_diff(logits, logits_jax) < 1e-5
+    if comm == 'xla':
+        unfused = tt.forward(params_from_jax(params_np, device='cpu'), torch.from_numpy(tokens),
+                             tt.ModelConfig(**dict(cfg, use_mega=False)))
+        assert torch.equal(logits, unfused)

@@ -91,3 +91,17 @@ def test_plain_versions_switch_is_explicit_and_scoped():
     assert not common._plain_on_cuda
     with pytest.raises(ValueError):
         common.use_plain(torch.zeros(2, device='meta'))
+
+
+def test_mega_public_names():
+    """The public names of the JAX package's mega MoE and FP4 surface
+    (deepgemm_tpu/__init__.py:85-110) exist in the port."""
+    for name in ('per_token_cast_to_fp4', 'transpose_packed_fp4', 'cast_back_from_fp4',
+                 'pack_fp4_planar', 'unpack_fp4_planar', 'repack_fp4_to_planar',
+                 'fp8_fp4_mega_moe', 'bf16_mega_moe', 'SymmBuffer',
+                 'get_symm_buffer_for_mega_moe', 'transform_weights_for_mega_moe',
+                 'get_symm_buffer_size_for_mega_moe', 'get_token_alignment_for_mega_moe',
+                 'get_ring_limit_for_mega_moe', 'pack_mega_weights', 'MegaPackedWeights'):
+        assert callable(getattr(dgt, name)), name
+    assert dgt.get_symm_buffer_for_mega_moe is dgt.SymmBuffer
+    assert 'mega_local' in build.SOURCES
