@@ -44,10 +44,27 @@ Phases, one line each (a failure in any phase exits non-zero):
      (outputs compared where the top-k selections agree), two requests alone
      in a fresh engine bitwise equal (batch invariance); step times,
      tokens/s, peak memory, a profile of one step, each kernel timed at its
-     full shape; then the prefill path (indexer_sparse_attention on the last
-     64 rows of an 8192-token prompt: MQA logits 1, attention 1, each held to
-     its plain version) and the MQA logits kernel at the JAX bench's prefill
-     shape (2048 x 8192, 64 heads x 128) against its plain version.
+     full shape; then the same script under DGT_SPARSE_GATHER=pallas in a
+     fresh engine: launches per step gather-fused attention 1, attention 0,
+     paged MQA 1, MQA logits 0, every output bitwise equal to the flat
+     run's, step times, tokens/s and peak memory beside the flat run's, the
+     compute step twice bitwise equal, a profile of one step (the flat
+     gather's index_select copies gone), the gather-fused kernel at full
+     shape on step 1's selection (against its plain version on 8 seeded
+     rows, bitwise equal to index_select + the gathered kernel on all 64,
+     timed beside its bound, its plain version, the flat path and the
+     gather + SDPA yardstick), the FP4 paged pairs on step 1's shapes (FP4
+     q with an FP4 byte cache, FP4 q with the e4m3 cache, e4m3 q with the
+     FP4 cache: the bf16 instances against their plain versions, the
+     strategies bitwise equal, each timed beside the e4m3 instance), varlen
+     pairing of 64 sequences of 1-8 tokens (host and device forms bitwise
+     equal to each other and to the padded 2-D call) and the schedule
+     metadata for the step's context lengths, then batch invariance in a
+     fresh engine; then the prefill path (indexer_sparse_attention on the
+     last 64 rows of an 8192-token prompt: MQA logits 1, attention 1, each
+     held to its plain version) and the MQA logits kernel at the JAX bench's
+     prefill shape (2048 x 8192, 64 heads x 128) against its plain version,
+     e4m3 and with FP4 q and kv (the bf16 instance).
   8. the mega MoE forward: the model at the phase 5 widths (2 layers) with
      use_mega and the fused comm on three [2, 64] batches, with bf16 act
      and with DGT_MEGA_ACT_FP8=1: launches per forward (mega 1 a layer,
@@ -373,7 +390,9 @@ def profile(fn, label, what, host_ops=0):
     """One call of ``fn`` under torch.profiler: its wall time, the time of
     the device's own events (kernels, copies, sets) summed, the names that
     take the most of it, and the ``host_ops`` host operations that take the
-    most host time of their own."""
+    most host time of their own. Returns the device events' {name: (us,
+    calls)} and the wall and device ms, or None if the profiler saw no
+    device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -390,7 +409,7 @@ def profile(fn, label, what, host_ops=0):
     if not by_name:
         log(f'profile {label}: wall_ms={wall_ms:.3f}; the profiler saw no device '
             f'events, device time not measured')
-        return
+        return None
     device_ms = sum(us for us, _ in by_name.values()) / 1e3
     log(f'profile {label}: wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} '
         f'device_idle_share={1 - device_ms / wall_ms:.4f} ({what}, under the profiler)')
@@ -400,6 +419,7 @@ def profile(fn, label, what, host_ops=0):
     for e in host:
         log(f'  {e.self_cpu_time_total / 1e3:10.3f} ms host (self), {e.count:6d} calls: '
             f'{e.key[:130]}')
+    return dict(by_name=by_name, wall_ms=wall_ms, device_ms=device_ms)
 
 
 def phase_forward(seed):
@@ -814,7 +834,7 @@ def prompt_streams(seed, request, t):
     return k, v, ik, torch.rand(t, generator=g, device='cuda') * 0.01 + 0.005
 
 
-ALL_KINDS = ('paged', 'mqa', 'attn', 'topk')
+ALL_KINDS = ('paged', 'mqa', 'attn', 'fused', 'topk')
 
 
 @contextlib.contextmanager
@@ -822,8 +842,9 @@ def serving_hooks(records, seed, kinds=ALL_KINDS):
     """While open, the indexer's calls of ``kinds`` are recorded: the paged
     MQA call and the MQA logits call with clones of their inputs and output,
     the attention call with clones of ATTN_CHECK_ROWS seeded rows of its
-    inputs and output, each top-k selection (sorted per row). The wrappers
-    are called as they are, once each."""
+    inputs and output, the gather-fused attention call with clones of its q,
+    tok and valid (the cache views as they are), each top-k selection
+    (sorted per row). The wrappers are called as they are, once each."""
     from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
     from deepgemm_tpu_torch.models import indexer
     gen = torch.Generator().manual_seed(seed)
@@ -845,9 +866,15 @@ def serving_hooks(records, seed, kinds=ALL_KINDS):
     def topk_call(args, kw, out):
         return dict(kind='topk', sel=out[0].sort(dim=1).values, valid=out[1].clone())
 
+    def fused_call(args, kw, out):
+        q, k_rows, v_rows, tok, valid, scale = args       # the cache views: no copy
+        return dict(kind='fused', q=q.clone(), k_rows=k_rows, v_rows=v_rows, tok=tok.clone(),
+                    valid=valid.clone(), scale=scale)
+
     hooks = [hook for hook in ((paged_mqa, 'paged_mqa_logits', paged_call),
                                (mqa_logits, 'mqa_logits', mqa_call),
                                (sparse_attn, 'gathered_attention', attn_call),
+                               (sparse_attn, 'sparse_attention_paged', fused_call),
                                (indexer, '_topk_indices', topk_call))
              if hook[2].__name__.split('_')[0] in kinds]
     originals = [(module, name, getattr(module, name)) for module, name, _ in hooks]
@@ -939,7 +966,7 @@ def check_paged(rec):
     after), bitwise equal. Returns (the diff, the max error, zero-copy
     launches)."""
     import deepgemm_tpu_torch as dgt
-    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels import paged_mqa
     from deepgemm_tpu_torch.kernels.common import plain_versions
     q, kv, sf, w, ctx, bt, max_len = rec['args']
     with plain_versions():
@@ -950,13 +977,12 @@ def check_paged(rec):
     fin = ~torch.isneginf(want)
     diff, err = compare(got[fin], want[fin])
     require(diff < TOL, f'paged MQA: calc_diff {diff} against the plain version')
-    paged_mqa.launches.update(gather=0, paged=0)
-    mqa_logits.launches = sparse_attn.launches = 0
+    zero_indexer_counts()
     zero_copy = dgt.fp8_fp4_paged_mqa_logits((q, None), (kv, sf), w, ctx, bt, None, max_len,
                                              strategy='paged')
     torch.cuda.synchronize()
-    zc_counts = dict(paged_mqa.launches, mqa=mqa_logits.launches, attn=sparse_attn.launches)
-    require(zc_counts == dict(gather=0, paged=1, mqa=0, attn=0),
+    zc_counts = indexer_counts()
+    require(zc_counts == dict(gather=0, paged=1, mqa=0, attn=0, fused=0),
             f'the zero-copy path launched {zc_counts}')
     require(torch.equal(zero_copy, got), 'the zero-copy entry differs from the gather entry')
     zc_diff, zc_err = compare(zero_copy[fin], want[fin])
@@ -1065,9 +1091,12 @@ def phase_prefill(seed, arch):
     query rows of one PREFILL_LEN-token prompt (counts at 0 just before,
     read just after: MQA logits 1, attention 1), each call held to its plain
     version; then the MQA logits kernel at the JAX bench's prefill shape
-    against its plain version, and both shapes timed."""
+    against its plain version, and both shapes timed; then the op with FP4
+    q and kv at the bench shape (its own path: the bf16 instance launches
+    once), against its plain version, the instance timed on the decoded
+    operands beside the e4m3 one."""
     import deepgemm_tpu_torch as dgt
-    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    from deepgemm_tpu_torch.kernels import mqa_logits
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
@@ -1083,13 +1112,13 @@ def phase_prefill(seed, arch):
     ks = torch.zeros(rows, dtype=torch.int32, device='cuda')
     ke = torch.arange(n - rows + 1, n + 1, dtype=torch.int32, device='cuda')   # causal
     records = []
-    paged_mqa.launches.update(gather=0, paged=0)
-    mqa_logits.launches = sparse_attn.launches = 0
+    zero_indexer_counts()
     with serving_hooks(records, seed):
         out = dgt.indexer_sparse_attention(q, k, v, iq, ikv, iw, ks, ke, SERVE['topk'])
     torch.cuda.synchronize()
-    counts = dict(mqa=mqa_logits.launches, attn=sparse_attn.launches, **paged_mqa.launches)
-    require(counts == dict(mqa=1, attn=1, gather=0, paged=0), f'prefill launches {counts}')
+    counts = indexer_counts()
+    require(counts == dict(gather=0, paged=0, mqa=1, attn=1, fused=0),
+            f'prefill launches {counts}')
     require(tuple(out.shape) == (rows, h, d) and torch.isfinite(out.float()).all().item(),
             f'prefill output {tuple(out.shape)} not finite')
     by_kind = {r['kind']: r for r in records}
@@ -1143,7 +1172,59 @@ def phase_prefill(seed, arch):
             f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
             f'({bound[1]}) TFLOPS={2 * pairs * hi * di / ms / 1e9:.1f}'
             + (f'; calc_diff against plain {bdiff:.3e} (limit {TOL})' if label == 'bench' else ''))
+    entries['bench_fp4'] = check_fp4_prefill(seed, arch, entries['bench'])
     return entries, counts
+
+
+def check_fp4_prefill(seed, arch, e4m3):
+    """fp8_fp4_mqa_logits with FP4 q and kv at the JAX bench's shape (the
+    bench inputs re-quantized to FP4): launches, against the plain version,
+    the bf16 instance timed on the decoded operands."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import mqa_logits
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.ops import attention as attn_ops
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    q8, kv8, sf, w, ks, ke = bench_mqa_inputs(seed)
+    sq, h, d = q8.shape
+    skv = kv8.shape[0]
+    q4, kv4 = fp4_rows(q8.float()), fp4_rows(kv8.float() * sf[:, None])
+    zero_indexer_counts()
+    got = dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke)
+    torch.cuda.synchronize()
+    counts = indexer_counts()
+    require(counts == dict(gather=0, paged=0, mqa=1, attn=0, fused=0),
+            f'FP4 MQA logits: launches {counts}')
+    with plain_versions():
+        want = dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke)
+    require(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+            'FP4 MQA logits: -inf at other places than the plain version')
+    fin = ~torch.isneginf(want)
+    diff, err = compare(got[fin], want[fin])
+    require(diff < TOL, f'FP4 MQA logits: calc_diff {diff} against the plain version')
+    del got, want, fin
+    qb = attn_ops._decode_fp4_rows(*q4, d)
+    kvb = attn_ops._decode_fp4_rows(*kv4, d)
+    fn = lambda: mqa_logits.mqa_logits(qb, kvb, w, ks, ke)
+    ms = bench_kernel(fn, iters=10)
+    op_ms = bench_kernel(lambda: dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke), iters=5)
+    with plain_versions():
+        plain_ms = bench_kernel(fn, iters=1, warmup=1)
+    q16 = qb.view(sq * h, d)
+    library_ms = bench_kernel(lambda: torch.matmul(q16, kvb.t()), iters=10)
+    pairs = int((ke - ks).clamp(min=0).sum())
+    nbytes = qb.numel() * 2 + kvb.numel() * 2 + w.numel() * 4 + 8 * sq + sq * skv * 4
+    bound = arch.bound_ms(nbytes, 2 * pairs * h * d, fp8=False)
+    log(f'phase 7 FP4 MQA logits bench [sq={sq} skv={skv} h={h} d={d}, {pairs} window pairs; '
+        f'FP4 q and kv decoded to bf16: the bf16 instance]: launches={counts}; calc_diff='
+        f'{diff:.3e} (limit {TOL}) max_abs_err={err:.4g} against the plain version; '
+        f'kernel_ms={ms:.4f} (the op with its FP4 decode {op_ms:.4f}) plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+        f'({bound[1]}) TFLOPS={2 * pairs * h * d / ms / 1e9:.1f}; the e4m3 instance, same '
+        f'run: {e4m3["ms"]:.4f}')
+    return dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound[0], bound_by=bound[1], max_abs_err=err, check_calc_diff=diff,
+                shape=[sq, skv, h, d], launches=counts['mqa'], e4m3_instance_ms=e4m3['ms'])
 
 
 def bench_mqa_inputs(seed):
@@ -1161,10 +1242,22 @@ def bench_mqa_inputs(seed):
     return q, kv, sf, w, ks, ke
 
 
+def zero_indexer_counts():
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    paged_mqa.launches.update(gather=0, paged=0)
+    mqa_logits.launches = sparse_attn.launches = sparse_attn.paged_launches = 0
+
+
+def indexer_counts():
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
+    return dict(gather=paged_mqa.launches['gather'], paged=paged_mqa.launches['paged'],
+                mqa=mqa_logits.launches, attn=sparse_attn.launches,
+                fused=sparse_attn.paged_launches)
+
+
 def phase_serve(seed, arch):
     """The decode path at full width; see the module docstring. Returns the
     kernel entries' numbers and counts."""
-    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa, sparse_attn
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.models.indexer import indexer_sparse_decode
     torch.cuda.empty_cache()
@@ -1176,13 +1269,11 @@ def phase_serve(seed, arch):
         return serving_hooks(records, seed, ALL_KINDS if step == 1 else ('topk',))
 
     # the main path: counts at 0 just before the engine's run, read just after
-    paged_mqa.launches.update(gather=0, paged=0)
-    mqa_logits.launches = sparse_attn.launches = 0
+    zero_indexer_counts()
     engine, outs, slots, seconds, active, prefill_s = serve(seed, requests, hooks)
-    counts = dict(gather=paged_mqa.launches['gather'], paged=paged_mqa.launches['paged'],
-                  mqa=mqa_logits.launches, attn=sparse_attn.launches)
+    counts = indexer_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = dict(gather=SERVE_STEPS, paged=0, mqa=0, attn=SERVE_STEPS)
+    want = dict(gather=SERVE_STEPS, paged=0, mqa=0, attn=SERVE_STEPS, fused=0)
     require(counts == want, f'decode launches {counts}, expected {want}')
     for key, out in outs.items():
         require(tuple(out.shape) == (SERVE['num_heads'], SERVE['head_dim'])
@@ -1200,7 +1291,8 @@ def phase_serve(seed, arch):
         f'tokens (prefill {prefill_s:.2f} s in all), {SERVE_STEPS} steps, request '
         f'{LATE["finishes"]} finished and request {LATE["request"]} ({LATE["prompt"]} tokens) '
         f'admitted before step {LATE["step"]}: launches={counts} (per step paged MQA 1, '
-        f'attention 1, MQA logits 0); seconds per step {[round(s, 5) for s in seconds]} '
+        f'attention 1, gather-fused attention 0, MQA logits 0); seconds per step '
+        f'{[round(s, 5) for s in seconds]} '
         f'(step 1 with the recording of its kernel calls); tokens/s={tokens_per_s:.1f} '
         f'(active slots / step time, steps 2-{SERVE_STEPS}); peak_mem={peak_gb:.2f} GB; '
         f'the stand-in embed_fn alone for {SERVE["max_slots"]} slots, 5 calls, ms '
@@ -1224,9 +1316,11 @@ def phase_serve(seed, arch):
     del first, second
     log('phase 7 determinism: the compute step twice on the same state: bitwise equal')
 
-    profile(lambda: engine.step({sid.seq_id: token_id(sid.seq_id, 99) for sid in engine._slots
-                                 if sid is not None}), 'decode step',
-            f'one step of {sum(s is not None for s in engine._slots)} active slots', host_ops=8)
+    flat_profile = profile(lambda: engine.step({sid.seq_id: token_id(sid.seq_id, 99)
+                                                for sid in engine._slots if sid is not None}),
+                           'decode step',
+                           f'one step of {sum(s is not None for s in engine._slots)} active '
+                           f'slots', host_ops=8)
     timing = time_decode_kernels(by_kind['paged'], engine, arch)
     records = [r for r in records if r['kind'] == 'topk']
     del by_kind
@@ -1272,7 +1366,328 @@ def phase_serve(seed, arch):
         f'bitwise equal')
     return dict(timing=timing, counts=counts, zc_launches=zc_launches,
                 errors=dict(paged=paged_errors, zero_copy=zc_errors, attn=attn_errors),
-                tokens_per_s=tokens_per_s, peak_gb=peak_gb)
+                tokens_per_s=tokens_per_s, peak_gb=peak_gb, outs=outs, slots=slots,
+                seconds=seconds, profile=flat_profile)
+
+
+# Phase 7 under DGT_SPARSE_GATHER=pallas: the same engine script, the decode's
+# attention reading its selected rows in place (the gather-fused kernel).
+VARLEN_TOKENS = (1, 8)          # tokens a sequence in the varlen check, seeded
+SMALL_ROWS = 16                 # rows of a gather-fused timing's small case
+
+
+def index_select_kernels(prof):
+    """(calls, device ms) of the profile's row-gather kernels (what
+    ``index_select`` launches: ``vectorized_gather_kernel`` in recent torch,
+    ``indexSelect*`` in older ones)."""
+    hits = [(calls, us) for name, (us, calls) in prof['by_name'].items()
+            if 'indexSelect' in name or 'vectorized_gather_kernel' in name]
+    return sum(c for c, _ in hits), sum(u for _, u in hits) / 1e3
+
+
+def check_fused(rec, arch, seed):
+    """The gather-fused kernel (#11) at full shape on step 1's q, tok and
+    valid over the current cache: against its plain version on
+    ATTN_CHECK_ROWS seeded rows, bitwise equal to index_select + the
+    gathered kernel (#10) on all rows; timed beside its bound, its plain
+    version, the flat path it replaces (the two index_selects and #10, as
+    one) and the library yardstick (the gather and SDPA over the gathered
+    rows: two calls, since no one PyTorch call does both)."""
+    import torch.nn.functional as F
+    from deepgemm_tpu_torch.kernels import sparse_attn
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    q, k_rows, v_rows, tok, valid, scale = (rec[k] for k in ('q', 'k_rows', 'v_rows', 'tok',
+                                                              'valid', 'scale'))
+    rows, t = tok.shape
+    n, h, d = k_rows.shape
+    fused = lambda: sparse_attn.sparse_attention_paged(q, k_rows, v_rows, tok, valid, scale)
+    got = fused()
+    g = torch.Generator().manual_seed(seed)
+    sub = torch.randperm(rows, generator=g)[:ATTN_CHECK_ROWS].sort().values.cuda()
+    want = sparse_attn.sparse_attention_paged_plain(q[sub], k_rows, v_rows, tok[sub],
+                                                    valid[sub], scale)
+    diff, err = compare(got[sub], want)
+    require(diff < TOL, f'gather-fused attention: calc_diff {diff} against the plain version')
+    flat_idx = tok.long().clamp(0, n - 1).reshape(-1)
+    gather = lambda: (k_rows.index_select(0, flat_idx).view(rows, t, h, d),
+                      v_rows.index_select(0, flat_idx).view(rows, t, h, d))
+    k_sel, v_sel = gather()
+    require(torch.equal(got, sparse_attn.gathered_attention(q, k_sel, v_sel, valid, scale)),
+            'gather-fused attention differs from index_select + the gathered kernel')
+    del k_sel, v_sel
+    ms = bench_kernel(fused, iters=10)
+    flat_ms = bench_kernel(lambda: sparse_attn.gathered_attention(q, *gather(), valid, scale),
+                           iters=3)
+    plain_ms = bench_kernel(lambda: sparse_attn.sparse_attention_paged_plain(
+        q[sub], k_rows, v_rows, tok[sub], valid[sub], scale), iters=2, warmup=1)
+    mask = valid[:, None, None, :]
+
+    def library():
+        k_sel, v_sel = gather()
+        return F.scaled_dot_product_attention(q[:, :, None, :], k_sel.transpose(1, 2),
+                                              v_sel.transpose(1, 2), attn_mask=mask,
+                                              scale=scale)
+    library_ms = bench_kernel(library, iters=3)
+    n_valid = int(valid.sum())
+    nbytes = 2 * n_valid * h * d * 2 + 2 * q.numel() * 2 + valid.numel() + tok.numel() * 4
+    bound = arch.bound_ms(nbytes, 4 * n_valid * h * d, fp8=False)
+    log(f'phase 7 gather-fused attention [{rows} rows, topk {t}, h {h}, d {d}; {n_valid} '
+        f'valid; the cache {n} rows]: against the plain version on {ATTN_CHECK_ROWS} seeded '
+        f'rows {sub.tolist()} calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+        f'bitwise equal to index_select + the gathered kernel on all {rows} rows; '
+        f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) '
+        f'flat_path_ms(2 index_select + gathered kernel)={flat_ms:.4f} '
+        f'library_ms(2 index_select + F.scaled_dot_product_attention, two calls)='
+        f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}')
+    return dict(ms=ms, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS, library_ms=library_ms,
+                library='2 index_select + F.scaled_dot_product_attention (two calls)',
+                flat_path_ms=flat_ms, bound_ms=bound[0], bound_by=bound[1],
+                max_abs_err=err, check_calc_diff=diff, shape=[rows, t, h, d],
+                valid_rows=n_valid, bitwise_vs_gather=True)
+
+
+def fp4_rows(x):
+    """f32 rows [.., d] as packed FP4 (per-32 UE8M0 scales, packed int32 a
+    row), the recipe of JAX's FP4 indexer tests."""
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4
+    lead, d = x.shape[:-1], x.shape[-1]
+    packed, sf = per_token_cast_to_fp4(x.reshape(-1, d), use_ue8m0=True, gran_k=32,
+                                       use_packed_ue8m0=True)
+    return packed.view(*lead, d // 2), sf.view(lead)
+
+
+def check_fp4_paged(rec, arch, e4m3_timing):
+    """The paged MQA op on step 1's engine shapes with FP4 operands, three
+    pairs: FP4 q with the FP4 fused byte cache (the step's e4m3 cache
+    re-quantized), FP4 q with the e4m3 cache, e4m3 q with the FP4 cache.
+    Each through the op (its own path: counts at 0 before, read after; the
+    bf16 instances launch), against its plain version, the two strategies
+    bitwise equal; each bf16 instance timed on the decoded operands beside
+    the e4m3 instance. Returns the numbers and the launches."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import paged_mqa
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.ops import attention as attn_ops
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    q, kv, sf, w, ctx, bt, max_len = rec['args']
+    b, nn, h, d = q.shape
+    nb, bkv = kv.shape[:2]
+    q4 = fp4_rows(q.float())
+    packed, psf = fp4_rows((kv.float() * sf[..., None]).view(-1, d))
+    fused4 = torch.cat([packed.view(torch.uint8).view(nb, -1),
+                        psf.view(torch.uint8).view(nb, -1)], dim=1).view(nb, bkv, 1, d // 2 + 4)
+    del packed, psf
+    pairs = {'fp4_q_fp4_cache': (q4, fused4), 'fp4_q_e4m3_cache': (q4, (kv, sf)),
+             'e4m3_q_fp4_cache': ((q, None), fused4)}
+    hi = paged_mqa.row_bounds(ctx, nn)
+    bt32 = bt.int().clamp(0, nb - 1)
+    need = int(ctx.clamp(max=max_len).sum())
+    out, launches = {}, dict(gather=0, paged=0)
+    for label, (qq, cache) in pairs.items():
+        args = (qq, cache, w, ctx, bt, None, max_len)
+        zero_indexer_counts()
+        got = {s: dgt.fp8_fp4_paged_mqa_logits(*args, strategy=s) for s in ('gather', 'paged')}
+        torch.cuda.synchronize()
+        counts = indexer_counts()
+        require(counts == dict(gather=1, paged=1, mqa=0, attn=0, fused=0),
+                f'FP4 paged MQA {label}: launches {counts}')
+        for s in launches:
+            launches[s] += counts[s]
+        with plain_versions():
+            want = dgt.fp8_fp4_paged_mqa_logits(*args)
+        require(torch.equal(torch.isneginf(got['gather']), torch.isneginf(want)),
+                f'FP4 paged MQA {label}: -inf at other places than the plain version')
+        fin = ~torch.isneginf(want)
+        diff, err = compare(got['gather'][fin], want[fin])
+        require(diff < TOL, f'FP4 paged MQA {label}: calc_diff {diff} against the plain version')
+        require(torch.equal(got['paged'], got['gather']),
+                f'FP4 paged MQA {label}: the strategies differ')
+        del got, want, fin
+        # the instance on the decoded operands, as the op hands them to it
+        q_k = attn_ops._decode_fp4_rows(qq[0], qq[1], d) if qq[1] is not None else qq[0]
+        if isinstance(cache, tuple):
+            kv_k, sf_k = cache
+        else:
+            kv_k = attn_ops._decode_fp4_rows(*attn_ops.split_fused_kv_cache_fp4(cache, d), d)
+            sf_k = torch.ones(kv_k.shape[:2], device='cuda')
+        kv_lin, sf_lin = paged_mqa.linearise(kv_k, sf_k, bt32)
+        entry = {}
+        for name, fn in (('gather', lambda: paged_mqa.paged_mqa_logits_gather(
+                              q_k, kv_lin, sf_lin, w, hi, max_len)),
+                         ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
+                              q_k, kv_k, sf_k, w, hi, bt32, max_len))):
+            ms = bench_kernel(fn, iters=20)
+            with plain_versions():
+                plain_ms = bench_kernel(fn, iters=2, warmup=1)
+            kv_bytes = kv_k.element_size()
+            nbytes = (need * (d * kv_bytes + 4) + q_k.numel() * q_k.element_size()
+                      + w.numel() * 4 + hi.numel() * 4 + b * nn * max_len * 4)
+            bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, fp8=False)
+            entry[name] = dict(ms=ms, plain_ms=plain_ms,
+                               library_ms=e4m3_timing[name]['library_ms'], bound_ms=bound[0],
+                               bound_by=bound[1], max_abs_err=err, check_calc_diff=diff,
+                               q=str(q_k.dtype), kv=str(kv_k.dtype),
+                               e4m3_instance_ms=e4m3_timing[name]['ms'])
+        out[label] = entry
+        gather = entry['gather']
+        log(f'phase 7 FP4 paged MQA {label} [B={b} next_n={nn} h={h} d={d} max_len={max_len}] '
+            f'(q {q_k.dtype}, cache {kv_k.dtype}: the bf16 instance): launches gather 1, paged '
+            f'1; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g} against the plain '
+            f'version; strategies bitwise equal; gather entry kernel_ms={gather["ms"]:.4f} '
+            f'plain_ms={gather["plain_ms"]:.4f} bound_ms={gather["bound_ms"]:.4f} '
+            f'({gather["bound_by"]}); paged entry kernel_ms={entry["paged"]["ms"]:.4f} '
+            f'plain_ms={entry["paged"]["plain_ms"]:.4f}; the e4m3 instance, same run: gather '
+            f'{e4m3_timing["gather"]["ms"]:.4f}, paged {e4m3_timing["paged"]["ms"]:.4f}')
+        del q_k, kv_k, sf_k, kv_lin, sf_lin
+    return out, launches
+
+
+def check_varlen_and_metadata(rec, engine, seed):
+    """Varlen pairing at the engine's shape: 64 sequences of VARLEN_TOKENS
+    seeded tokens each (a sequence's tokens end at its current context), the
+    host form (values read to the host) and the device form (bounds given,
+    no host read) bitwise equal to each other and to the padded 2-D call
+    they stand for; t_max x 64 heads above one block's 256 q2 rows. Then the
+    schedule metadata for the step's context lengths, printed and checked."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import paged_mqa
+    kv, sf, max_len = rec['args'][1], rec['args'][2], rec['args'][6]
+    h, d = rec['args'][0].shape[2:]
+    slots, bkv = SERVE['max_slots'], SERVE['block_kv']
+    ctx_now = torch.from_numpy(engine.context_lens).cuda()
+    bt_now = torch.from_numpy(engine.block_table).cuda()
+    g = torch.Generator().manual_seed(seed + 11)
+    counts = torch.randint(VARLEN_TOKENS[0], VARLEN_TOKENS[1] + 1, (slots,), generator=g)
+    t_max = int(counts.max())
+    idx = torch.repeat_interleave(torch.arange(slots), counts).cuda()
+    pos = torch.cat([torch.arange(c) for c in counts.tolist()]).cuda()
+    rows = idx.numel()
+    gc = torch.Generator(device='cuda').manual_seed(seed + 12)
+    q = torch.randn((rows, 1, h, d), generator=gc, device='cuda').to(torch.float8_e4m3fn)
+    w = torch.rand((rows, h), generator=gc, device='cuda') * h ** -0.5
+    ctx = (ctx_now[idx] - counts.cuda()[idx] + 1 + pos).clamp(min=0).int()
+    call = lambda **kw: dgt.fp8_fp4_paged_mqa_logits(
+        (q, None), (kv, sf), w, ctx[:, None], bt_now[idx], None, max_len, indices=idx, **kw)
+    host, device = call(), call(max_batch=slots, max_tokens_per_seq=t_max)
+    q_pad = torch.zeros((slots, t_max, h, d), dtype=torch.uint8, device='cuda')
+    q_pad[idx, pos] = q[:, 0].view(torch.uint8)
+    w_pad = torch.zeros((slots * t_max, h), device='cuda')
+    w_pad[idx * t_max + pos] = w
+    ctx_pad = torch.zeros((slots, t_max), dtype=torch.int32, device='cuda')
+    ctx_pad[idx, pos] = ctx
+    padded = dgt.fp8_fp4_paged_mqa_logits((q_pad.view(torch.float8_e4m3fn), None), (kv, sf),
+                                          w_pad, ctx_pad, bt_now, None, max_len)
+    torch.cuda.synchronize()
+    require(torch.equal(host, device), 'varlen: the host and device forms differ')
+    require(torch.equal(host, padded[idx * t_max + pos]),
+            'varlen: differs from the padded 2-D call')
+    require(torch.isfinite(host[host != float('-inf')]).all().item(), 'varlen: not finite')
+    tile = paged_mqa.tile_rows(t_max, h, d, q.dtype, kv.dtype)
+    log(f'phase 7 varlen: {slots} sequences of {counts.tolist()} tokens ({rows} rows, t_max '
+        f'{t_max}: {t_max * h} q2 rows a sequence, kernel tiles of {tile} tokens): host form '
+        f'and device form bitwise equal, both bitwise equal to the padded [{slots}, {t_max}] '
+        f'2-D call')
+    num_sms = dgt.get_num_sms()
+    meta = dgt.get_paged_mqa_logits_metadata(ctx_now, bkv, num_sms)
+    segments = int(((ctx_now.long() + bkv - 1) // bkv).sum())
+    require(meta.is_cuda and tuple(meta.shape) == (num_sms + 1, 2),
+            f'metadata: {tuple(meta.shape)}, expected ({num_sms + 1}, 2)')
+    require(torch.equal(meta.cpu(), dgt.get_paged_mqa_logits_metadata(ctx_now.cpu(), bkv,
+                                                                       num_sms)),
+            'metadata: the CUDA table differs from the CPU one')
+    require(meta[-1].tolist() == [slots, 0], f'metadata: end cursor {meta[-1].tolist()}')
+    log(f'phase 7 metadata: {num_sms} units over {segments} segments of {bkv} tokens '
+        f'(context lengths {ctx_now.tolist()}): {meta.shape[0]} rows (checked), '
+        f'{[tuple(r) for r in meta.tolist()]}')
+
+
+def phase_serve_pallas(seed, arch, flat):
+    """The decode path under DGT_SPARSE_GATHER=pallas: a fresh engine through
+    the same script (counts at 0 just before, read just after: per step the
+    gather-fused attention 1, the gathered one 0, paged MQA 1, MQA logits
+    0), each output bitwise equal to the 'flat' run's; step times, tokens/s
+    and peak memory beside 'flat''s; the compute step twice bitwise equal;
+    a profile of one step (the flat gather's index_select kernels gone);
+    the gather-fused kernel at full shape; the FP4 paged pairs; varlen and
+    the metadata; batch invariance in a fresh engine."""
+    from deepgemm_tpu_torch.models.indexer import indexer_sparse_decode
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    requests = list(range(SERVE['max_slots'])) + [LATE['request']]
+    records = []
+
+    def hooks(step, engine, tokens):
+        return serving_hooks(records, seed, ('paged', 'fused') if step == 1 else ())
+
+    with env('DGT_SPARSE_GATHER', 'pallas'):
+        zero_indexer_counts()
+        engine, outs, slots, seconds, active, prefill_s = serve(seed, requests, hooks)
+        counts = indexer_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = dict(gather=SERVE_STEPS, paged=0, mqa=0, attn=0, fused=SERVE_STEPS)
+        require(counts == want, f'decode launches under pallas {counts}, expected {want}')
+        require(slots == flat['slots'] and outs.keys() == flat['outs'].keys(),
+                'pallas: other slots or outputs than the flat run')
+        for key, out in outs.items():
+            require(torch.equal(out, flat['outs'][key]), f'pallas: output {key} differs from flat')
+        tokens_per_s = sum(active[1:]) / sum(seconds[1:])
+        log(f'phase 7 decode under pallas: the same script, launches={counts} (per step '
+            f'gather-fused attention 1, attention 0, paged MQA 1, MQA logits 0); all '
+            f'{len(outs)} outputs bitwise equal to the flat run; seconds per step '
+            f'{[round(x, 5) for x in seconds]} (flat {[round(x, 5) for x in flat["seconds"]]}); '
+            f'tokens/s={tokens_per_s:.1f} (flat {flat["tokens_per_s"]:.1f}); peak_mem='
+            f'{peak_gb:.2f} GB (flat {flat["peak_gb"]:.2f} GB); prefill {prefill_s:.2f} s')
+        by_kind = {}
+        for r in records:
+            by_kind.setdefault(r['kind'], r)
+
+        c = engine.cache
+        streams = decode_streams(torch.arange(SERVE['max_slots'], device='cuda',
+                                              dtype=torch.int32) + 9100)
+        compute = lambda: indexer_sparse_decode(
+            streams[0][:, None], (c.k_pages, c.v_pages), (c.ik_pages, c.isf_pages),
+            streams[1][:, None], streams[2], torch.from_numpy(engine.context_lens).cuda(),
+            torch.from_numpy(engine.block_table).cuda(), engine.max_context_len, SERVE['topk'])
+        first, second = compute(), compute()
+        require(torch.equal(first, second), 'pallas: the compute step differs run to run')
+        del first, second
+        log('phase 7 determinism under pallas: the compute step twice on the same state: '
+            'bitwise equal')
+        prof = profile(lambda: engine.step({sid.seq_id: token_id(sid.seq_id, 99)
+                                            for sid in engine._slots if sid is not None}),
+                       'decode step under pallas',
+                       f'one step of {sum(s is not None for s in engine._slots)} active '
+                       f'slots', host_ops=8)
+        require(prof is not None and flat['profile'] is not None,
+                'the profiler saw no device events')
+        sel_p, sel_f = index_select_kernels(prof), index_select_kernels(flat['profile'])
+        require(sel_p[0] < sel_f[0] and sel_p[1] < 0.05 * sel_f[1],
+                f'pallas profile: index_select kernels {sel_p} against flat {sel_f}: the '
+                f'flat gather is still there')
+        log(f'phase 7 profile flat vs pallas: wall {flat["profile"]["wall_ms"]:.3f} vs '
+            f'{prof["wall_ms"]:.3f} ms, device {flat["profile"]["device_ms"]:.3f} vs '
+            f'{prof["device_ms"]:.3f} ms; index_select kernels (calls, device ms) {sel_f} vs '
+            f'{sel_p}: the flat gather\'s copies gone (what is left is the paged MQA '
+            f'linearising gather and small index lookups)')
+        fused = check_fused(by_kind['fused'], arch, seed)
+        fp4, fp4_launches = check_fp4_paged(by_kind['paged'], arch, flat['timing'])
+        check_varlen_and_metadata(by_kind['paged'], engine, seed)
+        del by_kind, records, c, streams
+        free_engine(engine)
+        del engine
+
+        # batch invariance at full width: two requests alone in a fresh engine
+        engine, solo, solo_slots, _, _, _ = serve(seed, list(INVARIANCE_REQUESTS))
+        free_engine(engine)
+        del engine
+    require(solo.keys() <= outs.keys() and len(solo) > 0, 'batch invariance: no outputs')
+    for key, out in solo.items():
+        require(torch.equal(out, outs[key]), f'pallas batch invariance: {key} differs alone')
+    log(f'phase 7 batch invariance under pallas: requests {INVARIANCE_REQUESTS} alone in a '
+        f'fresh engine: {len(solo)} outputs, bitwise equal')
+    return dict(counts=counts, fused=fused, fp4=fp4, fp4_launches=fp4_launches,
+                tokens_per_s=tokens_per_s, peak_gb=peak_gb,
+                profile=dict(wall_ms=prof['wall_ms'], device_ms=prof['device_ms']))
 
 
 # Phase 8: the mega MoE forward at DeepSeek-V3 widths (the phase 5 widths,
@@ -1568,6 +1983,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     served = phase_serve(args.seed, H100_SXM)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pallas = phase_serve_pallas(args.seed, H100_SXM, served)
+    del served['outs']
+    torch.cuda.synchronize()
     prefill, prefill_counts = phase_prefill(args.seed, H100_SXM)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1618,6 +2037,25 @@ def main(argv=None) -> int:
         indexer_kernel('sparse_attention', 'sparse_attn.cu',
                        'deepgemm_tpu/kernels/sparse_attn.py:104', served['counts']['attn'],
                        errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn']),
+        # the gather-fused attention: launches are the decode's under pallas
+        indexer_kernel('sparse_attention_paged', 'sparse_attn.cu',
+                       'deepgemm_tpu/kernels/sparse_attn.py:274', pallas['counts']['fused'],
+                       pallas['fused']['max_abs_err'],
+                       {k: v for k, v in pallas['fused'].items() if k != 'max_abs_err'}),
+        # the bf16 instances (FP4 operands decoded): launches are their own
+        # paths' (the FP4 op calls)
+        indexer_kernel('mqa_logits_bf16', 'mqa_logits.cu', 'deepgemm_tpu/kernels/mqa_logits.py:133',
+                       prefill['bench_fp4']['launches'], prefill['bench_fp4']['max_abs_err'],
+                       {k: v for k, v in prefill['bench_fp4'].items()
+                        if k not in ('max_abs_err', 'launches')}),
+        *(indexer_kernel(f'paged_mqa_logits_{entry}_bf16', 'paged_mqa.cu', replaces,
+                         pallas['fp4_launches'][entry],
+                         max(v[entry]['max_abs_err'] for v in pallas['fp4'].values()),
+                         {k: v for k, v in pallas['fp4']['fp4_q_fp4_cache'][entry].items()
+                          if k != 'max_abs_err'},
+                         pairs={label: v[entry] for label, v in pallas['fp4'].items()})
+          for entry, replaces in (('gather', 'deepgemm_tpu/kernels/paged_mqa.py:166'),
+                                  ('paged', 'deepgemm_tpu/kernels/paged_mqa.py:382'))),
     ]
     # phase 8: the main path's instance (fp8 weights, bf16 act) with the
     # other four beside it; launches are the default forward's

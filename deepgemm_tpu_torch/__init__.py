@@ -3,9 +3,10 @@ H100 (sm_90a).
 
 It holds the FP8 dense NT GEMM (bf16 or f32 out), the masked and the
 contiguous grouped GEMMs, the k-grouped GEMM, the indexer's MQA logits
-(prefill and paged decode) and the sparse attention over the selected rows
-(each a hand-written CUDA kernel with a plain PyTorch version beside it),
-the fused MoE expert block of the mega MoE (L1, SwiGLU, L2 in one kernel;
+(prefill and paged decode; e4m3, or FP4 operands decoded into bf16) and the
+sparse attention over the selected rows, gathered or read in place from the
+cache (each a hand-written CUDA kernel with a plain PyTorch version beside
+it), the fused MoE expert block of the mega MoE (L1, SwiGLU, L2 in one kernel;
 bf16, FP8 or planar FP4 weights), the quantization contract with the FP4
 casts and packers, the differentiable FP8 matmuls, the MoE transformer at
 one rank (the serving forward, with the mega MoE, and the FP8 SGD training
@@ -25,7 +26,8 @@ from .models.transformer import (ModelConfig, forward, init_params, loss_fn,
                                  train_step)
 from .ops.attention import (clean_logits_, fp8_fp4_mqa_logits,
                             fp8_fp4_paged_mqa_logits, fp8_mqa_logits,
-                            fp8_paged_mqa_logits, split_fused_kv_cache)
+                            fp8_paged_mqa_logits, get_paged_mqa_logits_metadata,
+                            split_fused_kv_cache)
 from .ops.autograd import fp8_dense, fp8_grouped_matmul, fp8_matmul
 from .ops.gemm import bf16_gemm_nt, fp8_fp4_gemm_nt, fp8_gemm_nt
 from .ops.k_grouped import (k_grouped_bf16_gemm_tn_contiguous,

@@ -10,13 +10,14 @@
 
 #include "mqa_tile.cuh"
 
-// q [sq * h, d] e4m3, w [sq, h] f32, kv [skv, d] e4m3, sf [skv] f32 or null,
-// lo/hi [sq] int32, kv_base [ceil(sq / rows_per_tile)] int32 or null,
-// out [sq, out_cols] f32. Returns the cudaError_t of the launch (0 = success).
+// q [sq * h, d], w [sq, h] f32, kv [skv, d], sf [skv] f32 or null, lo/hi
+// [sq] int32, kv_base [ceil(sq / rows_per_tile)] int32 or null, out [sq,
+// out_cols] f32; q_bf16 / kv_bf16 nonzero for a bf16 operand, zero for e4m3.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int dgt_mqa_logits(const void* q, const void* w, const void* kv, const void* sf,
                               const void* lo, const void* hi, const void* kv_base, void* out,
                               int sq, int rows_per_tile, int h, int d, int skv, int out_cols,
-                              float fill, void* stream) {
+                              float fill, int q_bf16, int kv_bf16, void* stream) {
     dgt_mqa::MqaArgs p = {};
     p.q = static_cast<const uint8_t*>(q);
     p.w = static_cast<const float*>(w);
@@ -28,12 +29,13 @@ extern "C" int dgt_mqa_logits(const void* q, const void* w, const void* kv, cons
     p.kv_base = static_cast<const int*>(kv_base);
     p.kv_y_stride = 0;
     p.kv_limit = skv;
+    p.y_per_row = 1;
     p.num_query_rows = sq;
     p.rows_per_tile = rows_per_tile;
     p.h = h;
     p.d = d;
     p.out_cols = out_cols;
     p.fill = fill;
-    return static_cast<int>(dgt_mqa::launch<dgt_mqa::Source::kLinear>(
-        p, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dgt_mqa::launch_typed<dgt_mqa::Source::kLinear>(
+        p, q_bf16, kv_bf16, static_cast<cudaStream_t>(stream)));
 }

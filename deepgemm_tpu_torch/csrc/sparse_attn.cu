@@ -1,26 +1,39 @@
 // Attention over the top-k rows that the indexer selected, per row r and head:
-//   out[r, h] = sum_t p[t] * v_sel[r, t, h, :],
-//   p = softmax over the valid t of scale * q[r, h, :] . k_sel[r, t, h, :]
-// in f32, a row with no valid t giving 0. Replaces deepgemm_tpu/kernels/
-// sparse_attn.py:_build (pl.pallas_call at sparse_attn.py:104).
+//   out[r, h] = sum_t p[t] * V[r, t, h, :],
+//   p = softmax over the valid t of scale * q[r, h, :] . K[r, t, h, :]
+// in f32, a row with no valid t giving 0. Two entries on one warp body:
 //
-// Masking is by select: an invalid t is skipped, never added as -inf, so a
-// NaN or Inf in an unselected cache row cannot reach the output.
+//   dgt_sparse_attention replaces deepgemm_tpu/kernels/sparse_attn.py:_build
+//     (pl.pallas_call at sparse_attn.py:104): K and V are the gathered rows,
+//     k_sel/v_sel [rows, topk, h, d].
+//   dgt_sparse_attention_paged replaces sparse_attn.py:_build_paged
+//     (pl.pallas_call at sparse_attn.py:274): K[r, t] and V[r, t] are rows
+//     tok[r, t] of the flat cache views k_rows/v_rows [N, h, d], read in place
+//     (tok clipped to [0, N) here), so the selected rows are never copied.
+//
+// Masking is by select: an invalid t is skipped, never added as -inf, and
+// its row is never loaded, so a NaN or Inf in an unselected cache row, or a
+// tok entry pointing anywhere, cannot reach the output.
 //
 // Design: each head of a row has its own K/V and one query vector, so the
 // work is a matvec streamed from HBM. One warp owns one (row, head); lane l
 // holds the d/32 elements [l * d/32, (l + 1) * d/32) of q, of each k and v row
 // and of the f32 accumulator. A block is 8 warps: 8 consecutive heads of one
 // row (blockIdx.x is the row, blockIdx.y the group of heads), whose k (and
-// v) rows for one t are 8 * d * 2 contiguous bytes. The warp walks t in
-// chunks of kChunk: it loads the chunk's k and v rows (all in flight
-// together, kept as packed bf16 until used to spare registers), reduces each
-// score across the warp with xor shuffles, and folds the chunk into an
-// online softmax (one rescale a chunk). No atomics; a (row, head) is the
+// v) rows for one t are 8 * d * 2 contiguous bytes, in the gathered layout
+// and in the cache alike. The warp walks t in chunks of kChunk: it reads the
+// chunk's valid flags (and, in the paged entry, its tok entries) into
+// registers, loads the valid k and v rows (all in flight together, kept as
+// packed bf16 until used to spare registers), reduces each score across the
+// warp with xor shuffles, and folds the chunk into an online softmax (one
+// rescale a chunk). The two entries differ only in the address of a row, so
+// on the same rows they give the same bits. No atomics; a (row, head) is the
 // same sequence of operations whatever the other rows are.
 //
-// Bound on the H100: every selected k and v element is read once, 4 * topk
-// * h * d bytes a row against ~4 operations a bf16 element: bytes bound.
+// Bound on the H100: every valid selected k and v element is read once,
+// 4 * h * d bytes a valid (row, t) against ~4 operations a bf16 element:
+// bytes bound. The paged entry moves the same bytes without the gather's
+// write and re-read of the selected rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,11 +67,14 @@ __device__ __forceinline__ void unpack(const typename BfVec<kVec>::T& raw, float
     }
 }
 
-template <int kVec>
+// kPaged: K and V rows come from the flat cache views through tok, clipped
+// to [0, n_rows); otherwise from the gathered [rows, topk, h, d] layout.
+template <int kVec, bool kPaged>
 __global__ void __launch_bounds__(kWarps * 32)
 sparse_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
-                   __nv_bfloat16* __restrict__ out, int topk, int h, float scale) {
+                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ tok,
+                   const uint8_t* __restrict__ valid, __nv_bfloat16* __restrict__ out,
+                   int topk, int h, int n_rows, float scale) {
     constexpr int kD = 32 * kVec;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int head = blockIdx.y * kWarps + warp;
@@ -68,9 +84,18 @@ sparse_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     float qf[kVec];
     unpack<kVec>(load_raw<kVec>(q + (row * h + head) * kD + lane * kVec), qf);
     const int64_t t_stride = static_cast<int64_t>(h) * kD;
-    const __nv_bfloat16* k_row = k + row * topk * t_stride + head * kD + lane * kVec;
-    const __nv_bfloat16* v_row = v + row * topk * t_stride + head * kD + lane * kVec;
+    const int64_t lane_off = head * kD + lane * kVec;
+    const int* tok_row = kPaged ? tok + row * topk : nullptr;
     const uint8_t* ok_row = valid + row * topk;
+    // the offset of the (row, t) k and v rows' first element
+    auto row_offset = [&](int t) -> int64_t {
+        if constexpr (kPaged) {
+            const int n = min(max(__ldg(tok_row + t), 0), n_rows - 1);
+            return static_cast<int64_t>(n) * t_stride;
+        } else {
+            return (row * topk + t) * t_stride;
+        }
+    };
 
     float m = -INFINITY, den = 0.f, acc[kVec];
     #pragma unroll
@@ -86,8 +111,9 @@ sparse_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
             const int t = t0 + c;
             ok[c] = t < topk && ok_row[t] != 0;
             if (ok[c]) {
-                kraw[c] = load_raw<kVec>(k_row + t * t_stride);
-                vraw[c] = load_raw<kVec>(v_row + t * t_stride);
+                const int64_t off = row_offset(t) + lane_off;
+                kraw[c] = load_raw<kVec>(k + off);
+                vraw[c] = load_raw<kVec>(v + off);
             }
         }
         float chunk_max = -INFINITY;
@@ -135,15 +161,34 @@ sparse_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     }
 }
 
-template <int kVec>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-                   int rows, int topk, int h, float scale, cudaStream_t stream) {
+template <int kVec, bool kPaged>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* tok,
+                   const void* valid, void* out, int rows, int topk, int h, int n_rows,
+                   float scale, cudaStream_t stream) {
     const dim3 grid(rows, (h + kWarps - 1) / kWarps);
-    sparse_attn_kernel<kVec><<<grid, kWarps * 32, 0, stream>>>(
+    sparse_attn_kernel<kVec, kPaged><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(valid),
-        static_cast<__nv_bfloat16*>(out), topk, h, scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(tok),
+        static_cast<const uint8_t*>(valid), static_cast<__nv_bfloat16*>(out), topk, h, n_rows,
+        scale);
     return cudaGetLastError();
+}
+
+template <bool kPaged>
+int launch_d(const void* q, const void* k, const void* v, const void* tok, const void* valid,
+             void* out, int rows, int topk, int h, int d, int n_rows, float scale,
+             void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (rows < 1 || topk < 1 || h < 1 || h > 65535 * kWarps || n_rows < 1)
+        return static_cast<int>(err);
+    if (d == 64)
+        err = launch<2, kPaged>(q, k, v, tok, valid, out, rows, topk, h, n_rows, scale, s);
+    else if (d == 128)
+        err = launch<4, kPaged>(q, k, v, tok, valid, out, rows, topk, h, n_rows, scale, s);
+    else if (d == 256)
+        err = launch<8, kPaged>(q, k, v, tok, valid, out, rows, topk, h, n_rows, scale, s);
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -158,11 +203,17 @@ extern "C" const char* dgt_error_string(int code) {
 extern "C" int dgt_sparse_attention(const void* q, const void* k_sel, const void* v_sel,
                                     const void* valid, void* out, int rows, int topk, int h,
                                     int d, float scale, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaErrorInvalidValue;
-    if (rows < 1 || topk < 1 || h < 1 || h > 65535 * kWarps) return static_cast<int>(err);
-    if (d == 64) err = launch<2>(q, k_sel, v_sel, valid, out, rows, topk, h, scale, s);
-    else if (d == 128) err = launch<4>(q, k_sel, v_sel, valid, out, rows, topk, h, scale, s);
-    else if (d == 256) err = launch<8>(q, k_sel, v_sel, valid, out, rows, topk, h, scale, s);
-    return static_cast<int>(err);
+    return launch_d<false>(q, k_sel, v_sel, nullptr, valid, out, rows, topk, h, d, 1, scale,
+                           stream);
+}
+
+// q [rows, h, d] bf16, k_rows/v_rows [n_rows, h, d] bf16 (the flat cache
+// views), tok [rows, topk] int32 (clipped to [0, n_rows) here), valid [rows,
+// topk] uint8, out [rows, h, d] bf16; d is 64, 128 or 256.
+extern "C" int dgt_sparse_attention_paged(const void* q, const void* k_rows, const void* v_rows,
+                                          const void* tok, const void* valid, void* out,
+                                          int rows, int topk, int h, int d, int n_rows,
+                                          float scale, void* stream) {
+    return launch_d<true>(q, k_rows, v_rows, tok, valid, out, rows, topk, h, d, n_rows, scale,
+                          stream);
 }

@@ -4,7 +4,7 @@
 |---|---|
 | ``DGT_NVCC``      | path of the CUDA compiler (default ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on ``PATH``) |
 | ``DGT_BUILD_DIR`` | where the kernels' shared libraries are built (default ``deepgemm_tpu_torch/_build``) |
-| ``DGT_SPARSE_GATHER`` | the decode's token gather: only ``flat`` (the default) is ported; any other value raises (``pallas`` is the next slice) |
+| ``DGT_SPARSE_GATHER`` | how the decode's attention gets its selected cache rows: ``flat`` (the default) gathers them first, ``pallas`` reads them in place in the gather-fused attention kernel (JAX's names); any other value raises |
 | ``DGT_MEGA_ACT_FP8`` | the mega block's act between L1 and L2: ``1`` fp8 (requantized per 128), ``0`` or unset bf16 |
 
 All are read lazily, at each use, never at import.
@@ -20,6 +20,12 @@ def nvcc() -> Optional[str]:
 
 def build_dir() -> Optional[str]:
     return os.environ.get('DGT_BUILD_DIR')
+
+
+def sparse_gather() -> str:
+    """``DGT_SPARSE_GATHER``: 'flat' (the default) or 'pallas'; the indexer
+    raises for any other value."""
+    return os.environ.get('DGT_SPARSE_GATHER', 'flat')
 
 
 def mega_act_fp8() -> Optional[str]:

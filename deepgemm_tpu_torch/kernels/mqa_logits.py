@@ -10,7 +10,11 @@ is kv position ``ks[i] + c``, filled with 0 past ``ke[i] - ks[i]``.
 Replaces: deepgemm_tpu/kernels/mqa_logits.py:_build_mqa_logits
 (``pl.pallas_call`` at mqa_logits.py:133). Kernel: csrc/mqa_logits.cu on the
 body of csrc/mqa_tile.cuh (heads folded into M, mma.sync e4m3, the head sum
-in shared memory, tiles outside every row's window exit early). Bound on the
+in shared memory, tiles outside every row's window exit early). q and kv are
+e4m3 or bf16 each: a bf16 operand takes the bf16 instance (mma.sync bf16,
+an e4m3 operand widened exactly), which runs the FP4 indexer operands the op
+layer decodes into bf16, as JAX feeds them to its kernel
+(deepgemm_tpu/kernels/mqa_logits.py:106-109). Bound on the
 H100: the bench shape (2048 x 8192, 64 heads, d 128) is tensor-core bound,
 ~1000 fp8 operations a byte. The compressed layout runs in the kernel when
 ``ks`` is constant over each tile of query rows (ks == 0 and context-parallel
@@ -31,7 +35,10 @@ from .common import use_plain
 launches = 0
 
 NEG_INF = float('-inf')
-MAX_ROWS = 256          # q2 rows (query rows x heads) of one block, csrc/mqa_tile.cuh
+OPERAND_DTYPES = (torch.float8_e4m3fn, torch.bfloat16)   # the tile's instances
+# csrc/mqa_tile.cuh: q2 rows (query rows x heads) of one block, output columns
+# of a kv tile, the score tile's f32 pitch, kv tiles a block, shared memory
+MAX_ROWS, _BN, _S_PITCH, _TILES_PER_BLOCK, MAX_SMEM = 256, 64, 68, 4, 232448
 _PLAIN_CHUNK = 1 << 26  # f32 scores per step of the plain version
 
 
@@ -39,9 +46,14 @@ def _entry():
     fn = build.load('mqa_logits').dgt_mqa_logits
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def is_bf16(t: torch.Tensor) -> int:
+    """1 for a bf16 operand, 0 for e4m3: the C entries' instance flags."""
+    return int(t.dtype == torch.bfloat16)
 
 
 def rows_per_tile(num_heads: int) -> int:
@@ -49,29 +61,52 @@ def rows_per_tile(num_heads: int) -> int:
     return max(1, 128 // num_heads)
 
 
-def check_tile(q2_rows: int, head_dim: int):
-    """Raise unless one block's q2 tile (query rows x heads) and head_dim
-    are what csrc/mqa_tile.cuh takes; the paged MQA entries share it."""
-    if head_dim % 32 or not 32 <= head_dim <= 256 or q2_rows > MAX_ROWS:
-        raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256 and up to '
-                         f'{MAX_ROWS} query rows x heads a block; got d={head_dim}, '
-                         f'{q2_rows} rows')
+def smem_bytes(rows: int, h: int, d: int, q_bytes: int, kv_bytes: int) -> int:
+    """Shared memory of one block of ``rows`` query rows (csrc/mqa_tile.cuh
+    smem_bytes): each operand is kept in its own type (1 byte e4m3, 2 bf16)."""
+    rp = ceil_div(rows * h, 16) * 16
+    return (rp * (d * q_bytes + 16) + 2 * _BN * (d * kv_bytes + 16) + rp * _S_PITCH * 4
+            + 2 * _BN * 4 + rows * h * 4 + 2 * rows * 4 + (_TILES_PER_BLOCK * _BN + 1) * 4)
+
+
+def fits_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> bool:
+    """Whether one block takes ``rows`` query rows of ``h`` heads at head_dim
+    ``d``: d a multiple of 32 up to 256, at most MAX_ROWS q2 rows, and the
+    shared memory of the operands' instance within the H100's 227 KB."""
+    size = lambda dt: 2 if dt == torch.bfloat16 else 1
+    return (d % 32 == 0 and 32 <= d <= 256 and 1 <= rows * h <= MAX_ROWS
+            and smem_bytes(rows, h, d, size(q_dtype), size(kv_dtype)) <= MAX_SMEM)
+
+
+def check_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype):
+    """Raise unless one block's tile of ``rows`` query rows is what
+    csrc/mqa_tile.cuh takes (:func:`fits_tile`); the paged MQA entries
+    share it."""
+    if not fits_tile(rows, h, d, q_dtype, kv_dtype):
+        raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256, up to '
+                         f'{MAX_ROWS} query rows x heads a block and {MAX_SMEM} bytes of '
+                         f'shared memory; got d={d}, {rows} rows x {h} heads, '
+                         f'{q_dtype} x {kv_dtype}')
+
+
+def check_dtypes(q: torch.Tensor, kv: torch.Tensor):
+    """Raise unless q and kv are each e4m3 or bf16."""
+    if q.dtype not in OPERAND_DTYPES or kv.dtype not in OPERAND_DTYPES:
+        raise TypeError(f'q and kv must each be e4m3 or bf16, got {q.dtype} and {kv.dtype}')
 
 
 def check_operands(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.Tensor],
                    weights: torch.Tensor):
     """Raise unless the operands are what the kernel takes (on any device)."""
-    fp8 = torch.float8_e4m3fn
     sq, h, d = q.shape
-    if q.dtype != fp8 or kv.dtype != fp8:
-        raise TypeError(f'q and kv must be e4m3, got {q.dtype} and {kv.dtype}')
+    check_dtypes(q, kv)
     if kv.dim() != 2 or kv.shape[1] != d:
         raise ValueError(f'kv: shape {tuple(kv.shape)}, expected [skv, {d}]')
     if kv_sf is not None and (kv_sf.dtype != torch.float32 or tuple(kv_sf.shape) != (kv.shape[0],)):
         raise ValueError(f'kv_sf: {kv_sf.dtype} {tuple(kv_sf.shape)}, expected f32 [{kv.shape[0]}]')
     if tuple(weights.shape) != (sq, h):
         raise ValueError(f'weights: shape {tuple(weights.shape)}, expected [{sq}, {h}]')
-    check_tile(rows_per_tile(h) * h, d)
+    check_tile(rows_per_tile(h), h, d, q.dtype, kv.dtype)
 
 
 def mqa_logits_plain(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.Tensor],
@@ -81,7 +116,7 @@ def mqa_logits_plain(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.Te
     """The kernel's function in plain PyTorch: column ``c`` of row ``i`` is kv
     row ``base_i + c`` (``kv_base`` per tile of ``rows_per_tile(h)`` rows, or
     0), kept on ``[lo_i, hi_i)``, ``fill`` elsewhere. Products in f32 on the
-    upcast operands (exact for e4m3), a few rows at a time."""
+    upcast operands (exact for e4m3 and bf16), a few rows at a time."""
     sq, h, d = q.shape
     skv = kv.shape[0]
     base = None if kv_base is None else kv_base.long().repeat_interleave(rows_per_tile(h))[:sq]
@@ -130,7 +165,8 @@ def mqa_logits_kernel(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.T
     lib = build.load('mqa_logits')
     code = _entry()(q.data_ptr(), w.data_ptr(), kv.data_ptr(), ptr(sf), lo.data_ptr(),
                     hi.data_ptr(), ptr(base), out.data_ptr(), sq, bq, h, d, kv.shape[0],
-                    out_cols, fill, torch.cuda.current_stream(q.device).cuda_stream)
+                    out_cols, fill, is_bf16(q), is_bf16(kv),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'mqa_logits')
     global launches
     launches += 1
@@ -141,7 +177,8 @@ def mqa_logits(q: torch.Tensor, kv: torch.Tensor, weights: torch.Tensor,
                ks: torch.Tensor, ke: torch.Tensor, kv_sf: Optional[torch.Tensor] = None,
                max_seqlen_k: int = 0,
                logits_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """q [sq, h, d] e4m3; kv [skv, d] e4m3 (+ per-token kv_sf [skv] f32);
+    """q [sq, h, d] e4m3 or bf16; kv [skv, d] e4m3 or bf16 (+ per-token kv_sf
+    [skv] f32);
     weights [sq, h]; ks/ke [sq] int. Returns [sq, skv] logits with -inf
     outside [ks, ke), or the compressed [sq, max_seqlen_k] layout (0 past
     ke - ks). The compressed layout checks on the host whether ks is constant

@@ -18,7 +18,11 @@ Replaces:
     (``pl.pallas_call`` at paged_mqa.py:382): the kernel reads the pages and
     their scales in place through the clamped block table.
 Kernel: csrc/paged_mqa.cu (both entries) on the body of csrc/mqa_tile.cuh;
-the two give the same bits. Bound on the H100: the cache bytes each row's
+the two give the same bits. q and the cache are e4m3 or bf16 each (the bf16
+instances run the decoded FP4 operands). A batch row's next_n tokens run as
+one query tile, or, where its q2 rows (next_n x heads) do not fit one block,
+as several tiles of :func:`tile_rows` tokens that read the same pages, so
+any next_n runs, as in JAX. Bound on the H100: the cache bytes each row's
 context needs (bytes bound). Not ported: the TPU kernel's DMA knobs
 (``DGT_ZC_SLOTS``, ``DGT_ZC_COALESCE`` and the page adjacency levels,
 paged_mqa.py:415-482) and the JAX op's ``tile_kv`` chooser
@@ -32,7 +36,7 @@ import torch
 
 from ..runtime import build
 from .common import select_rows, use_plain
-from .mqa_logits import check_tile
+from .mqa_logits import check_dtypes, fits_tile, is_bf16
 
 # Kernel launches since the counts were last set to 0, by entry.
 launches = {'gather': 0, 'paged': 0}
@@ -45,10 +49,10 @@ def _entry(strategy: str):
     lib = build.load('paged_mqa')
     if strategy == 'gather':
         fn = lib.dgt_paged_mqa_logits_gather
-        argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     else:
         fn = lib.dgt_paged_mqa_logits_paged
-        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -65,15 +69,29 @@ def row_bounds(context_lens: torch.Tensor, next_n: int) -> torch.Tensor:
     return (ctx[:, None] - next_n + 1 + t[None, :]).reshape(-1).contiguous()
 
 
-def _check(q: torch.Tensor, weights: torch.Tensor, kv: torch.Tensor):
+def tile_rows(next_n: int, h: int, d: int, q_dtype: torch.dtype,
+              kv_dtype: torch.dtype) -> int:
+    """Query tokens of one kernel tile: the largest divisor of next_n whose
+    q2 rows fit one block (kernels.mqa_logits.fits_tile), so a batch row's
+    tokens split into equal tiles and no row is padded. Raises if not even
+    one token fits."""
+    for rows in range(next_n, 0, -1):
+        if next_n % rows == 0 and fits_tile(rows, h, d, q_dtype, kv_dtype):
+            return rows
+    raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256 and one query '
+                     f'token of {h} heads in a block; got d={d}, {q_dtype} x {kv_dtype}')
+
+
+def _check(q: torch.Tensor, weights: torch.Tensor, kv: torch.Tensor) -> int:
+    """Raise unless the operands are what the kernel takes; returns
+    :func:`tile_rows`."""
     b, nn, h, d = q.shape
-    if q.dtype != torch.float8_e4m3fn or kv.dtype != torch.float8_e4m3fn:
-        raise TypeError(f'q and the cache must be e4m3, got {q.dtype} and {kv.dtype}')
+    check_dtypes(q, kv)
     if kv.shape[-1] != d:
         raise ValueError(f'cache head_dim {kv.shape[-1]} != q head_dim {d}')
     if tuple(weights.shape) != (b * nn, h):
         raise ValueError(f'weights: shape {tuple(weights.shape)}, expected [{b * nn}, {h}]')
-    check_tile(nn * h, d)
+    return tile_rows(nn, h, d, q.dtype, kv.dtype)
 
 
 def linearise(kv_cache: torch.Tensor, kv_sf: torch.Tensor, block_table: torch.Tensor):
@@ -91,7 +109,7 @@ def paged_mqa_logits_plain(q: torch.Tensor, kv_lin: torch.Tensor, sf_lin: torch.
                            weights: torch.Tensor, hi: torch.Tensor,
                            max_model_len: int) -> torch.Tensor:
     """Both entries' function in plain PyTorch, on the linearised cache:
-    products in f32 on the upcast operands (exact for e4m3), then the ReLU,
+    products in f32 on the upcast operands (exact for e4m3 and bf16), then the ReLU,
     the scale, the weighted head sum and the mask, one batch row at a time.
     Columns past the linearised cache read as zero rows, as in the kernel."""
     b, nn, h, d = q.shape
@@ -113,10 +131,10 @@ def paged_mqa_logits_gather(q: torch.Tensor, kv_lin: torch.Tensor, sf_lin: torch
                             weights: torch.Tensor, hi: torch.Tensor,
                             max_model_len: int) -> torch.Tensor:
     """The 'gather' entry on the linearised cache (see :func:`linearise`):
-    q [B, nn, h, d] e4m3, weights [B * nn, h] f32, hi [B * nn] int32 (see
-    :func:`row_bounds`). CPU tensors take the plain version, CUDA tensors
-    launch the kernel or raise."""
-    _check(q, weights, kv_lin)
+    q [B, nn, h, d] e4m3 or bf16, weights [B * nn, h] f32, hi [B * nn] int32
+    (see :func:`row_bounds`). CPU tensors take the plain version, CUDA
+    tensors launch the kernel or raise."""
+    rows = _check(q, weights, kv_lin)
     if use_plain(q, kv_lin, sf_lin, weights, hi):
         return paged_mqa_logits_plain(q, kv_lin, sf_lin, weights, hi, max_model_len)
     b, nn, h, d = q.shape
@@ -126,8 +144,8 @@ def paged_mqa_logits_gather(q: torch.Tensor, kv_lin: torch.Tensor, sf_lin: torch
     out = torch.empty((b * nn, max_model_len), dtype=torch.float32, device=q.device)
     lib, fn = _entry('gather')
     code = fn(q.data_ptr(), w.data_ptr(), kv_lin.data_ptr(), sf_lin.data_ptr(), lo.data_ptr(),
-              hi.data_ptr(), out.data_ptr(), b, nn, h, d, kv_lin.shape[1], max_model_len,
-              torch.cuda.current_stream(q.device).cuda_stream)
+              hi.data_ptr(), out.data_ptr(), b, nn, rows, h, d, kv_lin.shape[1], max_model_len,
+              is_bf16(q), is_bf16(kv_lin), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'paged_mqa_logits_gather')
     launches['gather'] += 1
     return out
@@ -137,11 +155,11 @@ def paged_mqa_logits_paged(q: torch.Tensor, kv_cache: torch.Tensor, kv_sf: torch
                            weights: torch.Tensor, hi: torch.Tensor, block_table: torch.Tensor,
                            max_model_len: int) -> torch.Tensor:
     """The zero-copy entry: the pages kv_cache [num_blocks, block_kv, d] e4m3
-    and kv_sf [num_blocks, block_kv] f32 read in place through block_table
-    [B, mb] (clamped to valid pages here). CPU tensors take the plain
-    version (on the linearised cache: the same function), CUDA tensors
+    or bf16 and kv_sf [num_blocks, block_kv] f32 read in place through
+    block_table [B, mb] (clamped to valid pages here). CPU tensors take the
+    plain version (on the linearised cache: the same function), CUDA tensors
     launch the kernel or raise."""
-    _check(q, weights, kv_cache)
+    rows = _check(q, weights, kv_cache)
     nb, bkv, d = kv_cache.shape
     bt = block_table.to(torch.int32).clamp(0, nb - 1).contiguous()
     if use_plain(q, kv_cache, kv_sf, weights, hi, bt):
@@ -154,8 +172,9 @@ def paged_mqa_logits_paged(q: torch.Tensor, kv_cache: torch.Tensor, kv_sf: torch
     out = torch.empty((b * nn, max_model_len), dtype=torch.float32, device=q.device)
     lib, fn = _entry('paged')
     code = fn(q.data_ptr(), w.data_ptr(), kv_cache.data_ptr(), kv_sf.data_ptr(), bt.data_ptr(),
-              lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, nn, h, d, bt.shape[1], bkv,
-              max_model_len, torch.cuda.current_stream(q.device).cuda_stream)
+              lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, nn, rows, h, d, bt.shape[1], bkv,
+              max_model_len, is_bf16(q), is_bf16(kv_cache),
+              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'paged_mqa_logits_paged')
     launches['paged'] += 1
     return out
@@ -165,8 +184,9 @@ def paged_mqa_logits(q: torch.Tensor, kv_cache: torch.Tensor, kv_sf: torch.Tenso
                      weights: torch.Tensor, context_lens: torch.Tensor,
                      block_table: torch.Tensor, max_model_len: int,
                      strategy: str = 'gather') -> torch.Tensor:
-    """q [B, next_n, h, d] e4m3; kv_cache [num_blocks, block_kv, d] e4m3 with
-    per-token kv_sf [num_blocks, block_kv] f32; weights [B * next_n, h];
+    """q [B, next_n, h, d] e4m3 or bf16 (any next_n); kv_cache [num_blocks,
+    block_kv, d] e4m3 or bf16 with per-token kv_sf [num_blocks, block_kv]
+    f32; weights [B * next_n, h];
     context_lens [B] (1-D, causal per-token offsets) or [B, next_n] (2-D);
     block_table [B, mb]. Returns f32 [B * next_n, max_model_len], -inf
     outside range. ``strategy`` 'gather' (the default) linearises the pages

@@ -7,8 +7,11 @@ deepgemm_tpu/serving/engine.py).
   * Paged cache: a host-side allocator hands cache pages to sequences; the
     block table is ``[max_slots, max_pages_per_seq]``.
   * Each step runs the lightning-indexer sparse decode (models/indexer.py):
-    fp8 paged scoring, a top-k per slot, a flat token gather, and attention
-    over the selected rows.
+    fp8 paged scoring, a top-k per slot, and attention over the selected
+    rows, gathered first ('flat', the default) or read in place from the
+    pages by the gather-fused kernel (``DGT_SPARSE_GATHER=pallas``). The
+    cache writes below are in place on contiguous pages, so the flat views
+    the indexer takes (``k_pages.view(-1, h, d)``) never copy them.
 
 The JAX engine's split into a donated append jit and a read-only compute jit
 is an XLA copy artefact (engine.py:224-267). Here the append and the prefill

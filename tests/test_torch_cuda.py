@@ -319,6 +319,203 @@ def test_sparse_attention_kernel_matches_plain(gen, d):
     assert calc_diff(got, want) < 1e-5
 
 
+@pytest.mark.parametrize('d', [64, 128, 256])
+def test_sparse_attention_paged_kernel_matches_plain_and_gather(gen, d):
+    """The gather-fused entry against its plain version, and bitwise equal
+    to index_select + the gathered entry on the same rows; unselected cache
+    rows hold NaN/Inf and invalid tok entries point out of range."""
+    rows, t, h, n = 6, 300, 12, 900
+    q = _randn(gen, rows, h, d)
+    k_rows, v_rows = _randn(gen, n, h, d), _randn(gen, n, h, d)
+    tok = torch.randint(0, n, (rows, t), generator=gen, device='cuda', dtype=torch.int32)
+    valid = torch.rand(rows, t, generator=gen, device='cuda') > 0.3
+    valid[2] = False                                        # no valid position: 0
+    tok[4][~valid[4]] = 10 * n                              # out of range, never read
+    tok[5][~valid[5]] = -7
+    unused = torch.ones(n, dtype=torch.bool, device='cuda')
+    unused[tok[valid].long()] = False
+    k_rows[unused] = float('nan')
+    v_rows[unused] = float('inf')
+    before = (sparse_attn.paged_launches, sparse_attn.launches)
+    got = sparse_attn.sparse_attention_paged(q, k_rows, v_rows, tok, valid, d ** -0.5)
+    with plain_versions():
+        want = sparse_attn.sparse_attention_paged(q, k_rows, v_rows, tok, valid, d ** -0.5)
+    flat = tok.long().clamp(0, n - 1).view(-1)
+    gathered = sparse_attn.gathered_attention(
+        q, k_rows.index_select(0, flat).view(rows, t, h, d),
+        v_rows.index_select(0, flat).view(rows, t, h, d), valid, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (sparse_attn.paged_launches, sparse_attn.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all() and not got[2].any()
+    assert calc_diff(got, want) < 1e-5
+    assert torch.equal(got, gathered)
+
+
+def test_sparse_attention_paged_refuses_what_it_does_not_take(gen):
+    q = _randn(gen, 2, 4, 96)
+    rows = _randn(gen, 10, 4, 96)
+    tok = torch.zeros(2, 8, dtype=torch.int32, device='cuda')
+    valid = torch.ones(2, 8, dtype=torch.bool, device='cuda')
+    with pytest.raises(ValueError, match='head_dim'):
+        sparse_attn.sparse_attention_paged(q, rows, rows, tok, valid, 0.1)
+    q, pages = _randn(gen, 2, 4, 64), _randn(gen, 3, 16, 8, 64)
+    strided = pages[:, :, :4].reshape(-1, 4, 64)            # a copy: no view
+    view = pages[:, :, :4].flatten(0, 1)                    # non-contiguous
+    with pytest.raises(ValueError, match='contiguous'):
+        sparse_attn.sparse_attention_paged(q, view, strided, tok, valid, 0.1)
+
+
+_OPERANDS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+             (torch.float8_e4m3fn, torch.bfloat16)]
+
+
+def _operand(gen, dtype, *shape):
+    x = torch.randn(shape, generator=gen, device='cuda')
+    return x.to(torch.bfloat16) if dtype == torch.bfloat16 else x.to(torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', _OPERANDS)
+def test_mqa_logits_bf16_instances_match_plain(gen, q_dtype, kv_dtype):
+    sq, skv, h, d = 37, 300, 64, 128
+    q, kv = _operand(gen, q_dtype, sq, h, d), _operand(gen, kv_dtype, skv, d)
+    sf = torch.rand(skv, generator=gen, device='cuda') + 0.5
+    w = torch.randn(sq, h, generator=gen, device='cuda')
+    ks = torch.zeros(sq, dtype=torch.int32, device='cuda')
+    ke = torch.randint(1, skv, (sq,), generator=gen, device='cuda', dtype=torch.int32)
+    before = mqa_logits.launches
+    got = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf)
+    with plain_versions():
+        want = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf)
+    torch.cuda.synchronize()
+    assert mqa_logits.launches == before + 1
+    _same_logits(got, want)
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', _OPERANDS)
+def test_paged_mqa_bf16_instances_match_plain_and_each_other(gen, q_dtype, kv_dtype):
+    b, nn, h, d, bkv, mb, nb = 5, 2, 64, 128, 64, 6, 40
+    q = _operand(gen, q_dtype, b, nn, h, d)
+    w = torch.rand(b * nn, h, generator=gen, device='cuda')
+    kv, sf = _operand(gen, kv_dtype, nb, bkv, d), torch.rand(nb, bkv, generator=gen, device='cuda')
+    bt = torch.randperm(nb, generator=gen, device='cuda')[:b * mb].view(b, mb).int()
+    ctx = torch.randint(nn + 1, bkv * mb, (b,), generator=gen, device='cuda', dtype=torch.int32)
+    args = (q, kv, sf, w, ctx, bt, bkv * mb)
+    before = dict(paged_mqa.launches)
+    got = {s: paged_mqa.paged_mqa_logits(*args, strategy=s) for s in ('gather', 'paged')}
+    with plain_versions():
+        want = paged_mqa.paged_mqa_logits(*args)
+    torch.cuda.synchronize()
+    assert paged_mqa.launches == {s: before[s] + 1 for s in before}
+    _same_logits(got['gather'], want)
+    assert torch.equal(got['paged'], got['gather'])
+
+
+@pytest.mark.parametrize('next_n,ctx_2d', [(6, False), (6, True), (5, False)])
+def test_paged_mqa_any_next_n(gen, next_n, ctx_2d):
+    """next_n x heads above one block's 256 q2 rows: a batch row's tokens
+    run as several tiles over the same pages (3 + 3 of 6, five of one of
+    5), against the plain version, the strategies bitwise equal."""
+    b, h, d, bkv, mb, nb = 3, 64, 128, 64, 4, 16
+    assert paged_mqa.tile_rows(next_n, h, d, torch.float8_e4m3fn, torch.float8_e4m3fn) < next_n
+    q = _fp8(gen, b, next_n, h, d)
+    w = torch.rand(b * next_n, h, generator=gen, device='cuda')
+    kv, sf = _fp8(gen, nb, bkv, d), torch.rand(nb, bkv, generator=gen, device='cuda')
+    bt = torch.randperm(nb, generator=gen, device='cuda')[:b * mb].view(b, mb).int()
+    shape = (b, next_n) if ctx_2d else (b,)
+    ctx = torch.randint(next_n + 1, bkv * mb, shape, generator=gen, device='cuda',
+                        dtype=torch.int32)
+    args = (q, kv, sf, w, ctx, bt, bkv * mb)
+    got = {s: paged_mqa.paged_mqa_logits(*args, strategy=s) for s in ('gather', 'paged')}
+    with plain_versions():
+        want = paged_mqa.paged_mqa_logits(*args)
+    torch.cuda.synchronize()
+    _same_logits(got['gather'], want)
+    assert torch.equal(got['paged'], got['gather'])
+
+
+def test_fp4_operands_and_varlen_on_the_card(gen):
+    """The op layer on CUDA tensors: FP4 q with an FP4 fused byte cache runs
+    the bf16 instance, against the plain versions; varlen pairing in the
+    host and the device form, bitwise equal to each other and to the
+    padded 2-D call; the metadata table equal to the one from the CPU."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4
+    b, h, d, bkv, mb, nb = 4, 64, 128, 64, 4, 16
+    packed, psf = per_token_cast_to_fp4(_randn(gen, nb * bkv, d), use_ue8m0=True, gran_k=32,
+                                        use_packed_ue8m0=True)
+    fused = torch.cat([packed.view(torch.uint8).view(nb, -1),
+                       psf.view(torch.uint8).view(nb, -1)], dim=1).view(nb, bkv, 1, d // 2 + 4)
+    q4, q4sf = per_token_cast_to_fp4(_randn(gen, b * h, d), use_ue8m0=True, gran_k=32,
+                                     use_packed_ue8m0=True)
+    q4, q4sf = q4.view(b, 1, h, d // 2), q4sf.view(b, 1, h)
+    w = torch.rand(b, h, generator=gen, device='cuda')
+    bt = torch.randperm(nb, generator=gen, device='cuda').view(b, mb).int()
+    ctx = torch.randint(2, bkv * mb, (b,), generator=gen, device='cuda', dtype=torch.int32)
+    args = ((q4, q4sf), fused, w, ctx, bt, None, bkv * mb)
+    before = dict(paged_mqa.launches)
+    got = dgt.fp8_fp4_paged_mqa_logits(*args)
+    with plain_versions():
+        want = dgt.fp8_fp4_paged_mqa_logits(*args)
+    torch.cuda.synchronize()
+    assert paged_mqa.launches['gather'] == before['gather'] + 1
+    _same_logits(got, want)
+
+    # varlen: 4 sequences with 1-6 tokens each (6 x 64 heads: two tiles a row)
+    counts = torch.tensor([6, 1, 3, 2])
+    idx = torch.repeat_interleave(torch.arange(4), counts).cuda()
+    rows = idx.numel()
+    q8 = _fp8(gen, rows, 1, h, d)
+    wv = torch.rand(rows, h, generator=gen, device='cuda')
+    pos = torch.cat([torch.arange(c) for c in counts.tolist()]).cuda()
+    ctxv = (ctx[idx] + pos).int()                         # each token one more than the last
+    kv8, sf8 = _fp8(gen, nb, bkv, d), torch.rand(nb, bkv, generator=gen, device='cuda')
+    call = lambda **kw: dgt.fp8_fp4_paged_mqa_logits(
+        (q8, None), (kv8, sf8), wv, ctxv[:, None], bt[idx], None, bkv * mb, indices=idx, **kw)
+    host, device = call(), call(max_batch=4, max_tokens_per_seq=6)
+    q_pad = torch.zeros(4, 6, h, d, dtype=torch.uint8, device='cuda')
+    q_pad[idx, pos] = q8[:, 0].view(torch.uint8)
+    w_pad = torch.zeros(4 * 6, h, device='cuda')
+    w_pad[idx * 6 + pos] = wv
+    ctx_pad = torch.zeros(4, 6, dtype=torch.int32, device='cuda')
+    ctx_pad[idx, pos] = ctxv
+    padded = dgt.fp8_fp4_paged_mqa_logits(
+        (q_pad.view(torch.float8_e4m3fn), None), (kv8, sf8), w_pad, ctx_pad, bt, None, bkv * mb)
+    torch.cuda.synchronize()
+    assert torch.equal(host, device)
+    assert torch.equal(host, padded[idx * 6 + pos])
+    meta = dgt.get_paged_mqa_logits_metadata(ctx, bkv, 132)
+    assert meta.is_cuda and meta.shape == (133, 2)
+    assert torch.equal(meta.cpu(), dgt.get_paged_mqa_logits_metadata(ctx.cpu(), bkv, 132))
+
+
+def test_decode_pallas_launches_the_gather_fused_kernel(gen, monkeypatch):
+    """DGT_SPARSE_GATHER=pallas: the decode launches the gather-fused kernel
+    once and the gathered one never, bitwise equal to 'flat'; a head_dim
+    outside the kernel's contract raises, never drops to 'flat'."""
+    from deepgemm_tpu_torch.models.indexer import indexer_sparse_decode
+
+    def case(d):
+        b, h, hi, di, bkv, mb, nb = 4, 8, 8, 128, 64, 4, 16
+        q = _randn(gen, b, 1, h, d)
+        pages = (_randn(gen, nb, bkv, h, d), _randn(gen, nb, bkv, h, d))
+        index = (_fp8(gen, nb, bkv, di), torch.rand(nb, bkv, generator=gen, device='cuda'))
+        bt = torch.randperm(nb, generator=gen, device='cuda').view(b, mb).int()
+        ctx = torch.randint(40, bkv * mb, (b,), generator=gen, device='cuda', dtype=torch.int32)
+        return (q, pages, index, _randn(gen, b, 1, hi, di),
+                torch.rand(b, hi, generator=gen, device='cuda'), ctx, bt, bkv * mb, 64)
+
+    args = case(128)
+    flat = indexer_sparse_decode(*args)
+    monkeypatch.setenv('DGT_SPARSE_GATHER', 'pallas')
+    before = (sparse_attn.paged_launches, sparse_attn.launches)
+    fused = indexer_sparse_decode(*args)
+    torch.cuda.synchronize()
+    assert (sparse_attn.paged_launches, sparse_attn.launches) == (before[0] + 1, before[1])
+    assert torch.equal(fused, flat)
+    with pytest.raises(ValueError, match='head_dim'):
+        indexer_sparse_decode(*case(96))
+
+
 ENGINE = dict(max_slots=4, max_pages_per_seq=6, num_blocks=32, block_kv=64, num_heads=4,
               head_dim=128, index_heads=8, index_dim=128, topk=32)
 
@@ -381,6 +578,21 @@ def test_tiny_engine_kernels_match_plain_and_are_batch_invariant(gen):
     for alone in (seqs[0], seqs[2]):
         for key, out in _run([alone]).items():
             assert torch.equal(out, outs[key]), key
+
+
+def test_tiny_engine_under_pallas_is_bitwise_flat(gen, monkeypatch):
+    """The engine under DGT_SPARSE_GATHER=pallas: the gather-fused kernel once
+    a step, the gathered one never, every output bitwise the 'flat' run's."""
+    seqs = [('a', 1, 200, 0), ('b', 2, 90, 0), ('c', 3, 300, 2)]
+    flat = _run(seqs)
+    monkeypatch.setenv('DGT_SPARSE_GATHER', 'pallas')
+    before = (sparse_attn.paged_launches, sparse_attn.launches)
+    fused = _run(seqs)
+    torch.cuda.synchronize()
+    assert (sparse_attn.paged_launches, sparse_attn.launches) == (before[0] + 5, before[1])
+    assert fused.keys() == flat.keys()
+    for key, out in fused.items():
+        assert torch.equal(out, flat[key]), key
 
 
 # ---- the fused mega expert block ----------------------------------------------------

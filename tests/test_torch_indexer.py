@@ -1,7 +1,8 @@
 """The port's lightning-indexer consumers (deepgemm_tpu_torch/models/
 indexer.py) against the JAX package on the same numpy inputs: the top-k
 selection on ties, the prefill and the decode sparse attention (against JAX
-and a numpy oracle over the same selection), and the gathers not ported."""
+and a numpy oracle over the same selection), the decode's gather-fused
+'pallas' mode, and the gathers not carried over."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -117,17 +118,53 @@ def test_indexer_sparse_decode_matches_jax(case):
     assert calc_diff(got, np.asarray(want, np.float32)) < 1e-5
 
 
-@pytest.mark.parametrize('mode', ['pallas', '2level', 'other'])
+def _decode_case(seed=23):
+    """The JAX suite's gather-fused decode case (tests/test_sparse_attn.py:
+    119-145): d 128, so JAX's 'pallas' runs its gather-fused kernel."""
+    rng = np.random.RandomState(seed)
+    b, h, d, hi, di, topk, bkv, mps = 4, 2, 128, 2, 32, 16, 16, 4
+    nbs, mcl = b * mps, bkv * mps
+    kp = jnp.asarray(rng.randn(nbs, bkv, h, d) * 0.2, jnp.bfloat16)
+    vp = jnp.asarray(rng.randn(nbs, bkv, h, d) * 0.2, jnp.bfloat16)
+    ikp = jnp.clip(jnp.asarray(rng.randn(nbs, bkv, di), jnp.float32), -448,
+                   448).astype(jnp.float8_e4m3fn)
+    isfp = jnp.asarray(rng.rand(nbs, bkv).astype(np.float32))
+    btab = jnp.asarray(rng.permutation(nbs).reshape(b, mps), jnp.int32)
+    ctx = jnp.asarray(rng.randint(topk + 1, mcl, b), jnp.int32)
+    q = jnp.asarray(rng.randn(b, 1, h, d), jnp.bfloat16)
+    iq = jnp.asarray(rng.randn(b, 1, hi, di), jnp.bfloat16)
+    iw = jnp.asarray(rng.rand(b, hi).astype(np.float32))
+    jax_args = (q, (kp, vp), (ikp, isfp), iq, iw, ctx, btab, mcl, topk)
+    port_args = (_t(q), (_t(kp), _t(vp)), (_t(ikp), _t(isfp)), _t(iq), _t(iw), _t(ctx),
+                 _t(btab), mcl, topk)
+    return jax_args, port_args
+
+
+def test_decode_pallas_matches_jax_pallas_and_flat(monkeypatch):
+    """DGT_SPARSE_GATHER=pallas: the port's gather-fused decode against JAX's
+    (its Pallas kernel in interpret mode) within 1e-5, and bitwise equal to
+    the port's 'flat' decode."""
+    jax_args, port_args = _decode_case()
+    flat = indexer.indexer_sparse_decode(*port_args)
+    monkeypatch.setenv('DGT_SPARSE_GATHER', 'pallas')
+    want = np.asarray(jax_indexer.indexer_sparse_decode(*jax_args), np.float32)
+    got = indexer.indexer_sparse_decode(*port_args)
+    assert got.shape == (4, 1, 2, 128) and got.dtype == torch.bfloat16
+    assert calc_diff(got, want) < 1e-5
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize('mode', ['2level', 'other'])
 def test_decode_gathers_other_than_flat_raise(monkeypatch, mode):
-    """Only the flat gather is ported: the gather-fused 'pallas' mode (the
-    next slice) and the JAX module's '2level' form raise rather than fall
-    back to it."""
+    """The port takes 'flat' and 'pallas' only: the JAX module's '2level'
+    form and any other value raise rather than fall back to another
+    gather."""
     rng = np.random.RandomState(33)
     b, h, d, nb, bkv = 2, 2, 64, 4, 16
     pages = torch.from_numpy(rng.randn(nb, bkv, h, d).astype(np.float32)).bfloat16()
     ivals = torch.from_numpy(rng.randn(nb, bkv, 32).astype(np.float32)).to(torch.float8_e4m3fn)
     monkeypatch.setenv('DGT_SPARSE_GATHER', mode)
-    with pytest.raises(NotImplementedError, match='flat token rows only.*Queue 1 #1'):
+    with pytest.raises(NotImplementedError, match=r"takes \('flat', 'pallas'\).*Queue 1 #5"):
         indexer.indexer_sparse_decode(
             torch.zeros(b, 1, h, d, dtype=torch.bfloat16), (pages, pages),
             (ivals, torch.ones(nb, bkv)), torch.zeros(b, 1, 2, 32), torch.ones(b, 2),

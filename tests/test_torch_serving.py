@@ -1,7 +1,8 @@
 """The port's continuous-batching engine (deepgemm_tpu_torch/serving/
 engine.py) against the JAX package's: the page allocator step by step, the
-same admit/prefill/step/finish script through both engines, a JAX engine's
-cache carried across into one port compute step, and the port's own batch
+same admit/prefill/step/finish script through both engines (flat and
+gather-fused decode), a JAX engine's cache carried across into one port
+compute step, and the port's own batch
 invariance, chunked prefill, page reuse and exhaustion."""
 
 import ml_dtypes
@@ -172,6 +173,21 @@ def test_engine_matches_jax():
         torch.from_numpy(iw), torch.from_numpy(args[0]), torch.from_numpy(args[1]), *args[2:])
     live = np.asarray(ref.context_lens) > 0
     assert calc_diff(port_out[live], np.asarray(jax_out, np.float32)[live]) < 1e-5
+
+
+def test_engine_under_pallas_matches_jax(monkeypatch):
+    """The same script with DGT_SPARSE_GATHER=pallas in both engines: the
+    port's gather-fused decode (its plain version here) within 1e-5 of the
+    JAX engine (which, at this head_dim of 64, takes its flat gather: the
+    same function), and bitwise equal to the port's own 'flat' run."""
+    flat = _script(make_engine())
+    monkeypatch.setenv('DGT_SPARSE_GATHER', 'pallas')
+    want = _script(make_jax_engine(), to=_jax)
+    got = _script(make_engine())
+    assert want.keys() == got.keys() == flat.keys()
+    for key in want:
+        assert calc_diff(got[key], want[key]) < 1e-5, key
+        assert_bitwise_equal(got[key], flat[key], f'pallas vs flat {key}')
 
 
 def test_batch_invariance_bitwise():

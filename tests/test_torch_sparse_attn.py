@@ -124,3 +124,78 @@ def test_indexer_decode_attention_modes_match_jax_xla(monkeypatch):
         monkeypatch.setenv('DGT_SPARSE_ATTN', mode)
         want = np.asarray(jax_indexer.indexer_sparse_decode(*args), np.float32)
         assert calc_diff(got, want) < 1e-5, mode
+
+
+def _paged_inputs(rows, t, h, d, n, seed):
+    rng = np.random.RandomState(seed)
+    q = jnp.asarray(rng.randn(rows, h, d), jnp.bfloat16)
+    cache = jnp.asarray(rng.randn(n, h, d), jnp.bfloat16)
+    tok = rng.randint(0, n, (rows, t)).astype(np.int32)
+    valid = rng.rand(rows, t) > 0.3
+    valid[:, 0] = True
+    return q, cache, tok, valid
+
+
+@pytest.mark.parametrize('rows,t,h,d,n', [(4, 64, 8, 128, 256), (3, 24, 2, 128, 100)])
+def test_sparse_attention_paged_matches_jax(rows, t, h, d, n):
+    """The gather-fused attention (its plain version here) against JAX's
+    gather-fused kernel in interpret mode, at the JAX suite's shapes
+    (tests/test_sparse_attn.py:98-99), within 1e-5; and bitwise equal to
+    the port's flat gather + gathered attention on the same rows."""
+    q, cache, tok, valid = _paged_inputs(rows, t, h, d, n, seed=21)
+    scale = 1.0 / np.sqrt(d)
+    want = jax_sparse_attn.sparse_attention_paged(q, cache, cache, jnp.asarray(tok),
+                                                  jnp.asarray(valid), scale)
+    got = sparse_attn.sparse_attention_paged(_t(q), _t(cache), _t(cache), torch.from_numpy(tok),
+                                             torch.from_numpy(valid), scale)
+    assert got.shape == (rows, h, d) and got.dtype == torch.bfloat16
+    assert calc_diff(got, np.asarray(want, np.float32)) < 1e-5
+    k_sel = _t(cache).index_select(0, torch.from_numpy(tok).long().view(-1)).view(rows, t, h, d)
+    gathered = sparse_attn.gathered_attention(_t(q), k_sel, k_sel, torch.from_numpy(valid),
+                                              scale)
+    assert torch.equal(got, gathered)
+
+
+def test_sparse_attention_paged_masks_by_select():
+    """NaN and Inf in cache rows no valid entry selects stay out of the
+    output; a row with no valid entry gives 0; invalid entries may point
+    out of range (clipped, never read); against the float64 oracle."""
+    rows, t, h, d, n = 4, 16, 2, 64, 40
+    q, cache, tok, valid = _paged_inputs(rows, t, h, d, n, seed=22)
+    valid[2, :] = False
+    tok[1, ~valid[1]] = 10 * n
+    tok[3, ~valid[3]] = -5
+    k = np.asarray(cache, np.float32)
+    v = np.asarray(cache, np.float32) * 0.5
+    unused = np.ones(n, bool)
+    unused[tok[valid]] = False
+    assert unused.any()
+    k[unused], v[unused] = np.nan, np.inf
+    kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    out = sparse_attn.sparse_attention_paged(_t(q), kt, vt, torch.from_numpy(tok),
+                                             torch.from_numpy(valid), 0.1)
+    assert torch.isfinite(out).all()
+    assert not out[2].any()
+    ok = [0, 1, 3]
+    sel = np.clip(tok, 0, n - 1)
+    k_sel = np.asarray(kt.float())[sel]
+    v_sel = np.asarray(vt.float())[sel]
+    ref = _oracle(np.asarray(q)[ok], np.nan_to_num(k_sel[ok]),
+                  np.nan_to_num(v_sel[ok], posinf=0.0), valid[ok], 0.1)
+    assert calc_diff(out[ok], ref) < 2e-3
+
+
+def test_sparse_attention_paged_contract():
+    """The same shape contract as the gathered entry (head_dim 64, 128 or
+    256); bf16 operands and output only."""
+    q, cache, tok, valid = (_t(x) if not isinstance(x, np.ndarray) else torch.from_numpy(x)
+                            for x in _paged_inputs(2, 8, 2, 96, 10, seed=23))
+    with pytest.raises(ValueError, match='head_dim'):
+        sparse_attn.sparse_attention_paged(q, cache, cache, tok, valid, 0.1)
+    q, cache, tok, valid = (_t(x) if not isinstance(x, np.ndarray) else torch.from_numpy(x)
+                            for x in _paged_inputs(2, 8, 2, 64, 10, seed=23))
+    with pytest.raises(TypeError, match='bf16'):
+        sparse_attn.sparse_attention_paged(q, cache.float(), cache, tok, valid, 0.1)
+    with pytest.raises(TypeError, match='writes bf16'):
+        sparse_attn.sparse_attention_paged(q, cache, cache, tok, valid, 0.1,
+                                           out_dtype=torch.float32)
