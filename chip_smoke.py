@@ -5,7 +5,7 @@
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
-  2. the build: the eight CUDA libraries with nvcc, in parallel, from csrc/;
+  2. the build: the nine CUDA libraries with nvcc, in parallel, from csrc/;
   3. the dense FP8 kernel against its plain version at 4096^3 and
      128x4096x7168, then the library entry fp8_gemm_nt (launches counted);
   4. the masked grouped kernel, bf16 and fp8, against its plain version at
@@ -78,6 +78,24 @@ Phases, one line each (a failure in any phase exits non-zero):
      version, twice bitwise, FP4 bitwise the fp8 instance fed the decoded
      weights, packed bitwise raw, each timed beside its bound, its plain
      version, the unfused layer and two bf16 torch.bmm with F.silu between.
+  9. the entry points that no model path calls, at DeepSeek-V3 widths, each
+     call its own path (its kernel's count 0 just before, read just after):
+     the TF32 HC prenorm GEMM of mHC with 4 residual streams (k = 4 x 7168,
+     n = 24) at m = 4096 unsplit and at m = 64 in 16 k splits (d within
+     1e-5 and sqr_sum within 1e-6 of the plain version, the partials summed
+     within 1e-5 of the unsplit call); fp8_einsum bhr,hdr->bhd (MLA's W_UV,
+     4096 tokens, 128 heads, rank 512, v 128) on the masked kernel, one
+     launch, and fp8_bmm with c on its f32 instance; the bf16 einsums against
+     f32 torch.bmm; fp8_gemm_nt_skip_head_mid (128 heads, splits 128 | 64 |
+     128) in one dense launch, mid columns exactly zero and the rest bitwise
+     the dense kernel's; the contiguous kernel's dual-B form under
+     DGT_GROUPED_DUAL_B=1 at the training step's shapes (256 experts, L1 and
+     L2, fp8 and bf16) on a seeded uneven layout of 128-row multiples,
+     bitwise the 64-row kernel, its own launch count with the 64-row
+     kernel's unchanged; fp8_fp4_gemm_nt with a packed FP4 B at 4096 x 4096
+     x 7168, bitwise the e4m3 dense kernel fed the decoded codes and per-row
+     scales. Each against its plain version (calc_diff < TOL) and timed
+     beside its bound and a library call where one computes the same.
 Then one JSON line of kernel numbers, the card's nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -85,7 +103,7 @@ Times come from CUDA events (deepgemm_tpu_torch/testing/bench.py). The
 plain versions and the library yardsticks run f32 products with TF32 off.
 bound_ms is the larger of the bytes each call must move (inputs read once,
 output written once) over 3.35 TB/s and its operations over the H100's
-dense peak for the operand type (989 TFLOP/s bf16, 1979 fp8).
+dense peak for the operand type (989 TFLOP/s bf16, 1979 fp8, 495 TF32).
 """
 
 import argparse
@@ -136,9 +154,11 @@ def numbers(ms, plain_ms, library_ms, max_abs_err, bound):
 
 def summed(entries):
     """One kernel's numbers over its main-path shapes: times and bounds
-    summed (the calls run one after another), the worst error."""
-    total = {key: sum(e[key] for e in entries)
-             for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    summed (the calls run one after another), the worst error; no library
+    time where a shape has none."""
+    total = {key: sum(e[key] for e in entries) for key in ('ms', 'plain_ms', 'bound_ms')}
+    library = [e['library_ms'] for e in entries]
+    total['library_ms'] = None if None in library else sum(library)
     total['max_abs_err'] = max(e['max_abs_err'] for e in entries)
     by = {}
     for e in entries:
@@ -207,7 +227,7 @@ def phase_dense(gen, arch):
         plain_ms = bench_kernel(plain, iters=3, warmup=1)
         library_ms = bench_kernel(library, iters=20)
         nbytes = sum(t.numel() * t.element_size() for t in (aq, bq, sfa, sfb)) + 2 * m * n
-        bound = arch.bound_ms(nbytes, 2 * m * n * k, fp8=True)
+        bound = arch.bound_ms(nbytes, 2 * m * n * k, 'fp8')
         entries.append(dict(shape=[m, n, k], **numbers(ms, plain_ms, library_ms, err, bound)))
         log(f'phase 3 dense m={m} n={n} k={k}: calc_diff={diff:.3e} (limit {TOL}) '
             f'max_abs_err={err:.4g} vs_bf16_matmul={quant:.3e} kernel_ms={ms:.4f} '
@@ -255,7 +275,7 @@ def phase_masked(gen, arch):
                                     iters=2, warmup=1)
             nbytes = sum(t.numel() * t.element_size() for t in (*ops, *kw.values(), full))
             nbytes += 2 * g * max_m * n
-            bound = arch.bound_ms(nbytes, 2 * g * max_m * n * k, fp8=kind == 'fp8')
+            bound = arch.bound_ms(nbytes, 2 * g * max_m * n * k, kind)
             err = max(e for _, e in checks)
             entries[kind].append(dict(shape=[g, max_m, n, k], label=label,
                                       random_masked_ms=ms_random,
@@ -294,9 +314,10 @@ def reversed_k_sums():
             return None if t is None else t.flip(-1)
         return t.view(torch.uint8).flip(-1).view(t.dtype)   # no float8 flip
 
-    def reversed_plain(a, b, masked_m, sfa=None, sfb=None, gran_n=128):
+    def reversed_plain(a, b, masked_m, sfa=None, sfb=None, gran_n=128,
+                       out_dtype=torch.bfloat16):
         require(a.shape[-1] % 128 == 0, 'k must be whole 128-deep scale blocks')
-        return plain(flip(a), flip(b), masked_m, flip(sfa), flip(sfb), gran_n)
+        return plain(flip(a), flip(b), masked_m, flip(sfa), flip(sfb), gran_n, out_dtype)
 
     grouped.masked_gemm_plain = reversed_plain
     try:
@@ -651,10 +672,10 @@ def time_train_kernels(results, gen, arch):
     PyTorch call on the same shapes), with its bound. Returns per-kind
     lists of number dicts."""
     from deepgemm_tpu_torch.kernels import dense, grouped, k_grouped
+    from deepgemm_tpu_torch.testing import count_bytes
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import (per_block_cast_to_fp8, per_channel_cast_to_fp8,
                                                per_token_cast_to_fp8, quantize_experts)
-    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     entries = {kind: [] for kind in CALL_NAMES}
     for kind, calls in results.items():
         for rec in calls:
@@ -697,13 +718,13 @@ def time_train_kernels(results, gen, arch):
             ms = bench_kernel(kernel, iters=5)
             plain_ms = bench_kernel(plain, iters=1, warmup=1)
             library_ms = bench_kernel(library, iters=5)
-            bound = arch.bound_ms(nbytes(*inputs) + out_bytes, flops, fp8=True)
+            bound = arch.bound_ms(count_bytes(*inputs) + out_bytes, flops, 'fp8')
             entries[kind].append(dict(name=name, shape=list(rec['shape']), check_calc_diff=rec['diff'],
                                       **numbers(ms, plain_ms, library_ms, err, bound)))
             log(f'phase 6 time {kind} {name} shape={rec["shape"]}: kernel_ms={ms:.4f} '
                 f'plain_ms={plain_ms:.4f} library_ms(bf16 torch.{"matmul" if kind == "dense" else "bmm"})='
                 f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
-                f'GB/s={(nbytes(*inputs) + out_bytes) / ms / 1e6:.1f} '
+                f'GB/s={(count_bytes(*inputs) + out_bytes) / ms / 1e6:.1f} '
                 f'TFLOPS={flops / ms / 1e9:.1f}')
             del a, b, args, inputs, kernel, plain, library
             torch.cuda.empty_cache()
@@ -1022,7 +1043,7 @@ def time_decode_kernels(rec_paged, engine, arch):
     kv_lin, sf_lin = paged_mqa.linearise(kv, sf, bt)
     need = int(ctx.clamp(max=max_len).sum())            # cache rows the data needs
     nbytes = need * (d + 4) + q.numel() + w.numel() * 4 + hi.numel() * 4 + b * nn * max_len * 4
-    bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, fp8=True)
+    bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, 'fp8')
     q16, kv16 = q.view(b, nn * h, d).bfloat16(), kv_lin.bfloat16()
     library_ms = bench_kernel(lambda: torch.bmm(q16, kv16.transpose(1, 2)), iters=10)
     gather_ms = bench_kernel(lambda: paged_mqa.linearise(kv, sf, bt), iters=10)
@@ -1074,7 +1095,7 @@ def time_decode_kernels(rec_paged, engine, arch):
         scale=scale), iters=3)
     n_valid = int(valid.sum())
     nbytes = 2 * n_valid * h_a * d_a * 2 + 2 * qd.numel() * 2 + valid.numel()
-    bound = arch.bound_ms(nbytes, 4 * n_valid * h_a * d_a, fp8=False)
+    bound = arch.bound_ms(nbytes, 4 * n_valid * h_a * d_a, 'bf16')
     out['attn'] = dict(ms=ms, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS,
                        library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
                        shape=[rows, t, h_a, d_a], flat_gather_ms=gather_attn_ms)
@@ -1162,7 +1183,7 @@ def phase_prefill(seed, arch):
         pairs = int((hi_ - lo).clamp(min=0).sum())         # (row, column) pairs in a window
         nbytes = (qq.numel() + kv8.numel() + sf.numel() * 4 + w.numel() * 4 + 8 * sq
                   + sq * skv * 4)
-        bound = arch.bound_ms(nbytes, 2 * pairs * hi * di, fp8=True)
+        bound = arch.bound_ms(nbytes, 2 * pairs * hi * di, 'fp8')
         entries[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound[0], bound_by=bound[1], shape=[sq, skv, hi, di],
                               max_abs_err=err if label == 'path' else berr,
@@ -1203,8 +1224,8 @@ def check_fp4_prefill(seed, arch, e4m3):
     diff, err = compare(got[fin], want[fin])
     require(diff < TOL, f'FP4 MQA logits: calc_diff {diff} against the plain version')
     del got, want, fin
-    qb = attn_ops._decode_fp4_rows(*q4, d)
-    kvb = attn_ops._decode_fp4_rows(*kv4, d)
+    qb = attn_ops._decode_fp4_rows(*q4)
+    kvb = attn_ops._decode_fp4_rows(*kv4)
     fn = lambda: mqa_logits.mqa_logits(qb, kvb, w, ks, ke)
     ms = bench_kernel(fn, iters=10)
     op_ms = bench_kernel(lambda: dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke), iters=5)
@@ -1214,7 +1235,7 @@ def check_fp4_prefill(seed, arch, e4m3):
     library_ms = bench_kernel(lambda: torch.matmul(q16, kvb.t()), iters=10)
     pairs = int((ke - ks).clamp(min=0).sum())
     nbytes = qb.numel() * 2 + kvb.numel() * 2 + w.numel() * 4 + 8 * sq + sq * skv * 4
-    bound = arch.bound_ms(nbytes, 2 * pairs * h * d, fp8=False)
+    bound = arch.bound_ms(nbytes, 2 * pairs * h * d, 'bf16')
     log(f'phase 7 FP4 MQA logits bench [sq={sq} skv={skv} h={h} d={d}, {pairs} window pairs; '
         f'FP4 q and kv decoded to bf16: the bf16 instance]: launches={counts}; calc_diff='
         f'{diff:.3e} (limit {TOL}) max_abs_err={err:.4g} against the plain version; '
@@ -1430,7 +1451,7 @@ def check_fused(rec, arch, seed):
     library_ms = bench_kernel(library, iters=3)
     n_valid = int(valid.sum())
     nbytes = 2 * n_valid * h * d * 2 + 2 * q.numel() * 2 + valid.numel() + tok.numel() * 4
-    bound = arch.bound_ms(nbytes, 4 * n_valid * h * d, fp8=False)
+    bound = arch.bound_ms(nbytes, 4 * n_valid * h * d, 'bf16')
     log(f'phase 7 gather-fused attention [{rows} rows, topk {t}, h {h}, d {d}; {n_valid} '
         f'valid; the cache {n} rows]: against the plain version on {ATTN_CHECK_ROWS} seeded '
         f'rows {sub.tolist()} calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
@@ -1504,11 +1525,11 @@ def check_fp4_paged(rec, arch, e4m3_timing):
                 f'FP4 paged MQA {label}: the strategies differ')
         del got, want, fin
         # the instance on the decoded operands, as the op hands them to it
-        q_k = attn_ops._decode_fp4_rows(qq[0], qq[1], d) if qq[1] is not None else qq[0]
+        q_k = attn_ops._decode_fp4_rows(qq[0], qq[1]) if qq[1] is not None else qq[0]
         if isinstance(cache, tuple):
             kv_k, sf_k = cache
         else:
-            kv_k = attn_ops._decode_fp4_rows(*attn_ops.split_fused_kv_cache_fp4(cache, d), d)
+            kv_k = attn_ops._decode_fp4_rows(*attn_ops.split_fused_kv_cache_fp4(cache, d))
             sf_k = torch.ones(kv_k.shape[:2], device='cuda')
         kv_lin, sf_lin = paged_mqa.linearise(kv_k, sf_k, bt32)
         entry = {}
@@ -1522,7 +1543,7 @@ def check_fp4_paged(rec, arch, e4m3_timing):
             kv_bytes = kv_k.element_size()
             nbytes = (need * (d * kv_bytes + 4) + q_k.numel() * q_k.element_size()
                       + w.numel() * 4 + hi.numel() * 4 + b * nn * max_len * 4)
-            bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, fp8=False)
+            bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, 'bf16')
             entry[name] = dict(ms=ms, plain_ms=plain_ms,
                                library_ms=e4m3_timing[name]['library_ms'], bound_ms=bound[0],
                                bound_by=bound[1], max_abs_err=err, check_calc_diff=diff,
@@ -1774,6 +1795,7 @@ def mega_modes(w1, w2, gen, arch):
     import torch.nn.functional as F
     from deepgemm_tpu_torch.kernels import fused_moe, grouped
     from deepgemm_tpu_torch.parallel.moe import swiglu_apply_weight
+    from deepgemm_tpu_torch.testing import count_bytes
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
     e_count, two_i, hidden = w1.shape
@@ -1783,7 +1805,6 @@ def mega_modes(w1, w2, gen, arch):
     xq, xsf = per_token_cast_to_fp8(x.view(-1, hidden), use_ue8m0=False)
     xq, xsf = xq.view(e_count, cap, hidden), xsf.view(e_count, cap, -1)
     full = torch.full((e_count,), cap, dtype=torch.int32, device='cuda')
-    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
     flops = 2 * e_count * cap * (two_i * hidden + hidden * inter)
     library_ms = bench_kernel(lambda: torch.bmm(
         (lambda gu: F.silu(gu[..., :inter]) * gu[..., inter:])(
@@ -1836,7 +1857,7 @@ def mega_modes(w1, w2, gen, arch):
                                        sfa=asf.view(e_count, cap, -1), sfb=s2)
         unfused_ms = bench_kernel(unfused, iters=3)
         del d1, d2
-        bound = arch.bound_ms(nbytes(*args) + 2 * y.numel(), flops, fp8=scaled)
+        bound = arch.bound_ms(count_bytes(*args) + 2 * y.numel(), flops, 'fp8' if scaled else 'bf16')
         out[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
                          bound_ms=bound[0], bound_by=bound[1], unfused_ms=unfused_ms,
                          check_calc_diff=diff, shape=[e_count, cap, hidden, inter])
@@ -1845,7 +1866,7 @@ def mega_modes(w1, w2, gen, arch):
             f'plain_ms={plain_ms:.4f} unfused_layer_ms(masked L1 + swiglu_apply_weight + masked '
             f'L2{" on the decoded weights" if w_fp4 else ""})={unfused_ms:.4f} '
             f'library_ms(bf16 torch.bmm, F.silu(gate) * up, torch.bmm)={library_ms:.4f} '
-            f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={(nbytes(*args) + 2 * y.numel()) / ms / 1e6:.1f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={(count_bytes(*args) + 2 * y.numel()) / ms / 1e6:.1f} '
             f'TFLOPS={flops / ms / 1e9:.1f}')
         del y, again, ref
         torch.cuda.empty_cache()
@@ -1948,6 +1969,422 @@ def phase_mega(seed, arch):
     return timing, launches
 
 
+# Phase 9: the entry points that no model path of the JAX package calls, at
+# DeepSeek-V3 widths (hidden 7168, 128 heads, MLA kv_lora_rank 512,
+# qk_nope_head_dim 128, qk_rope_head_dim 64, v_head_dim 128). Each entry's
+# call is its own path: its kernel's count set to 0 just before, read just
+# after.
+# The HC prenorm GEMM of manifold-constrained hyper-connections with 4
+# residual streams (mHC, DeepSeek, arXiv 2512.24880): k = 4 x 7168, n = 4 +
+# 4 + 4 x 4 = 24; a prefill chunk of 4096 tokens unsplit, the engine's 64
+# decode slots in 16 k splits (chunks of 1792).
+HC_K, HC_N = 4 * 7168, 4 + 4 + 4 * 4
+HC_CALLS = ((4096, None), (64, 16))
+# MLA's output projection through W_UV (bhr,hdr->bhd) over 4096 tokens, and
+# the absorbed W_UK (bhd,hdr->bhr) for the bf16 einsum.
+MLA_TOKENS, MLA_HEADS, MLA_RANK, MLA_DIM = 4096, 128, 512, 128
+# the skip-head-mid GEMM: per head nope 128 | rope 64 (zero) | v 128
+SKIP_M, SKIP_K, SKIP_SPLITS = 4096, 512, (128, 64, 128)
+# the dual-B form at the training step's contiguous shapes (phase 6: 256
+# experts; L1 n 4096, k 7168; L2 n 7168, k 2048), per-expert rows 0, 128 or
+# 256 drawn from --seed
+DUAL_EXPERTS, DUAL_SHAPES = 256, (('L1', 4096, 7168), ('L2', 7168, 2048))
+FP4_SHAPE = (4096, 4096, 7168)
+
+
+def timed(kernel, plain, library, plain_iters=1):
+    """(kernel ms, plain ms, library ms or None), each L2-flushed."""
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    return (bench_kernel(kernel),
+            bench_kernel(plain, iters=plain_iters, warmup=1),
+            None if library is None else bench_kernel(library, iters=10))
+
+
+def plain_of(fn):
+    """``fn`` run through the kernels' plain versions."""
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+
+    def run():
+        with plain_versions():
+            return fn()
+    return run
+
+
+def phase_hc(gen, arch):
+    """The HC prenorm kernel at the two mHC calls: launches, d and sqr_sum
+    against the plain version (TOL and 1e-6, JAX's limits), the split
+    partials summed against the unsplit kernel, times. Returns (entries,
+    launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import hc_prenorm
+    from deepgemm_tpu_torch.testing import calc_diff, count_bytes
+    entries, launches = [], 0
+    for m, splits in HC_CALLS:
+        a = randn_bf16((m, HC_K), gen, 1.0)
+        b = torch.randn((HC_N, HC_K), generator=gen, device='cuda') * HC_K ** -0.5
+        call = lambda: dgt.tf32_hc_prenorm_gemm(a, b, num_splits=splits)
+        hc_prenorm.launches = 0
+        d, s = call()
+        torch.cuda.synchronize()
+        require(hc_prenorm.launches == 1, f'HC prenorm m={m}: {hc_prenorm.launches} launches')
+        launches += hc_prenorm.launches
+        d_p, s_p = plain_of(call)()
+        diff_d, err = compare(d, d_p)
+        diff_s, _ = compare(s, s_p)
+        require(diff_d < TOL and diff_s < 1e-6,
+                f'HC prenorm m={m}: calc_diff d {diff_d}, sqr_sum {diff_s} against the plain version')
+        split_diff = None
+        if splits:
+            whole_d, whole_s = dgt.tf32_hc_prenorm_gemm(a, b)
+            split_diff = (calc_diff(d.sum(0), whole_d), calc_diff(s.sum(0), whole_s))
+            require(max(split_diff) < TOL, f'HC prenorm: split partials summed {split_diff}')
+        count = splits or 1
+        a32 = a.float()
+        ms, plain_ms, library_ms = timed(
+            lambda: hc_prenorm.hc_prenorm_gemm(a, b, count),
+            lambda: hc_prenorm.hc_prenorm_gemm_plain(a, b, count),
+            lambda: torch.matmul(a32, b.t()), plain_iters=3)
+        moved = count_bytes(a, b, d, s)
+        bound = arch.bound_ms(moved, 2 * m * HC_N * HC_K + 2 * m * HC_K, 'tf32')
+        entries.append(dict(shape=[m, HC_N, HC_K], splits=count,
+                            **numbers(ms, plain_ms, library_ms, err, bound)))
+        log(f'phase 9 HC prenorm m={m} n={HC_N} k={HC_K} splits={count}: launches 1; calc_diff '
+            f'd={diff_d:.3e} (limit {TOL}) sqr_sum={diff_s:.3e} (limit 1e-6) max_abs_err={err:.4g}'
+            + (f'; partials summed against unsplit d={split_diff[0]:.3e} sqr={split_diff[1]:.3e}'
+               if split_diff else '')
+            + f'; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(torch.matmul f32, '
+            f'TF32 off, d only)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
+            f'GB/s={moved / ms / 1e6:.1f}')
+        del a, b, a32, d, s, d_p, s_p
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def cast_heads(x):
+    """[b, h, r] bf16 -> (e4m3, f32 scales [b, h, ceil(r/128)]): per token and head."""
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8
+    q, sf = per_token_cast_to_fp8(x.reshape(-1, x.shape[-1]), use_ue8m0=False)
+    return q.view(x.shape), sf.view(*x.shape[:2], -1)
+
+
+def phase_einsum(gen, arch):
+    """fp8_einsum bhr,hdr->bhd (MLA's W_UV) on the masked kernel, one
+    launch, G = 128 heads, against its plain version; fp8_bmm with c on the
+    f32 instance; the bf16 einsums against f32 torch.bmm of the same
+    operands. Returns (einsum entry, f32 entry, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import grouped
+    from deepgemm_tpu_torch.testing import calc_diff, count_bytes
+    from deepgemm_tpu_torch.utils.math import per_block_cast_to_fp8
+    tokens, h, r, dv = MLA_TOKENS, MLA_HEADS, MLA_RANK, MLA_DIM
+    x = randn_bf16((tokens, h, r), gen, 1.0)
+    w = randn_bf16((h, dv, r), gen, r ** -0.5)
+    x_q, w_q = cast_heads(x), per_block_cast_to_fp8(w, use_ue8m0=False)
+    call = lambda: dgt.fp8_einsum('bhr,hdr->bhd', x_q, w_q)
+    grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
+    out = call()
+    torch.cuda.synchronize()
+    counts = dict(grouped.launches)
+    require(counts == dict(bf16=0, fp8=1, fp8_f32=0),
+            f'fp8_einsum: masked launches {counts}, expected fp8 1')
+    out_p = plain_of(call)()
+    diff, err = compare(out, out_p)
+    require(diff < TOL, f'fp8_einsum: calc_diff {diff} against the plain version')
+    quant = calc_diff(out, torch.einsum('bhr,hdr->bhd', x.float(), w.float()))
+    require(quant < 1e-3, f'fp8_einsum: calc_diff {quant} against the f32 einsum')
+    # the kernel's own operands: heads leading, contiguous
+    a_t, sfa_t = (t.transpose(0, 1).contiguous() for t in x_q)
+    full = torch.full((h,), tokens, dtype=torch.int32, device='cuda')
+    kernel_args = (a_t, w_q[0], full)
+    kernel_kw = dict(sfa=sfa_t, sfb=w_q[1])
+    ms, plain_ms, library_ms = timed(
+        lambda: grouped.masked_gemm(*kernel_args, **kernel_kw),
+        lambda: grouped.masked_gemm_plain(*kernel_args, **kernel_kw),
+        lambda: torch.einsum('bhr,hdr->bhd', x, w))
+    moved = count_bytes(a_t, sfa_t, *w_q, full) + 2 * tokens * h * dv
+    flops = 2 * tokens * h * dv * r
+    bound = arch.bound_ms(moved, flops, 'fp8')
+    einsum_entry = dict(shape=[h, tokens, dv, r], **numbers(ms, plain_ms, library_ms, err, bound))
+    log(f'phase 9 fp8_einsum bhr,hdr->bhd b={tokens} h={h} r={r} d={dv}: masked launches '
+        f'{counts} (G={h}); calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g} '
+        f'vs_f32_einsum={quant:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.einsum bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
+        f'GB/s={moved / ms / 1e6:.1f}')
+
+    # fp8_bmm with c: the promoted sum in f32 (the f32 instance), then + c
+    c = torch.randn((h, tokens, dv), generator=gen, device='cuda')
+    call = lambda: dgt.fp8_bmm(a_t, sfa_t, *w_q, c=c)
+    grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
+    out_c = call()
+    torch.cuda.synchronize()
+    counts_c = dict(grouped.launches)
+    require(counts_c == dict(bf16=0, fp8=0, fp8_f32=1),
+            f'fp8_bmm with c: masked launches {counts_c}, expected f32 1')
+    out_cp = plain_of(call)()
+    diff_c, err_c = compare(out_c, out_cp)
+    require(diff_c < TOL, f'fp8_bmm with c: calc_diff {diff_c} against the plain version')
+    f32_kw = dict(kernel_kw, out_dtype=torch.float32)
+    x32, w32 = x.float(), w.float()
+    ms, plain_ms, library_ms = timed(
+        lambda: grouped.masked_gemm(*kernel_args, **f32_kw),
+        lambda: grouped.masked_gemm_plain(*kernel_args, **f32_kw),
+        lambda: torch.einsum('bhr,hdr->hbd', x32, w32))
+    moved_f32 = moved + 2 * tokens * h * dv
+    bound = arch.bound_ms(moved_f32, flops, 'fp8')
+    f32_entry = dict(shape=[h, tokens, dv, r], **numbers(ms, plain_ms, library_ms, err_c, bound))
+    log(f'phase 9 fp8_bmm with c (the masked kernel\'s f32 instance): fp8_f32 launches 1; '
+        f'calc_diff={diff_c:.3e} (limit {TOL}) max_abs_err={err_c:.4g}; kernel_ms={ms:.4f} '
+        f'plain_ms={plain_ms:.4f} library_ms(torch.einsum f32, TF32 off)={library_ms:.4f} '
+        f'bound_ms={bound[0]:.4f} ({bound[1]})')
+    del out, out_p, out_c, out_cp, c, a_t, sfa_t, x32, w32
+
+    # the bf16 einsums (torch calls, as JAX leaves them to XLA): held to f32
+    # torch.bmm of the same operands
+    q_nope = randn_bf16((tokens, h, dv), gen, 1.0)
+    w_uk = randn_bf16((h, dv, r), gen, dv ** -0.5)
+    checks = {}
+    out = dgt.einsum('bhr,hdr->bhd', x, w)
+    ref = torch.bmm(x.float().transpose(0, 1), w.float().transpose(1, 2)).transpose(0, 1)
+    checks['bhr,hdr->bhd'] = calc_diff(out, ref)
+    out = dgt.einsum('bhd,hdr->bhr', q_nope, w_uk)
+    ref = torch.bmm(q_nope.float().transpose(0, 1), w_uk.float()).transpose(0, 1)
+    checks['bhd,hdr->bhr'] = calc_diff(out, ref)
+    # a weight-gradient-shaped reduce over 4 chunks of 1024 tokens into f32 c
+    xa = randn_bf16((4, MLA_RANK, 1024), gen, 1.0)
+    xb = randn_bf16((4, 7168, 1024), gen, 1.0)
+    c = torch.randn((MLA_RANK, 7168), generator=gen, device='cuda')
+    out = dgt.einsum('bmk,bnk->mn', xa, xb, d=c, c=c)
+    ref = torch.bmm(xa.float(), xb.float().transpose(1, 2)).sum(0) + c
+    checks['bmk,bnk->mn (f32 out, + c)'] = calc_diff(out, ref)
+    require(out.dtype == torch.float32 and max(checks.values()) < TOL,
+            f'bf16 einsum against f32 torch.bmm: {checks}')
+    log(f'phase 9 bf16 einsum (torch calls, no kernel) against f32 torch.bmm: '
+        + ', '.join(f'{k} calc_diff={v:.3e}' for k, v in checks.items()) + f' (limit {TOL})')
+    del x, w, x_q, w_q, q_nope, w_uk, xa, xb, c, out, ref
+    torch.cuda.empty_cache()
+    return einsum_entry, f32_entry, dict(einsum=counts['fp8'], bmm_f32=counts_c['fp8_f32'])
+
+
+def phase_skip_head_mid(gen, arch):
+    """fp8_gemm_nt_skip_head_mid: one dense launch, the mid columns exactly
+    zero, the rest bitwise the dense kernel's, the whole against the plain
+    version. Returns (entry, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_block_cast_to_fp8, per_token_cast_to_fp8
+    left, mid, right = SKIP_SPLITS
+    m, k, heads = SKIP_M, SKIP_K, MLA_HEADS
+    n = heads * (left + right)
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    a_q = per_token_cast_to_fp8(a, use_ue8m0=False)
+    b_q = per_block_cast_to_fp8(b, use_ue8m0=False)
+    call = lambda: dgt.fp8_gemm_nt_skip_head_mid(a_q, b_q, head_splits=SKIP_SPLITS)
+    dense.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    launches = dense.launches
+    require(launches == 1, f'skip-head-mid: {launches} dense launches')
+    kernel = lambda: dense.dense_fp8_gemm_nt(a_q[0], b_q[0], a_q[1], b_q[1])
+    narrow = kernel()
+    wide = out.view(m, heads, left + mid + right)
+    narrow3 = narrow.view(m, heads, left + right)
+    require(tuple(out.shape) == (m, heads * (left + mid + right))
+            and not wide[:, :, left:left + mid].any().item(),
+            'skip-head-mid: the mid columns are not exactly zero')
+    require(torch.equal(wide[:, :, :left], narrow3[:, :, :left])
+            and torch.equal(wide[:, :, left + mid:], narrow3[:, :, left:]),
+            'skip-head-mid: the head columns differ from the dense kernel')
+    out_p = plain_of(call)()
+    diff, err = compare(out, out_p)
+    require(diff < TOL, f'skip-head-mid: calc_diff {diff} against the plain version')
+    ms, plain_ms, library_ms = timed(call, plain_of(call), lambda: torch.matmul(a, b.t()))
+    kernel_ms = bench_kernel(kernel)
+    moved = count_bytes(*a_q, *b_q) + 2 * m * heads * (left + mid + right)
+    bound = arch.bound_ms(moved, 2 * m * n * k, 'fp8')
+    entry = dict(shape=[m, n, k], head_splits=list(SKIP_SPLITS), dense_kernel_ms=kernel_ms,
+                 **numbers(ms, plain_ms, library_ms, err, bound))
+    log(f'phase 9 fp8_gemm_nt_skip_head_mid m={m} k={k} heads={heads} splits={SKIP_SPLITS} '
+        f'(n={n}, out {out.shape[1]} columns): dense launches 1; mid exactly zero, heads '
+        f'bitwise the dense kernel; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+        f'op_ms={ms:.4f} (dense kernel {kernel_ms:.4f}) plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.matmul bf16, narrow)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+        f'({bound[1]})')
+    del a, b, a_q, b_q, out, out_p, narrow
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
+def dual_layout(seed):
+    """Per-expert rows 0, 128 or 256 drawn from ``seed`` (a routed batch:
+    some experts get no token), the total a multiple of 256; at least a
+    quarter of the groups start on 128 mod 256. Returns per-row ids [m]."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 3, (DUAL_EXPERTS,), generator=gen) * 128
+    if counts.sum() % 256:
+        counts[-1] += 128
+    starts = counts.cumsum(0) - counts
+    odd = int((starts % 256 == 128).sum())
+    require(odd * 4 >= DUAL_EXPERTS, f'dual-B layout: {odd} of {DUAL_EXPERTS} starts at 128 mod 256')
+    ids = torch.repeat_interleave(torch.arange(DUAL_EXPERTS, dtype=torch.int32), counts)
+    return ids.cuda(), counts, odd
+
+
+def phase_dual_b(seed, gen, arch):
+    """The dual-B form under DGT_GROUPED_DUAL_B=1 at the training step's
+    contiguous shapes on a seeded uneven layout, fp8 and bf16: its own
+    launch count with the 64-row kernel's unchanged, bitwise the 64-row
+    kernel on the same layout, against its plain version, times beside the
+    64-row kernel's. Returns ({kind: entries}, {kind: launches})."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import grouped
+    from deepgemm_tpu_torch.testing import calc_diff, count_bytes
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    ids, counts, odd = dual_layout(seed)
+    ends = counts.cumsum(0).to(torch.int32).cuda()
+    m = ids.numel()
+    live_experts = int((counts > 0).sum())
+    straddles = int(sum(1 for s in (counts.cumsum(0) - counts).tolist()
+                        if s % 256 == 128 and s < m))
+    entries, launches = {'fp8': [], 'bf16': []}, {'fp8': 0, 'bf16': 0}
+    for label, n, k in DUAL_SHAPES:
+        a = randn_bf16((m, k), gen, 1.0)
+        b = randn_bf16((DUAL_EXPERTS, n, k), gen, k ** -0.5)
+        aq, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+        bq, sfb = quantize_experts(b)
+        cases = (('fp8', (aq, bq), dict(sfa=sfa, sfb=sfb),
+                  lambda: dgt.m_grouped_fp8_gemm_nt_contiguous((aq, sfa), (bq, sfb),
+                                                               grouped_layout=ids)),
+                 ('bf16', (a, b), {},
+                  lambda: dgt.m_grouped_bf16_gemm_nt_contiguous(a, b, grouped_layout=ids)))
+        for kind, ops, kw, op in cases:
+            grouped.dual_b_launches.update(bf16=0, fp8=0)
+            before = dict(grouped.contiguous_launches)
+            with env('DGT_GROUPED_DUAL_B', '1'):
+                d = op()
+            torch.cuda.synchronize()
+            seen = dict(grouped.dual_b_launches)
+            require(seen[kind] == 1 and sum(seen.values()) == 1
+                    and grouped.contiguous_launches == before,
+                    f'dual-B {kind} {label}: launches {seen}, 64-row kernel '
+                    f'{grouped.contiguous_launches} (before {before})')
+            launches[kind] += seen[kind]
+            d3 = grouped.contiguous_gemm(*ops, ids, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(d, d3), f'dual-B {kind} {label}: not bitwise the 64-row kernel')
+            d_p = grouped.contiguous_dual_gemm_plain(*ops, ids, **kw)
+            diff, err = compare(d, d_p)
+            require(diff < TOL, f'dual-B {kind} {label}: calc_diff {diff} against the plain version')
+            library = None
+            if kind == 'bf16':
+                # one torch call of the same function: d[m] = a[m] B[group(m)]^T
+                # over the same uneven groups (offsets: the groups' end rows)
+                library = lambda: torch._grouped_mm(a, b.transpose(1, 2), offs=ends)
+                lib_diff = calc_diff(library(), d)
+                require(lib_diff < 1e-4, f'dual-B {kind} {label}: torch._grouped_mm is '
+                        f'{lib_diff} from the kernel')
+            ms, plain_ms, library_ms = timed(
+                lambda: grouped.contiguous_dual_gemm(*ops, ids, **kw),
+                lambda: grouped.contiguous_dual_gemm_plain(*ops, ids, **kw), library)
+            ms3 = bench_kernel(lambda: grouped.contiguous_gemm(*ops, ids, **kw))
+            b_live = ops[1].numel() // DUAL_EXPERTS * live_experts * ops[1].element_size()
+            sfb_live = 0 if not kw else kw['sfb'].numel() // DUAL_EXPERTS * live_experts * 4
+            moved = count_bytes(ops[0], kw.get('sfa'), ids) + b_live + sfb_live + 2 * m * n
+            bound = arch.bound_ms(moved, 2 * m * n * k, kind)
+            entries[kind].append(dict(shape=[m, n, k, DUAL_EXPERTS], label=label,
+                                      contiguous_64_row_ms=ms3,
+                                      **numbers(ms, plain_ms, library_ms, err, bound)))
+            log(f'phase 9 dual-B {kind} {label} m={m} n={n} k={k} ({live_experts} of '
+                f'{DUAL_EXPERTS} experts with rows, {odd} groups starting at 128 mod 256, '
+                f'{straddles} straddling tiles): dual-B launches 1, 64-row kernel 0; bitwise the '
+                f'64-row kernel; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+                f'kernel_ms={ms:.4f} (64-row kernel {ms3:.4f}) plain_ms={plain_ms:.4f} '
+                + (f'library_ms(torch._grouped_mm bf16)={library_ms:.4f} (calc_diff from the '
+                   f'kernel {lib_diff:.3e}) ' if library else
+                   'library_ms=null (torch._scaled_grouped_mm takes row-wise scales, not '
+                   '1x128 / 128x128 block scales) ')
+                + f'bound_ms={bound[0]:.4f} ({bound[1]})')
+            del d, d3, d_p
+        del a, b, aq, sfa, bq, sfb
+        torch.cuda.empty_cache()
+    return entries, launches
+
+
+def phase_fp4_fold(gen, arch):
+    """fp8_fp4_gemm_nt with a packed FP4 B (the library's default gran 128):
+    one dense launch, against the op's plain route (JAX's bf16 fold), bitwise
+    the e4m3 dense kernel fed the decoded codes and per-row scales, timed.
+    Returns (entry, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import (decode_fp4_rows, per_token_cast_to_fp4,
+                                               per_token_cast_to_fp8)
+    m, n, k = FP4_SHAPE
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    a_q = per_token_cast_to_fp8(a, use_ue8m0=False)
+    b4 = per_token_cast_to_fp4(b, use_ue8m0=True)
+    call = lambda: dgt.fp8_fp4_gemm_nt(a_q, b4)
+    dense.launches = 0
+    d = call()
+    torch.cuda.synchronize()
+    launches = dense.launches
+    require(launches == 1, f'FP4 fold: {launches} dense launches')
+    d_p = plain_of(call)()
+    diff, err = compare(d, d_p)
+    require(diff < TOL, f'FP4 fold: calc_diff {diff} against the plain route (bf16 fold)')
+    codes = decode_fp4_rows(b4[0], None, 128).to(torch.float8_e4m3fn)
+    kernel = lambda: dense.dense_fp8_gemm_nt(a_q[0], codes, a_q[1], b4[1], gran_n=1)
+    require(torch.equal(d, kernel()), 'FP4 fold: not bitwise the e4m3 kernel on the decoded codes')
+    ms, plain_ms, library_ms = timed(call, plain_of(call), lambda: torch.matmul(a, b.t()))
+    kernel_ms = bench_kernel(kernel)
+    moved = count_bytes(*a_q, *b4) + 2 * m * n
+    bound = arch.bound_ms(moved, 2 * m * n * k, 'fp8')
+    entry = dict(shape=[m, n, k], dense_kernel_ms=kernel_ms,
+                 **numbers(ms, plain_ms, library_ms, err, bound))
+    log(f'phase 9 FP4 fold m={m} n={n} k={k} (packed e2m1 B, UE8M0 scales per 128): dense '
+        f'launches 1; calc_diff={diff:.3e} against the bf16 fold (limit {TOL}) '
+        f'max_abs_err={err:.4g}; bitwise the e4m3 kernel on the decoded codes; op_ms={ms:.4f} '
+        f'(decode + kernel; the kernel alone {kernel_ms:.4f}) plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})')
+    del a, b, a_q, b4, d, d_p, codes
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
+def phase_entry_points(seed, gen, arch):
+    """Phase 9: returns its kernels' JSON rows."""
+    hc, hc_launches = phase_hc(gen, arch)
+    einsum_entry, f32_entry, masked_launches = phase_einsum(gen, arch)
+    skip, skip_launches = phase_skip_head_mid(gen, arch)
+    dual, dual_launches = phase_dual_b(seed, gen, arch)
+    fp4, fp4_launches = phase_fp4_fold(gen, arch)
+
+    def row(name, source, replaces, launches, entries, **extra):
+        return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
+                    replaces=replaces, launches=launches, **summed(entries),
+                    shapes=entries, **extra)
+
+    return [
+        row('hc_prenorm_gemm', 'hc_prenorm.cu', 'deepgemm_tpu/kernels/hc_prenorm.py:89',
+            hc_launches, hc),
+        row('masked_grouped_gemm_fp8_einsum', 'masked.cu', 'deepgemm_tpu/kernels/grouped.py:576',
+            masked_launches['einsum'], [einsum_entry]),
+        row('masked_grouped_gemm_fp8_f32', 'masked.cu', 'deepgemm_tpu/kernels/grouped.py:576',
+            masked_launches['bmm_f32'], [f32_entry]),
+        row('dense_fp8_gemm_nt_skip_head_mid', 'dense.cu', 'deepgemm_tpu/kernels/dense.py:291',
+            skip_launches, [skip]),
+        *(row(f'contiguous_dual_b_gemm_{kind}', 'contiguous.cu',
+              'deepgemm_tpu/kernels/grouped.py:401', dual_launches[kind], dual[kind])
+          for kind in ('fp8', 'bf16')),
+        row('dense_fp8_gemm_nt_fp4_fold', 'dense.cu', 'deepgemm_tpu/kernels/dense.py:291',
+            fp4_launches, [fp4]),
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1991,6 +2428,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mega, mega_launches = phase_mega(args.seed, H100_SXM)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    entry_rows = phase_entry_points(args.seed, gen, H100_SXM)
     torch.cuda.synchronize()
 
     # Each kernel's numbers are those of the path that runs it: the masked
@@ -2065,6 +2505,8 @@ def main(argv=None) -> int:
                         launches=mega_launches['fp8'],
                         act_fp8_forward_launches=mega_launches['fp8_act_fp8'],
                         **mega['fp8'], modes=mega))
+    # phase 9: each entry point's call is its own path
+    kernels += entry_rows
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,12 @@
 """deepgemm_tpu_torch: the PyTorch/CUDA port of deepgemm_tpu for one NVIDIA
 H100 (sm_90a).
 
-It holds the FP8 dense NT GEMM (bf16 or f32 out), the masked and the
-contiguous grouped GEMMs, the k-grouped GEMM, the indexer's MQA logits
-(prefill and paged decode; e4m3, or FP4 operands decoded into bf16) and the
-sparse attention over the selected rows, gathered or read in place from the
+It holds the FP8 dense NT GEMM (bf16 or f32 out; packed FP4 operands folded
+in; the skip-head-mid form), the masked grouped GEMM (with fp8_bmm and
+fp8_einsum on it) and the contiguous grouped GEMM (with its dual-B form),
+the k-grouped GEMM, the TF32 HyperConnection prenorm GEMM, the indexer's MQA
+logits (prefill and paged decode; e4m3, or FP4 operands decoded into bf16)
+and the sparse attention over the selected rows, gathered or read in place from the
 cache (each a hand-written CUDA kernel with a plain PyTorch version beside
 it), the fused MoE expert block of the mega MoE (L1, SwiGLU, L2 in one kernel;
 bf16, FP8 or planar FP4 weights), the quantization contract with the FP4
@@ -16,10 +18,12 @@ Entry points run on the CUDA card unless the caller passes ``device='cpu'``.
 Importing the package builds and loads nothing: kernels build at first use.
 """
 
+from . import testing
 from .kernels.common import plain_versions
 from .kernels.dense import dense_fp8_gemm_nt
 from .kernels.fused_moe import MegaPackedWeights, pack_mega_weights
-from .kernels.grouped import contiguous_gemm, masked_gemm
+from .kernels.grouped import contiguous_dual_gemm, contiguous_gemm, masked_gemm
+from .kernels.hc_prenorm import hc_prenorm_gemm
 from .kernels.k_grouped import k_grouped_gemm
 from .models.indexer import indexer_sparse_attention, indexer_sparse_decode
 from .models.transformer import (ModelConfig, forward, init_params, loss_fn,
@@ -29,7 +33,9 @@ from .ops.attention import (clean_logits_, fp8_fp4_mqa_logits,
                             fp8_paged_mqa_logits, get_paged_mqa_logits_metadata,
                             split_fused_kv_cache)
 from .ops.autograd import fp8_dense, fp8_grouped_matmul, fp8_matmul
-from .ops.gemm import bf16_gemm_nt, fp8_fp4_gemm_nt, fp8_gemm_nt
+from .ops.einsum import einsum, fp8_bmm, fp8_einsum
+from .ops.gemm import bf16_gemm_nt, fp8_fp4_gemm_nt, fp8_gemm_nt, fp8_gemm_nt_skip_head_mid
+from .ops.hyperconnection import tf32_hc_prenorm_gemm
 from .ops.k_grouped import (k_grouped_bf16_gemm_tn_contiguous,
                             k_grouped_fp8_gemm_tn_contiguous)
 from .ops.m_grouped import (m_grouped_bf16_gemm_nt_contiguous,

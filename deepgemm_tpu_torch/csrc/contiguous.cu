@@ -8,6 +8,14 @@
 // device from grouped_layout (kernels/grouped.py:compute_tile_gids): the
 // host never reads the layout. The mainloop and its notes are in
 // gemm_mainloop.cuh.
+//
+// The dual-B entry replaces deepgemm_tpu/kernels/grouped.py:
+// _build_contiguous_dual_b (pl.pallas_call at grouped.py:401): the same
+// function over 256-row tiles (Layout::kContiguousDual), for layouts whose
+// groups start on 128 but not always on 256 rows. A tile whose two 128-row
+// halves belong to different groups stages both groups' B; any other tile
+// stages one B for 256 rows, where the 64-row tiles stage it four times.
+// Its bits are the 64-row kernel's: each 64-row pass is that kernel's tile.
 
 #include "gemm_mainloop.cuh"
 
@@ -31,5 +39,25 @@ extern "C" int dgt_contiguous_gemm_nt(const void* a, const void* b, const void* 
                      p, 1, block_n, s)
                : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false, kContiguous, __nv_bfloat16>(
                      p, 1, block_n, s);
+    return static_cast<int>(err);
+}
+
+// The dual-B form: a, b, sfa, sfb, d and is_fp8 as above; m % 256 == 0;
+// tile_gid [m/128] int32, the group of each 128-row half (pairs per 256-row
+// tile). The tile is 64 columns wide: two B slabs of 128 columns exceed the
+// shared memory of a block. Returns the cudaError_t of the launch (0 = success).
+static_assert(dgt::smem_bytes<64, dgt::Layout::kContiguousDual>() <= 232448,
+              "the dual-B tile must fit the 227 KiB an H100 block may use");
+extern "C" int dgt_contiguous_dual_gemm_nt(const void* a, const void* b, const void* sfa,
+                                           const void* sfb, const void* tile_gid, void* d,
+                                           int m, int n, int k, int is_fp8, int sfb_shift,
+                                           void* stream) {
+    dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, m, n, k, sfb_shift);
+    p.tile_gid = static_cast<const int*>(tile_gid);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    constexpr auto kDual = dgt::Layout::kContiguousDual;
+    const cudaError_t err =
+        is_fp8 ? dgt::launch_gemm_nt<dgt::MmaE4m3, true, 64, kDual, __nv_bfloat16>(p, 1, s)
+               : dgt::launch_gemm_nt<dgt::MmaBf16, false, 64, kDual, __nv_bfloat16>(p, 1, s);
     return static_cast<int>(err);
 }

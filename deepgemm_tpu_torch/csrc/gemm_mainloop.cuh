@@ -37,6 +37,14 @@
 //                   the m-tile's group is tile_gid[m-tile] (B's group), and
 //                   rows at or past tile_row_end[m-tile] are written as
 //                   zero (a tile wholly past it skips the mainloop).
+//       kContiguousDual  the same rows in 256-row tiles (the dual-B variant):
+//                   the top and the bottom 128 rows of tile t take the
+//                   groups tile_gid[2t] and tile_gid[2t + 1]. A stage holds
+//                   a second B slab for a tile whose halves differ (loaded
+//                   only then), and the tile runs as four 64-row passes over
+//                   each stage, each pass exactly kContiguous's 64-row tile
+//                   (the same fragments, the same k order, the same
+//                   promotion per row), so its bits are kContiguous's.
 //       kKGrouped   grid z = group; the group's depth is k_size[g] columns
 //                   of A and B from column k_start[g] (16-element aligned),
 //                   its scales start at scale block sf_start[g]; an empty
@@ -70,10 +78,22 @@ constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
-template <int BN>
-constexpr int smem_bytes() { return kStages * (kBM + BN) * kPitch; }
+enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual };
 
-enum class Layout { kBatched, kContiguous, kKGrouped };
+// Rows of A a block computes, and the B slabs a stage holds.
+template <Layout kLayout>
+__host__ __device__ constexpr int block_rows() {
+    return kLayout == Layout::kContiguousDual ? 4 * kBM : kBM;
+}
+template <Layout kLayout>
+__host__ __device__ constexpr int b_slabs() {
+    return kLayout == Layout::kContiguousDual ? 2 : 1;
+}
+
+template <int BN, Layout kLayout>
+constexpr int smem_bytes() {
+    return kStages * (block_rows<kLayout>() + b_slabs<kLayout>() * BN) * kPitch;
+}
 
 struct GemmArgs {
     const uint8_t* a;        // bf16 or e4m3, k-major: [G, M, K] or [M, K]; kKGrouped [M, ldk]
@@ -86,7 +106,8 @@ struct GemmArgs {
     int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
     int64_t ldk;             // kKGrouped: row stride of A and of B, elements
     const int* masked_m;     // kBatched: [G] live rows, or nullptr (all rows live)
-    const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile
+    const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile;
+                             // kContiguousDual: [M / 128] group of each half tile
     const int* tile_row_end; // kContiguous: [ceil(M / kBM)] rows at or past it are zero, or nullptr
     const int* k_start;      // kKGrouped: [G] first column of the group in A and B
     const int* k_size;       // kKGrouped: [G] depth of the group
@@ -168,16 +189,24 @@ gemm_nt_kernel(const GemmArgs p) {
     constexpr int kWN = BN / 4;          // warp tile width
     constexpr int kNT = kWN / 8;         // n8 tiles per warp
     constexpr int kE = Mma::kElemBytes;
+    constexpr bool kDual = kLayout == Layout::kContiguousDual;
+    constexpr int kRows = block_rows<kLayout>();
+    constexpr int kQ = kRows / kBM;      // 64-row passes over each stage
+    constexpr int kStageRows = kRows + b_slabs<kLayout>() * BN;
     extern __shared__ __align__(16) uint8_t smem[];
 
-    const int m0 = blockIdx.y * kBM;
+    const int m0 = blockIdx.y * kRows;
     const int n0 = blockIdx.x * BN;
 
-    // The block's problem: operands, depth, scales and output.
+    // The block's problem: operands, depth, scales and output. b_bot and
+    // sfb_bot: the bottom half's B and SFB (kContiguousDual), else b and sfb.
     const uint8_t* a = p.a;
     const uint8_t* b = p.b;
     const float* sfa = p.sfa;
     const float* sfb = p.sfb;
+    const uint8_t* b_bot = p.b;
+    const float* sfb_bot = p.sfb;
+    bool straddle = false;               // the halves' groups differ
     int depth = p.K;
     int row_end = p.M;
     int64_t d_off = 0;                   // elements of d (and c) before this problem
@@ -199,6 +228,16 @@ gemm_nt_kernel(const GemmArgs p) {
         if constexpr (kScaled) sfb += static_cast<int64_t>(gid) * nsf * ksf;
         if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[blockIdx.y]);
         if (m0 >= row_end) depth = 0;    // the whole tile is written as zero
+    } else if constexpr (kDual) {
+        const int top = p.tile_gid[2 * blockIdx.y];
+        const int bot = p.tile_gid[2 * blockIdx.y + 1];
+        straddle = top != bot;
+        b += static_cast<int64_t>(top) * p.N * p.K * kE;
+        b_bot += static_cast<int64_t>(bot) * p.N * p.K * kE;
+        if constexpr (kScaled) {
+            sfb += static_cast<int64_t>(top) * nsf * ksf;
+            sfb_bot += static_cast<int64_t>(bot) * nsf * ksf;
+        }
     } else {
         const int g = blockIdx.z;
         const int64_t k0 = p.k_start[g];
@@ -222,42 +261,47 @@ gemm_nt_kernel(const GemmArgs p) {
     const int wn = (warp % 4) * kWN;
     const int gr = lane >> 2, tg = lane & 3;
 
-    // One stage: rows [0, kBM) are A's tile rows, [kBM, kBM + BN) B's; each
-    // row is 8 chunks of 16 bytes.
+    // One stage: rows [0, kRows) are A's tile rows, [kRows, kRows + BN) B's,
+    // and on a straddling dual tile [kRows + BN, kRows + 2 BN) the bottom
+    // half's B; each row is 8 chunks of 16 bytes.
+    const int stage_rows = kRows + (straddle ? 2 : 1) * BN;
     auto load_stage = [&](int slot, int kt) {
-        uint8_t* s = smem + slot * (kBM + BN) * kPitch;
+        uint8_t* s = smem + slot * kStageRows * kPitch;
         const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
         #pragma unroll
-        for (int c = tid; c < (kBM + BN) * 8; c += kThreads) {
+        for (int c = tid; c < stage_rows * 8; c += kThreads) {
             const int r = c >> 3, ch = c & 7;
             const int64_t kb = kb0 + ch * 16;
-            const bool is_a = r < kBM;
-            const int grow = is_a ? m0 + r : n0 + (r - kBM);
-            const uint8_t* base = is_a ? a : b;
+            const bool is_a = r < kRows;
+            const bool is_bot = r >= kRows + BN;
+            const int grow = is_a ? m0 + r : n0 + (r - kRows - (is_bot ? BN : 0));
+            const uint8_t* base = is_a ? a : (is_bot ? b_bot : b);
             const bool valid = grow < (is_a ? p.M : p.N) && kb < k_bytes;
             const uint8_t* src = valid ? base + grow * ld_bytes + kb : base;
             cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
         }
     };
 
-    float acc[2][kNT][4];
+    float acc[kQ][2][kNT][4];
     float part[2][kNT][4];
     // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
     #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int q = 0; q < kQ; ++q)
         #pragma unroll
-        for (int j = 0; j < kNT; ++j)
+        for (int i = 0; i < 2; ++i)
             #pragma unroll
-            for (int v = 0; v < 4; ++v) {
-                float init = 0.f;
-                if (kLayout == Layout::kKGrouped && p.c != nullptr) {
-                    const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
-                    const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
-                    if (row < p.M && col < p.N)
-                        init = __ldg(p.c + d_off + static_cast<int64_t>(row) * p.N + col);
+            for (int j = 0; j < kNT; ++j)
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    float init = 0.f;
+                    if (kLayout == Layout::kKGrouped && p.c != nullptr) {
+                        const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
+                        const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
+                        if (row < p.M && col < p.N)
+                            init = __ldg(p.c + d_off + static_cast<int64_t>(row) * p.N + col);
+                    }
+                    acc[q][i][j][v] = init;
                 }
-                acc[i][j][v] = init;
-            }
 
     #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
@@ -273,104 +317,121 @@ gemm_nt_kernel(const GemmArgs p) {
             if (nk < num_kt) load_stage(nk % kStages, nk);
             cp_async_commit();
         }
-        const uint8_t* sa = smem + (kt % kStages) * (kBM + BN) * kPitch;
-        const uint8_t* sb = sa + kBM * kPitch;
-
-        if constexpr (kScaled) {
-            #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j)
-                    #pragma unroll
-                    for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
-        }
+        const uint8_t* stage = smem + (kt % kStages) * kStageRows * kPitch;
+        const uint8_t* sb_top = stage + kRows * kPitch;
+        const uint8_t* sb_bot = straddle ? sb_top + BN * kPitch : sb_top;
 
         #pragma unroll
-        for (int kk = 0; kk < kKBytes; kk += 32) {
-            uint32_t af[2][4], bfr[kNT][2];
-            #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const uint8_t* pa = sa + (wm + i * 16 + gr) * kPitch + kk + tg * 4;
-                af[i][0] = ld_shared_u32(pa);
-                af[i][1] = ld_shared_u32(pa + 8 * kPitch);
-                af[i][2] = ld_shared_u32(pa + 16);
-                af[i][3] = ld_shared_u32(pa + 8 * kPitch + 16);
+        for (int q = 0; q < kQ; ++q) {
+            // pass q: rows [q * kBM, (q + 1) * kBM) of the tile, with the
+            // bottom half's B from the third pass on
+            const uint8_t* sa = stage + q * kBM * kPitch;
+            const bool bottom = kDual && q >= kQ / 2;
+            const uint8_t* sb = bottom ? sb_bot : sb_top;
+            const int q0 = m0 + q * kBM;
+
+            if constexpr (kScaled) {
+                #pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    #pragma unroll
+                    for (int j = 0; j < kNT; ++j)
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
             }
+
             #pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-                const uint8_t* pb = sb + (wn + j * 8 + gr) * kPitch + kk + tg * 4;
-                bfr[j][0] = ld_shared_u32(pb);
-                bfr[j][1] = ld_shared_u32(pb + 16);
-            }
-            #pragma unroll
-            for (int i = 0; i < 2; ++i)
+            for (int kk = 0; kk < kKBytes; kk += 32) {
+                uint32_t af[2][4], bfr[kNT][2];
+                #pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const uint8_t* pa = sa + (wm + i * 16 + gr) * kPitch + kk + tg * 4;
+                    af[i][0] = ld_shared_u32(pa);
+                    af[i][1] = ld_shared_u32(pa + 8 * kPitch);
+                    af[i][2] = ld_shared_u32(pa + 16);
+                    af[i][3] = ld_shared_u32(pa + 8 * kPitch + 16);
+                }
                 #pragma unroll
                 for (int j = 0; j < kNT; ++j) {
-                    if constexpr (kScaled) Mma::mma(part[i][j], af[i], bfr[j]);
-                    else Mma::mma(acc[i][j], af[i], bfr[j]);
+                    const uint8_t* pb = sb + (wn + j * 8 + gr) * kPitch + kk + tg * 4;
+                    bfr[j][0] = ld_shared_u32(pb);
+                    bfr[j][1] = ld_shared_u32(pb + 16);
                 }
-        }
+                #pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    #pragma unroll
+                    for (int j = 0; j < kNT; ++j) {
+                        if constexpr (kScaled) Mma::mma(part[i][j], af[i], bfr[j]);
+                        else Mma::mma(acc[q][i][j], af[i], bfr[j]);
+                    }
+            }
 
-        if constexpr (kScaled) {
-            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a row
-            // or column past the edge reads its scale as zero
-            float sa_v[2][2], sb_v[kNT][2];
-            #pragma unroll
-            for (int i = 0; i < 2; ++i)
+            if constexpr (kScaled) {
+                // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
+                // row or column past the edge reads its scale as zero
+                const float* sfb_q = bottom ? sfb_bot : sfb;
+                float sa_v[2][2], sb_v[kNT][2];
                 #pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int row = m0 + wm + i * 16 + gr + h * 8;
-                    sa_v[i][h] = row < p.M
-                        ? __ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)) : 0.f;
-                }
-            #pragma unroll
-            for (int j = 0; j < kNT; ++j)
-                #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + wn + j * 8 + tg * 2 + e;
-                    sb_v[j][e] = col < p.N
-                        ? __ldg(sfb + sf_offset<kLayout>(col >> p.sfb_shift, kt, ksf, p.N)) : 0.f;
-                }
-            #pragma unroll
-            for (int i = 0; i < 2; ++i)
+                for (int i = 0; i < 2; ++i)
+                    #pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int row = q0 + wm + i * 16 + gr + h * 8;
+                        sa_v[i][h] = row < p.M
+                            ? __ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)) : 0.f;
+                    }
                 #pragma unroll
                 for (int j = 0; j < kNT; ++j)
                     #pragma unroll
-                    for (int v = 0; v < 4; ++v) {
-                        const float t = __fmul_rn(__fmul_rn(part[i][j][v], sb_v[j][v & 1]),
-                                                  sa_v[i][v >> 1]);
-                        acc[i][j][v] = __fadd_rn(acc[i][j][v], t);
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = n0 + wn + j * 8 + tg * 2 + e;
+                        sb_v[j][e] = col < p.N
+                            ? __ldg(sfb_q + sf_offset<kLayout>(col >> p.sfb_shift, kt, ksf, p.N))
+                            : 0.f;
                     }
+                #pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    #pragma unroll
+                    for (int j = 0; j < kNT; ++j)
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) {
+                            const float t = __fmul_rn(__fmul_rn(part[i][j][v], sb_v[j][v & 1]),
+                                                      sa_v[i][v >> 1]);
+                            acc[q][i][j][v] = __fadd_rn(acc[q][i][j][v], t);
+                        }
+            }
         }
     }
     cp_async_wait<0>();
 
     OutT* d = static_cast<OutT*>(p.d) + d_off;
     #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int q = 0; q < kQ; ++q)
         #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = m0 + wm + i * 16 + gr + h * 8;
-            if (row >= p.M) continue;
-            const bool zero = kLayout == Layout::kContiguous && row >= row_end;
+        for (int i = 0; i < 2; ++i)
             #pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-                const int col = n0 + wn + j * 8 + tg * 2;
-                if (col >= p.N) continue;   // N is even: col + 1 < N too
-                store_pair(d + static_cast<int64_t>(row) * p.N + col,
-                           zero ? 0.f : acc[i][j][2 * h], zero ? 0.f : acc[i][j][2 * h + 1]);
+            for (int h = 0; h < 2; ++h) {
+                const int row = m0 + q * kBM + wm + i * 16 + gr + h * 8;
+                if (row >= p.M) continue;
+                const bool zero = kLayout == Layout::kContiguous && row >= row_end;
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j) {
+                    const int col = n0 + wn + j * 8 + tg * 2;
+                    if (col >= p.N) continue;   // N is even: col + 1 < N too
+                    store_pair(d + static_cast<int64_t>(row) * p.N + col,
+                               zero ? 0.f : acc[q][i][j][2 * h],
+                               zero ? 0.f : acc[q][i][j][2 * h + 1]);
+                }
             }
-        }
 }
 
 template <class Mma, bool kScaled, int BN, Layout kLayout, class OutT>
 inline cudaError_t launch_gemm_nt(const GemmArgs& p, int grid_z, cudaStream_t stream) {
     auto kernel = gemm_nt_kernel<Mma, kScaled, BN, kLayout, OutT>;
-    constexpr int smem = smem_bytes<BN>();
+    constexpr int smem = smem_bytes<BN, kLayout>();
+    constexpr int rows = block_rows<kLayout>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, grid_z);
+    const dim3 grid((p.N + BN - 1) / BN, (p.M + rows - 1) / rows, grid_z);
     kernel<<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
 }

@@ -9,19 +9,24 @@
 // a [G, max_m, k], b [G, n, k] (both bf16, or both e4m3 with
 // sfa [G, max_m, ceil(k/128)] f32 and sfb [G, ceil(n/gran_n), ceil(k/128)] f32
 // with gran_n = 1 << sfb_shift), masked_m [G] int32 on the device,
-// d [G, max_m, n] bf16. Returns the cudaError_t of the launch (0 = success).
+// d [G, max_m, n] bf16, or f32 when out_f32 (e4m3 operands only: the promoted
+// sum unrounded, for fp8_bmm's + c). Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int dgt_masked_gemm_nt(const void* a, const void* b, const void* sfa,
                                   const void* sfb, const void* masked_m, void* d,
                                   int num_groups, int max_m, int n, int k, int is_fp8,
-                                  int sfb_shift, int block_n, void* stream) {
+                                  int sfb_shift, int block_n, int out_f32, void* stream) {
     dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, max_m, n, k, sfb_shift);
     p.masked_m = static_cast<const int*>(masked_m);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     constexpr auto kBatched = dgt::Layout::kBatched;
+    if (out_f32 && !is_fp8) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err =
-        is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, __nv_bfloat16>(
-                     p, num_groups, block_n, s)
-               : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false, kBatched, __nv_bfloat16>(
-                     p, num_groups, block_n, s);
+        out_f32 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, float>(
+                      p, num_groups, block_n, s)
+        : is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, __nv_bfloat16>(
+                       p, num_groups, block_n, s)
+                 : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false, kBatched, __nv_bfloat16>(
+                       p, num_groups, block_n, s);
     return static_cast<int>(err);
 }

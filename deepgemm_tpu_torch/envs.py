@@ -6,6 +6,7 @@
 | ``DGT_BUILD_DIR`` | where the kernels' shared libraries are built (default ``deepgemm_tpu_torch/_build``) |
 | ``DGT_SPARSE_GATHER`` | how the decode's attention gets its selected cache rows: ``flat`` (the default) gathers them first, ``pallas`` reads them in place in the gather-fused attention kernel (JAX's names); any other value raises |
 | ``DGT_MEGA_ACT_FP8`` | the mega block's act between L1 and L2: ``1`` fp8 (requantized per 128), ``0`` or unset bf16 |
+| ``DGT_GROUPED_DUAL_B`` | ``1`` runs the contiguous grouped GEMM in its dual-B form (256-row tiles, a second B on a tile whose halves belong to two groups) where the shapes allow; unset or any other value: the 64-row form (JAX's default) |
 
 All are read lazily, at each use, never at import.
 """
@@ -33,3 +34,8 @@ def mega_act_fp8() -> Optional[str]:
     between L1 and L2, '0' keeps it bf16 (the default when unset)."""
     return os.environ.get('DGT_MEGA_ACT_FP8')
 
+
+
+def grouped_dual_b() -> bool:
+    """``DGT_GROUPED_DUAL_B=1`` pins the contiguous kernel's dual-B form."""
+    return os.environ.get('DGT_GROUPED_DUAL_B') == '1'

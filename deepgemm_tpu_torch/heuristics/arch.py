@@ -19,14 +19,17 @@ class ArchSpec:
     hbm_bytes_per_s: float
     bf16_flops: float          # dense tensor-core rate
     fp8_flops: float
+    tf32_flops: float
 
-    def bound_ms(self, num_bytes: float, flops: float, fp8: bool):
-        """(least milliseconds, 'bytes' | 'operations')."""
+    def bound_ms(self, num_bytes: float, flops: float, operands: str):
+        """(least milliseconds, 'bytes' | 'operations'); the operations at
+        the rate of ``operands``: 'fp8', 'bf16' or 'tf32'."""
         t_bytes = num_bytes / self.hbm_bytes_per_s * 1e3
-        t_ops = flops / (self.fp8_flops if fp8 else self.bf16_flops) * 1e3
+        rate = {'fp8': self.fp8_flops, 'bf16': self.bf16_flops, 'tf32': self.tf32_flops}[operands]
+        t_ops = flops / rate * 1e3
         return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 H100_SXM = ArchSpec(name='H100 SXM', num_sms=132, smem_per_block=232448,
                     l2_bytes=50 << 20, hbm_bytes_per_s=3.35e12,
-                    bf16_flops=989e12, fp8_flops=1979e12)
+                    bf16_flops=989e12, fp8_flops=1979e12, tf32_flops=495e12)

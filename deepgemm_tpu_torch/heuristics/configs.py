@@ -7,7 +7,10 @@ memory traffic per output) and 64, taken when the 128-wide grid would leave
 SMs idle (fewer blocks than two waves of SMs can hold). Every layout uses
 the same rule on its own grid: the dense and masked kernels one problem per
 group, the contiguous kernel the concatenated rows of all groups, the
-k-grouped kernel one [m, n] output per group."""
+k-grouped kernel one [m, n] output per group.
+
+The contiguous kernel's dual-B form (``DUAL_B_CONFIG``) takes 256-row
+tiles with a second B slab a stage; its width is fixed by shared memory."""
 
 import dataclasses
 
@@ -28,10 +31,11 @@ MK_ALIGNMENT = 128
 class GemmConfig:
     block_m: int
     block_n: int
+    b_slabs: int = 1        # B tiles a stage holds: 2 in the dual-B form
 
     @property
     def smem_bytes(self) -> int:
-        return STAGES * (self.block_m + self.block_n) * (BLOCK_K_BYTES + 16)
+        return STAGES * (self.block_m + self.b_slabs * self.block_n) * (BLOCK_K_BYTES + 16)
 
 
 def get_gemm_config(m: int, n: int, num_groups: int = 1,
@@ -47,3 +51,10 @@ def get_gemm_config(m: int, n: int, num_groups: int = 1,
     assert cfg.smem_bytes <= H100_SXM.smem_per_block
     return cfg
 
+
+# The dual-B tile, fixed: 256 rows by 64 columns with a second B slab, 4
+# stages of (256 + 2 x 64) rows of 144 bytes, 221184 bytes of shared memory;
+# 128 columns would take 294912, above a block's 232448 (csrc/contiguous.cu
+# asserts it at compile time). The JAX package picks its tile against the
+# TPU's VMEM (deepgemm_tpu/heuristics/configs.py:get_dual_b_config).
+DUAL_B_CONFIG = GemmConfig(block_m=4 * BLOCK_M, block_n=64, b_slabs=2)

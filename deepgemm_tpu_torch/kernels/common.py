@@ -28,6 +28,19 @@ def plain_versions():
         _plain_on_cuda = before
 
 
+@contextlib.contextmanager
+def f32_products():
+    """While open, f32 matrix products on a CUDA card run in full f32 (TF32
+    off), whatever the caller set: for plain versions whose products take
+    f32 operands that TF32 would round."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True for CPU tensors, or any tensors inside :func:`plain_versions`
     (the plain version runs); False for CUDA tensors (the kernel launches).

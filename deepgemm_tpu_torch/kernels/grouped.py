@@ -27,6 +27,16 @@ are read once for 128 rows, 256 operations per weight byte, below the
 H100's ~590 fp8 operations per HBM byte, so weight bytes bound it. The grid
 is one block per (n-tile, m-tile); the two m-tiles of an expert read its
 weights one after the other, the second mostly from L2.
+
+Contiguous, dual-B form (``DGT_GROUPED_DUAL_B=1``). Replaces:
+deepgemm_tpu/kernels/grouped.py:_build_contiguous_dual_b (``pl.pallas_call``
+at grouped.py:401). Kernel: the second entry of csrc/contiguous.cu, the same
+function over 256-row tiles whose two 128-row halves each read their own
+group's B (:func:`compute_dual_tile_gids`, on the device). A tile whose
+halves share a group stages its B once for 256 rows; a straddling tile
+stages both. Each of the tile's four 64-row passes is the 64-row kernel's
+tile, so the result is bitwise the contiguous kernel's. It is pinned only,
+as in JAX (measured negative on the v5e there; its H100 time is in PERF.md).
 """
 
 import ctypes
@@ -42,9 +52,11 @@ from .common import (check_operand, promote_block, psum_group_starts, select_row
                      sfb_shift, use_plain)
 
 # Kernel launches per instantiation since the counts were last set to 0:
-# the masked kernel and the contiguous kernel.
-launches = {'bf16': 0, 'fp8': 0}
+# the masked kernel (bf16 out; 'fp8_f32' the fp8 instance with f32 out) and
+# the contiguous kernel.
+launches = {'bf16': 0, 'fp8': 0, 'fp8_f32': 0}
 contiguous_launches = {'bf16': 0, 'fp8': 0}
+dual_b_launches = {'bf16': 0, 'fp8': 0}
 
 # Upcast at most this many bytes of f32 weights at once in the plain version
 # (all 256 experts of a DeepSeek-V3 layer at once would take 30 GB).
@@ -54,7 +66,7 @@ _PLAIN_CHUNK_BYTES = 1 << 31
 def _entry():
     fn = build.load('masked').dgt_masked_gemm_nt
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -67,16 +79,25 @@ def _contiguous_entry():
     return fn
 
 
+def _dual_entry():
+    fn = build.load('contiguous').dgt_contiguous_dual_gemm_nt
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def masked_gemm_plain(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
                       sfa: Optional[torch.Tensor] = None,
-                      sfb: Optional[torch.Tensor] = None, gran_n: int = 128) -> torch.Tensor:
+                      sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
+                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The kernel's function in plain PyTorch. Every row is computed; rows at
     or past ``masked_m[g]`` are unspecified in the contract, so
     ``masked_m`` is not read (no host sync)."""
     del masked_m
     num_groups, max_m, k = a.shape
     n = b.shape[1]
-    d = torch.empty((num_groups, max_m, n), dtype=torch.bfloat16, device=a.device)
+    d = torch.empty((num_groups, max_m, n), dtype=out_dtype, device=a.device)
     chunk = max(1, _PLAIN_CHUNK_BYTES // max(1, n * k * 4))
     for g0 in range(0, num_groups, chunk):
         sl = slice(g0, g0 + chunk)
@@ -84,14 +105,16 @@ def masked_gemm_plain(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
             part = torch.matmul(a[sl].float(), b[sl].float().transpose(1, 2))
         else:
             part = promote_block(a[sl], b[sl], sfa[sl], sfb[sl], gran_n)
-        d[sl] = part.to(torch.bfloat16)
+        d[sl] = part.to(out_dtype)
     return d
 
 
 def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
                 sfa: Optional[torch.Tensor] = None,
-                sfb: Optional[torch.Tensor] = None, gran_n: int = 128) -> torch.Tensor:
-    """d[g, :masked_m[g]] = a[g] @ b[g]^T, bf16 out.
+                sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """d[g, :masked_m[g]] = a[g] @ b[g]^T in ``out_dtype``: bf16, or f32 for
+    e4m3 operands (the same promoted sum, unrounded).
 
     ``a`` [G, max_m, k] and ``b`` [G, n, k] are both bf16 (no scales) or both
     e4m3 with f32 scales ``sfa`` [G, max_m, ceil(k/128)] and ``sfb``
@@ -101,11 +124,15 @@ def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    is_fp8 = a.dtype == torch.float8_e4m3fn
+    if out_dtype not in (torch.bfloat16, torch.float32) or (out_dtype == torch.float32
+                                                            and not is_fp8):
+        raise NotImplementedError(f'output dtype {out_dtype} with {a.dtype} operands: '
+                                  f'bf16, or f32 for e4m3 operands')
     if use_plain(a, b, masked_m, sfa, sfb):
-        return masked_gemm_plain(a, b, masked_m, sfa, sfb, gran_n)
+        return masked_gemm_plain(a, b, masked_m, sfa, sfb, gran_n, out_dtype)
     num_groups, max_m, k = a.shape
     n = b.shape[1]
-    is_fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
     shift = sfb_shift(gran_n)
     check_operand(a, 'a', dtype, (num_groups, max_m, k))
@@ -123,16 +150,17 @@ def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
         raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
                          f'even n; got G={num_groups}, max_m={max_m}, n={n}, k={k}')
     cfg = get_gemm_config(max_m, n, num_groups, num_sms=get_num_sms(a.device))
-    d = torch.empty((num_groups, max_m, n), dtype=torch.bfloat16, device=a.device)
+    d = torch.empty((num_groups, max_m, n), dtype=out_dtype, device=a.device)
+    out_f32 = out_dtype == torch.float32
     fn = _entry()
     code = fn(a.data_ptr(), b.data_ptr(),
               sfa.data_ptr() if is_fp8 else None,
               sfb.data_ptr() if is_fp8 else None,
               masked_m.data_ptr(), d.data_ptr(),
-              num_groups, max_m, n, k, int(is_fp8), shift, cfg.block_n,
+              num_groups, max_m, n, k, int(is_fp8), shift, cfg.block_n, int(out_f32),
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('masked'), code, 'masked_gemm')
-    launches['fp8' if is_fp8 else 'bf16'] += 1
+    launches['fp8_f32' if out_f32 else 'fp8' if is_fp8 else 'bf16'] += 1
     return d
 
 
@@ -169,29 +197,33 @@ def compute_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int,
     return gids.int(), row_ends.int()
 
 
-def contiguous_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
-                          sfa: Optional[torch.Tensor] = None,
-                          sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
-                          use_psum_layout: bool = False,
-                          ensure_zero_padding: bool = False) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: the same per-tile group
-    lookup, then each tile's rows against its group's B (gathered a chunk
-    of tiles at a time), rows past the group's end zeroed on request."""
-    m, k = a.shape
-    num_groups, n, _ = b.shape
-    gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
-                                       use_psum_layout)
-    tiles = gids.numel()
-    rows = tiles * BLOCK_M
+def compute_dual_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int,
+                           use_psum_layout: bool) -> torch.Tensor:
+    """Per 256-row tile the groups of its top and bottom 128-row halves,
+    int32 [m / 256, 2], by device ops alone: :func:`compute_tile_gids` at
+    128-row blocks, paired. ``m`` must be a multiple of 256."""
+    if m % (2 * MK_ALIGNMENT):
+        raise ValueError(f'the dual-B form takes m % {2 * MK_ALIGNMENT} == 0, got m={m}')
+    gids, _ = compute_tile_gids(grouped_layout, num_groups, m, MK_ALIGNMENT, use_psum_layout)
+    return gids.view(-1, 2)
 
-    def tiled(t):                       # [m, w] -> [tiles, BLOCK_M, w], zero rows past m
+
+def _rows_by_tile_plain(a, b, gids, block, sfa, sfb, gran_n):
+    """d[m, n] bf16: each ``block``-row tile of a against its group's B
+    (``gids`` per tile), gathered a chunk of tiles at a time."""
+    m, k = a.shape
+    n = b.shape[1]
+    tiles = gids.numel()
+    rows = tiles * block
+
+    def tiled(t):                       # [m, w] -> [tiles, block, w], zero rows past m
         out = torch.zeros((rows, t.shape[1]), dtype=t.dtype, device=t.device)
         out[:m] = t
-        return out.view(tiles, BLOCK_M, t.shape[1])
+        return out.view(tiles, block, t.shape[1])
 
     a_t = tiled(a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a).view(a.dtype)
     sfa_t = None if sfa is None else tiled(sfa)
-    d = torch.empty((tiles, BLOCK_M, n), dtype=torch.bfloat16, device=a.device)
+    d = torch.empty((tiles, block, n), dtype=torch.bfloat16, device=a.device)
     chunk = max(1, _PLAIN_CHUNK_BYTES // max(1, n * k * 4))
     for t0 in range(0, tiles, chunk):
         sl = slice(t0, t0 + chunk)
@@ -202,12 +234,61 @@ def contiguous_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torc
         else:
             part = promote_block(a_t[sl], b_c, sfa_t[sl], select_rows(sfb, g), gran_n)
         d[sl] = part.to(torch.bfloat16)
-    d = d.view(rows, n)[:m]
+    return d.view(rows, n)[:m]
+
+
+def contiguous_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                          sfa: Optional[torch.Tensor] = None,
+                          sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
+                          use_psum_layout: bool = False,
+                          ensure_zero_padding: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the same per-tile group
+    lookup, then each tile's rows against its group's B, rows past the
+    group's end zeroed on request."""
+    m = a.shape[0]
+    gids, row_ends = compute_tile_gids(grouped_layout, b.shape[0], m, BLOCK_M,
+                                       use_psum_layout)
+    d = _rows_by_tile_plain(a, b, gids, BLOCK_M, sfa, sfb, gran_n)
     if ensure_zero_padding:
         row_end = row_ends.repeat_interleave(BLOCK_M)[:m]
         live = torch.arange(m, device=a.device) < row_end
         d = torch.where(live[:, None], d, torch.zeros((), dtype=d.dtype, device=d.device))
     return d
+
+
+def contiguous_dual_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                               sfa: Optional[torch.Tensor] = None,
+                               sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
+                               use_psum_layout: bool = False) -> torch.Tensor:
+    """The dual-B kernel's function in plain PyTorch: 256-row tiles, each of
+    their two halves against its own group's B."""
+    pairs = compute_dual_tile_gids(grouped_layout, b.shape[0], a.shape[0], use_psum_layout)
+    return _rows_by_tile_plain(a, b, pairs.view(-1), MK_ALIGNMENT, sfa, sfb, gran_n)
+
+
+def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout):
+    """Raise unless the operands are what the contiguous kernels take;
+    returns whether they are e4m3."""
+    m, k = a.shape
+    num_groups, n = b.shape[:2]
+    is_fp8 = a.dtype == torch.float8_e4m3fn
+    dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
+    check_operand(a, 'a', dtype, (m, k))
+    check_operand(b, 'b', dtype, (num_groups, n, k))
+    check_operand(grouped_layout, 'grouped_layout', torch.int32,
+                  (num_groups,) if use_psum_layout else (m,))
+    if is_fp8:
+        if sfa is None or sfb is None:
+            raise ValueError('fp8 operands need sfa and sfb')
+        ksf = ceil_div(k, 128)
+        check_operand(sfa, 'sfa', torch.float32, (m, ksf))
+        check_operand(sfb, 'sfb', torch.float32, (num_groups, ceil_div(n, gran_n), ksf))
+    elif sfa is not None or sfb is not None:
+        raise ValueError('scales go with e4m3 operands only')
+    if min(num_groups, m, n, k) == 0 or k % 16 or n % 2:
+        raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
+                         f'even n; got G={num_groups}, m={m}, n={n}, k={k}')
+    return is_fp8
 
 
 def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
@@ -230,26 +311,11 @@ def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tens
     if use_plain(a, b, grouped_layout, sfa, sfb):
         return contiguous_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
                                      use_psum_layout, ensure_zero_padding)
+    is_fp8 = _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n,
+                                        use_psum_layout)
     m, k = a.shape
     num_groups, n = b.shape[:2]
-    is_fp8 = a.dtype == torch.float8_e4m3fn
-    dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
     shift = sfb_shift(gran_n)
-    check_operand(a, 'a', dtype, (m, k))
-    check_operand(b, 'b', dtype, (num_groups, n, k))
-    check_operand(grouped_layout, 'grouped_layout', torch.int32,
-                  (num_groups,) if use_psum_layout else (m,))
-    if is_fp8:
-        if sfa is None or sfb is None:
-            raise ValueError('fp8 operands need sfa and sfb')
-        ksf = ceil_div(k, 128)
-        check_operand(sfa, 'sfa', torch.float32, (m, ksf))
-        check_operand(sfb, 'sfb', torch.float32, (num_groups, ceil_div(n, gran_n), ksf))
-    elif sfa is not None or sfb is not None:
-        raise ValueError('scales go with e4m3 operands only')
-    if min(num_groups, m, n, k) == 0 or k % 16 or n % 2:
-        raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
-                         f'even n; got G={num_groups}, m={m}, n={n}, k={k}')
     gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
                                        use_psum_layout)
     cfg = get_gemm_config(m, n, 1, num_sms=get_num_sms(a.device))
@@ -263,4 +329,33 @@ def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tens
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('contiguous'), code, 'contiguous_gemm')
     contiguous_launches['fp8' if is_fp8 else 'bf16'] += 1
+    return d
+
+
+def contiguous_dual_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
+                         sfa: Optional[torch.Tensor] = None, sfb: Optional[torch.Tensor] = None,
+                         gran_n: int = 128, use_psum_layout: bool = False) -> torch.Tensor:
+    """:func:`contiguous_gemm`'s function (no zero padding) in the dual-B
+    form: 256-row tiles, ``m % 256 == 0``, the same operands. Bitwise
+    :func:`contiguous_gemm`'s result.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if use_plain(a, b, grouped_layout, sfa, sfb):
+        return contiguous_dual_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
+                                          use_psum_layout)
+    is_fp8 = _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n,
+                                        use_psum_layout)
+    m, k = a.shape
+    num_groups, n = b.shape[:2]
+    shift = sfb_shift(gran_n)
+    pairs = compute_dual_tile_gids(grouped_layout, num_groups, m, use_psum_layout)
+    d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    code = _dual_entry()(a.data_ptr(), b.data_ptr(),
+                         sfa.data_ptr() if is_fp8 else None,
+                         sfb.data_ptr() if is_fp8 else None,
+                         pairs.data_ptr(), d.data_ptr(), m, n, k, int(is_fp8), shift,
+                         torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(build.load('contiguous'), code, 'contiguous_dual_gemm')
+    dual_b_launches['fp8' if is_fp8 else 'bf16'] += 1
     return d

@@ -25,7 +25,7 @@ import torch
 
 from ..kernels import mqa_logits as mqa_kernel
 from ..kernels import paged_mqa
-from ..utils.math import cast_back_from_fp4
+from ..utils.math import decode_fp4_rows
 from .gemm import _split_pair
 
 
@@ -33,16 +33,12 @@ def _is_packed_fp4(x: torch.Tensor) -> bool:
     return x.dtype in (torch.int8, torch.uint8)
 
 
-def _decode_fp4_rows(packed: torch.Tensor, sf: torch.Tensor, head_dim: int) -> torch.Tensor:
+def _decode_fp4_rows(packed: torch.Tensor, sf: torch.Tensor) -> torch.Tensor:
     """Packed e2m1 rows [..., d/2] with per-32 UE8M0 scales (packed int32
     [...] or f32 [..., d/32]) -> bf16 [..., d], exactly."""
     if sf is None:
         raise ValueError('packed FP4 operands need their per-32 scales')
-    lead = packed.shape[:-1]
-    flat = packed.reshape(-1, packed.shape[-1])
-    out = cast_back_from_fp4(flat, sf.reshape(flat.shape[0], -1), gran_k=32,
-                             use_packed_ue8m0=sf.dtype == torch.int32)
-    return out.to(torch.bfloat16).reshape(*lead, head_dim)
+    return decode_fp4_rows(packed, sf, 32)
 
 
 def fp8_fp4_mqa_logits(q, kv, weights, cu_seq_len_k_start, cu_seq_len_k_end,
@@ -62,10 +58,9 @@ def fp8_fp4_mqa_logits(q, kv, weights, cu_seq_len_k_start, cu_seq_len_k_end,
     q_val, q_sf = _split_pair(q)
     kv_val, kv_sf = _split_pair(kv)
     if _is_packed_fp4(q_val):
-        head_dim = 2 * q_val.shape[-1]
-        q_val = _decode_fp4_rows(q_val, q_sf, head_dim)
+        q_val = _decode_fp4_rows(q_val, q_sf)
         if _is_packed_fp4(kv_val):
-            kv_val, kv_sf = _decode_fp4_rows(kv_val, kv_sf, head_dim), None
+            kv_val, kv_sf = _decode_fp4_rows(kv_val, kv_sf), None
     elif _is_packed_fp4(kv_val):
         raise ValueError('a packed FP4 kv needs a packed FP4 q: with an e4m3 q the JAX '
                          'op passes the packed bytes undecoded, which computes nothing defined')
@@ -248,15 +243,15 @@ def fp8_fp4_paged_mqa_logits(q, fused_kv_cache, weights, context_lens, block_tab
     q_val, q_sf = _split_pair(q)
     d = 2 * q_val.shape[-1] if _is_packed_fp4(q_val) else q_val.shape[-1]
     if _is_packed_fp4(q_val):
-        q_val = _decode_fp4_rows(q_val, q_sf, d)
+        q_val = _decode_fp4_rows(q_val, q_sf)
     del schedule_meta, clean_logits
     if isinstance(fused_kv_cache, (tuple, list)):
         kv_cache, kv_sf = fused_kv_cache
         if _is_packed_fp4(kv_cache) and kv_cache.shape[-1] == d // 2:
-            kv_cache = _decode_fp4_rows(kv_cache, kv_sf, d)
+            kv_cache = _decode_fp4_rows(kv_cache, kv_sf)
             kv_sf = torch.ones(kv_cache.shape[:2], dtype=torch.float32, device=kv_cache.device)
     elif fused_kv_cache.shape[-1] == d // 2 + 4:
-        kv_cache = _decode_fp4_rows(*split_fused_kv_cache_fp4(fused_kv_cache, d), d)
+        kv_cache = _decode_fp4_rows(*split_fused_kv_cache_fp4(fused_kv_cache, d))
         kv_sf = torch.ones(kv_cache.shape[:2], dtype=torch.float32, device=kv_cache.device)
     else:
         kv_cache, kv_sf = split_fused_kv_cache(fused_kv_cache, d)

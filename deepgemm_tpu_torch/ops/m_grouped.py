@@ -13,14 +13,24 @@ decode).
 
 The kernels read B's block scales ``[G, nsf, ksf]`` as they are, so the JAX
 package's ``_grouped_sfb_t`` (a per-n expansion) has no counterpart here.
+Packed FP4 (int8) operands raise on both devices: the JAX package's
+m-grouped ops hand the codes to their kernels without a fold
+(deepgemm_tpu/ops/m_grouped.py:166-190), so its answer is undefined there.
 The NN (MN-major B) contiguous layout is not ported yet.
 """
 
 import torch
 
-from ..kernels.grouped import contiguous_gemm, masked_gemm
+from .. import envs
+from ..kernels.grouped import contiguous_dual_gemm, contiguous_gemm, masked_gemm
 from .gemm import _out_dtype_of, _split_pair
 from .sf_layout import _require_f32, resolve_recipes, transform_sfa, transform_sfb
+
+
+def _refuse_packed_fp4(*values: torch.Tensor):
+    if any(v.dtype == torch.int8 for v in values):
+        raise TypeError('packed FP4 (int8) operands are refused by the m-grouped ops: the JAX '
+                        'package computes on the raw e2m1 codes there, so its answer is undefined')
 
 
 def m_grouped_fp8_fp4_gemm_nt_contiguous(a, b, d=None, grouped_layout=None, recipe=None,
@@ -29,24 +39,32 @@ def m_grouped_fp8_fp4_gemm_nt_contiguous(a, b, d=None, grouped_layout=None, reci
                                          ensure_zero_padding=False) -> torch.Tensor:
     """Contiguous grouped NT GEMM of (e4m3, f32 scale) pairs, or of bare
     bf16 tensors: d[m, n] bf16 = a[m, k] @ b[group(m)][n, k]^T. With
-    ``ensure_zero_padding`` the rows past their group's end are zero."""
+    ``ensure_zero_padding`` the rows past their group's end are zero.
+
+    ``DGT_GROUPED_DUAL_B=1`` runs the kernel's dual-B form (the same bits)
+    where the shapes allow it, as JAX pins its own: m % 256 == 0 and no zero
+    padding. The layout itself is never read on the host."""
     del compiled_dims, disable_ue8m0_cast
     a_val, sfa = _split_pair(a)
     b_val, sfb = _split_pair(b)
+    _refuse_packed_fp4(a_val, b_val)
     m, k = a_val.shape
     num_groups, n = b_val.shape[:2]
     _out_dtype_of(d)
-    kw = dict(use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
+    if envs.grouped_dual_b() and m % 256 == 0 and not ensure_zero_padding:
+        gemm, kw = contiguous_dual_gemm, dict(use_psum_layout=use_psum_layout)
+    else:
+        gemm = contiguous_gemm
+        kw = dict(use_psum_layout=use_psum_layout, ensure_zero_padding=ensure_zero_padding)
     if sfa is None:
-        return contiguous_gemm(a_val, b_val, grouped_layout, **kw)
+        return gemm(a_val, b_val, grouped_layout, **kw)
 
     recipe_a, recipe_b = resolve_recipes(recipe, recipe_a, recipe_b)
     if recipe_a[1] != 128 or recipe_b[1] != 128:
         raise NotImplementedError(f'only gran_k 128 is ported (got {recipe_a}, {recipe_b})')
     sfa = transform_sfa(sfa, m, k, recipe_a[1])
     sfb = transform_sfb(sfb, n, k, recipe_b, num_groups)
-    return contiguous_gemm(a_val, b_val, grouped_layout, sfa=sfa, sfb=sfb,
-                           gran_n=recipe_b[0], **kw)
+    return gemm(a_val, b_val, grouped_layout, sfa=sfa, sfb=sfb, gran_n=recipe_b[0], **kw)
 
 
 def m_grouped_bf16_gemm_nt_contiguous(a, b, d=None, grouped_layout=None, compiled_dims='nk',
@@ -69,6 +87,7 @@ def m_grouped_fp8_fp4_gemm_nt_masked(a, b, d=None, masked_m=None, expected_m=Non
     del expected_m
     a_val, sfa = _split_pair(a)
     b_val, sfb = _split_pair(b)
+    _refuse_packed_fp4(a_val, b_val)
     num_groups, _, k = a_val.shape
     n = b_val.shape[1]
     _out_dtype_of(d)

@@ -17,6 +17,20 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def count_bytes(*tensors) -> int:
+    """Total bytes of the tensors and arrays given, nested in tuples or
+    lists, ``None`` counting 0 (deepgemm_tpu/testing/numeric.py:count_bytes)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += count_bytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif t is not None:
+            total += np.asarray(t).nbytes
+    return total
+
+
 def _raw_bytes(x) -> np.ndarray:
     """The element bytes of a tensor or array, for byte-exact comparison."""
     if isinstance(x, torch.Tensor):

@@ -241,3 +241,20 @@ def cast_back_from_fp4(packed: torch.Tensor, sf: torch.Tensor, gran_k: int = 128
     values = _dequantize_from_fp4_e2m1(unpack_fp4_codes(packed))
     group_idx = torch.arange(n, device=packed.device) // gran_k
     return values * sf[:, group_idx]
+
+
+def decode_fp4_rows(packed: torch.Tensor, sf, gran_k: int) -> torch.Tensor:
+    """Packed e2m1 rows [..., k/2] (int8) times their scales -> bf16
+    [..., k]: the JAX package's fold of a packed FP4 operand
+    (deepgemm_tpu/ops/gemm.py:_fold_fp4). ``sf`` is f32 [..., ceil(k/gran_k)],
+    packed UE8M0 int32 [..., words], or None (the codes' values unscaled).
+    Exact for power-of-two scales: an e2m1 value times a power of two fits
+    bf16."""
+    lead = packed.shape[:-1]
+    flat = packed.reshape(-1, packed.shape[-1])
+    if sf is None:
+        values = _dequantize_from_fp4_e2m1(unpack_fp4_codes(flat))
+    else:
+        values = cast_back_from_fp4(flat, sf.reshape(flat.shape[0], -1), gran_k=gran_k,
+                                    use_packed_ue8m0=sf.dtype == torch.int32)
+    return values.to(torch.bfloat16).reshape(*lead, -1)

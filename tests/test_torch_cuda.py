@@ -701,3 +701,159 @@ def test_one_layer_mega_forward(gen, comm):
     else:
         assert fused_moe.launches == before[0]
         assert torch.equal(mega, unfused)
+
+
+# k = 264 in 5 splits: chunks of 53, so four splits start off a 16-byte
+# boundary; n = 40 takes two n-tiles; k = 1048 is a stage tail (1048 % 128).
+@pytest.mark.parametrize('m,n,k,splits', [(100, 24, 1048, None), (64, 40, 1792, 4),
+                                          (33, 24, 264, 5)])
+def test_hc_prenorm_kernel_matches_plain(gen, m, n, k, splits):
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import hc_prenorm
+    a = _randn(gen, m, k)
+    b = torch.randn((n, k), generator=gen, device='cuda')
+    before = hc_prenorm.launches
+    d, s = dgt.tf32_hc_prenorm_gemm(a, b, num_splits=splits)
+    with plain_versions():
+        d_ref, s_ref = dgt.tf32_hc_prenorm_gemm(a, b, num_splits=splits)
+    whole_d, whole_s = dgt.tf32_hc_prenorm_gemm(a, b)
+    torch.cuda.synchronize()
+    assert hc_prenorm.launches == before + 2
+    assert calc_diff(d, d_ref) < 1e-5 and calc_diff(s, s_ref) < 1e-6
+    if splits:
+        assert tuple(d.shape) == (splits, m, n)
+        assert calc_diff(d.sum(0), whole_d) < 1e-5 and calc_diff(s.sum(0), whole_s) < 1e-6
+
+
+def test_masked_kernel_f32_output(gen):
+    """The f32 instance (fp8_bmm with c): the same promoted sum as the bf16
+    instance, unrounded."""
+    g, max_m, n, k = 3, 64, 256, 320
+    a, sfa = per_token_cast_to_fp8(_randn(gen, g * max_m, k), use_ue8m0=False)
+    a, sfa = a.view(g, max_m, k), sfa.view(g, max_m, -1)
+    b, sfb = quantize_experts(_randn(gen, g, n, k))
+    full = torch.full((g,), max_m, dtype=torch.int32, device='cuda')
+    before = grouped.launches['fp8_f32']
+    d32 = grouped.masked_gemm(a, b, full, sfa=sfa, sfb=sfb, out_dtype=torch.float32)
+    d16 = grouped.masked_gemm(a, b, full, sfa=sfa, sfb=sfb)
+    ref = grouped.masked_gemm_plain(a, b, full, sfa=sfa, sfb=sfb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert grouped.launches['fp8_f32'] == before + 1
+    assert d32.dtype == torch.float32 and calc_diff(d32, ref) < 1e-5
+    assert torch.equal(d16, d32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize('expr', ['bhr,hdr->bhd', 'bhd,hdr->bhr', 'bhd,bhr->hdr'])
+def test_fp8_einsum_kernel_matches_plain(gen, expr):
+    import deepgemm_tpu_torch as dgt
+    bt, h, d_dim, r = 256, 2, 128, 256
+    if expr == 'bhd,bhr->hdr':
+        a, b = _randn(gen, bt, h, d_dim), _randn(gen, bt, h, r)
+        aq, asf = per_channel_cast_to_fp8(a.view(bt, -1), use_ue8m0=False)
+        a_q = (aq.view(bt, h, d_dim), asf.view(-1, h, d_dim))
+        b_q = per_block_cast_to_fp8(b.transpose(0, 1), use_ue8m0=False)
+        b_q = (b_q[0].transpose(0, 1), b_q[1].transpose(0, 1))
+    else:
+        a = _randn(gen, bt, h, r if expr == 'bhr,hdr->bhd' else d_dim)
+        aq, asf = per_token_cast_to_fp8(a.view(bt * h, -1), use_ue8m0=False)
+        a_q = (aq.view(bt, h, -1), asf.view(bt, h, -1))
+        b_q = per_block_cast_to_fp8(_randn(gen, h, d_dim, r), use_ue8m0=False)
+    before = dict(grouped.launches)
+    out = dgt.fp8_einsum(expr, a_q, b_q)
+    with plain_versions():
+        ref = dgt.fp8_einsum(expr, a_q, b_q)
+    torch.cuda.synchronize()
+    assert grouped.launches['fp8'] == before['fp8'] + 1
+    assert calc_diff(out, ref) < 1e-5
+
+
+def _dual_case(gen, sizes, n, k, fp8, use_psum_layout):
+    """Groups of ``sizes`` rows (multiples of 128, some starting on 128 mod
+    256), no padding rows."""
+    m = sum(sizes)
+    a, b = _randn(gen, m, k), _randn(gen, len(sizes), n, k)
+    ids = torch.repeat_interleave(torch.arange(len(sizes), dtype=torch.int32),
+                                  torch.tensor(sizes))
+    ends = torch.tensor(sizes).cumsum(0).to(torch.int32)
+    kw = {}
+    if fp8:
+        a, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+        b, sfb = quantize_experts(b)
+        kw = dict(sfa=sfa, sfb=sfb)
+    return a, b, (ends if use_psum_layout else ids).cuda(), kw
+
+
+# (128, 384, 256, 256): the first 256-row tile straddles groups 0 and 1 at its
+# half line; an empty group (0 rows) between two others; k = 336 a stage tail
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_dual_b_kernel_is_bitwise_the_contiguous_kernel(gen, fp8, use_psum_layout):
+    a, b, layout, kw = _dual_case(gen, (128, 384, 0, 256, 256), 192, 336, fp8, use_psum_layout)
+    kw.update(use_psum_layout=use_psum_layout)
+    kind = 'fp8' if fp8 else 'bf16'
+    before = (dict(grouped.dual_b_launches), dict(grouped.contiguous_launches))
+    d = grouped.contiguous_dual_gemm(a, b, layout, **kw)
+    d3 = grouped.contiguous_gemm(a, b, layout, **kw)
+    ref = grouped.contiguous_dual_gemm_plain(a, b, layout, **kw)
+    torch.cuda.synchronize()
+    assert grouped.dual_b_launches[kind] == before[0][kind] + 1
+    assert grouped.contiguous_launches[kind] == before[1][kind] + 1
+    assert torch.equal(d, d3)
+    assert calc_diff(d, ref) < 1e-5
+
+
+def test_dual_b_op_is_pinned_by_its_variable(gen, monkeypatch):
+    import deepgemm_tpu_torch as dgt
+    a, b, layout, kw = _dual_case(gen, (128, 384, 256), 128, 256, True, False)
+    before = dict(grouped.dual_b_launches)
+    d3 = dgt.m_grouped_fp8_gemm_nt_contiguous((a, kw['sfa']), (b, kw['sfb']),
+                                              grouped_layout=layout)
+    monkeypatch.setenv('DGT_GROUPED_DUAL_B', '1')
+    d = dgt.m_grouped_fp8_gemm_nt_contiguous((a, kw['sfa']), (b, kw['sfb']),
+                                             grouped_layout=layout)
+    torch.cuda.synchronize()
+    assert grouped.dual_b_launches['fp8'] == before['fp8'] + 1
+    assert torch.equal(d, d3)
+
+
+def test_fp4_fold_on_the_card(gen):
+    """A packed FP4 B at the library's default granularity (128) runs the
+    e4m3 dense kernel on the decoded codes with per-row scales: within 1e-5
+    of the op's plain route (JAX's bf16 fold) and bitwise that kernel call."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.utils.math import decode_fp4_rows, per_token_cast_to_fp4
+    m, n, k = 64, 256, 640
+    a_q = per_token_cast_to_fp8(_randn(gen, m, k), use_ue8m0=False)
+    b4, sf4 = per_token_cast_to_fp4(_randn(gen, n, k), use_ue8m0=True)
+    before = dense.launches
+    d = dgt.fp8_fp4_gemm_nt(a_q, (b4, sf4))
+    with plain_versions():
+        ref = dgt.fp8_fp4_gemm_nt(a_q, (b4, sf4))
+    codes = decode_fp4_rows(b4, None, 128).to(torch.float8_e4m3fn)
+    d_e4m3 = dense.dense_fp8_gemm_nt(a_q[0], codes, a_q[1], sf4, gran_n=1)
+    torch.cuda.synchronize()
+    assert dense.launches == before + 2
+    assert calc_diff(d, ref) < 1e-5
+    assert torch.equal(d, d_e4m3)
+
+
+def test_new_ops_do_not_fall_back(gen):
+    """A CPU operand beside a CUDA one raises; what the port has not ported
+    (an FP4 granularity of 32) and what JAX leaves undefined (packed FP4 in
+    the m-grouped ops) raise on the card as on the CPU."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4
+    a_q = per_token_cast_to_fp8(_randn(gen, 16, 256), use_ue8m0=False)
+    b4 = per_token_cast_to_fp4(_randn(gen, 128, 256), use_ue8m0=True)
+    with pytest.raises(ValueError, match='several devices'):
+        dgt.fp8_fp4_gemm_nt(a_q, tuple(t.cpu() for t in b4))
+    with pytest.raises(ValueError, match='several devices'):
+        dgt.tf32_hc_prenorm_gemm(_randn(gen, 16, 256), torch.randn(24, 256))
+    b32 = per_token_cast_to_fp4(_randn(gen, 128, 256), use_ue8m0=True, gran_k=32)
+    with pytest.raises(NotImplementedError, match='granularity 32'):
+        dgt.fp8_fp4_gemm_nt(a_q, b32)
+    with pytest.raises(TypeError, match='undefined'):
+        dgt.m_grouped_fp8_fp4_gemm_nt_masked(
+            (a_q[0][None], a_q[1][None]), (b4[0][None], b4[1][None]),
+            masked_m=torch.ones(1, dtype=torch.int32, device='cuda'),
+            recipe_a=(1, 128), recipe_b=(1, 128))

@@ -79,3 +79,58 @@ def test_unported_variants_raise():
     packed = (b_t[0], b_t[1].to(torch.int32))
     with pytest.raises(NotImplementedError):
         dgt.fp8_gemm_nt(a_t, packed)
+
+
+def _fp4_pair(n, k, seed, **cast):
+    rng = np.random.RandomState(seed)
+    b = jnp.asarray(rng.randn(n, k).astype(ml_dtypes.bfloat16))
+    b_q = dg.per_token_cast_to_fp4(b, use_ue8m0=True, **cast)
+    return b, b_q, tuple(tensor_from_numpy(np.asarray(v), 'cpu') for v in b_q)
+
+
+@pytest.mark.parametrize('recipe', [dict(recipe_a=(1, 128), recipe_b=(1, 128)), {}],
+                         ids=['recipe_b_1x128', 'derived_gran'])
+def test_fp8_fp4_gemm_nt_folds_packed_fp4_b_as_jax(recipe):
+    """A packed e2m1 B (int8) with its UE8M0 scales: JAX folds it into exact
+    bf16 (its plain route here); the default recipe derives gran_k 128 from
+    the SF width."""
+    a, _, a_q, _, a_t, _ = _quantized_pair(16, 256, 512, seed=3)
+    b, b_q, b_t = _fp4_pair(256, 512, seed=4)
+    d_jax = np.asarray(dg.fp8_fp4_gemm_nt(a_q, b_q, **recipe), np.float32)
+    dense.launches = 0
+    d_port = dgt.fp8_fp4_gemm_nt(a_t, b_t, **recipe)
+    assert dense.launches == 0
+    assert d_port.dtype == torch.bfloat16 and tuple(d_port.shape) == (16, 256)
+    assert calc_diff(d_port, d_jax) < 1e-5
+    decoded = np.asarray(dg.cast_back_from_fp4(*b_q), np.float64)
+    exact = np.asarray(a_q[0], np.float64) * np.repeat(np.asarray(a_q[1], np.float64), 128, 1)
+    assert calc_diff(d_port, exact @ decoded.T) < 1e-5     # the product of what was quantized
+
+
+def test_fp8_fp4_gemm_nt_packed_fp4_operands_match_jax():
+    """Both operands packed FP4, B's scales as packed UE8M0 int32 (k = 1024:
+    8 scales in 2 int32, an unambiguous width), and a bf16 A beside a
+    packed B (JAX's bf16 dot on the folded B)."""
+    _, a4, a4_t = _fp4_pair(32, 1024, seed=5)
+    _, b4, b4_t = _fp4_pair(128, 1024, seed=6, use_packed_ue8m0=True)
+    assert b4_t[1].dtype == torch.int32
+    d_jax = np.asarray(dg.fp8_fp4_gemm_nt(a4, b4), np.float32)
+    assert calc_diff(dgt.fp8_fp4_gemm_nt(a4_t, b4_t), d_jax) < 1e-5
+    a = np.random.RandomState(7).randn(32, 1024).astype(ml_dtypes.bfloat16)
+    d_jax = np.asarray(dg.fp8_fp4_gemm_nt(jnp.asarray(a), b4), np.float32)
+    assert calc_diff(dgt.fp8_fp4_gemm_nt(tensor_from_numpy(a, 'cpu'), b4_t), d_jax) < 1e-5
+
+
+def test_fp8_fp4_gemm_nt_refuses_what_jax_refuses_or_the_port_lacks():
+    """A packed SF width that two granularities explain raises ValueError,
+    as in JAX; a granularity finer than the 128-deep promotion block raises
+    NotImplementedError on the CPU as on the card."""
+    _, _, a_q, _, a_t, _ = _quantized_pair(16, 128, 256, seed=8)
+    _, b_q, b_t = _fp4_pair(128, 256, seed=9, use_packed_ue8m0=True)
+    with pytest.raises(ValueError, match='ambiguous'):
+        dg.fp8_fp4_gemm_nt(a_q, b_q)
+    with pytest.raises(ValueError, match='ambiguous'):
+        dgt.fp8_fp4_gemm_nt(a_t, b_t)
+    _, _, b32_t = _fp4_pair(128, 256, seed=10, gran_k=32)
+    with pytest.raises(NotImplementedError, match='granularity 32'):
+        dgt.fp8_fp4_gemm_nt(a_t, b32_t)

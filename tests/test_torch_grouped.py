@@ -14,6 +14,7 @@ import deepgemm_tpu as dg
 import deepgemm_tpu_torch as dgt
 from deepgemm_tpu_torch.kernels import grouped
 from deepgemm_tpu_torch.models.convert import tensor_from_numpy
+from deepgemm_tpu_torch.ops import m_grouped as m_grouped_ops
 from deepgemm_tpu_torch.kernels.common import promote_block
 from deepgemm_tpu_torch.ops.sf_layout import transform_sfb
 from deepgemm_tpu_torch.testing import calc_diff
@@ -41,9 +42,9 @@ def _valid_rows(d):
 def test_masked_bf16_matches_jax():
     a, b = _inputs()
     d_jax = dg.m_grouped_bf16_gemm_nt_masked(a, b, masked_m=jnp.asarray(MASKED_M))
-    grouped.launches.update(bf16=0, fp8=0)
+    grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
     d_port = dgt.m_grouped_bf16_gemm_nt_masked(_t(a), _t(b), masked_m=_t(MASKED_M))
-    assert grouped.launches == {'bf16': 0, 'fp8': 0}   # CPU: the plain version
+    assert grouped.launches == {'bf16': 0, 'fp8': 0, 'fp8_f32': 0}   # CPU: the plain version
     assert d_port.dtype == torch.bfloat16 and tuple(d_port.shape) == (G, MAX_M, N)
     assert calc_diff(_valid_rows(d_port), _valid_rows(d_jax)) < 1e-5
 
@@ -154,3 +155,106 @@ def test_tile_gids_follow_the_layout(use_psum_layout):
     gids, row_ends = grouped.compute_tile_gids(_t(layout), 3, 640, 64, use_psum_layout)
     assert gids.tolist() == [0, 0, 1, 1, 1, 1, 2, 2, 2, 2]
     assert row_ends.tolist() == [70] * 2 + [328] * 4 + [514] * 4
+
+
+# The JAX suite's dual-B layout (tests/test_gemm_grouped.py, the dual-B test):
+# groups of 128, 384 and 256 rows start at rows 0, 128 and 512, so the first
+# 256-row tile straddles groups 0 and 1 at its half line.
+DUAL_SIZES = (128, 384, 256)
+
+
+def _dual_inputs(n, k, seed=31):
+    rng = np.random.RandomState(seed)
+    m = sum(DUAL_SIZES)
+    ids = np.repeat(np.arange(len(DUAL_SIZES), dtype=np.int32), DUAL_SIZES)
+    a = jnp.asarray(rng.randn(m, k), jnp.bfloat16)
+    b = jnp.asarray(rng.randn(len(DUAL_SIZES), n, k) * 0.1, jnp.bfloat16)
+    return a, b, ids
+
+
+@pytest.mark.parametrize('use_fp8', [False, True])
+@pytest.mark.parametrize('n,k', [(256, 384), (256, 200)])
+def test_contiguous_dual_b_matches_jax_dual_b(monkeypatch, use_fp8, n, k):
+    """DGT_GROUPED_DUAL_B=1 pins the dual-B form in both packages (the same
+    variable); a k tail at k = 200."""
+    monkeypatch.setenv('DGT_GROUPED_DUAL_B', '1')
+    a, b, ids = _dual_inputs(n, k)
+    if use_fp8:
+        a_q = dg.per_token_cast_to_fp8(a, use_ue8m0=False)
+        b_q = jax.vmap(lambda w: dg.per_block_cast_to_fp8(w, use_ue8m0=False))(b)
+        d_jax = dg.m_grouped_fp8_gemm_nt_contiguous(a_q, b_q, grouped_layout=jnp.asarray(ids))
+        to_t = lambda pair: tuple(_t(v) for v in pair)
+        call = lambda: dgt.m_grouped_fp8_gemm_nt_contiguous(to_t(a_q), to_t(b_q),
+                                                            grouped_layout=_t(ids))
+    else:
+        d_jax = dg.m_grouped_bf16_gemm_nt_contiguous(a, b, grouped_layout=jnp.asarray(ids))
+        call = lambda: dgt.m_grouped_bf16_gemm_nt_contiguous(_t(a), _t(b), grouped_layout=_t(ids))
+    chosen = []
+    monkeypatch.setattr(m_grouped_ops, 'contiguous_dual_gemm',
+                        lambda *args, **kw: chosen.append(1) or grouped.contiguous_dual_gemm(
+                            *args, **kw))
+    d_port = call()
+    assert chosen == [1] and grouped.dual_b_launches == {'bf16': 0, 'fp8': 0}
+    assert calc_diff(d_port, np.asarray(d_jax, np.float32)) < 1e-5
+    ref = np.concatenate([np.asarray(a, np.float64)[ids == g] @ np.asarray(b, np.float64)[g].T
+                          for g in range(len(DUAL_SIZES))])
+    assert calc_diff(d_port, ref) < (1e-3 if use_fp8 else 1e-5)
+
+
+def test_dual_b_form_only_where_its_shapes_allow(monkeypatch):
+    """Under DGT_GROUPED_DUAL_B=1 the op keeps the 64-row form for m % 256
+    != 0 and for ensure_zero_padding, and without the variable; it never
+    reads the layout."""
+    a, b, ids = _dual_inputs(128, 128)
+    chosen = []
+    monkeypatch.setattr(m_grouped_ops, 'contiguous_dual_gemm',
+                        lambda *args, **kw: chosen.append(1) or grouped.contiguous_dual_gemm(
+                            *args, **kw))
+    run = lambda a_, ids_, **kw: dgt.m_grouped_bf16_gemm_nt_contiguous(
+        _t(a_), _t(b), grouped_layout=_t(ids_), **kw)
+    run(a, ids)
+    monkeypatch.setenv('DGT_GROUPED_DUAL_B', '1')
+    run(a[:640], ids[:640])
+    run(a, ids, ensure_zero_padding=True)
+    assert chosen == []
+    monkeypatch.setenv('DGT_GROUPED_DUAL_B', '0')
+    run(a, ids)
+    assert chosen == []
+
+
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_dual_tile_gids_pair_the_halves(use_psum_layout):
+    """The pairs are the groups of each 256-row tile's two 128-row halves:
+    the 64-row tiles' groups, every other one, paired."""
+    ends = np.cumsum(DUAL_SIZES).astype(np.int32)
+    _, _, ids = _dual_inputs(128, 128)
+    layout = _t(ends if use_psum_layout else ids)
+    pairs = grouped.compute_dual_tile_gids(layout, 3, 768, use_psum_layout)
+    assert pairs.tolist() == [[0, 1], [1, 1], [2, 2]]
+    gids64, _ = grouped.compute_tile_gids(layout, 3, 768, 64, use_psum_layout)
+    assert torch.equal(pairs.view(-1), gids64[::2])
+    with pytest.raises(ValueError, match='m % 256'):
+        grouped.compute_dual_tile_gids(layout, 3, 640, use_psum_layout)
+
+
+@pytest.mark.parametrize('layout', ['masked', 'contiguous'])
+@pytest.mark.parametrize('packed', ['a', 'b'])
+def test_m_grouped_refuse_packed_fp4(layout, packed):
+    """JAX's m-grouped ops compute on the raw e2m1 codes of an int8 operand
+    (no fold), so its answer is undefined there: the port raises."""
+    rng = np.random.RandomState(9)
+    k = 256
+    codes = lambda *shape: torch.from_numpy(rng.randint(-128, 128, (*shape, k // 2)).astype(np.int8))
+    fp8 = lambda *shape: torch.from_numpy(rng.randn(*shape, k).astype(np.float32)).to(
+        torch.float8_e4m3fn)
+    lead = (G, MAX_M) if layout == 'masked' else (256,)
+    a = (codes(*lead) if packed == 'a' else fp8(*lead), torch.ones(*lead, 2))
+    b = (codes(G, N) if packed == 'b' else fp8(G, N), torch.ones(G, 1, 2))
+    with pytest.raises(TypeError, match='undefined'):
+        if layout == 'masked':
+            dgt.m_grouped_fp8_fp4_gemm_nt_masked(a, b, masked_m=_t(MASKED_M),
+                                                 recipe_a=(1, 128), recipe_b=(1, 128))
+        else:
+            dgt.m_grouped_fp8_fp4_gemm_nt_contiguous(
+                a, b, grouped_layout=torch.zeros(256, dtype=torch.int32),
+                recipe_a=(1, 128), recipe_b=(1, 128))

@@ -75,12 +75,12 @@ def test_kernel_and_plain_paths_agree_on_cpu():
     nothing."""
     params_np, tokens = _params_and_tokens(seed=2)
     params = params_from_jax(params_np, device='cpu')
-    grouped.launches.update(bf16=0, fp8=0)
+    grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
     out = [tt.forward(params, torch.from_numpy(tokens),
                       tt.ModelConfig(**_SIZE, use_kernels=k))
            for k in (True, False)]
     assert torch.equal(out[0], out[1])
-    assert grouped.launches == {'bf16': 0, 'fp8': 0}
+    assert grouped.launches == {'bf16': 0, 'fp8': 0, 'fp8_f32': 0}
 
 
 # capacity_factor 7.9 makes cap = align(int(16 * 7.9) + 1, 8) = 128: the

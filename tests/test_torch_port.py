@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import deepgemm_tpu_torch as dgt
-from deepgemm_tpu_torch.heuristics.configs import get_gemm_config
+from deepgemm_tpu_torch.heuristics.configs import DUAL_B_CONFIG, GemmConfig, get_gemm_config
 from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.models import convert, transformer
 from deepgemm_tpu_torch.runtime import build
@@ -105,3 +105,24 @@ def test_mega_public_names():
         assert callable(getattr(dgt, name)), name
     assert dgt.get_symm_buffer_for_mega_moe is dgt.SymmBuffer
     assert 'mega_local' in build.SOURCES
+
+
+def test_dual_b_tile_fits_a_block():
+    """The dual-B tile (256 rows, two B slabs) fits a block's shared memory
+    at 64 columns and would not at 128."""
+    cfg = DUAL_B_CONFIG
+    assert (cfg.block_m, cfg.block_n, cfg.b_slabs) == (256, 64, 2)
+    assert cfg.smem_bytes == 221184 <= 232448
+    assert GemmConfig(block_m=256, block_n=128, b_slabs=2).smem_bytes > 232448
+
+
+def test_einsum_hc_public_names():
+    """The JAX package's einsum, HyperConnection, skip-head-mid and testing
+    names (deepgemm_tpu/__init__.py, deepgemm_tpu/testing/__init__.py)."""
+    for name in ('einsum', 'fp8_einsum', 'fp8_bmm', 'tf32_hc_prenorm_gemm',
+                 'fp8_gemm_nt_skip_head_mid'):
+        assert callable(getattr(dgt, name)), name
+    for name in ('calc_diff', 'count_bytes', 'assert_bitwise_equal', 'bench_profiled',
+                 'get_arch_major', 'get_device_core_count', 'test_filter'):
+        assert callable(getattr(dgt.testing, name)), name
+    assert 'hc_prenorm' in build.SOURCES
