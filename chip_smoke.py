@@ -574,6 +574,8 @@ def capture_calls(records, seed):
 
     def dense_call(args, kw, out):
         a, b, sfa, sfb = args
+        require(kw['c'] is None and not (kw['a_mn'] or kw['b_mn']) and kw['strategy'] == 'promote',
+                'the step calls the NT promote form without c')
         rows = pick(a.shape[0], CHECK_ROWS)
         return dict(kind='dense', shape=(a.shape[0], b.shape[0], a.shape[1]),
                     gran_n=kw['gran_n'], out_dtype=kw['out_dtype'],
@@ -608,7 +610,7 @@ def capture_calls(records, seed):
                             take(sfa, sf_rows), take(sfb, sf_rows)),
                     out=take(out, experts))
 
-    hooks = ((gemm, 'dense_fp8_gemm_nt', dense_call),
+    hooks = ((gemm, 'dense_gemm', dense_call),
              (m_grouped, 'contiguous_gemm', contiguous_call),
              (kg_ops, 'k_grouped_gemm', k_grouped_call))
     originals = [(module, name, getattr(module, name)) for module, name, _ in hooks]
@@ -2385,6 +2387,460 @@ def phase_entry_points(seed, gen, arch):
     ]
 
 
+# Phase 10: the rest of the one-card GEMM surface, entry points no model path
+# calls, at DeepSeek-V3 widths, each call its own path (its form's count 0
+# just before, read just after): the dense NN/TN/TT layouts at phase 3's
+# shapes, C accumulation, packed-UE8M0 scales ('dequant', and 'promote'
+# pinned), planar FP4 B decoded in the kernel at the expert L2 width (n 7168,
+# k 2048) for a decode batch, a small and a large prefill, FP4 at scale
+# granularity 32, the NN contiguous grouped GEMM on phase 9's layout, and the
+# flattened NT k-grouped GEMM at the training step's L2 wgrad shape.
+LAYOUTS = ('nn', 'tn', 'tt')
+PACKED_SHAPE = (4096, 4096, 7168)
+PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
+KG_GROUPS, KG_ROWS, KG_M, KG_N = 256, 128, 7168, 2048     # the L2 wgrad: dw2 [256, 7168, 2048]
+
+
+def t8(x):
+    """An e4m3 matrix transposed into a new contiguous tensor."""
+    return x.view(torch.uint8).t().contiguous().view(x.dtype)
+
+
+def counted(call, form):
+    """Run ``call`` with the dense counts at 0; require one launch, of ``form``."""
+    from deepgemm_tpu_torch.kernels import dense
+    dense.launches = 0
+    dense.form_launches.clear()
+    out = call()
+    torch.cuda.synchronize()
+    seen = dict(dense.form_launches)
+    require(seen == {form: 1} and dense.launches == 1, f'{form}: dense launches {seen}')
+    return out
+
+
+def dense_bound(arch, m, n, k, *tensors, out_bytes=2):
+    from deepgemm_tpu_torch.testing import count_bytes
+    return arch.bound_ms(count_bytes(*tensors) + out_bytes * m * n, 2 * m * n * k, 'fp8')
+
+
+def phase_layouts(gen, arch):
+    """fp8 NN, TN and TT through the ops at phase 3's shapes: one launch of
+    the layout's form, bitwise the NT kernel on the transposed operands,
+    against the plain version, timed beside a bf16 torch.matmul on the same
+    layout. Returns ({layout: entries}, {layout: launches})."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    entries, launches = {l: [] for l in LAYOUTS}, {l: 0 for l in LAYOUTS}
+    for m, n, k in DENSE_SHAPES:
+        a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+        aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+        bq, sfb = dgt.per_block_cast_to_fp8(b, use_ue8m0=False)
+        d_nt = dense.dense_fp8_gemm_nt(aq, bq, sfa, sfb)
+        a_t, b_t, sfa_t, sfb_t = t8(aq), t8(bq), sfa.t().contiguous(), sfb.t().contiguous()
+        a_bt, b_bt = a.t().contiguous(), b.t().contiguous()
+        for layout in LAYOUTS:
+            a_mn, b_mn = layout[0] == 't', layout[1] == 'n'
+            pa = (a_t, sfa_t) if a_mn else (aq, sfa)
+            pb = (b_t, sfb_t) if b_mn else (bq, sfb)
+            op = getattr(dgt, f'fp8_gemm_{layout}')
+            d = counted(lambda: op(pa, pb), f'promote_{layout}')
+            launches[layout] += 1
+            require(torch.equal(d, d_nt), f'{layout} {m}x{n}x{k}: not bitwise the NT kernel '
+                    f'on the transposed operands')
+            ka, kb = (a_t if a_mn else aq), (b_t if b_mn else bq)
+            kernel = lambda: dense.dense_gemm(ka, kb, sfa, sfb, a_mn=a_mn, b_mn=b_mn)
+            plain = lambda: dense.dense_gemm_plain(ka, kb, sfa, sfb, a_mn=a_mn, b_mn=b_mn)
+            diff, err = compare(d, plain())
+            require(diff < TOL, f'{layout} {m}x{n}x{k}: calc_diff {diff} against the plain version')
+            la = a_bt.t() if a_mn else a
+            lb = b_bt if b_mn else b.t()
+            ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(la, lb))
+            bound = dense_bound(arch, m, n, k, aq, bq, sfa, sfb)
+            entries[layout].append(dict(shape=[m, n, k], **numbers(ms, plain_ms, library_ms,
+                                                                   err, bound)))
+            log(f'phase 10 dense {layout} m={m} n={n} k={k}: launches 1 ({layout}); bitwise NT on '
+                f'the transposes; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(torch.matmul bf16, '
+                f'{layout})={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
+                f'TFLOPS={2 * m * n * k / ms / 1e9:.1f}')
+        del a, b, aq, bq, a_t, b_t, a_bt, b_bt, d_nt
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def phase_c(gen, arch):
+    """C accumulation at 4096^3: f32 and bf16 outputs, and the wgrad recipe
+    (1, 1, 128) with d = c = c; in f32 bitwise the kernel's sum without c
+    plus c. Returns (entries, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    m, n, k = DENSE_SHAPES[0]
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+    c = torch.randn((m, n), generator=gen, device='cuda') * 32
+    c16 = c.to(torch.bfloat16)
+    a32, b32 = a.float(), b.float()
+    entries, launches = [], 0
+    for label, recipe, out in (('f32', (1, 128, 128), torch.float32),
+                               ('bf16', (1, 128, 128), torch.bfloat16),
+                               ('wgrad f32', (1, 1, 128), torch.float32)):
+        cast = dgt.per_token_cast_to_fp8 if recipe[1] == 1 else dgt.per_block_cast_to_fp8
+        bq, sfb = cast(b, use_ue8m0=False)
+        d_tmpl = c if label.startswith('wgrad') else out
+        d = counted(lambda: dgt.fp8_gemm_nt((aq, sfa), (bq, sfb), d=d_tmpl, c=c, recipe=recipe),
+                    'promote_nt+c')
+        launches += 1
+        sum32 = dense.dense_gemm(aq, bq, sfa, sfb, gran_n=recipe[1], out_dtype=torch.float32)
+        require(torch.equal(d, (sum32 + c).to(out)), f'C {label}: not the f32 sum plus c')
+        kw = dict(c=c, gran_n=recipe[1], out_dtype=out)
+        kernel = lambda: dense.dense_gemm(aq, bq, sfa, sfb, **kw)
+        plain = lambda: dense.dense_gemm_plain(aq, bq, sfa, sfb, **kw)
+        diff, err = compare(d, plain())
+        require(diff < TOL, f'C {label}: calc_diff {diff} against the plain version')
+        library = ((lambda: torch.addmm(c, a32, b32.t())) if out == torch.float32
+                   else (lambda: torch.addmm(c16, a, b.t())))
+        ms, plain_ms, library_ms = timed(kernel, plain, library)
+        bound = dense_bound(arch, m, n, k, aq, bq, sfa, sfb, c,
+                            out_bytes=torch.empty((), dtype=out).element_size())
+        entries.append(dict(shape=[m, n, k], case=label, **numbers(ms, plain_ms, library_ms,
+                                                                   err, bound)))
+        log(f'phase 10 C {label} recipe={recipe} m={m} n={n} k={k}: launches 1 (+c); bitwise '
+            f'the f32 sum plus c; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+            f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(torch.addmm '
+            f'{"f32, TF32 off" if out == torch.float32 else "bf16"})={library_ms:.4f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]})')
+    del a, b, aq, bq, c, c16, a32, b32, d, sum32
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def phase_packed(gen, arch):
+    """Packed-UE8M0 scales at 4096 x 4096 x 7168, recipes (1, 1, 128) and
+    (1, 128, 128): 'dequant' (the default) and 'promote' pinned, each one
+    launch of its form, against its plain version and each other; both
+    timed. Returns (entries, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.ops import sf_layout
+    from deepgemm_tpu_torch.runtime.config import runtime
+    m, n, k = PACKED_SHAPE
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    aq, sfa_p = dgt.per_token_cast_to_fp8(a, use_ue8m0=True, use_packed_ue8m0=True)
+    sfa = sf_layout.transform_sfa(sfa_p, m, k, 128)
+    entries, launches = [], 0
+    for recipe in ((1, 1, 128), (1, 128, 128)):
+        if recipe[1] == 1:
+            bq, sfb_p = dgt.per_token_cast_to_fp8(b, use_ue8m0=True, use_packed_ue8m0=True)
+        else:
+            bq, sfb32 = dgt.per_block_cast_to_fp8(b, use_ue8m0=True)
+            sfb_p = sf_layout.get_mn_major_tma_aligned_packed_ue8m0_tensor(sfb32)
+        sfb = sf_layout.transform_sfb(sfb_p, n, k, recipe[1:])
+        call = lambda: dgt.fp8_gemm_nt((aq, sfa_p), (bq, sfb_p), recipe=recipe)
+        require(runtime().force_scale_strategy is None, 'the scale strategy is pinned')
+        d = counted(call, 'dequant_nt')
+        launches += 1
+        runtime().force_scale_strategy = 'promote'
+        try:
+            d_promote = counted(call, 'promote_nt')
+        finally:
+            runtime().force_scale_strategy = None
+        kw = dict(gran_n=recipe[1])
+        kernel = lambda: dense.dense_gemm(aq, bq, sfa, sfb, strategy='dequant', **kw)
+        plain = lambda: dense.dense_gemm_plain(aq, bq, sfa, sfb, strategy='dequant', **kw)
+        diff, err = compare(d, plain())
+        require(diff < TOL, f'packed {recipe}: dequant calc_diff {diff} against the plain version')
+        vs_promote = compare(d, d_promote)[0]
+        require(vs_promote < TOL, f'packed {recipe}: dequant {vs_promote} from promote')
+        promote_plain = compare(d_promote, dense.dense_gemm_plain(aq, bq, sfa, sfb, **kw))[0]
+        require(promote_plain < TOL, f'packed {recipe}: promote {promote_plain} from plain')
+        ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
+        promote_ms = bench_kernel_ms(lambda: dense.dense_gemm(aq, bq, sfa, sfb, **kw))
+        op_ms = bench_kernel_ms(call)
+        bound = dense_bound(arch, m, n, k, aq, bq, sfa_p, sfb_p)
+        entries.append(dict(shape=[m, n, k], recipe=list(recipe), promote_ms=promote_ms,
+                            op_ms=op_ms, vs_promote_calc_diff=vs_promote,
+                            **numbers(ms, plain_ms, library_ms, err, bound)))
+        log(f'phase 10 packed UE8M0 recipe={recipe} m={m} n={n} k={k}: dequant launches 1, '
+            f'promote (pinned) launches 1; calc_diff dequant vs plain {diff:.3e}, vs promote '
+            f'{vs_promote:.3e}, promote vs plain {promote_plain:.3e} (limit {TOL}) '
+            f'max_abs_err={err:.4g}; dequant_ms={ms:.4f} promote_ms={promote_ms:.4f} '
+            f'op_ms(dequant, with the unpack)={op_ms:.4f} plain_ms={plain_ms:.4f} '
+            f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})')
+        del bq, sfb, d, d_promote
+    del a, b, aq, sfa
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def bench_kernel_ms(fn):
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    return bench_kernel(fn)
+
+
+def phase_planar(gen, arch):
+    """Planar FP4 B (n 7168, k 2048) decoded in the kernel at m 16, 128 and
+    4096: one launch of its form, bitwise the fold route and the e4m3 kernel
+    on the decoded codes, against the plain version; 'planar_in_kernel'
+    and 'planar_fold' timed beside each other (the ops, decode included).
+    Returns (entries, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4, repack_fp4_to_planar
+    n, k = PLANAR_N, PLANAR_K
+    b = randn_bf16((n, k), gen, 1.0)
+    b4, sf4 = per_token_cast_to_fp4(b, use_ue8m0=True)
+    planar = repack_fp4_to_planar(b4)
+    codes = dense._decode_planar(planar)
+    kw = dict(recipe_a=(1, 128), recipe_b=(1, 128))
+    entries, launches = [], 0
+    for m in PLANAR_MS:
+        a = randn_bf16((m, k), gen, 1.0)
+        aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+        in_kernel = lambda: dgt.fp8_fp4_gemm_nt((aq, sfa), (planar, sf4),
+                                                fp4_layout='planar_in_kernel', **kw)
+        fold = lambda: dgt.fp8_fp4_gemm_nt((aq, sfa), (planar, sf4), fp4_layout='planar_fold',
+                                           **kw)
+        d = counted(in_kernel, 'promote_nt_fp4')
+        launches += 1
+        require(torch.equal(d, fold()), f'planar m={m}: not bitwise the fold route')
+        require(torch.equal(d, dense.dense_gemm(aq, codes, sfa, sf4, gran_n=1)),
+                f'planar m={m}: not bitwise the e4m3 kernel on the decoded codes')
+        kernel = lambda: dense.dense_gemm(aq, planar, sfa, sf4, gran_n=1, fp4_b=True)
+        plain = lambda: dense.dense_gemm_plain(aq, planar, sfa, sf4, gran_n=1, fp4_b=True)
+        diff, err = compare(d, plain())
+        require(diff < TOL, f'planar m={m}: calc_diff {diff} against the plain version')
+        ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
+        op_ms, fold_ms = bench_kernel_ms(in_kernel), bench_kernel_ms(fold)
+        e4m3_ms = bench_kernel_ms(lambda: dense.dense_gemm(aq, codes, sfa, sf4, gran_n=1))
+        bound = dense_bound(arch, m, n, k, aq, sfa, planar, sf4)
+        entries.append(dict(shape=[m, n, k], op_ms=op_ms, fold_op_ms=fold_ms,
+                            e4m3_kernel_ms=e4m3_ms, **numbers(ms, plain_ms, library_ms, err,
+                                                              bound)))
+        log(f'phase 10 planar FP4 B in the kernel m={m} n={n} k={k}: launches 1 (fp4); bitwise '
+            f'the fold route and the e4m3 kernel on the decoded codes; calc_diff={diff:.3e} '
+            f'(limit {TOL}) max_abs_err={err:.4g}; kernel_ms={ms:.4f} (e4m3 kernel on the codes '
+            f'{e4m3_ms:.4f}); op in_kernel_ms={op_ms:.4f} op fold_ms={fold_ms:.4f} '
+            f'plain_ms={plain_ms:.4f} library_ms(torch.matmul bf16)={library_ms:.4f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]})')
+        del a, aq, sfa, d
+    del b, b4, sf4, planar, codes
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def phase_fp4_gran32(gen, arch):
+    """A packed FP4 B at scale granularity 32 (4096 x 4096 x 7168): JAX's
+    bf16 fold, then one launch of the mixed e4m3 x bf16 form; against the
+    op's plain route, timed. Returns (entry, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.utils.math import decode_fp4_rows, per_token_cast_to_fp4
+    m, n, k = FP4_SHAPE
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+    b4 = per_token_cast_to_fp4(b, use_ue8m0=True, gran_k=32)
+    call = lambda: dgt.fp8_fp4_gemm_nt((aq, sfa), b4)
+    d = counted(call, 'promote_nt_mixed')
+    folded = decode_fp4_rows(b4[0], b4[1], 32)
+    kernel = lambda: dense.dense_gemm(aq, folded, sfa, None)
+    require(torch.equal(d, kernel()), 'FP4 gran 32: the op is not the mixed kernel call')
+    plain = lambda: dense.dense_gemm_plain(aq, folded, sfa, None)
+    diff, err = compare(d, plain_of(call)())
+    require(diff < TOL, f'FP4 gran 32: calc_diff {diff} against the op\'s plain route')
+    ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
+    op_ms = bench_kernel_ms(call)
+    bound = dense_bound(arch, m, n, k, aq, sfa, *b4)
+    entry = dict(shape=[m, n, k], op_ms=op_ms, **numbers(ms, plain_ms, library_ms, err, bound))
+    log(f'phase 10 FP4 gran 32 m={m} n={n} k={k}: launches 1 (mixed e4m3 x bf16); calc_diff='
+        f'{diff:.3e} against the op\'s plain route (limit {TOL}) max_abs_err={err:.4g}; '
+        f'kernel_ms={ms:.4f} op_ms(fold + kernel)={op_ms:.4f} plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})')
+    del a, b, aq, sfa, b4, d, folded
+    torch.cuda.empty_cache()
+    return entry, 1
+
+
+def phase_contiguous_nn(seed, gen, arch):
+    """The NN contiguous form at the training step's shapes on phase 9's
+    seeded uneven layout, fp8 and bf16: one launch of the NN kernel through
+    the op, bitwise the NT kernel on B transposed, against the plain
+    version, timed. Returns ({kind: entries}, {kind: launches})."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import grouped
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    ids, counts, _ = dual_layout(seed)
+    ends = counts.cumsum(0).to(torch.int32).cuda()
+    m = ids.numel()
+    live = int((counts > 0).sum())
+    entries, launches = {'fp8': [], 'bf16': []}, {'fp8': 0, 'bf16': 0}
+    for label, n, k in DUAL_SHAPES:
+        for kind in ('fp8', 'bf16'):
+            a = randn_bf16((m, k), gen, 1.0)
+            b = randn_bf16((DUAL_EXPERTS, n, k), gen, k ** -0.5)
+            if kind == 'fp8':
+                aq, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+                b_nt, sfb = quantize_experts(b)
+                del b
+                b_nn = b_nt.view(torch.uint8).transpose(1, 2).contiguous().view(b_nt.dtype)
+                sfb_mn = sfb.transpose(1, 2).contiguous()               # [G, ksf, nsf]
+                ops, kw = (aq, b_nn), dict(sfa=sfa, sfb=sfb)
+                op = lambda: dgt.m_grouped_fp8_gemm_nn_contiguous((aq, sfa), (b_nn, sfb_mn),
+                                                                  grouped_layout=ids)
+            else:
+                b_nt, b_nn = b, b.transpose(1, 2).contiguous()
+                del b
+                ops, kw = (a, b_nn), {}
+                op = lambda: dgt.m_grouped_bf16_gemm_nn_contiguous(a, b_nn, grouped_layout=ids)
+            grouped.contiguous_nn_launches.update(bf16=0, fp8=0)
+            before = dict(grouped.contiguous_launches)
+            d = op()
+            torch.cuda.synchronize()
+            seen = dict(grouped.contiguous_nn_launches)
+            require(seen[kind] == 1 and sum(seen.values()) == 1
+                    and grouped.contiguous_launches == before,
+                    f'NN {kind} {label}: launches {seen}, NT {grouped.contiguous_launches}')
+            launches[kind] += 1
+            require(torch.equal(d, grouped.contiguous_gemm(ops[0], b_nt, ids, **kw)),
+                    f'NN {kind} {label}: not bitwise the NT kernel on B transposed')
+            library = None
+            if kind == 'bf16':
+                # one torch call of the same function, B in its own preferred layout
+                library = lambda: torch._grouped_mm(a, b_nt.transpose(1, 2), offs=ends)
+                lib_diff = calc_diff_of(library(), d)
+                require(lib_diff < 1e-4, f'NN bf16 {label}: torch._grouped_mm is {lib_diff} '
+                        f'from the kernel')
+            else:
+                del b_nt
+            torch.cuda.empty_cache()
+            kernel = lambda: grouped.contiguous_gemm(*ops, ids, b_mn=True, **kw)
+            plain = lambda: grouped.contiguous_gemm_plain(*ops, ids, b_mn=True, **kw)
+            diff, err = compare(d, plain())
+            require(diff < TOL, f'NN {kind} {label}: calc_diff {diff} against the plain version')
+            ms, plain_ms, library_ms = timed(kernel, plain, library)
+            b_live = ops[1].numel() // DUAL_EXPERTS * live * ops[1].element_size()
+            sfb_live = 0 if not kw else kw['sfb'].numel() // DUAL_EXPERTS * live * 4
+            moved = count_bytes(ops[0], kw.get('sfa'), ids) + b_live + sfb_live + 2 * m * n
+            bound = arch.bound_ms(moved, 2 * m * n * k, kind)
+            entries[kind].append(dict(shape=[m, n, k, DUAL_EXPERTS], label=label,
+                                      **numbers(ms, plain_ms, library_ms, err, bound)))
+            log(f'phase 10 contiguous NN {kind} {label} m={m} n={n} k={k} ({live} of '
+                f'{DUAL_EXPERTS} experts with rows): NN launches 1, NT 0; bitwise the NT kernel '
+                f'on B transposed; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                + (f'library_ms(torch._grouped_mm bf16)={library_ms:.4f} ' if library else
+                   'library_ms=null (torch._scaled_grouped_mm takes row-wise scales, not '
+                   '1x128 / 128x128 block scales) ')
+                + f'bound_ms={bound[0]:.4f} ({bound[1]})')
+            del a, b_nn, ops, kw, d, library
+            if kind == 'bf16':
+                del b_nt
+            torch.cuda.empty_cache()
+    return entries, launches
+
+
+def calc_diff_of(x, y):
+    from deepgemm_tpu_torch.testing import calc_diff
+    return calc_diff(x, y)
+
+
+def phase_k_grouped_flat(gen, arch):
+    """The flattened NT k-grouped form at the training step's L2 wgrad shape
+    (256 groups of 128 rows: dw2 [256, 7168, 2048] f32, 15 GB): one launch,
+    bitwise the TN kernel on the same data, 16 seeded groups against the
+    plain version, timed. Returns (entry, launches)."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import k_grouped
+    from deepgemm_tpu_torch.kernels.k_grouped import unflatten_k_major
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.utils.math import per_channel_cast_to_fp8
+    g, rows, m, n = KG_GROUPS, KG_ROWS, KG_M, KG_N
+    ks = [rows] * g
+    a_tn = randn_bf16((g * rows, m), gen, 1.0)
+    b_tn = randn_bf16((g * rows, n), gen, 1.0)
+    aq, sfa = per_channel_cast_to_fp8(a_tn, use_ue8m0=False)      # per group of 128 rows
+    bq, sfb = per_channel_cast_to_fp8(b_tn, use_ue8m0=False)
+    # each group's segment k-major, flattened: [g, m, rows]
+    a_flat = aq.view(torch.uint8).view(g, rows, m).transpose(1, 2).contiguous().view(aq.dtype)
+    b_flat = bq.view(torch.uint8).view(g, rows, n).transpose(1, 2).contiguous().view(bq.dtype)
+    require(torch.equal(unflatten_k_major(a_flat, ks, m).view(torch.uint8), aq.view(torch.uint8)),
+            'k-grouped flat: the flattening does not round-trip')
+    sfa_mk, sfb_nk = sfa.t().contiguous(), sfb.t().contiguous()     # [m, nsf], the NT form's
+    d_tmpl = torch.empty((g, m, n), device='meta')
+    call = lambda: dgt.k_grouped_fp8_gemm_nt_contiguous((a_flat, sfa_mk), (b_flat, sfb_nk),
+                                                        d=d_tmpl, ks=ks)
+    k_grouped.flat_launches = 0
+    k_grouped.launches.update(bf16=0, fp8=0)
+    d = call()
+    torch.cuda.synchronize()
+    require(k_grouped.flat_launches == 1 and k_grouped.launches == {'bf16': 0, 'fp8': 0},
+            f'k-grouped flat: launches {k_grouped.flat_launches}, TN {k_grouped.launches}')
+    sizes = torch.full((g,), rows, dtype=torch.int32, device='cuda')
+    d_tn = k_grouped.k_grouped_gemm(aq, bq, sizes, None, sfa, sfb)
+    torch.cuda.synchronize()
+    require(torch.equal(d, d_tn), 'k-grouped flat: not bitwise the TN kernel')
+    del d_tn
+    torch.cuda.empty_cache()
+    pick = torch.randperm(g, generator=torch.Generator().manual_seed(1))[:16].sort().values
+    sub = pick.cuda()
+    take = lambda x: x.view(torch.uint8)[sub].view(x.dtype)
+    ref = k_grouped.k_grouped_gemm_flat_plain(take(a_flat), take(b_flat), [rows] * 16, m, n,
+                                              None, sfa[sub], sfb[sub])
+    diff, err = compare(d[sub], ref)
+    require(diff < TOL, f'k-grouped flat: calc_diff {diff} against the plain version (16 groups)')
+    del d, ref
+    torch.cuda.empty_cache()
+    kernel = lambda: k_grouped.k_grouped_gemm_flat(a_flat, b_flat, ks, m, n, None, sfa, sfb)
+    plain = lambda: k_grouped.k_grouped_gemm_flat_plain(a_flat, b_flat, ks, m, n, None, sfa, sfb)
+    a3 = a_tn.view(g, rows, m).transpose(1, 2)
+    b3 = b_tn.view(g, rows, n)
+    ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.bmm(a3, b3))
+    out_bytes = 4 * g * m * n
+    moved = count_bytes(a_flat, b_flat, sfa, sfb) + out_bytes
+    bound = arch.bound_ms(moved, 2 * m * n * g * rows, 'fp8')
+    entry = dict(shape=[g, m, n, rows], out_bytes=out_bytes,
+                 **numbers(ms, plain_ms, library_ms, err, bound))
+    log(f'phase 10 k-grouped NT flat G={g} m={m} n={n} k_g={rows} ({out_bytes / 1e9:.2f} GB of f32 '
+        f'out): flat launches 1, TN 0; bitwise the TN kernel; calc_diff={diff:.3e} on 16 groups '
+        f'(limit {TOL}) max_abs_err={err:.4g}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+        f'library_ms(torch.bmm bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
+        f'GB/s={moved / ms / 1e6:.1f}')
+    del a_tn, b_tn, aq, bq, a_flat, b_flat, a3, b3
+    torch.cuda.empty_cache()
+    return entry, 1
+
+
+def phase_surface(seed, gen, arch):
+    """Phase 10: returns its kernels' JSON rows."""
+    layouts, layout_launches = phase_layouts(gen, arch)
+    c_entries, c_launches = phase_c(gen, arch)
+    packed, packed_launches = phase_packed(gen, arch)
+    planar, planar_launches = phase_planar(gen, arch)
+    gran32, gran32_launches = phase_fp4_gran32(gen, arch)
+    nn, nn_launches = phase_contiguous_nn(seed, gen, arch)
+    flat, flat_launches = phase_k_grouped_flat(gen, arch)
+
+    def row(name, source, replaces, launches, entries):
+        return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
+                    replaces=replaces, launches=launches, **summed(entries), shapes=entries)
+
+    dense_at = 'deepgemm_tpu/kernels/dense.py:291'
+    return [
+        *(row(f'dense_fp8_gemm_{layout}', 'dense.cu', dense_at, layout_launches[layout],
+              layouts[layout]) for layout in LAYOUTS),
+        row('dense_fp8_gemm_nt_c', 'dense.cu', dense_at, c_launches, c_entries),
+        row('dense_fp8_gemm_dequant', 'dense_dequant.cu', dense_at, packed_launches, packed),
+        row('dense_fp8_gemm_nt_planar_fp4', 'dense.cu', dense_at, planar_launches, planar),
+        row('dense_fp8_gemm_nt_fp4_gran32', 'dense_dequant.cu', dense_at, gran32_launches,
+            [gran32]),
+        *(row(f'contiguous_grouped_gemm_nn_{kind}', 'contiguous.cu',
+              'deepgemm_tpu/kernels/grouped.py:240', nn_launches[kind], nn[kind])
+          for kind in ('fp8', 'bf16')),
+        row('k_grouped_gemm_nt_flat_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
+            flat_launches, [flat]),
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2431,6 +2887,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     entry_rows = phase_entry_points(args.seed, gen, H100_SXM)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    surface_rows = phase_surface(args.seed, gen, H100_SXM)
     torch.cuda.synchronize()
 
     # Each kernel's numbers are those of the path that runs it: the masked
@@ -2505,8 +2964,8 @@ def main(argv=None) -> int:
                         launches=mega_launches['fp8'],
                         act_fp8_forward_launches=mega_launches['fp8_act_fp8'],
                         **mega['fp8'], modes=mega))
-    # phase 9: each entry point's call is its own path
-    kernels += entry_rows
+    # phases 9 and 10: each entry point's call is its own path
+    kernels += entry_rows + surface_rows
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,32 +1,56 @@
-// Shared mainloop of the port's NT GEMM kernels: dense FP8, masked grouped,
-// contiguous grouped and k-grouped.
+// Shared mainloop of the port's GEMM kernels: dense FP8 (every layout and
+// scale strategy), masked grouped, contiguous grouped and k-grouped.
 //
 // Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
 // (_build_dense_gemm), kernels/grouped.py (_build_masked, _build_contiguous)
 // and kernels/k_grouped.py (_build_k_grouped), including the exact f32
 // promotion step of deepgemm_tpu/kernels/common.py:27-52:
-//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p.
+//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p,
+// and the 'dequant' step of deepgemm_tpu/kernels/dense.py:248-255:
+//     acc += (bf16(a) * bf16(sfa)) . (bf16(b) * bf16(sfb))^T   over the whole depth.
 //
-// d[m, n] = c[m, n] + sum_k a[m, k] * b[n, k]   (a, b k-major; c optional)
+// d[m, n] = sum_k a[m, k] * b[n, k]   (+ c: the k-grouped kernel starts its
+// sum from c, as JAX's k-grouped kernel does; the dense kernel adds c once
+// to the finished sum, as JAX's dense kernel does)
 //
 // Design (simple and right first; wgmma/TMA/warp specialisation come later):
 //   * One block computes a kBM x BN output tile of one problem; 8 warps in a
 //     2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made of
-//     mma.sync m16n8 tiles with f32 accumulation (bf16: m16n8k16, fp8 e4m3:
-//     m16n8k32, sm_89+).
-//   * A stage holds 128 BYTES of k for every row of A and B (64 bf16 or 128
-//     fp8 values), so a scaled stage is exactly one 128-deep scale block.
-//     kStages stages are kept in flight with cp.async (zero-filled past the
-//     row count and past the problem's depth), rows padded by 16 bytes so
+//     mma.sync m16n8 tiles with f32 accumulation.
+//   * What an instance computes is its Form, fixed at compile time: each
+//     operand's element type (e4m3, or bf16), its major (k-major, or
+//     MN-major: A [K, M], B [K, N]), the scale step (none, 'promote' or
+//     'dequant') and whether B is planar-packed FP4. e4m3 x e4m3 under
+//     'promote' runs m16n8k32 e4m3; every other form runs m16n8k16 bf16, an
+//     e4m3 operand widened to bf16 as its fragment is loaded (exact), times
+//     its bf16 scale under 'dequant' (exact for power-of-two scales).
+//   * A stage holds kKE elements of k for every row of A and B: 128 (one
+//     scale block) where an operand is e4m3, 64 for bf16 x bf16. kStages
+//     stages are kept in flight with cp.async (zero-filled past the row
+//     count and past the problem's depth), k-major rows padded by 16 bytes so
 //     the fragment loads hit 32 distinct banks.
-//   * Scaled (fp8) instantiation: each stage's product goes to a fresh f32
-//     partial that is scaled and added to the accumulator in the reference
-//     multiply order, with explicit _rn intrinsics so nothing is contracted
-//     into an FMA. A stage's scales are read after its MMAs. SFB holds one
-//     f32 per gran_n rows of B (128: the 128x128 block scales; 1: per
-//     channel). Where the scales lie is fixed by the Layout at compile time:
-//     m-major as the casts make them (SFA [.., M, ksf], SFB [.., nsf, ksf])
-//     for kBatched and kContiguous, k-first [nsf_total, M|N] for kKGrouped.
+//   * An MN-major operand is loaded as it lies (kKE k-rows of the tile's m
+//     or n elements) and transposed in shared memory into one k-major stage
+//     buffer before the fragment loads: 4 x 4 byte blocks (e4m3) or 2 x 2
+//     element blocks (bf16) through __byte_perm. mma.sync takes e4m3 A and B
+//     k-contiguous only, and ldmatrix.trans moves 16-bit elements only. The
+//     fragments, their k order and the promotion are then the k-major
+//     form's, so every layout is bitwise the NT kernel on transposed copies.
+//   * Planar FP4 B (128 packed bytes hold 256 codes: the low nibbles k 0-127
+//     of the group, the high nibbles k 128-255): stage kt loads the group's
+//     128 bytes and its fragment words decode nibble plane kt & 1 to e4m3
+//     (one __byte_perm). The group is loaded for both of its stages, the
+//     second time mostly from L2. With B's (1, 128) scales as per-row SFB
+//     this is bitwise the e4m3 kernel on the decoded codes.
+//   * 'promote': each stage's product goes to a fresh f32 partial that is
+//     scaled and added to the accumulator in the reference multiply order,
+//     with explicit _rn intrinsics so nothing is contracted into an FMA; a
+//     bf16 operand (a folded FP4 operand) has unit scales, whose multiply is
+//     skipped (x * 1 is x). SFB holds one f32 per gran_n rows of B (128: the
+//     128x128 block scales; 1: per channel). Where the scales lie is fixed
+//     by the Layout: m-major as the casts make them (SFA [.., M, ksf], SFB
+//     [.., nsf, ksf]) for kBatched and kContiguous, k-first [nsf_total, M|N]
+//     for the k-grouped layouts.
 //   * Which problem a block computes is the Layout's business, read on the
 //     device only (no call syncs the host, every launch is graph safe):
 //       kBatched    grid z = group; a, b, d advance by a group stride. With
@@ -49,11 +73,13 @@
 //                   of A and B from column k_start[g] (16-element aligned),
 //                   its scales start at scale block sf_start[g]; an empty
 //                   group writes c (or zero).
-//   * Output bf16 or f32 (OutT). With c (k-grouped), the accumulator starts
-//     from c, as the JAX kernel starts its. What only one layout needs (c,
-//     the zero rows, k-first scales, a row stride apart from the depth) is
-//     decided at compile time, so the other layouts carry no branch or
-//     runtime stride for it.
+//       kKGroupedFlat  the same, each group's A and B stored k-major and
+//                   flattened: A [M, k_size[g]] at element M * k_start[g],
+//                   B [N, k_size[g]] at N * k_start[g], read in place.
+//   * Output bf16 or f32 (OutT). What only one layout needs (c, the zero
+//     rows, k-first scales, a row stride apart from the depth) is decided at
+//     compile time, so the other layouts carry no branch or runtime stride
+//     for it.
 //
 // What bounds it on the H100: the model's grouped GEMMs stream each expert's
 // weights once at a few hundred operations per weight byte or fewer (bytes
@@ -70,15 +96,18 @@
 
 #include <type_traits>
 
+#include "convert.cuh"
+
 namespace dgt {
 
 constexpr int kBM = 64;                 // output rows per block
-constexpr int kKBytes = 128;            // bytes of k per stage per row
+constexpr int kKBytes = 128;            // bytes of k per stage per row (one-byte operands)
 constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
-enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual };
+enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual, kKGroupedFlat };
+enum class Scale { kNone, kPromote, kDequant };
 
 // Rows of A a block computes, and the B slabs a stage holds.
 template <Layout kLayout>
@@ -89,36 +118,89 @@ template <Layout kLayout>
 __host__ __device__ constexpr int b_slabs() {
     return kLayout == Layout::kContiguousDual ? 2 : 1;
 }
+template <Layout kLayout>
+__host__ __device__ constexpr bool k_grouped() {
+    return kLayout == Layout::kKGrouped || kLayout == Layout::kKGroupedFlat;
+}
 
-template <int BN, Layout kLayout>
+// What an instance computes. kEA / kEB: bytes per element of A and B (1:
+// e4m3, or planar FP4 codes for B with kFp4B; 2: bf16). kAMn / kBMn: the
+// operand is MN-major (A [K, M], B [K, N]; B [G, K, N] when grouped). kC:
+// the dense kernel adds c in its epilogue; a compile-time choice, since a
+// runtime one cost the e4m3 forms without c ~5% on the H100.
+template <int kEA_, int kEB_, Scale kScale_, bool kAMn_ = false, bool kBMn_ = false,
+          bool kFp4B_ = false, bool kC_ = false>
+struct Form {
+    static constexpr int kEA = kEA_;
+    static constexpr int kEB = kEB_;
+    static constexpr Scale kScale = kScale_;
+    static constexpr bool kAMn = kAMn_;
+    static constexpr bool kBMn = kBMn_;
+    static constexpr bool kFp4B = kFp4B_;
+    static constexpr bool kC = kC_;             // the dense kernel's c, added to the finished sum
+    static constexpr bool kMmaE4m3 = kEA == 1 && kEB == 1 && kScale != Scale::kDequant;
+    static constexpr int kKE = kEA == 2 && kEB == 2 ? 64 : 128;    // k elements per stage
+    static constexpr bool kScaleA = kScale != Scale::kNone && kEA == 1;
+    static constexpr bool kScaleB = kScale != Scale::kNone && kEB == 1;
+    static constexpr int kPitchA = kKE * kEA + 16;                  // k-major row pitches
+    static constexpr int kPitchB = kKE * kEB + 16;
+    static_assert((kEA == 1 || kEA == 2) && (kEB == 1 || kEB == 2), "e4m3 or bf16 operands");
+    static_assert((kScale == Scale::kNone) == (kEA == 2 && kEB == 2),
+                  "scales go with e4m3 operands; bf16 x bf16 is unscaled");
+    static_assert(!kFp4B || (kMmaE4m3 && kScale == Scale::kPromote && !kBMn),
+                  "planar FP4 B: k-major, e4m3 A, 'promote'");
+};
+
+using FormE4m3 = Form<1, 1, Scale::kPromote>;   // the promoted e4m3 NT form
+using FormBf16 = Form<2, 2, Scale::kNone>;      // the unscaled bf16 NT form
+
+// Shared memory of an instance: kStages stages of A and B (raw MN-major
+// k-rows, or padded k-major rows), then one k-major buffer per MN-major
+// operand, the transposed stage.
+template <class F, int BN, Layout kLayout>
+struct SmemPlan {
+    static constexpr int kRows = block_rows<kLayout>();
+    static constexpr int kRawPitchA = kRows * F::kEA + 16;
+    static constexpr int kRawPitchB = BN * F::kEB + 16;
+    static constexpr int kA = F::kAMn ? F::kKE * kRawPitchA : kRows * F::kPitchA;
+    static constexpr int kB = F::kBMn ? F::kKE * kRawPitchB : BN * F::kPitchB;
+    static constexpr int kStage = kA + b_slabs<kLayout>() * kB;
+    static constexpr int kTA = F::kAMn ? kRows * F::kPitchA : 0;
+    static constexpr int kTB = F::kBMn ? BN * F::kPitchB : 0;
+    static constexpr int kBytes = kStages * kStage + kTA + kTB;
+};
+
+template <class F, int BN, Layout kLayout>
 constexpr int smem_bytes() {
-    return kStages * (block_rows<kLayout>() + b_slabs<kLayout>() * BN) * kPitch;
+    return SmemPlan<F, BN, kLayout>::kBytes;
 }
 
 struct GemmArgs {
-    const uint8_t* a;        // bf16 or e4m3, k-major: [G, M, K] or [M, K]; kKGrouped [M, ldk]
-    const uint8_t* b;        // same type as a, k-major: [G, N, K]; kKGrouped [N, ldk]
+    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk], flat: per
+                             // group [M, k_size]); MN-major [K, M]
+    const uint8_t* b;        // B: k-major [G, N, K] (planar FP4: [N, K/2]); MN-major [G, K, N]
     const float* sfa;        // f32 scales of A, or nullptr (unscaled)
     const float* sfb;        // f32 scales of B, or nullptr
-    const float* c;          // kKGrouped: f32 [G, M, N] accumulator input, or nullptr
-    void* d;                 // OutT; [G, M, N] (kBatched, kKGrouped) or [M, N]
-    int M, N, K;             // K: the depth of every problem (not kKGrouped)
+    const float* c;          // f32: k-grouped [G, M, N], the sum's start; kBatched [M, N],
+                             // added to the finished sum; or nullptr
+    void* d;                 // OutT; [G, M, N] (kBatched, k-grouped) or [M, N]
+    int M, N, K;             // K: the depth of every problem (not k-grouped)
     int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
     int64_t ldk;             // kKGrouped: row stride of A and of B, elements
     const int* masked_m;     // kBatched: [G] live rows, or nullptr (all rows live)
     const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile;
                              // kContiguousDual: [M / 128] group of each half tile
     const int* tile_row_end; // kContiguous: [ceil(M / kBM)] rows at or past it are zero, or nullptr
-    const int* k_start;      // kKGrouped: [G] first column of the group in A and B
-    const int* k_size;       // kKGrouped: [G] depth of the group
-    const int* sf_start;     // kKGrouped: [G] first scale block of the group
+    const int* k_start;      // k-grouped: [G] first column of the group (flat: first k)
+    const int* k_size;       // k-grouped: [G] depth of the group
+    const int* sf_start;     // k-grouped: [G] first scale block of the group
 };
 
 // Offset of the scale of (row r, k block kb) within one problem's scales:
-// m-major [rows, ksf], or k-first [nsf_total, rows] for kKGrouped.
+// m-major [rows, ksf], or k-first [nsf_total, rows] for the k-grouped layouts.
 template <Layout kLayout>
 __device__ __forceinline__ int64_t sf_offset(int r, int kb, int ksf, int rows) {
-    if constexpr (kLayout == Layout::kKGrouped) return static_cast<int64_t>(kb) * rows + r;
+    if constexpr (k_grouped<kLayout>()) return static_cast<int64_t>(kb) * rows + r;
     else return static_cast<int64_t>(r) * ksf + kb;
 }
 
@@ -143,6 +225,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ uint32_t ld_shared_u32(const uint8_t* p) {
     return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void st_shared_u32(uint8_t* p, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(p) = v;
 }
 
 // Both instructions take the same fragment bytes: per thread (group g = lane/4,
@@ -181,18 +267,99 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
     }
 }
 
-template <class Mma, bool kScaled, int BN, Layout kLayout, class OutT>
+// Elements e, e + 1 of a k-major shared-memory row as a bf16x2 fragment
+// register: a bf16 pair as it is, an e4m3 pair widened.
+template <int kE>
+__device__ __forceinline__ uint32_t bf16_frag(const uint8_t* row, int e) {
+    if constexpr (kE == 2) return ld_shared_u32(row + 2 * e);
+    else return e4m3x2_to_bf16x2(ld_shared_u16(row + e));
+}
+
+// An MN-major stage (kKE k-rows of D elements, pitch raw_pitch) into k-major
+// rows (D rows of kKE elements, pitch t_pitch): blocks of R k-rows by R
+// elements (R = 4 / kE, one 32-bit word of each row), shuffled by __byte_perm.
+template <int kE, int kKE, int D>
+__device__ __forceinline__ void transpose_stage(const uint8_t* raw, int raw_pitch, uint8_t* t,
+                                                int t_pitch, int tid) {
+    constexpr int R = 4 / kE;
+    constexpr int kBlocksD = D / R;
+    constexpr int kBlocks = (kKE / R) * kBlocksD;
+    #pragma unroll 2
+    for (int blk = tid; blk < kBlocks; blk += kThreads) {
+        const int bd = blk % kBlocksD, bk = blk / kBlocksD;
+        const uint8_t* src = raw + bk * R * raw_pitch + bd * 4;
+        uint8_t* dst = t + bd * R * t_pitch + bk * 4;
+        if constexpr (kE == 1) {
+            const uint32_t w0 = ld_shared_u32(src), w1 = ld_shared_u32(src + raw_pitch);
+            const uint32_t w2 = ld_shared_u32(src + 2 * raw_pitch);
+            const uint32_t w3 = ld_shared_u32(src + 3 * raw_pitch);
+            const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+            const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+            st_shared_u32(dst, __byte_perm(lo01, lo23, 0x5410));
+            st_shared_u32(dst + t_pitch, __byte_perm(lo01, lo23, 0x7632));
+            st_shared_u32(dst + 2 * t_pitch, __byte_perm(hi01, hi23, 0x5410));
+            st_shared_u32(dst + 3 * t_pitch, __byte_perm(hi01, hi23, 0x7632));
+        } else {
+            const uint32_t w0 = ld_shared_u32(src), w1 = ld_shared_u32(src + raw_pitch);
+            st_shared_u32(dst, __byte_perm(w0, w1, 0x5410));
+            st_shared_u32(dst + t_pitch, __byte_perm(w0, w1, 0x7632));
+        }
+    }
+}
+
+// Load kRows (k-major: rows x row_bytes from row0; MN-major: kKE k-rows x
+// D elements from column col0) of one operand's stage with cp.async.
+template <bool kMn, int kE, int kKE, int D>
+__device__ __forceinline__ void load_operand(uint8_t* s, const uint8_t* base, int64_t ld,
+                                             int row0, int rows, int64_t kcol0, int64_t k_bytes,
+                                             int64_t kt_elem0, int depth, int row_bytes,
+                                             int pitch, int tid) {
+    if constexpr (kMn) {
+        // kKE k-rows of D elements: k-row r is global row kt_elem0 + r, the
+        // tile's columns start at element row0; rows = the operand's M or N
+        constexpr int kCh = D * kE / 16;
+        constexpr int kRawPitch = D * kE + 16;
+        #pragma unroll 4
+        for (int c = tid; c < kKE * kCh; c += kThreads) {
+            const int r = c / kCh, ch = c % kCh;
+            const int64_t kr = kt_elem0 + r;
+            const int64_t col = static_cast<int64_t>(row0) * kE + ch * 16;
+            const bool valid = kr < depth && col < static_cast<int64_t>(rows) * kE;
+            const uint8_t* src = valid ? base + kr * ld + col : base;
+            cp_async16(smem_addr(s + r * kRawPitch + ch * 16), src, valid);
+        }
+    } else {
+        const int ch_per_row = row_bytes / 16;
+        for (int c = tid; c < D * ch_per_row; c += kThreads) {
+            const int r = c / ch_per_row, ch = c % ch_per_row;
+            const int64_t kb = kcol0 + ch * 16;
+            const bool valid = row0 + r < rows && kb < k_bytes;
+            const uint8_t* src = valid ? base + static_cast<int64_t>(row0 + r) * ld + kb : base;
+            cp_async16(smem_addr(s + r * pitch + ch * 16), src, valid);
+        }
+    }
+}
+
+template <class F, int BN, Layout kLayout, class OutT>
 __global__ void __launch_bounds__(kThreads)
-gemm_nt_kernel(const GemmArgs p) {
-    static_assert(!kScaled || Mma::kElemBytes == 1, "scales go with fp8 operands");
+gemm_kernel(const GemmArgs p) {
     static_assert(BN % 32 == 0, "each warp owns BN/4 columns in n8 tiles");
+    using Plan = SmemPlan<F, BN, kLayout>;
     constexpr int kWN = BN / 4;          // warp tile width
     constexpr int kNT = kWN / 8;         // n8 tiles per warp
-    constexpr int kE = Mma::kElemBytes;
+    constexpr int kEA = F::kEA, kEB = F::kEB, kKE = F::kKE;
     constexpr bool kDual = kLayout == Layout::kContiguousDual;
+    constexpr bool kKG = k_grouped<kLayout>();
+    constexpr bool kPromote = F::kScale == Scale::kPromote;
+    constexpr bool kDequant = F::kScale == Scale::kDequant;
     constexpr int kRows = block_rows<kLayout>();
     constexpr int kQ = kRows / kBM;      // 64-row passes over each stage
-    constexpr int kStageRows = kRows + b_slabs<kLayout>() * BN;
+    static_assert(!kDual || (!F::kAMn && !F::kBMn && !F::kFp4B && kEA == kEB),
+                  "dual-B takes the NT forms of one element size");
+    static_assert(!F::kAMn || kLayout == Layout::kBatched, "MN-major A: the dense kernel");
+    static_assert(!F::kC || kLayout == Layout::kBatched, "c in the epilogue: the dense kernel");
+    static_assert(!F::kBMn || kLayout == Layout::kBatched || kLayout == Layout::kContiguous,
+                  "MN-major B: the dense and contiguous kernels");
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int m0 = blockIdx.y * kRows;
@@ -210,31 +377,31 @@ gemm_nt_kernel(const GemmArgs p) {
     int depth = p.K;
     int row_end = p.M;
     int64_t d_off = 0;                   // elements of d (and c) before this problem
+    int64_t ld_k = p.K;                  // row stride of a k-major operand, elements
     const int ksf = (p.K + 127) / 128;   // m-major scales: k blocks per row
     const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
+    const int kb_row = F::kFp4B ? p.K / 2 : p.K * kEB;   // bytes of one row of B
     if constexpr (kLayout == Layout::kBatched) {
         const int g = blockIdx.z;
         if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
-        a += static_cast<int64_t>(g) * p.M * p.K * kE;
-        b += static_cast<int64_t>(g) * p.N * p.K * kE;
-        if constexpr (kScaled) {
-            sfa += static_cast<int64_t>(g) * p.M * ksf;
-            sfb += static_cast<int64_t>(g) * nsf * ksf;
-        }
+        a += static_cast<int64_t>(g) * p.M * p.K * kEA;
+        b += static_cast<int64_t>(g) * p.N * kb_row;
+        if constexpr (F::kScaleA) sfa += static_cast<int64_t>(g) * p.M * ksf;
+        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(g) * nsf * ksf;
         d_off = static_cast<int64_t>(g) * p.M * p.N;
     } else if constexpr (kLayout == Layout::kContiguous) {
         const int gid = p.tile_gid[blockIdx.y];
-        b += static_cast<int64_t>(gid) * p.N * p.K * kE;
-        if constexpr (kScaled) sfb += static_cast<int64_t>(gid) * nsf * ksf;
+        b += static_cast<int64_t>(gid) * p.N * kb_row;
+        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(gid) * nsf * ksf;
         if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[blockIdx.y]);
         if (m0 >= row_end) depth = 0;    // the whole tile is written as zero
     } else if constexpr (kDual) {
         const int top = p.tile_gid[2 * blockIdx.y];
         const int bot = p.tile_gid[2 * blockIdx.y + 1];
         straddle = top != bot;
-        b += static_cast<int64_t>(top) * p.N * p.K * kE;
-        b_bot += static_cast<int64_t>(bot) * p.N * p.K * kE;
-        if constexpr (kScaled) {
+        b += static_cast<int64_t>(top) * p.N * kb_row;
+        b_bot += static_cast<int64_t>(bot) * p.N * kb_row;
+        if constexpr (F::kScaleB) {
             sfb += static_cast<int64_t>(top) * nsf * ksf;
             sfb_bot += static_cast<int64_t>(bot) * nsf * ksf;
         }
@@ -242,18 +409,27 @@ gemm_nt_kernel(const GemmArgs p) {
         const int g = blockIdx.z;
         const int64_t k0 = p.k_start[g];
         depth = p.k_size[g];
-        a += k0 * kE;
-        b += k0 * kE;
-        if constexpr (kScaled) {
-            sfa += static_cast<int64_t>(p.sf_start[g]) * p.M;
-            sfb += static_cast<int64_t>(p.sf_start[g]) * p.N;
+        if constexpr (kLayout == Layout::kKGroupedFlat) {
+            a += k0 * p.M * kEA;
+            b += k0 * p.N * kEB;
+            ld_k = depth;
+        } else {
+            a += k0 * kEA;
+            b += k0 * kEB;
+            ld_k = p.ldk;
         }
+        if constexpr (F::kScaleA) sfa += static_cast<int64_t>(p.sf_start[g]) * p.M;
+        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(p.sf_start[g]) * p.N;
         d_off = static_cast<int64_t>(g) * p.M * p.N;
     }
 
-    const int64_t ld_bytes = (kLayout == Layout::kKGrouped ? p.ldk : p.K) * kE;
-    const int64_t k_bytes = static_cast<int64_t>(depth) * kE;
-    const int num_kt = static_cast<int>((k_bytes + kKBytes - 1) / kKBytes);
+    // Row strides (bytes) and the bytes of k each k-major row holds.
+    const int64_t lda = F::kAMn ? static_cast<int64_t>(p.M) * kEA : ld_k * kEA;
+    const int64_t ldb = F::kBMn ? static_cast<int64_t>(p.N) * kEB
+                      : F::kFp4B ? ld_k / 2 : ld_k * kEB;
+    const int64_t ka_bytes = static_cast<int64_t>(depth) * kEA;
+    const int64_t kb_bytes = F::kFp4B ? depth / 2 : static_cast<int64_t>(depth) * kEB;
+    const int num_kt = static_cast<int>((ka_bytes + kKE * kEA - 1) / (kKE * kEA));
 
     const int tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
@@ -261,25 +437,35 @@ gemm_nt_kernel(const GemmArgs p) {
     const int wn = (warp % 4) * kWN;
     const int gr = lane >> 2, tg = lane & 3;
 
-    // One stage: rows [0, kRows) are A's tile rows, [kRows, kRows + BN) B's,
-    // and on a straddling dual tile [kRows + BN, kRows + 2 BN) the bottom
-    // half's B; each row is 8 chunks of 16 bytes.
-    const int stage_rows = kRows + (straddle ? 2 : 1) * BN;
+    // One stage: A's region, then B's; on a straddling dual tile a second B
+    // region holds the bottom half's B. Two k-major operands of one element
+    // size load in one pass over the stage's rows (8 chunks of 16 bytes a
+    // row), which ran ~15% faster at 4096^3 than a pass per operand.
     auto load_stage = [&](int slot, int kt) {
-        uint8_t* s = smem + slot * kStageRows * kPitch;
-        const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
-        #pragma unroll
-        for (int c = tid; c < stage_rows * 8; c += kThreads) {
-            const int r = c >> 3, ch = c & 7;
-            const int64_t kb = kb0 + ch * 16;
-            const bool is_a = r < kRows;
-            const bool is_bot = r >= kRows + BN;
-            const int grow = is_a ? m0 + r : n0 + (r - kRows - (is_bot ? BN : 0));
-            const uint8_t* base = is_a ? a : (is_bot ? b_bot : b);
-            const bool valid = grow < (is_a ? p.M : p.N) && kb < k_bytes;
-            const uint8_t* src = valid ? base + grow * ld_bytes + kb : base;
-            cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
+        uint8_t* s = smem + slot * Plan::kStage;
+        if constexpr (!F::kAMn && !F::kBMn && !F::kFp4B && kEA == kEB) {
+            const int stage_rows = kRows + (straddle ? 2 : 1) * BN;
+            const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
+            #pragma unroll
+            for (int c = tid; c < stage_rows * 8; c += kThreads) {
+                const int r = c >> 3, ch = c & 7;
+                const int64_t kb = kb0 + ch * 16;
+                const bool is_a = r < kRows;
+                const bool is_bot = r >= kRows + BN;
+                const int grow = is_a ? m0 + r : n0 + (r - kRows - (is_bot ? BN : 0));
+                const uint8_t* base = is_a ? a : (is_bot ? b_bot : b);
+                const bool valid = grow < (is_a ? p.M : p.N) && kb < ka_bytes;
+                const uint8_t* src = valid ? base + grow * lda + kb : base;
+                cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
+            }
+            return;
         }
+        const int64_t k_elem0 = static_cast<int64_t>(kt) * kKE;
+        load_operand<F::kAMn, kEA, kKE, kRows>(s, a, lda, m0, p.M, k_elem0 * kEA, ka_bytes,
+                                               k_elem0, depth, kKE * kEA, F::kPitchA, tid);
+        const int64_t kcol_b = F::kFp4B ? static_cast<int64_t>(kt >> 1) * kKBytes : k_elem0 * kEB;
+        load_operand<F::kBMn, kEB, kKE, BN>(s + Plan::kA, b, ldb, n0, p.N, kcol_b, kb_bytes,
+                                            k_elem0, depth, kKE * kEB, F::kPitchB, tid);
     };
 
     float acc[kQ][2][kNT][4];
@@ -294,7 +480,7 @@ gemm_nt_kernel(const GemmArgs p) {
                 #pragma unroll
                 for (int v = 0; v < 4; ++v) {
                     float init = 0.f;
-                    if (kLayout == Layout::kKGrouped && p.c != nullptr) {
+                    if (kKG && p.c != nullptr) {
                         const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
                         const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
                         if (row < p.M && col < p.N)
@@ -309,6 +495,8 @@ gemm_nt_kernel(const GemmArgs p) {
         cp_async_commit();
     }
 
+    uint8_t* const ta = smem + kStages * Plan::kStage;     // transposed stages
+    uint8_t* const tb = ta + Plan::kTA;
     for (int kt = 0; kt < num_kt; ++kt) {
         cp_async_wait<kStages - 2>();
         __syncthreads();   // stage kt landed; every warp is done with kt - 1
@@ -317,20 +505,31 @@ gemm_nt_kernel(const GemmArgs p) {
             if (nk < num_kt) load_stage(nk % kStages, nk);
             cp_async_commit();
         }
-        const uint8_t* stage = smem + (kt % kStages) * kStageRows * kPitch;
-        const uint8_t* sb_top = stage + kRows * kPitch;
-        const uint8_t* sb_bot = straddle ? sb_top + BN * kPitch : sb_top;
+        uint8_t* const stage = smem + (kt % kStages) * Plan::kStage;
+        const uint8_t* sa_all = stage;
+        const uint8_t* sb_top = stage + Plan::kA;
+        if constexpr (F::kAMn) {
+            transpose_stage<kEA, kKE, kRows>(stage, Plan::kRawPitchA, ta, F::kPitchA, tid);
+            sa_all = ta;
+        }
+        if constexpr (F::kBMn) {
+            transpose_stage<kEB, kKE, BN>(stage + Plan::kA, Plan::kRawPitchB, tb, F::kPitchB, tid);
+            sb_top = tb;
+        }
+        if constexpr (F::kAMn || F::kBMn) __syncthreads();   // the k-major stage is whole
+        const uint8_t* sb_bot = straddle ? sb_top + Plan::kB : sb_top;
 
         #pragma unroll
         for (int q = 0; q < kQ; ++q) {
             // pass q: rows [q * kBM, (q + 1) * kBM) of the tile, with the
             // bottom half's B from the third pass on
-            const uint8_t* sa = stage + q * kBM * kPitch;
+            const uint8_t* sa = sa_all + q * kBM * F::kPitchA;
             const bool bottom = kDual && q >= kQ / 2;
             const uint8_t* sb = bottom ? sb_bot : sb_top;
             const int q0 = m0 + q * kBM;
+            const float* sfb_q = bottom ? sfb_bot : sfb;
 
-            if constexpr (kScaled) {
+            if constexpr (kPromote) {
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
                     #pragma unroll
@@ -339,43 +538,105 @@ gemm_nt_kernel(const GemmArgs p) {
                         for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
             }
 
-            #pragma unroll
-            for (int kk = 0; kk < kKBytes; kk += 32) {
-                uint32_t af[2][4], bfr[kNT][2];
+            if constexpr (F::kMmaE4m3) {
                 #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const uint8_t* pa = sa + (wm + i * 16 + gr) * kPitch + kk + tg * 4;
-                    af[i][0] = ld_shared_u32(pa);
-                    af[i][1] = ld_shared_u32(pa + 8 * kPitch);
-                    af[i][2] = ld_shared_u32(pa + 16);
-                    af[i][3] = ld_shared_u32(pa + 8 * kPitch + 16);
-                }
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                    const uint8_t* pb = sb + (wn + j * 8 + gr) * kPitch + kk + tg * 4;
-                    bfr[j][0] = ld_shared_u32(pb);
-                    bfr[j][1] = ld_shared_u32(pb + 16);
-                }
-                #pragma unroll
-                for (int i = 0; i < 2; ++i)
+                for (int kk = 0; kk < kKBytes; kk += 32) {
+                    uint32_t af[2][4], bfr[kNT][2];
+                    #pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const uint8_t* pa = sa + (wm + i * 16 + gr) * F::kPitchA + kk + tg * 4;
+                        af[i][0] = ld_shared_u32(pa);
+                        af[i][1] = ld_shared_u32(pa + 8 * F::kPitchA);
+                        af[i][2] = ld_shared_u32(pa + 16);
+                        af[i][3] = ld_shared_u32(pa + 8 * F::kPitchA + 16);
+                    }
                     #pragma unroll
                     for (int j = 0; j < kNT; ++j) {
-                        if constexpr (kScaled) Mma::mma(part[i][j], af[i], bfr[j]);
-                        else Mma::mma(acc[q][i][j], af[i], bfr[j]);
+                        const uint8_t* pb = sb + (wn + j * 8 + gr) * F::kPitchB + kk + tg * 4;
+                        bfr[j][0] = ld_shared_u32(pb);
+                        bfr[j][1] = ld_shared_u32(pb + 16);
+                        if constexpr (F::kFp4B) {
+                            bfr[j][0] = fp4x4_to_e4m3x4(bfr[j][0], kt & 1);
+                            bfr[j][1] = fp4x4_to_e4m3x4(bfr[j][1], kt & 1);
+                        }
                     }
+                    #pragma unroll
+                    for (int i = 0; i < 2; ++i)
+                        #pragma unroll
+                        for (int j = 0; j < kNT; ++j) {
+                            if constexpr (kPromote) MmaE4m3::mma(part[i][j], af[i], bfr[j]);
+                            else MmaE4m3::mma(acc[q][i][j], af[i], bfr[j]);
+                        }
+                }
+            } else {
+                // bf16 MMA: e4m3 operands widened (times their bf16 scale
+                // under 'dequant'), bf16 operands as they are
+                uint32_t sa_bf[2][2], sb_bf[kNT];
+                if constexpr (kDequant) {
+                    #pragma unroll
+                    for (int i = 0; i < 2; ++i)
+                        #pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const int row = q0 + wm + i * 16 + gr + h * 8;
+                            sa_bf[i][h] = F::kScaleA && row < p.M
+                                ? bf16x2_splat(__ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)))
+                                : 0u;
+                        }
+                    #pragma unroll
+                    for (int j = 0; j < kNT; ++j) {
+                        const int col = n0 + wn + j * 8 + gr;
+                        sb_bf[j] = F::kScaleB && col < p.N
+                            ? bf16x2_splat(__ldg(sfb_q + sf_offset<kLayout>(col >> p.sfb_shift, kt,
+                                                                            ksf, p.N)))
+                            : 0u;
+                    }
+                }
+                #pragma unroll
+                for (int kk = 0; kk < kKE; kk += 16) {
+                    uint32_t af[2][4], bfr[kNT][2];
+                    #pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const uint8_t* ra = sa + (wm + i * 16 + gr) * F::kPitchA;
+                        af[i][0] = bf16_frag<kEA>(ra, kk + 2 * tg);
+                        af[i][1] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 2 * tg);
+                        af[i][2] = bf16_frag<kEA>(ra, kk + 8 + 2 * tg);
+                        af[i][3] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 8 + 2 * tg);
+                        if constexpr (kDequant && F::kScaleA) {
+                            #pragma unroll
+                            for (int r = 0; r < 4; ++r) af[i][r] = mul_bf16x2(af[i][r], sa_bf[i][r & 1]);
+                        }
+                    }
+                    #pragma unroll
+                    for (int j = 0; j < kNT; ++j) {
+                        const uint8_t* rb = sb + (wn + j * 8 + gr) * F::kPitchB;
+                        bfr[j][0] = bf16_frag<kEB>(rb, kk + 2 * tg);
+                        bfr[j][1] = bf16_frag<kEB>(rb, kk + 8 + 2 * tg);
+                        if constexpr (kDequant && F::kScaleB) {
+                            bfr[j][0] = mul_bf16x2(bfr[j][0], sb_bf[j]);
+                            bfr[j][1] = mul_bf16x2(bfr[j][1], sb_bf[j]);
+                        }
+                    }
+                    #pragma unroll
+                    for (int i = 0; i < 2; ++i)
+                        #pragma unroll
+                        for (int j = 0; j < kNT; ++j) {
+                            if constexpr (kPromote) MmaBf16::mma(part[i][j], af[i], bfr[j]);
+                            else MmaBf16::mma(acc[q][i][j], af[i], bfr[j]);
+                        }
+                }
             }
 
-            if constexpr (kScaled) {
+            if constexpr (kPromote) {
                 // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
-                // row or column past the edge reads its scale as zero
-                const float* sfb_q = bottom ? sfb_bot : sfb;
+                // row or column past the edge reads its scale as zero; a bf16
+                // operand's unit scale is not multiplied
                 float sa_v[2][2], sb_v[kNT][2];
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
                     #pragma unroll
                     for (int h = 0; h < 2; ++h) {
                         const int row = q0 + wm + i * 16 + gr + h * 8;
-                        sa_v[i][h] = row < p.M
+                        sa_v[i][h] = F::kScaleA && row < p.M
                             ? __ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)) : 0.f;
                     }
                 #pragma unroll
@@ -383,7 +644,7 @@ gemm_nt_kernel(const GemmArgs p) {
                     #pragma unroll
                     for (int e = 0; e < 2; ++e) {
                         const int col = n0 + wn + j * 8 + tg * 2 + e;
-                        sb_v[j][e] = col < p.N
+                        sb_v[j][e] = F::kScaleB && col < p.N
                             ? __ldg(sfb_q + sf_offset<kLayout>(col >> p.sfb_shift, kt, ksf, p.N))
                             : 0.f;
                     }
@@ -393,8 +654,9 @@ gemm_nt_kernel(const GemmArgs p) {
                     for (int j = 0; j < kNT; ++j)
                         #pragma unroll
                         for (int v = 0; v < 4; ++v) {
-                            const float t = __fmul_rn(__fmul_rn(part[i][j][v], sb_v[j][v & 1]),
-                                                      sa_v[i][v >> 1]);
+                            float t = part[i][j][v];
+                            if constexpr (F::kScaleB) t = __fmul_rn(t, sb_v[j][v & 1]);
+                            if constexpr (F::kScaleA) t = __fmul_rn(t, sa_v[i][v >> 1]);
                             acc[q][i][j][v] = __fadd_rn(acc[q][i][j][v], t);
                         }
             }
@@ -416,17 +678,25 @@ gemm_nt_kernel(const GemmArgs p) {
                 for (int j = 0; j < kNT; ++j) {
                     const int col = n0 + wn + j * 8 + tg * 2;
                     if (col >= p.N) continue;   // N is even: col + 1 < N too
+                    float x = acc[q][i][j][2 * h], y = acc[q][i][j][2 * h + 1];
+                    if constexpr (F::kC) {
+                        // the dense kernel's c: added once to the finished sum
+                        const float2 cv = __ldg(reinterpret_cast<const float2*>(
+                            p.c + static_cast<int64_t>(row) * p.N + col));
+                        x = __fadd_rn(x, cv.x);
+                        y = __fadd_rn(y, cv.y);
+                    }
                     store_pair(d + static_cast<int64_t>(row) * p.N + col,
-                               zero ? 0.f : acc[q][i][j][2 * h],
-                               zero ? 0.f : acc[q][i][j][2 * h + 1]);
+                               zero ? 0.f : x, zero ? 0.f : y);
                 }
             }
 }
 
-template <class Mma, bool kScaled, int BN, Layout kLayout, class OutT>
-inline cudaError_t launch_gemm_nt(const GemmArgs& p, int grid_z, cudaStream_t stream) {
-    auto kernel = gemm_nt_kernel<Mma, kScaled, BN, kLayout, OutT>;
-    constexpr int smem = smem_bytes<BN, kLayout>();
+template <class F, int BN, Layout kLayout, class OutT>
+inline cudaError_t launch_gemm(const GemmArgs& p, int grid_z, cudaStream_t stream) {
+    auto kernel = gemm_kernel<F, BN, kLayout, OutT>;
+    constexpr int smem = smem_bytes<F, BN, kLayout>();
+    static_assert(smem <= 232448, "an H100 block may use 227 KiB of shared memory");
     constexpr int rows = block_rows<kLayout>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -437,16 +707,42 @@ inline cudaError_t launch_gemm_nt(const GemmArgs& p, int grid_z, cudaStream_t st
 }
 
 // block_n is 128 or 64 (the tile chooser's two widths).
-template <class Mma, bool kScaled, Layout kLayout, class OutT>
-inline cudaError_t launch_gemm_nt_bn(const GemmArgs& p, int grid_z, int block_n,
-                                     cudaStream_t stream) {
-    if (block_n == 128) return launch_gemm_nt<Mma, kScaled, 128, kLayout, OutT>(p, grid_z, stream);
-    if (block_n == 64) return launch_gemm_nt<Mma, kScaled, 64, kLayout, OutT>(p, grid_z, stream);
+template <class F, Layout kLayout, class OutT>
+inline cudaError_t launch_gemm_bn(const GemmArgs& p, int grid_z, int block_n,
+                                  cudaStream_t stream) {
+    if (block_n == 128) return launch_gemm<F, 128, kLayout, OutT>(p, grid_z, stream);
+    if (block_n == 64) return launch_gemm<F, 64, kLayout, OutT>(p, grid_z, stream);
     return cudaErrorInvalidValue;
 }
 
-// The arguments of a k-major A [.., m, k] and B [.., n, k] with the scales as
-// the casts make them: SFA [.., m, ksf], SFB [.., ceil(n / gran_n), ksf].
+// An instance with a bf16 or an f32 output.
+template <class F, Layout kLayout>
+inline cudaError_t launch_gemm_out(const GemmArgs& p, int grid_z, int block_n, int out_f32,
+                                   cudaStream_t stream) {
+    return out_f32 ? launch_gemm_bn<F, kLayout, float>(p, grid_z, block_n, stream)
+                   : launch_gemm_bn<F, kLayout, __nv_bfloat16>(p, grid_z, block_n, stream);
+}
+
+// A dense instance, with c added in its epilogue where p.c is set.
+template <class F>
+struct WithC;
+template <int kEA, int kEB, Scale kScale, bool kAMn, bool kBMn, bool kFp4B, bool kC>
+struct WithC<Form<kEA, kEB, kScale, kAMn, kBMn, kFp4B, kC>> {
+    using type = Form<kEA, kEB, kScale, kAMn, kBMn, kFp4B, true>;
+};
+
+template <class F>
+inline cudaError_t launch_dense(const GemmArgs& p, int block_n, int out_f32,
+                                cudaStream_t stream) {
+    constexpr auto kB = Layout::kBatched;
+    return p.c != nullptr
+        ? launch_gemm_out<typename WithC<F>::type, kB>(p, 1, block_n, out_f32, stream)
+        : launch_gemm_out<F, kB>(p, 1, block_n, out_f32, stream);
+}
+
+// The arguments of A [.., m, k] and B [.., n, k] (either may be MN-major,
+// as the Form says) with the scales as the casts make them: SFA [.., m, ksf],
+// SFB [.., ceil(n / gran_n), ksf].
 inline GemmArgs nt_args(const void* a, const void* b, const void* sfa, const void* sfb,
                         void* d, int m, int n, int k, int sfb_shift) {
     GemmArgs p = {};

@@ -22,11 +22,8 @@ extern "C" int dgt_masked_gemm_nt(const void* a, const void* b, const void* sfa,
     constexpr auto kBatched = dgt::Layout::kBatched;
     if (out_f32 && !is_fp8) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err =
-        out_f32 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, float>(
-                      p, num_groups, block_n, s)
-        : is_fp8 ? dgt::launch_gemm_nt_bn<dgt::MmaE4m3, true, kBatched, __nv_bfloat16>(
-                       p, num_groups, block_n, s)
-                 : dgt::launch_gemm_nt_bn<dgt::MmaBf16, false, kBatched, __nv_bfloat16>(
-                       p, num_groups, block_n, s);
+        is_fp8 ? dgt::launch_gemm_out<dgt::FormE4m3, kBatched>(p, num_groups, block_n, out_f32, s)
+               : dgt::launch_gemm_bn<dgt::FormBf16, kBatched, __nv_bfloat16>(
+                     p, num_groups, block_n, s);
     return static_cast<int>(err);
 }

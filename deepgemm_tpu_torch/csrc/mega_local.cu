@@ -64,10 +64,8 @@
 // the mma.sync rate (~150 TFLOP/s for the whole card, as the shared
 // mainloop): wgmma and TMA are the next step.
 
+#include "convert.cuh"
 #include "gemm_mainloop.cuh"
-
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 
 namespace dgt {
 namespace mega {
@@ -106,26 +104,6 @@ struct Args {
 // partials [kWarps, kRows], row weights [kRows].
 __host__ __device__ constexpr int smem_bytes(int inter) {
     return kRingBytes + kRows * (inter / 128) * 4 + kWarps * kRows * 4 + kRows * 4;
-}
-
-// Four planar FP4 codes (nibble plane nib of four bytes) -> four e4m3 bytes.
-__device__ __forceinline__ uint32_t fp4x4_to_e4m3x4(uint32_t w, int nib) {
-    const uint32_t c = (w >> (4 * nib)) & 0x0F0F0F0Fu;
-    const uint32_t sel = (c & 0x7u) | ((c >> 4) & 0x70u) | ((c >> 8) & 0x700u) | ((c >> 12) & 0x7000u);
-    // magnitudes 0, 0.5, 1, 1.5 | 2, 3, 4, 6 as e4m3 bytes
-    const uint32_t dec = __byte_perm(0x3C383000u, 0x4C484440u, sel);
-    const uint32_t nonzero = ((dec >> 4) | (dec >> 6)) & 0x01010101u;
-    const uint32_t sign = (c >> 3) & 0x01010101u;
-    return dec | ((sign & nonzero) << 7);
-}
-
-// Two e4m3 bytes (low half of v) -> a bf16x2 register, exact.
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t v) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v & 0xFFFFu),
-                                                     __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
-    return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 // The weight fragment word at p (4 bytes of one row of a stage): as it is,

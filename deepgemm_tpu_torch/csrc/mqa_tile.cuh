@@ -48,10 +48,8 @@
 
 #include <limits.h>
 
+#include "convert.cuh"
 #include "gemm_mainloop.cuh"
-
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 
 namespace dgt_mqa {
 
@@ -116,18 +114,8 @@ __host__ __device__ inline int smem_bytes(int rows_per_tile, int h, int d, int q
            2 * kBN * 4 + rows_per_tile * h * 4 + 2 * rows_per_tile * 4 + kMaxBlockPages * 4;
 }
 
-__device__ __forceinline__ uint32_t ld_shared_u16(const uint8_t* p) {
-    return *reinterpret_cast<const uint16_t*>(p);
-}
-
-// Two e4m3 bytes (low half of v) -> a bf16x2 register, exact.
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t v) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v & 0xFFFFu),
-                                                     __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
-    return *reinterpret_cast<const uint32_t*>(&b);
-}
+using dgt::e4m3x2_to_bf16x2;
+using dgt::ld_shared_u16;
 
 // Elements e, e + 1 of a shared-memory row as a bf16x2 fragment register.
 template <Elem kE>

@@ -20,6 +20,14 @@ class ArchSpec:
     bf16_flops: float          # dense tensor-core rate
     fp8_flops: float
     tf32_flops: float
+    # The in-kernel planar FP4 route's rate in fp4_inkernel_profitable's
+    # model, TFLOP/s: fitted so that the model's crossover falls where
+    # chip_smoke.py (phase 10) measures the two routes cross, as the JAX
+    # package fits its column to its own chip (deepgemm_tpu/heuristics/
+    # arch.py:55-60). A model parameter, not a rate the card reaches: the
+    # port's fold route pays a torch decode that the model's 2.5 bytes a
+    # value undercount, and the fit absorbs it.
+    fp4_decode_tflops: float
 
     def bound_ms(self, num_bytes: float, flops: float, operands: str):
         """(least milliseconds, 'bytes' | 'operations'); the operations at
@@ -32,4 +40,29 @@ class ArchSpec:
 
 H100_SXM = ArchSpec(name='H100 SXM', num_sms=132, smem_per_block=232448,
                     l2_bytes=50 << 20, hbm_bytes_per_s=3.35e12,
-                    bf16_flops=989e12, fp8_flops=1979e12, tf32_flops=495e12)
+                    bf16_flops=989e12, fp8_flops=1979e12, tf32_flops=495e12,
+                    fp4_decode_tflops=1666.0)
+
+
+def detect_arch() -> ArchSpec:
+    """The running card's row. The port targets one part, so every device
+    (the CPU of the tests included) resolves to the H100's row."""
+    return H100_SXM
+
+
+def fp4_inkernel_profitable(arch: ArchSpec, m: int, n: int, k: int) -> bool:
+    """Whether planar FP4 B is cheaper decoded in the kernel than folded
+    first (deepgemm_tpu/heuristics/arch.py:89-109, the same model):
+
+    - fold:      decode the codes to e4m3 before the GEMM, which then runs at
+                 the fp8 rate (0.9 of peak, JAX's factor for a direct fp8
+                 path); B moves 2.5x its packed bytes (read, write, read);
+    - in-kernel: stream the packed bytes once (0.5 a value) and decode them
+                 in registers, at ``arch.fp4_decode_tflops``.
+
+    In-kernel wins where the weight bytes, not the operations, set the time:
+    small m."""
+    flops = 2.0 * m * n * k
+    t_fold = flops / (0.9 * arch.fp8_flops) + n * k * 2.5 / arch.hbm_bytes_per_s
+    t_inkernel = flops / (arch.fp4_decode_tflops * 1e12) + n * k * 0.5 / arch.hbm_bytes_per_s
+    return t_inkernel < t_fold

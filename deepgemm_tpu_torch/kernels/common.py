@@ -7,7 +7,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..heuristics.configs import MK_ALIGNMENT
+from ..runtime.config import get_mk_alignment_for_contiguous_layout
 from ..utils.math import ceil_div
 
 _plain_on_cuda = False
@@ -77,10 +77,13 @@ def select_rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def psum_group_starts(ends: torch.Tensor) -> torch.Tensor:
     """First row of each group of a psum layout (per-group end rows): the
-    previous group's end aligned up to the 128-row mk alignment, 0 for the
-    first group. A group whose start passes its end is empty."""
+    previous group's end aligned up to the mk alignment (128 unless
+    ``set_mk_alignment_for_contiguous_layout`` or ``DGT_MK_ALIGNMENT`` says
+    otherwise), 0 for the first group. A group whose start passes its end
+    is empty."""
+    align = get_mk_alignment_for_contiguous_layout()
     prev = torch.cat([ends.new_zeros(1), ends[:-1]])
-    starts = (prev + MK_ALIGNMENT - 1) // MK_ALIGNMENT * MK_ALIGNMENT
+    starts = (prev + align - 1) // align * align
     starts[0] = 0
     return starts
 
@@ -94,24 +97,26 @@ def sfb_shift(gran_n: int) -> int:
 
 
 def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor],
-                  sfb: torch.Tensor, gran_n: int = 128, gran_k: int = 128) -> torch.Tensor:
+                  sfb: Optional[torch.Tensor], gran_n: int = 128,
+                  gran_k: int = 128) -> torch.Tensor:
     """f32 ``sum_s (a_s @ b_s^T) * sfb[s] (per column) * sfa[s] (per row)``
     over the 128-deep k sub-blocks ``s``, in that multiply order.
 
     ``a`` [..., m, k] and ``b`` [..., n, k] are e4m3 (or any float type);
     ``sfa`` is [..., m, ksf] (None: ``a`` is unscaled, as the mega block's
-    bf16 act), ``sfb`` [..., ceil(n/gran_n), ksf] (one scale
-    per ``gran_n`` rows of ``b``). The products run in f32 on upcast
-    operands, which is exact for e4m3 inputs; on a CUDA card TF32 must be
-    off (``torch.backends.cuda.matmul.allow_tf32`` is False by default)."""
+    bf16 act or a folded FP4 operand), ``sfb`` [..., ceil(n/gran_n), ksf]
+    (one scale per ``gran_n`` rows of ``b``; None: unscaled). The products
+    run in f32 on upcast operands, which is exact for e4m3 inputs; on a CUDA
+    card TF32 must be off (``torch.backends.cuda.matmul.allow_tf32`` is
+    False by default)."""
     n, k = b.shape[-2:]
     total = None
     for s in range(ceil_div(k, gran_k)):
         a_s = a[..., s * gran_k:(s + 1) * gran_k].float()
         b_s = b[..., s * gran_k:(s + 1) * gran_k].float()
-        p = torch.matmul(a_s, b_s.transpose(-1, -2))
-        sfb_s = sfb[..., s].repeat_interleave(gran_n, dim=-1)[..., None, :n]
-        term = p * sfb_s
+        term = torch.matmul(a_s, b_s.transpose(-1, -2))
+        if sfb is not None:
+            term = term * sfb[..., s].repeat_interleave(gran_n, dim=-1)[..., None, :n]
         if sfa is not None:
             term = term * sfa[..., :, s:s + 1]
         total = term if total is None else total + term

@@ -28,6 +28,12 @@ H100's ~590 fp8 operations per HBM byte, so weight bytes bound it. The grid
 is one block per (n-tile, m-tile); the two m-tiles of an expert read its
 weights one after the other, the second mostly from L2.
 
+Contiguous, NN layout (MN-major B [G, k, n]). Replaces the NN form of the
+same kernel (B's BlockSpec at deepgemm_tpu/kernels/grouped.py:139-145).
+Kernel: the NN entry of csrc/contiguous.cu, the same mainloop with each B
+stage loaded as it lies and transposed in shared memory; bitwise the NT
+kernel on ``b.transpose(1, 2).contiguous()``, so the same bound holds.
+
 Contiguous, dual-B form (``DGT_GROUPED_DUAL_B=1``). Replaces:
 deepgemm_tpu/kernels/grouped.py:_build_contiguous_dual_b (``pl.pallas_call``
 at grouped.py:401). Kernel: the second entry of csrc/contiguous.cu, the same
@@ -44,9 +50,9 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import BLOCK_M, MK_ALIGNMENT, get_gemm_config
+from ..heuristics.configs import BLOCK_M, check_smem, get_gemm_config, smem_bytes
 from ..runtime import build
-from ..runtime.config import get_num_sms
+from ..runtime.config import get_mk_alignment_for_contiguous_layout, get_num_sms
 from ..utils.math import ceil_div
 from .common import (check_operand, promote_block, psum_group_starts, select_rows,
                      sfb_shift, use_plain)
@@ -56,7 +62,11 @@ from .common import (check_operand, promote_block, psum_group_starts, select_row
 # the contiguous kernel.
 launches = {'bf16': 0, 'fp8': 0, 'fp8_f32': 0}
 contiguous_launches = {'bf16': 0, 'fp8': 0}
+contiguous_nn_launches = {'bf16': 0, 'fp8': 0}
 dual_b_launches = {'bf16': 0, 'fp8': 0}
+
+# Rows of each half of a dual-B tile.
+_DUAL_HALF = 128
 
 # Upcast at most this many bytes of f32 weights at once in the plain version
 # (all 256 experts of a DeepSeek-V3 layer at once would take 30 GB).
@@ -71,8 +81,9 @@ def _entry():
     return fn
 
 
-def _contiguous_entry():
-    fn = build.load('contiguous').dgt_contiguous_gemm_nt
+def _contiguous_entry(b_mn: bool = False):
+    lib = build.load('contiguous')
+    fn = lib.dgt_contiguous_gemm_nn if b_mn else lib.dgt_contiguous_gemm_nt
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -172,11 +183,14 @@ def compute_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int,
 
     ``grouped_layout`` is per-row group ids with -1 padding ([m]), or, with
     ``use_psum_layout``, per-group end rows ([G]; group g starts at the
-    previous end aligned up to the 128-row mk alignment). ``block_m`` must
-    divide that alignment, so a tile holds the rows of one group; a tile of
+    previous end aligned up to the mk alignment). ``block_m`` must divide
+    that alignment, so a tile holds the rows of one group; a tile of
     padding rows only takes the group before it, whose end row precedes the
     tile (the zero-padding epilogue then blanks it whole)."""
-    assert MK_ALIGNMENT % block_m == 0, (MK_ALIGNMENT, block_m)
+    align = get_mk_alignment_for_contiguous_layout()
+    if align % block_m:
+        raise ValueError(f'the mk alignment {align} is not a multiple of the kernel\'s '
+                         f'{block_m}-row tiles')
     dev = grouped_layout.device
     layout = grouped_layout.long()
     tile_starts = torch.arange(ceil_div(m, block_m), device=dev) * block_m
@@ -202,9 +216,9 @@ def compute_dual_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int
     """Per 256-row tile the groups of its top and bottom 128-row halves,
     int32 [m / 256, 2], by device ops alone: :func:`compute_tile_gids` at
     128-row blocks, paired. ``m`` must be a multiple of 256."""
-    if m % (2 * MK_ALIGNMENT):
-        raise ValueError(f'the dual-B form takes m % {2 * MK_ALIGNMENT} == 0, got m={m}')
-    gids, _ = compute_tile_gids(grouped_layout, num_groups, m, MK_ALIGNMENT, use_psum_layout)
+    if m % (2 * _DUAL_HALF):
+        raise ValueError(f'the dual-B form takes m % {2 * _DUAL_HALF} == 0, got m={m}')
+    gids, _ = compute_tile_gids(grouped_layout, num_groups, m, _DUAL_HALF, use_psum_layout)
     return gids.view(-1, 2)
 
 
@@ -241,10 +255,13 @@ def contiguous_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout: torc
                           sfa: Optional[torch.Tensor] = None,
                           sfb: Optional[torch.Tensor] = None, gran_n: int = 128,
                           use_psum_layout: bool = False,
-                          ensure_zero_padding: bool = False) -> torch.Tensor:
+                          ensure_zero_padding: bool = False,
+                          b_mn: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same per-tile group
     lookup, then each tile's rows against its group's B, rows past the
     group's end zeroed on request."""
+    if b_mn:
+        b = _transposed(b)
     m = a.shape[0]
     gids, row_ends = compute_tile_gids(grouped_layout, b.shape[0], m, BLOCK_M,
                                        use_psum_layout)
@@ -263,18 +280,29 @@ def contiguous_dual_gemm_plain(a: torch.Tensor, b: torch.Tensor, grouped_layout:
     """The dual-B kernel's function in plain PyTorch: 256-row tiles, each of
     their two halves against its own group's B."""
     pairs = compute_dual_tile_gids(grouped_layout, b.shape[0], a.shape[0], use_psum_layout)
-    return _rows_by_tile_plain(a, b, pairs.view(-1), MK_ALIGNMENT, sfa, sfb, gran_n)
+    return _rows_by_tile_plain(a, b, pairs.view(-1), _DUAL_HALF, sfa, sfb, gran_n)
 
 
-def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout):
+def _transposed(b: torch.Tensor) -> torch.Tensor:
+    """[G, k, n] -> contiguous [G, n, k], for e4m3 too (through a byte view)."""
+    if b.dtype == torch.float8_e4m3fn:
+        return b.view(torch.uint8).transpose(1, 2).contiguous().view(b.dtype)
+    return b.transpose(1, 2).contiguous()
+
+
+def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout,
+                               b_mn=False):
     """Raise unless the operands are what the contiguous kernels take;
     returns whether they are e4m3."""
     m, k = a.shape
-    num_groups, n = b.shape[:2]
+    num_groups = b.shape[0]
+    n = b.shape[2] if b_mn else b.shape[1]
     is_fp8 = a.dtype == torch.float8_e4m3fn
     dtype = torch.float8_e4m3fn if is_fp8 else torch.bfloat16
     check_operand(a, 'a', dtype, (m, k))
-    check_operand(b, 'b', dtype, (num_groups, n, k))
+    check_operand(b, 'b', dtype, (num_groups, k, n) if b_mn else (num_groups, n, k))
+    if b_mn and n * a.element_size() % 16:
+        raise ValueError(f'an MN-major B\'s rows must be whole 16-byte chunks; got n={n}')
     check_operand(grouped_layout, 'grouped_layout', torch.int32,
                   (num_groups,) if use_psum_layout else (m,))
     if is_fp8:
@@ -294,12 +322,13 @@ def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_
 def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
                     sfa: Optional[torch.Tensor] = None, sfb: Optional[torch.Tensor] = None,
                     gran_n: int = 128, use_psum_layout: bool = False,
-                    ensure_zero_padding: bool = False) -> torch.Tensor:
+                    ensure_zero_padding: bool = False, b_mn: bool = False) -> torch.Tensor:
     """d[m, n] bf16 = a[m, k] @ b[gid(m-tile)][n, k]^T over the contiguous
     layout (see :func:`compute_tile_gids`).
 
-    ``a`` [m, k] and ``b`` [G, n, k] are both bf16 (no scales) or both e4m3
-    with f32 scales ``sfa`` [m, ceil(k/128)] and ``sfb``
+    ``a`` [m, k] and ``b`` [G, n, k] (``b_mn``: [G, k, n], the NN layout,
+    n % 16 == 0 for e4m3 and n % 8 == 0 for bf16) are both bf16 (no
+    scales) or both e4m3 with f32 scales ``sfa`` [m, ceil(k/128)] and ``sfb``
     [G, ceil(n/gran_n), ceil(k/128)] (the promotion). ``grouped_layout``
     (int32, on the operands' device) is per-row ids [m] or, with
     ``use_psum_layout``, per-group end rows [G]. With
@@ -310,17 +339,20 @@ def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tens
     raise."""
     if use_plain(a, b, grouped_layout, sfa, sfb):
         return contiguous_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
-                                     use_psum_layout, ensure_zero_padding)
+                                     use_psum_layout, ensure_zero_padding, b_mn)
     is_fp8 = _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n,
-                                        use_psum_layout)
+                                        use_psum_layout, b_mn)
     m, k = a.shape
-    num_groups, n = b.shape[:2]
+    num_groups = b.shape[0]
+    n = b.shape[2] if b_mn else b.shape[1]
     shift = sfb_shift(gran_n)
     gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
                                        use_psum_layout)
     cfg = get_gemm_config(m, n, 1, num_sms=get_num_sms(a.device))
+    elem = a.element_size()
+    check_smem(smem_bytes(BLOCK_M, cfg.block_n, elem, elem, b_mn=b_mn), 'contiguous_gemm')
     d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    fn = _contiguous_entry()
+    fn = _contiguous_entry(b_mn)
     code = fn(a.data_ptr(), b.data_ptr(),
               sfa.data_ptr() if is_fp8 else None,
               sfb.data_ptr() if is_fp8 else None,
@@ -328,7 +360,7 @@ def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tens
               d.data_ptr(), m, n, k, int(is_fp8), shift, cfg.block_n,
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('contiguous'), code, 'contiguous_gemm')
-    contiguous_launches['fp8' if is_fp8 else 'bf16'] += 1
+    (contiguous_nn_launches if b_mn else contiguous_launches)['fp8' if is_fp8 else 'bf16'] += 1
     return d
 
 

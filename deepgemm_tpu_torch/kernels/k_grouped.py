@@ -16,10 +16,20 @@ rows into [4096, 7168] or [7168, 2048] per group) each output element takes
 output's bytes bound it (15 GB in bf16 at L1). The bf16 epilogue exists for
 that: it rounds the same f32 sum once, the bits of f32-then-cast without the
 f32 tensor.
+
+The flat NT form (``k_grouped_fp8_gemm_nt_contiguous``,
+deepgemm_tpu/ops/k_grouped.py:66-96): each group's A and B segments stored
+k-major and flattened, ``a[m x k_g]`` from element ``m * k_start[g]``. JAX
+unflattens them (XLA fuses that into the kernel's reads); here the flat
+entry of csrc/k_grouped.cu reads each segment in place, a per-group base and
+row stride, so no relayout copy precedes it. Every depth must be a multiple
+of 16 elements (the kernel's 16-byte loads); the wrapper raises otherwise.
+Its stages hold the bytes of the TN form's on the same data, so it is
+bitwise the TN kernel.
 """
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -29,8 +39,10 @@ from ..runtime.config import get_num_sms
 from ..utils.math import align, ceil_div
 from .common import check_operand, psum_group_starts, use_plain
 
-# Kernel launches per operand type since the counts were last set to 0.
+# Kernel launches per operand type since the counts were last set to 0,
+# and of the flat NT form (e4m3).
 launches = {'bf16': 0, 'fp8': 0}
+flat_launches = 0
 
 _GRAN_K = 128           # scale block depth: one stage of the fp8 mainloop
 _COL_ALIGN = 16         # elements: each group's first column in the k-major copy
@@ -42,6 +54,14 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _flat_entry():
+    fn = build.load('k_grouped').dgt_k_grouped_gemm_nt_flat
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -190,4 +210,85 @@ def k_grouped_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tenso
               cfg.block_n, torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('k_grouped'), code, 'k_grouped_gemm')
     launches['fp8' if is_fp8 else 'bf16'] += 1
+    return d
+
+
+def unflatten_k_major(x: torch.Tensor, ks: Sequence[int], dim: int) -> torch.Tensor:
+    """The flat NT operand (group g's k-major [dim, k_g] segment from element
+    dim * sum(ks[:g])) as the TN operand [sum(ks), dim]: JAX's unflatten
+    (deepgemm_tpu/ops/k_grouped.py:83-91), one copy."""
+    flat = x.reshape(-1)
+    segs, off = [], 0
+    for kg in ks:
+        segs.append(flat[off * dim:(off + kg) * dim].view(dim, kg).t())
+        off += kg
+    if not segs:
+        return flat.new_empty((0, dim))
+    if x.dtype == torch.float8_e4m3fn:
+        return torch.cat([s.view(torch.uint8) for s in segs]).view(x.dtype)
+    return torch.cat(segs)
+
+
+def k_grouped_gemm_flat_plain(a: torch.Tensor, b: torch.Tensor, ks: Sequence[int], m: int,
+                              n: int, c: Optional[torch.Tensor], sfa: torch.Tensor,
+                              sfb: torch.Tensor,
+                              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The flat kernel's function in plain PyTorch: the TN plain version on
+    the unflattened operands."""
+    sizes = torch.tensor(list(ks), dtype=torch.int32, device=a.device)
+    return k_grouped_gemm_plain(unflatten_k_major(a, ks, m), unflatten_k_major(b, ks, n),
+                                sizes, c, sfa, sfb, out_dtype=out_dtype)
+
+
+def k_grouped_gemm_flat(a: torch.Tensor, b: torch.Tensor, ks: Sequence[int], m: int, n: int,
+                        c: Optional[torch.Tensor], sfa: torch.Tensor, sfb: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """d[g] = c[g] + a_g @ b_g^T with a_g [m, k_g] and b_g [n, k_g] e4m3, each
+    group's segment k-major and flattened one after another in ``a`` and
+    ``b`` (any shape, m * sum(ks) and n * sum(ks) elements), per-channel f32
+    scales k-first and compacted per group (``sfa`` [nsf_total, m], ``sfb``
+    [nsf_total, n]); ``ks`` the host list of depths, each a multiple of 16
+    on the card. Bitwise :func:`k_grouped_gemm` on the unflattened operands.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if out_dtype not in _OUT_DTYPES:
+        raise NotImplementedError(f'output dtype {out_dtype}: f32 or bf16 only')
+    if use_plain(a, b, c, sfa, sfb):
+        return k_grouped_gemm_flat_plain(a, b, ks, m, n, c, sfa, sfb, out_dtype)
+    ks = [int(kg) for kg in ks]
+    num_groups, total_k = len(ks), sum(ks)
+    bad = [kg for kg in ks if kg % _COL_ALIGN]
+    if bad:
+        raise ValueError(f'the flat k-grouped kernel reads each group in place with 16-byte '
+                         f'loads: every depth must be a multiple of {_COL_ALIGN}, got {bad}')
+    fp8 = torch.float8_e4m3fn
+    check_operand(a, 'a', fp8, tuple(a.shape))
+    check_operand(b, 'b', fp8, tuple(b.shape))
+    if a.numel() != m * total_k or b.numel() != n * total_k:
+        raise ValueError(f'a and b hold {a.numel()} and {b.numel()} elements, expected '
+                         f'm * sum(ks) = {m * total_k} and n * sum(ks) = {n * total_k}')
+    nsf = sum(ceil_div(kg, _GRAN_K) for kg in ks)
+    check_operand(sfa, 'sfa', torch.float32, (nsf, m))
+    check_operand(sfb, 'sfb', torch.float32, (nsf, n))
+    if c is not None:
+        check_operand(c, 'c', torch.float32, (num_groups, m, n))
+    if min(num_groups, m, n) == 0 or n % 2:
+        raise ValueError(f'the kernel takes non-empty outputs and even n; '
+                         f'got G={num_groups}, m={m}, n={n}')
+    sf_rows = [ceil_div(kg, _GRAN_K) for kg in ks]
+    meta = torch.tensor([[sum(ks[:g]) for g in range(num_groups)], ks,
+                         [sum(sf_rows[:g]) for g in range(num_groups)]], dtype=torch.int32)
+    starts, sizes, sf_starts = meta.to(a.device).unbind(0)
+    starts, sizes, sf_starts = (t.contiguous() for t in (starts, sizes, sf_starts))
+    cfg = get_gemm_config(m, n, num_groups, num_sms=get_num_sms(a.device))
+    d = torch.empty((num_groups, m, n), dtype=out_dtype, device=a.device)
+    code = _flat_entry()(a.data_ptr(), b.data_ptr(), sfa.data_ptr(), sfb.data_ptr(),
+                         c.data_ptr() if c is not None else None, starts.data_ptr(),
+                         sizes.data_ptr(), sf_starts.data_ptr(), d.data_ptr(), num_groups, m, n,
+                         int(out_dtype == torch.float32), cfg.block_n,
+                         torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(build.load('k_grouped'), code, 'k_grouped_gemm_flat')
+    global flat_launches
+    flat_launches += 1
     return d

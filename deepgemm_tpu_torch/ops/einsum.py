@@ -70,7 +70,7 @@ def fp8_bmm(a: torch.Tensor, sfa: torch.Tensor, b: torch.Tensor, sfb: torch.Tens
     if recipe_a[1] != 128 or recipe_b[1] != 128:
         raise NotImplementedError(f'only gran_k 128 is ported (got {recipe_a}, {recipe_b})')
     ksf = ceil_div(k, 128)
-    sfb = transform_sfb(_f32_scales(sfb, ksf), n, k, recipe_b, batch)
+    sfb = transform_sfb(_f32_scales(sfb, ksf), n, k, recipe_b, num_groups=batch)
     full = torch.full((batch,), m, dtype=torch.int32, device=a.device)
     out = masked_gemm(a.contiguous(), b.contiguous(), full, sfa=_f32_scales(sfa, ksf),
                       sfb=sfb, gran_n=recipe_b[0],

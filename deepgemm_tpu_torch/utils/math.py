@@ -46,7 +46,9 @@ def pack_ue8m0_to_int(x: torch.Tensor) -> torch.Tensor:
 def unpack_ue8m0_from_int(packed_sf: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`pack_ue8m0_to_int`."""
     assert packed_sf.dtype == torch.int32
-    exp = packed_sf.contiguous().view(torch.uint8).to(torch.int32)
+    # through a flat view: a contiguous tensor may keep any stride on a dim of size 1
+    flat = packed_sf.contiguous().view(-1).view(torch.uint8)
+    exp = flat.to(torch.int32).view(*packed_sf.shape[:-1], 4 * packed_sf.shape[-1])
     return (exp << 23).view(torch.float32)
 
 

@@ -838,9 +838,12 @@ def test_fp4_fold_on_the_card(gen):
 
 
 def test_new_ops_do_not_fall_back(gen):
-    """A CPU operand beside a CUDA one raises; what the port has not ported
-    (an FP4 granularity of 32) and what JAX leaves undefined (packed FP4 in
-    the m-grouped ops) raise on the card as on the CPU."""
+    """A CPU operand beside a CUDA one raises; what the kernels do not take
+    (an MN-major operand whose rows are not whole 16-byte chunks, a flat
+    k-group depth off 16, an e4m3 scale granularity of 64) and what JAX
+    leaves undefined (packed FP4 in the m-grouped ops) raise on the card as
+    on the CPU, where they would not be silently right; an FP4 granularity
+    of 32 runs the mixed kernel form."""
     import deepgemm_tpu_torch as dgt
     from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4
     a_q = per_token_cast_to_fp8(_randn(gen, 16, 256), use_ue8m0=False)
@@ -850,10 +853,195 @@ def test_new_ops_do_not_fall_back(gen):
     with pytest.raises(ValueError, match='several devices'):
         dgt.tf32_hc_prenorm_gemm(_randn(gen, 16, 256), torch.randn(24, 256))
     b32 = per_token_cast_to_fp4(_randn(gen, 128, 256), use_ue8m0=True, gran_k=32)
-    with pytest.raises(NotImplementedError, match='granularity 32'):
-        dgt.fp8_fp4_gemm_nt(a_q, b32)
+    dense.form_launches.clear()
+    dgt.fp8_fp4_gemm_nt(a_q, b32)
+    assert dense.form_launches == {'promote_nt_mixed': 1}
     with pytest.raises(TypeError, match='undefined'):
         dgt.m_grouped_fp8_fp4_gemm_nt_masked(
             (a_q[0][None], a_q[1][None]), (b4[0][None], b4[1][None]),
             masked_m=torch.ones(1, dtype=torch.int32, device='cuda'),
             recipe_a=(1, 128), recipe_b=(1, 128))
+    b_q = per_block_cast_to_fp8(_randn(gen, 40, 256), use_ue8m0=False)
+    with pytest.raises(ValueError, match='16-byte'):          # n = 40 e4m3: 40-byte rows
+        dgt.fp8_gemm_nn(a_q, (b_q[0].t().contiguous(), b_q[1].t().contiguous()))
+    a64 = per_token_cast_to_fp8(_randn(gen, 16, 256), use_ue8m0=False, gran_k=64)
+    with pytest.raises(NotImplementedError, match='gran_k 64'):
+        dgt.fp8_gemm_nt(a64, b_q, recipe_a=(1, 64), recipe_b=(128, 128))
+    ks = [24, 104]
+    flat = lambda dim: torch.zeros(dim * sum(ks), device='cuda').to(torch.float8_e4m3fn)
+    sf = lambda dim: torch.ones((dim, 2), device='cuda')
+    with pytest.raises(ValueError, match='multiple of 16'):
+        dgt.k_grouped_fp8_gemm_nt_contiguous((flat(64), sf(64)), (flat(128), sf(128)), ks=ks,
+                                             c=torch.zeros((2, 64, 128), device='cuda'))
+
+
+# ---- the rest of the one-card GEMM surface ----------------------------------------
+
+
+def _t8(x):
+    """An e4m3 matrix transposed into a new contiguous tensor."""
+    return x.view(torch.uint8).t().contiguous().view(x.dtype)
+
+
+def _dense_case(gen, m, n, k, gran_n=128, po2=False):
+    aq, sfa = per_token_cast_to_fp8(_randn(gen, m, k), use_ue8m0=po2)
+    cast = per_block_cast_to_fp8 if gran_n == 128 else per_token_cast_to_fp8
+    bq, sfb = cast(_randn(gen, n, k), use_ue8m0=po2)
+    return aq, bq, sfa, sfb
+
+
+@pytest.mark.parametrize('strategy', ['promote', 'dequant'])
+@pytest.mark.parametrize('layout', ['nn', 'tn', 'tt'])
+def test_dense_layouts_are_bitwise_nt_on_transposes(gen, layout, strategy):
+    """Each layout's kernel is the NT kernel on the operands transposed with
+    .t().contiguous(): the same bits; each against its plain version."""
+    m, n, k = 80, 192, 400
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, po2=strategy == 'dequant')
+    a_mn, b_mn = layout[0] == 't', layout[1] == 'n'
+    a_op = _t8(aq) if a_mn else aq
+    b_op = _t8(bq) if b_mn else bq
+    dense.form_launches.clear()
+    for out in (torch.bfloat16, torch.float32):
+        kw = dict(out_dtype=out, strategy=strategy)
+        d = dense.dense_gemm(a_op, b_op, sfa, sfb, a_mn=a_mn, b_mn=b_mn, **kw)
+        d_nt = dense.dense_gemm(aq, bq, sfa, sfb, **kw)
+        ref = dense.dense_gemm_plain(a_op, b_op, sfa, sfb, a_mn=a_mn, b_mn=b_mn, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_nt), out
+        assert calc_diff(d, ref) < 1e-5, out
+    assert dense.form_launches == {f'{strategy}_{layout}': 2, f'{strategy}_nt': 2}
+
+
+@pytest.mark.parametrize('recipe', [(1, 128, 128), (1, 1, 128)])
+def test_c_accumulation_on_the_card(gen, recipe):
+    """c is added once to the finished f32 sum: in f32 the kernel's output
+    with c is bitwise its output without c plus c; in bf16 the same sum
+    rounded; the wgrad recipe with d = c = c."""
+    import deepgemm_tpu_torch as dgt
+    m, n, k = 96, 256, 384
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, gran_n=recipe[1])
+    c = torch.randn((m, n), generator=gen, device='cuda') * 32
+    d32 = dgt.fp8_gemm_nt((aq, sfa), (bq, sfb), d=c, c=c, recipe=recipe)
+    d16 = dgt.fp8_gemm_nt((aq, sfa), (bq, sfb), c=c, recipe=recipe)
+    plain = dgt.fp8_gemm_nt((aq, sfa), (bq, sfb), d=torch.float32, recipe=recipe)
+    with plain_versions():
+        ref = dgt.fp8_gemm_nt((aq, sfa), (bq, sfb), d=c, c=c, recipe=recipe)
+    torch.cuda.synchronize()
+    assert torch.equal(d32, plain + c)
+    assert torch.equal(d16, (plain + c).to(torch.bfloat16))
+    assert calc_diff(d32, ref) < 1e-5
+
+
+def test_dequant_kernel_matches_plain_and_promote(gen):
+    """'dequant' on power-of-two scales: against its plain version, and
+    within 1e-5 of 'promote' on the same operands (other sums, not bits)."""
+    m, n, k = 128, 256, 1024
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, po2=True)
+    d = dense.dense_gemm(aq, bq, sfa, sfb, strategy='dequant')
+    ref = dense.dense_gemm_plain(aq, bq, sfa, sfb, strategy='dequant')
+    promote = dense.dense_gemm(aq, bq, sfa, sfb)
+    torch.cuda.synchronize()
+    assert calc_diff(d, ref) < 1e-5 and calc_diff(d, promote) < 1e-5
+
+
+def test_planar_fp4_b_in_the_kernel_is_bitwise_the_decoded_e4m3(gen):
+    """Planar FP4 B decoded in the kernel is bitwise the e4m3 kernel on the
+    decoded codes with B's (1, 128) scales per row, and the ops' three FP4
+    routes give the same bits."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4, repack_fp4_to_planar
+    m, n, k = 48, 256, 768
+    aq, sfa = per_token_cast_to_fp8(_randn(gen, m, k), use_ue8m0=False)
+    b4, sf4 = per_token_cast_to_fp4(_randn(gen, n, k), use_ue8m0=True)
+    planar = repack_fp4_to_planar(b4)
+    dense.form_launches.clear()
+    d = dense.dense_gemm(aq, planar, sfa, sf4, gran_n=1, fp4_b=True)
+    codes = dense._decode_planar(planar)
+    d_e4m3 = dense.dense_gemm(aq, codes, sfa, sf4, gran_n=1)
+    ref = dense.dense_gemm_plain(aq, planar, sfa, sf4, gran_n=1, fp4_b=True)
+    kw = dict(recipe_a=(1, 128), recipe_b=(1, 128))
+    routes = [dgt.fp8_fp4_gemm_nt((aq, sfa), (planar, sf4), fp4_layout=f, **kw)
+              for f in ('planar_in_kernel', 'planar_fold')] + [
+              dgt.fp8_fp4_gemm_nt((aq, sfa), (b4, sf4), **kw)]
+    torch.cuda.synchronize()
+    assert dense.form_launches['promote_nt_fp4'] == 2
+    assert torch.equal(d, d_e4m3) and calc_diff(d, ref) < 1e-5
+    assert all(torch.equal(r, d) for r in routes)
+
+
+@pytest.mark.parametrize('strategy', ['promote', 'dequant'])
+@pytest.mark.parametrize('bf16_side', ['a', 'b', 'both'])
+def test_mixed_forms_match_plain(gen, strategy, bf16_side):
+    """An e4m3 operand beside a bf16 one (a folded FP4 operand at scale
+    granularity 32 or 64), or two bf16 operands, against the plain version."""
+    m, n, k = 64, 192, 512
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, po2=True)
+    a, b = _randn(gen, m, k), _randn(gen, n, k)
+    a_op, sfa_op = (a, None) if bf16_side in ('a', 'both') else (aq, sfa)
+    b_op, sfb_op = (b, None) if bf16_side in ('b', 'both') else (bq, sfb)
+    for out in (torch.bfloat16, torch.float32):
+        kw = dict(out_dtype=out, strategy=strategy)
+        d = dense.dense_gemm(a_op, b_op, sfa_op, sfb_op, **kw)
+        ref = dense.dense_gemm_plain(a_op, b_op, sfa_op, sfb_op, **kw)
+        torch.cuda.synchronize()
+        assert calc_diff(d, ref) < 1e-5, out
+
+
+@pytest.mark.parametrize('gran', [32, 64])
+def test_fp4_fine_granularity_on_the_card(gen, gran):
+    """FP4 B at gran 32 / 64 through the op: the mixed form, against the op's
+    plain route (JAX's bf16 fold) and the dequantized product."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.utils.math import cast_back_from_fp4, per_token_cast_to_fp4
+    m, n, k = 64, 256, 512
+    a_q = per_token_cast_to_fp8(_randn(gen, m, k), use_ue8m0=False)
+    b4 = per_token_cast_to_fp4(_randn(gen, n, k), use_ue8m0=True, gran_k=gran)
+    dense.form_launches.clear()
+    d = dgt.fp8_fp4_gemm_nt(a_q, b4)
+    with plain_versions():
+        ref = dgt.fp8_fp4_gemm_nt(a_q, b4)
+    torch.cuda.synchronize()
+    assert dense.form_launches == {'promote_nt_mixed': 1}
+    assert calc_diff(d, ref) < 1e-5
+    exact = (a_q[0].float() * a_q[1].repeat_interleave(128, 1)[:, :k]) @ \
+        cast_back_from_fp4(*b4, gran_k=gran).t()
+    assert calc_diff(d, exact) < 1e-5
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_contiguous_nn_is_bitwise_nt_on_transposes(gen, fp8, use_psum_layout):
+    a, b, layout, kw = _dual_case(gen, (128, 384, 0, 256), 192, 336, fp8, use_psum_layout)
+    kw.update(use_psum_layout=use_psum_layout, ensure_zero_padding=True)
+    b_nn = (b.view(torch.uint8) if fp8 else b).transpose(1, 2).contiguous().view(b.dtype)
+    kind = 'fp8' if fp8 else 'bf16'
+    before = dict(grouped.contiguous_nn_launches)
+    d = grouped.contiguous_gemm(a, b_nn, layout, b_mn=True, **kw)
+    d_nt = grouped.contiguous_gemm(a, b, layout, **kw)
+    ref = grouped.contiguous_gemm_plain(a, b_nn, layout, b_mn=True, **kw)
+    torch.cuda.synchronize()
+    assert grouped.contiguous_nn_launches[kind] == before[kind] + 1
+    assert torch.equal(d, d_nt)
+    assert calc_diff(d, ref) < 1e-5
+
+
+@pytest.mark.parametrize('with_c', [False, True])
+def test_k_grouped_flat_is_bitwise_tn(gen, with_c):
+    """The flat NT form reads each group in place: bitwise the TN kernel on
+    the same data (an empty group, a depth off 128, c or none)."""
+    from deepgemm_tpu_torch.kernels.k_grouped import unflatten_k_major
+    ks, m, n = [256, 0, 144, 384], 96, 200
+    a, b, layout, kw = _k_grouped_case(gen, ks, m, n, True, False)
+    flat = lambda x: torch.cat([x[s:s + kg].view(torch.uint8).t().contiguous().view(-1)
+                                for s, kg in zip([0, 256, 256, 400], ks)]).view(x.dtype)
+    a_f, b_f = flat(a), flat(b)
+    assert torch.equal(unflatten_k_major(a_f, ks, m).view(torch.uint8),
+                       a[:sum(ks)].view(torch.uint8))
+    c = torch.randn((len(ks), m, n), generator=gen, device='cuda') if with_c else None
+    before = k_grouped.flat_launches
+    d = k_grouped.k_grouped_gemm_flat(a_f, b_f, ks, m, n, c, kw['sfa'], kw['sfb'])
+    d_tn = k_grouped.k_grouped_gemm(a, b, layout, c, **kw)
+    ref = k_grouped.k_grouped_gemm_flat_plain(a_f, b_f, ks, m, n, c, kw['sfa'], kw['sfb'])
+    torch.cuda.synchronize()
+    assert k_grouped.flat_launches == before + 1
+    assert torch.equal(d, d_tn) and calc_diff(d, ref) < 1e-5

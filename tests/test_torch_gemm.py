@@ -73,12 +73,19 @@ def test_bf16_gemm_nt_matches_jax():
 
 
 def test_unported_variants_raise():
-    _, _, _, _, a_t, b_t = _quantized_pair(16, 128, 128)
-    with pytest.raises(NotImplementedError):
-        dgt.fp8_gemm_nt(a_t, b_t, c=torch.zeros(16, 128))
-    packed = (b_t[0], b_t[1].to(torch.int32))
-    with pytest.raises(NotImplementedError):
-        dgt.fp8_gemm_nt(a_t, packed)
+    """What the port still refuses, on the CPU as on the card: e4m3 scales
+    at a k granularity other than the 128-deep promotion block, and an
+    output type other than bf16 or f32."""
+    rng = np.random.RandomState(14)
+    a = torch.from_numpy(rng.randn(16, 256).astype(np.float32))
+    _, _, _, _, _, b_t = _quantized_pair(16, 128, 256)
+    a64 = dgt.per_token_cast_to_fp8(a, use_ue8m0=False, gran_k=64)
+    assert tuple(a64[1].shape) == (16, 4)
+    with pytest.raises(NotImplementedError, match='gran_k 64'):
+        dgt.fp8_gemm_nt(a64, b_t, recipe_a=(1, 64), recipe_b=(128, 128))
+    a128 = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+    with pytest.raises(NotImplementedError, match='output dtype'):
+        dgt.fp8_gemm_nt(a128, b_t, d=torch.float16)
 
 
 def _fp4_pair(n, k, seed, **cast):
@@ -123,14 +130,16 @@ def test_fp8_fp4_gemm_nt_packed_fp4_operands_match_jax():
 
 def test_fp8_fp4_gemm_nt_refuses_what_jax_refuses_or_the_port_lacks():
     """A packed SF width that two granularities explain raises ValueError,
-    as in JAX; a granularity finer than the 128-deep promotion block raises
-    NotImplementedError on the CPU as on the card."""
+    as in JAX; a packed FP4 operand in a T layout raises AssertionError, as
+    in JAX (it must be k-major)."""
     _, _, a_q, _, a_t, _ = _quantized_pair(16, 128, 256, seed=8)
     _, b_q, b_t = _fp4_pair(128, 256, seed=9, use_packed_ue8m0=True)
     with pytest.raises(ValueError, match='ambiguous'):
         dg.fp8_fp4_gemm_nt(a_q, b_q)
     with pytest.raises(ValueError, match='ambiguous'):
         dgt.fp8_fp4_gemm_nt(a_t, b_t)
-    _, _, b32_t = _fp4_pair(128, 256, seed=10, gran_k=32)
-    with pytest.raises(NotImplementedError, match='granularity 32'):
-        dgt.fp8_fp4_gemm_nt(a_t, b32_t)
+    _, a32, a32_t = _fp4_pair(128, 256, seed=10, gran_k=32)
+    with pytest.raises(AssertionError, match='k-major'):
+        dg.fp8_fp4_gemm_tn(a32, b_q)
+    with pytest.raises(AssertionError, match='k-major'):
+        dgt.fp8_fp4_gemm_tn(a32_t, b_t)

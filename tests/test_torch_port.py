@@ -126,3 +126,24 @@ def test_einsum_hc_public_names():
                  'get_arch_major', 'get_device_core_count', 'test_filter'):
         assert callable(getattr(dgt.testing, name)), name
     assert 'hc_prenorm' in build.SOURCES
+
+
+# What the port does not have of the JAX package's public names: the legacy
+# pure-XLA tier with its two ``_tl`` names and the persistent kernel cache
+# (ROADMAP Queue 1 item 3). Anything else the JAX package exports, the port
+# exports too.
+NOT_PORTED = {'legacy', 'm_grouped_bf16_gemm_nt_contiguous_tl',
+              'm_grouped_bf16_gemm_nn_contiguous_tl', 'kernel_cache', 'init_persistent_cache',
+              'init'}
+
+
+def test_public_names_match_the_jax_package():
+    import deepgemm_tpu as dg
+    public = lambda module: {n for n in dir(module) if not n.startswith('_')}
+    assert public(dg) - public(dgt) == NOT_PORTED
+    for name in ('fp8_fp4_gemm_nn', 'fp8_gemm_tt', 'bf16_gemm_tn', 'cublaslt_gemm',
+                 'm_grouped_fp8_fp4_gemm_nn_contiguous', 'm_grouped_bf16_gemm_nn_contiguous',
+                 'k_grouped_fp8_gemm_nt_contiguous', 'transform_sf_into_required_layout',
+                 'set_mk_alignment_for_contiguous_layout', 'fp8_m_grouped_gemm_nt_masked'):
+        assert callable(getattr(dgt, name)), name
+    assert 'dense_dequant' in build.SOURCES
