@@ -5,7 +5,7 @@
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
-  2. the build: the nine CUDA libraries with nvcc, in parallel, from csrc/;
+  2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/;
   3. the dense FP8 kernel against its plain version at 4096^3 and
      128x4096x7168, then the library entry fp8_gemm_nt (launches counted);
   4. the masked grouped kernel, bf16 and fp8, against its plain version at
@@ -96,6 +96,26 @@ Phases, one line each (a failure in any phase exits non-zero):
      x 7168, bitwise the e4m3 dense kernel fed the decoded codes and per-row
      scales. Each against its plain version (calc_diff < TOL) and timed
      beside its bound and a library call where one computes the same.
+ 11. the expert-parallel serving forward over a mesh of 8 ranks on this one
+     card (devices [cuda:0] * 8: a thread and a CUDA stream a rank) at the
+     phase 5 widths, EP 8 (32 experts a rank), [8, 128] tokens (cap 40 a
+     slot): the one-sided all-to-all (#15) at the dispatch shape and its
+     weight sideband, bitwise the host all-to-all on every rank over three
+     back-to-back calls at 8, 2 and 4 ranks; the fused dispatch + L1 (#12)
+     at V3's L1, e4m3 and bf16, recv bitwise the all-to-all and out bitwise
+     the masked kernel on recv; the general mega kernel (#14) on one
+     layer's fp8 weights, pools 1/2/4/8 bitwise each other, every combine
+     slab bitwise the one-rank kernel on the rows received (bf16 and fp8
+     act), force_general at one rank bitwise the one-rank kernel, planar
+     FP4 at 2 ranks bitwise the decoded fp8; each against its plain version
+     and timed (the least over the ranks of each rank's event-bracketed
+     call, after an L2 flush); then the model forward over the mesh: 'fused'
+     on three [8, 128] batches (launches: the general kernel 1 a layer a
+     rank, nothing else; tokens/s, peak memory), 'xla' and 'pallas' (one
+     chunk: masked 2 a layer a rank, all-to-all 3 under 'pallas') bitwise
+     equal, each layer's fused MoE against its plain version and 'xla', the
+     logits beside the one-rank forward's, a profile (the device's idle
+     share over the union of the streams' busy time).
 Then one JSON line of kernel numbers, the card's nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -2841,6 +2861,526 @@ def phase_surface(seed, gen, arch):
     ]
 
 
+# Phase 11: the expert-parallel mega MoE serving forward over a mesh of 8
+# ranks on this one card (devices [cuda:0] * 8: one thread and one CUDA
+# stream a rank; the kernels take the ranks' buffer addresses, local here,
+# NVLink addresses across cards), DeepSeek-V3 widths (the phase 5 config),
+# EP 8 (32 experts a rank: one 8-GPU NVLink node, the reference's mega MoE
+# test mesh), [8, 128] tokens (128 a rank: a (rank, expert) slot of
+# align(ceil(128 * 8 / 256) * 8 + 1, 8) = 40 rows, so every rank's kernel
+# runs 8 x 40 = 320 rows a local expert).
+EP = 8
+EP_BATCH_SHAPE = (8, 128)
+EP_EXPERTS = V3['num_experts'] // EP
+EP_CAP = 40
+EP_UNFUSED_LIMIT = MEGA_UNFUSED_LIMIT['0']     # bf16 act, tests/test_mega_moe.py:254
+NVLINK_BYTES_PER_S = 450e9                     # each way (hopper-kernels guide)
+
+
+@contextlib.contextmanager
+def plain_chunks(nbytes):
+    """The plain versions upcast weights in chunks of ``nbytes`` (whole
+    experts or groups, so no bit changes): eight ranks run them at once on
+    one card beside the model's weights."""
+    from deepgemm_tpu_torch.kernels import fused_moe, grouped
+    before = fused_moe._PLAIN_CHUNK_BYTES, grouped._PLAIN_CHUNK_BYTES
+    fused_moe._PLAIN_CHUNK_BYTES = grouped._PLAIN_CHUNK_BYTES = nbytes
+    try:
+        yield
+    finally:
+        fused_moe._PLAIN_CHUNK_BYTES, grouped._PLAIN_CHUNK_BYTES = before
+
+
+def mesh_bench(mesh, fn, args, iters=5, warmup=1):
+    """Milliseconds of one call of ``fn`` on every rank of ``mesh``: after an
+    L2 flush, each rank's call is bracketed by CUDA events on its own
+    stream. A rank's time includes its wait for the last peer to start, so
+    the call's time is the least over the ranks (the last rank to start
+    waits for no one, and ends when its peers' stores have landed). Mean
+    over ``iters``."""
+    for _ in range(warmup):
+        mesh.map(lambda *a: fn(*a) is None, *args)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device='cuda')
+
+    def timed(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*a)
+        end.record()
+        return start, end
+
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        events = mesh.map(timed, *args)
+        torch.cuda.synchronize()
+        total += min(s.elapsed_time(e) for s, e in events)
+    return total / iters
+
+
+def profile_mesh(fn, label, what):
+    """One call of ``fn`` under torch.profiler, the ranks' streams running at
+    once: wall time, the union of the device's busy intervals (kernels,
+    copies, sets on any stream), the idle share of the wall time, and the
+    device time by name. Returns (wall_ms, busy_ms) or None without device
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            us, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    if not spans:
+        log(f'profile {label}: wall_ms={wall_ms:.3f}; the profiler saw no device events, '
+            f'device time not measured')
+        return None
+    busy, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    busy_ms = busy / 1e3
+    log(f'profile {label}: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} (union over '
+        f'streams) device_idle_share={1 - busy_ms / wall_ms:.4f} device_ms_summed='
+        f'{sum(us for us, _ in by_name.values()) / 1e3:.3f} ({what}, under the profiler)')
+    for name, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f'  {us / 1e3:10.3f} ms device, {calls:6d} calls: {name[:130]}')
+    return wall_ms, busy_ms
+
+
+def ep_a2a(gen, arch):
+    """#15 at the pipeline's dispatch shape (per rank [8, 32, 40, 7168] bf16)
+    and its weight sideband ([8, 32, 40] f32): bitwise the host all-to-all
+    on every rank, three back-to-back calls with other inputs, at 8, 2 and
+    4 ranks; then timed at 8 ranks."""
+    from deepgemm_tpu_torch.parallel import collectives, dist
+    slab = (EP_EXPERTS, EP_CAP, V3['hidden'])
+    for d in (EP, 2, 4):
+        mesh = dist.make_mesh([('ep', d)], ['cuda:0'] * d)
+        before = collectives.launches
+        for call in range(3):
+            x = randn_bf16((d, d, *slab), gen, 1.0)
+            w = torch.rand((d, d, *slab[:2]), generator=gen, device='cuda')
+            outs = mesh.map(lambda a, b: (collectives.pallas_all_to_all(a, 'ep'),
+                                          collectives.pallas_all_to_all(b, 'ep'),
+                                          dist.all_to_all(a, 'ep'), dist.all_to_all(b, 'ep')),
+                            list(x), list(w))
+            torch.cuda.synchronize()
+            for r, (ka, kb, ha, hb) in enumerate(outs):
+                require(torch.equal(ka, ha) and torch.equal(kb, hb),
+                        f'#15 at {d} ranks, call {call}: rank {r} differs from the all-to-all')
+            del outs
+        launches = collectives.launches - before
+        require(launches == 3 * 2 * d, f'#15 at {d} ranks: {launches} launches, expected {6 * d}')
+        log(f'phase 11 a2a at {d} ranks [{d}, {", ".join(map(str, slab))}] bf16 and its '
+            f'[{d}, {slab[0]}, {slab[1]}] f32 sideband: 3 back-to-back calls with other inputs, '
+            f'every rank bitwise the host all-to-all ({launches} launches)')
+        if d == EP:
+            args = [list(x)]
+            ms = mesh_bench(mesh, lambda a: collectives.pallas_all_to_all(a, 'ep'), args)
+            ms_w = mesh_bench(mesh, lambda b: collectives.pallas_all_to_all(b, 'ep'), [list(w)])
+            from deepgemm_tpu_torch.kernels.common import plain_versions
+            with plain_versions():
+                plain_ms = mesh_bench(mesh, lambda a: collectives.pallas_all_to_all(a, 'ep'),
+                                      args)
+            library_ms = mesh_bench(mesh, lambda a: dist.all_to_all(a, 'ep'), args)
+            payload = x.numel() * x.element_size()              # every rank's input
+            bound = arch.bound_ms(2 * payload, 0, 'bf16')
+            nvlink_ms = (d - 1) / d * payload / d / NVLINK_BYTES_PER_S * 1e3
+            log(f'phase 11 time a2a [8 ranks on one card, {payload / d / 1e6:.1f} MB a rank]: '
+                f'kernel_ms={ms:.4f} (sideband {ms_w:.4f}) plain_ms={plain_ms:.4f} '
+                f'library_ms(one copy_ a slab a rank, the host all-to-all)={library_ms:.4f} '
+                f'bound_ms={bound[0]:.4f} ({bound[1]}: every rank\'s input read and output '
+                f'written once at 3.35 TB/s) nvlink_bound_ms(8 cards: each rank\'s off-rank '
+                f'bytes at 450 GB/s)={nvlink_ms:.4f} GB/s={2 * payload / ms / 1e6:.1f}; NCCL '
+                f'cannot run 8 ranks on one device')
+            result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=0.0,
+                          bound_ms=bound[0], bound_by=bound[1], nvlink_bound_ms=nvlink_ms,
+                          sideband_ms=ms_w, shape=[d, *slab])
+        del mesh, x, w
+        torch.cuda.empty_cache()
+    return result
+
+
+def ep_dispatch(mesh, w, gen, arch):
+    """#12 at V3's L1 (N 4096, H 7168; 8 ranks of 32 experts, cap 40), e4m3
+    with per-token scales and bf16: recv bitwise the all-to-all, out bitwise
+    the masked kernel (#2) on recv and within TOL of the plain version;
+    each timed. Returns ({kind: numbers}, launches of the own-path call)."""
+    from deepgemm_tpu_torch.kernels import fused_moe, grouped
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.parallel import dist
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    e_local, cap, hidden = EP_EXPERTS, EP_CAP, V3['hidden']
+    n = w.shape[1]
+    send = randn_bf16((EP, EP, e_local, cap, hidden), gen, 1.0)
+    sq, ssf = per_token_cast_to_fp8(send.view(-1, hidden), use_ue8m0=False)
+    sq, ssf = sq.view(send.shape), ssf.view(*send.shape[:-1], -1)
+    wq, wsf = quantize_experts(w)
+    cut = lambda t: [t[r * e_local:(r + 1) * e_local] for r in range(EP)]
+    out, launches = {}, {}
+    for kind, args in (('fp8', (list(sq), list(ssf), cut(wq), cut(wsf))),
+                       ('bf16', (list(send), [None] * EP, cut(w), [None] * EP))):
+        call = lambda s, ssf_, ww, wwsf: fused_moe.fused_dispatch_gemm(s, ww, send_sf=ssf_,
+                                                                       w_sf=wwsf)
+
+        def checked(s, ssf_, ww, wwsf):
+            got, recv = call(s, ssf_, ww, wwsf)
+            want = dist.all_to_all(s, 'ep')
+            a = want.transpose(0, 1).reshape(e_local, EP * cap, hidden)
+            sfa = None
+            if ssf_ is not None:
+                sfa = dist.all_to_all(ssf_, 'ep').transpose(0, 1).reshape(e_local, EP * cap, -1)
+            full = torch.full((e_local,), EP * cap, dtype=torch.int32, device='cuda')
+            masked = grouped.masked_gemm(a, ww, full, sfa=sfa, sfb=wwsf)
+            return got, recv, want, masked.view(e_local, EP, cap, n)
+
+        fused_moe.dispatch_launches[kind] = 0
+        outs = mesh.map(checked, *args)
+        torch.cuda.synchronize()
+        launches[kind] = fused_moe.dispatch_launches[kind]
+        with plain_versions(), plain_chunks(1 << 29):
+            plain = mesh.map(call, *args)
+        torch.cuda.synchronize()
+        diffs, errs = [], []
+        for r, ((got, recv, want, masked), (p_out, _)) in enumerate(zip(outs, plain)):
+            require(torch.equal(recv.view(torch.uint8), want.view(torch.uint8)),
+                    f'#12 {kind}: rank {r} recv differs from the all-to-all')
+            require(torch.equal(got, masked), f'#12 {kind}: rank {r} out differs from #2 on recv')
+            diff, err = compare(got, p_out)
+            diffs.append(diff)
+            errs.append(err)
+        require(max(diffs) < TOL, f'#12 {kind}: calc_diff {max(diffs)} against the plain version')
+        del outs, plain
+        ms = mesh_bench(mesh, call, args, iters=3)
+        with plain_versions(), plain_chunks(1 << 29):
+            plain_ms = mesh_bench(mesh, call, args, iters=1, warmup=0)
+        rows = EP * EP * e_local * cap
+        # inputs read once; out [E, D, cap, N] bf16 and recv written once, a rank
+        num_bytes = (count_bytes(*[t for a in args for t in a if t is not None])
+                     + EP * (e_local * EP * cap * n * 2
+                             + send[0].numel() * args[0][0].element_size()))
+        bound = arch.bound_ms(num_bytes, 2 * rows * n * hidden, kind)
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=max(errs),
+                         bound_ms=bound[0], bound_by=bound[1], check_calc_diff=max(diffs),
+                         shape=[EP, e_local, cap, n, hidden])
+        log(f'phase 11 dispatch_gemm {kind} [8 ranks, E_local {e_local}, cap {cap}, N {n}, H '
+            f'{hidden}]: recv bitwise the all-to-all, out bitwise the masked kernel on recv on '
+            f'every rank, calc_diff={max(diffs):.3e} (limit {TOL}) max_abs_err={max(errs):.4g} '
+            f'against the plain version; launches {launches[kind]} (one a rank); '
+            f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call '
+            f'moves and multiplies) '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}) TFLOPS={2 * rows * n * hidden / ms / 1e9:.1f}')
+    del send, sq, ssf, wq, wsf
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def ep_mega(mesh, layer, gen, arch):
+    """#14 on one layer's weights (fp8; planar FP4 at 2 ranks), 8 ranks of
+    32 experts, cap 40: pools 1, 2, 4, 8 bitwise each other; every rank's
+    combine slab from rank s bitwise the one-rank kernel (#13) on the rows
+    s received from it, with bf16 and with fp8 act; within TOL of the plain
+    version; force_general at one rank bitwise #13; FP4 at 2 ranks bitwise
+    the decoded fp8; timed. Returns numbers."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.parallel import dist
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    e_local, cap, hidden, inter = EP_EXPERTS, EP_CAP, V3['hidden'], V3['moe_intermediate']
+    send = randn_bf16((EP, EP, e_local, cap, hidden), gen, 1.0)
+    send[..., cap - 4:, :] = 0                             # empty slots
+    sq, ssf = per_token_cast_to_fp8(send.view(-1, hidden), use_ue8m0=False)
+    sq, ssf = sq.view(send.shape), ssf.view(*send.shape[:-1], -1)
+    del send
+    rw = torch.rand((EP, EP, e_local, cap), generator=gen, device='cuda')
+    (q1, s1), (q2, s2) = quantize_experts(layer['w1']), quantize_experts(layer['w2'])
+    cut = lambda t, ranks=EP: [t[r * e_local:(r + 1) * e_local] for r in range(ranks)]
+    weights = (cut(q1), cut(s1), cut(q2), cut(s2))
+
+    def call(pool, act_fp8, w_fp4=False):
+        return lambda s, sf, r, a1, b1, a2, b2: fused_moe.mega_ep(
+            s, sf, r, a1, b1, a2, b2, pool=pool, w_fp4=w_fp4, act_fp8=act_fp8,
+            silu_tanh=not act_fp8)
+
+    args = (list(sq), list(ssf), list(rw), *weights)
+    default_pool = fused_moe.pick_wave_pool(EP, cap, hidden, inter, xb=1, wb=1, scaled=True,
+                                            act_fp8=False)
+    checks = []
+    pools = {}
+    for pool in (1, 2, 4, 8):
+        pools[pool] = mesh.map(call(pool, False), *args)
+        torch.cuda.synchronize()
+        if pool > 1:
+            for r in range(EP):
+                require(torch.equal(pools[pool][r], pools[1][r]),
+                        f'#14: pool {pool} differs from pool 1 at rank {r}')
+    checks.append('pools 1, 2, 4, 8 bitwise equal')
+    act8 = mesh.map(call(default_pool, True), *args)
+    torch.cuda.synchronize()
+    for act_fp8, got in ((False, pools[1]), (True, act8)):
+        for r in range(EP):
+            for s in range(EP):
+                step = (s - r) % EP
+                block = fused_moe.mega_local(sq[r, s], ssf[r, s], rw[s, step], weights[0][s],
+                                             weights[1][s], weights[2][s], weights[3][s],
+                                             act_fp8=act_fp8, silu_tanh=not act_fp8)
+                require(torch.equal(got[r][s], block),
+                        f'#14 act {"fp8" if act_fp8 else "bf16"}: rank {r} slab from {s} differs '
+                        f'from #13 on the rows it received')
+    checks.append('every combine slab bitwise #13 on the rows received (bf16 and fp8 act)')
+    del pools, act8
+    with plain_versions(), plain_chunks(1 << 29):
+        plain = mesh.map(call(default_pool, False), *args)
+    got = mesh.map(call(default_pool, False), *args)
+    torch.cuda.synchronize()
+    diffs, errs = zip(*(compare(g, p) for g, p in zip(got, plain)))
+    require(max(diffs) < TOL, f'#14: calc_diff {max(diffs)} against the plain version')
+    del plain, got
+    # force_general at one rank: the general kernel bitwise the one-rank kernel
+    one = dist.make_mesh([('ep', 1)], ['cuda:0'])
+    general = one.map(lambda s, sf, r: fused_moe.fused_mega_moe(
+        s, r, q1[:e_local], q2[:e_local], send_sf=sf, w1_sf=s1[:e_local], w2_sf=s2[:e_local],
+        force_general=True, act_fp8=False), [sq[0, :1]], [ssf[0, :1]], [rw[0, :1]])[0]
+    local = fused_moe.fused_mega_moe(sq[0, :1], rw[0, :1], q1[:e_local], q2[:e_local],
+                                     send_sf=ssf[0, :1], w1_sf=s1[:e_local], w2_sf=s2[:e_local],
+                                     act_fp8=False)
+    torch.cuda.synchronize()
+    require(torch.equal(general, local), '#14 force_general at one rank differs from #13')
+    checks.append('force_general at one rank bitwise #13')
+    del one, general, local
+    # planar FP4 weights at 2 ranks (JAX's test_mega_fused_fp4_weights_bitwise)
+    two = dist.make_mesh([('ep', 2)], ['cuda:0'] * 2)
+    f1, g1 = fp4_blocks(layer['w1'][:2 * e_local])
+    f2, g2 = fp4_blocks(layer['w2'][:2 * e_local])
+    a2 = (list(sq[:2, :2]), list(ssf[:2, :2]), list(rw[:2, :2]))
+    y4 = two.map(call(1, False, w_fp4=True), *a2, cut(f1, 2), cut(g1, 2), cut(f2, 2),
+                 cut(g2, 2))
+    y8 = two.map(call(1, False), *a2, cut(decode_fp4(f1), 2), cut(g1, 2),
+                 cut(decode_fp4(f2), 2), cut(g2, 2))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(y4, y8)),
+            '#14 FP4 weights differ from the decoded fp8 at 2 ranks')
+    checks.append('planar FP4 at 2 ranks bitwise the decoded fp8')
+    del two, y4, y8, f1, f2
+    ms = mesh_bench(mesh, call(default_pool, False), args, iters=3)
+    with plain_versions(), plain_chunks(1 << 29):
+        plain_ms = mesh_bench(mesh, call(default_pool, False), args, iters=1, warmup=0)
+    rows = EP * EP * e_local * cap
+    flops = 2 * rows * (2 * inter * hidden + hidden * inter)
+    num_bytes = count_bytes(sq, ssf, rw, q1, s1, q2, s2) + 2 * sq.numel()
+    bound = arch.bound_ms(num_bytes, flops, 'fp8')
+    log(f'phase 11 mega_ep [8 ranks, E_local {e_local}, cap {cap}, H {hidden}, I {inter}; fp8 '
+        f'weights, bf16 act, pool {default_pool}]: {", ".join(checks)}; calc_diff='
+        f'{max(diffs):.3e} (limit {TOL}) max_abs_err={max(errs):.4g} against the plain version; '
+        f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call '
+        f'dispatches, runs the block and combines) bound_ms={bound[0]:.4f} ({bound[1]}) '
+        f'TFLOPS={flops / ms / 1e9:.1f}')
+    del q1, s1, q2, s2, sq, ssf, rw, weights, args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=max(errs),
+                bound_ms=bound[0], bound_by=bound[1], check_calc_diff=max(diffs),
+                pool=default_pool, shape=[EP, e_local, cap, hidden, inter])
+
+
+def ep_walk(mesh, params, tokens, cfg_fused, cfg_xla):
+    """Layer by layer on the fused path's own states, over the mesh: each
+    layer's fused MoE output against its plain version and against 'xla'
+    on the same input, and the (token, expert) pairs its routing drops at
+    the mesh's capacity (a slot a rank) and at one rank's (a slot for the
+    whole batch). Returns [(plain diff, xla diff)], [(mesh drops, one-rank
+    drops)] and the logits."""
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.models.transformer import attention, moe_block, rms_norm
+    from deepgemm_tpu_torch.parallel.moe import dispatch_indices, moe_capacity
+    from deepgemm_tpu_torch.testing import calc_diff
+    x = params['embed'][tokens]
+    diffs, dropped = [], []
+    experts, topk = cfg_fused.num_experts, cfg_fused.topk
+    for layer in params['layers']:
+        h = x + attention(rms_norm(x, layer['ln1']), layer['wqkv'], layer['wo'], cfg_fused)
+        moe_in = rms_norm(h, layer['ln2'])
+        flat = moe_in.reshape(-1, moe_in.shape[-1])
+        idx = torch.topk(flat.float() @ layer['router'].t(), topk, dim=-1).indices
+        per_rank = idx.shape[0] // mesh.size
+        cap_mesh = moe_capacity(per_rank, topk, experts, cfg_fused.capacity_factor)
+        cap_one = moe_capacity(idx.shape[0], topk, experts, cfg_fused.capacity_factor)
+        dropped.append((sum(int(dispatch_indices(part, experts, cap_mesh)[3])
+                            for part in idx.chunk(mesh.size)),
+                        int(dispatch_indices(idx, experts, cap_one)[3])))
+        y = moe_block(moe_in, layer, cfg_fused, mesh)
+        with plain_versions(), plain_chunks(1 << 29):
+            y_plain = moe_block(moe_in, layer, cfg_fused, mesh)
+        y_xla = moe_block(moe_in, layer, cfg_xla, mesh)
+        require(torch.isfinite(y.float()).all().item(), 'mesh MoE output not finite')
+        diffs.append((calc_diff(y, y_plain), calc_diff(y, y_xla)))
+        x = h + y
+    embed = params['embed'].float()
+    return diffs, dropped, torch.matmul(rms_norm(x, params['final_norm']).float(), embed.t())
+
+
+def ep_forward(mesh, params, seed):
+    """The model forward over the 8-rank mesh through its entry point:
+    'fused' (the main path) on three batches with launches, tokens/s and
+    peak memory; 'xla' and 'pallas' (one chunk) on the first, 'pallas'
+    bitwise 'xla'; the per-layer walk; the logits beside the one-rank
+    forward's; a profile. Returns the launch counts."""
+    from deepgemm_tpu_torch.kernels import dense, fused_moe, grouped
+    from deepgemm_tpu_torch.models.convert import shard_experts
+    from deepgemm_tpu_torch.models.transformer import ModelConfig, forward
+    from deepgemm_tpu_torch.parallel import collectives
+    from deepgemm_tpu_torch.testing import calc_diff
+    gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+    batches = [torch.randint(0, V3['vocab'], EP_BATCH_SHAPE, generator=gen, device='cuda')
+               for _ in range(BATCHES)]
+    base = dict(V3, use_fp8=True, use_kernels=True, use_mega=True)
+    cfg_fused = ModelConfig(**base, mega_comm='fused')
+    cfg_xla = ModelConfig(**base, mega_comm='xla', mega_chunks=1)
+    cfg_pallas = ModelConfig(**base, mega_comm='pallas', mega_chunks=1)
+    sharded = shard_experts(params, mesh)                  # views: one card
+    layers = V3['num_layers']
+
+    def zero():
+        for counts in (fused_moe.launches, fused_moe.ep_launches, fused_moe.dispatch_launches):
+            for key in counts:
+                counts[key] = 0
+        grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
+        dense.launches = 0
+        collectives.launches = 0
+
+    def seen():
+        return dict(mega_ep=sum(fused_moe.ep_launches.values()),
+                    mega_local=sum(fused_moe.launches.values()),
+                    masked=sum(grouped.launches.values()), a2a=collectives.launches,
+                    dispatch=sum(fused_moe.dispatch_launches.values()), dense=dense.launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    zero()
+    logits, seconds = [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        logits.append(forward(sharded, tokens, cfg_fused, mesh))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    got = seen()
+    want = dict(mega_ep=layers * EP * BATCHES, mega_local=0, masked=0, a2a=0, dispatch=0, dense=0)
+    require(got == want and fused_moe.ep_launches['fp8'] == want['mega_ep'],
+            f'mesh forward fused: launches {got}, expected {want} (fp8 instance)')
+    launches = dict(mega_ep=got['mega_ep'])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = EP_BATCH_SHAPE[0] * EP_BATCH_SHAPE[1]
+    tokens_per_s = (BATCHES - 1) * n_tok / sum(seconds[1:])
+    for lk in logits:
+        require(tuple(lk.shape) == (*EP_BATCH_SHAPE, V3['vocab']), f'logits {tuple(lk.shape)}')
+        require(torch.isfinite(lk).all().item(), 'mesh forward: logits not finite')
+    log(f'phase 11 forward over 8 ranks, mega fused: launches {got} (per forward: the general '
+        f'kernel {layers} a rank, nothing else) tokens/s={tokens_per_s:.1f} (batches 2-{BATCHES} '
+        f'of {EP_BATCH_SHAPE}; seconds per batch {[round(v, 4) for v in seconds]}, the first '
+        f'with warm-up, fp8 weight quantization in every call) peak_mem={peak_gb:.2f} GB')
+    # 'xla' and 'pallas', one chunk each: bitwise equal
+    zero()
+    l_xla = forward(sharded, batches[0], cfg_xla, mesh)
+    torch.cuda.synchronize()
+    got_xla = seen()
+    zero()
+    l_pallas = forward(sharded, batches[0], cfg_pallas, mesh)
+    torch.cuda.synchronize()
+    got_pallas = seen()
+    want_xla = dict(mega_ep=0, mega_local=0, masked=2 * layers * EP, a2a=0, dispatch=0, dense=0)
+    want_pallas = dict(want_xla, a2a=3 * layers * EP)
+    require(got_xla == want_xla and got_pallas == want_pallas,
+            f"mesh forward: 'xla' launches {got_xla} (expected {want_xla}), 'pallas' "
+            f"{got_pallas} (expected {want_pallas})")
+    require(torch.equal(l_xla, l_pallas), "mesh forward: 'pallas' differs from 'xla'")
+    launches['a2a'] = got_pallas['a2a']
+    log(f"phase 11 forward over 8 ranks, 'xla' and 'pallas' (1 chunk): logits bitwise equal; "
+        f"launches 'xla' {got_xla}, 'pallas' {got_pallas} (a layer a rank: masked 2, and under "
+        f"'pallas' the all-to-all 3: tokens, row weights, combine); fused against 'xla' "
+        f"logits calc_diff {calc_diff(logits[0], l_xla):.3e} (printed, not held: routing flips)")
+    diffs, dropped, walked = ep_walk(mesh, sharded, batches[0], cfg_fused, cfg_xla)
+    require(torch.equal(walked, logits[0]), 'mesh forward: the walk differs from forward')
+    plain_d, xla_d = [d for d, _ in diffs], [d for _, d in diffs]
+    require(max(plain_d) < TOL and max(xla_d) < EP_UNFUSED_LIMIT,
+            f'mesh fused per layer: against plain {plain_d} (limit {TOL}), against xla {xla_d} '
+            f'(limit {EP_UNFUSED_LIMIT})')
+    log(f"  per layer fused MoE vs plain {[f'{d:.3e}' for d in plain_d]} (limit {TOL}), vs "
+        f"'xla' (masked kernels) {[f'{d:.3e}' for d in xla_d]} (limit {EP_UNFUSED_LIMIT}); the "
+        f"walk equals forward bitwise")
+    # beside the one-rank forward (phase 8's code) on the same tokens
+    one_fused = forward(params, batches[0], cfg_fused)
+    one_unfused = forward(params, batches[0], ModelConfig(**dict(V3, use_fp8=True,
+                                                                 use_kernels=True)))
+    torch.cuda.synchronize()
+    log(f"phase 11 logits beside one rank: mesh fused vs one-rank fused calc_diff "
+        f"{calc_diff(logits[0], one_fused):.3e}; mesh 'xla' vs one-rank unfused calc_diff "
+        f"{calc_diff(l_xla, one_unfused):.3e}, bitwise {torch.equal(l_xla, one_unfused)} "
+        f"(printed, not held: the capacities differ, 40 a rank's slot against 264 a slot at "
+        f"one rank; on the mesh path's states the pairs dropped per layer, mesh / one rank: "
+        f"{dropped} of {EP_BATCH_SHAPE[0] * EP_BATCH_SHAPE[1] * V3['topk']})")
+    del one_fused, one_unfused, l_xla, l_pallas, logits, walked
+    prof = profile_mesh(lambda: forward(sharded, batches[0], cfg_fused, mesh),
+                        'forward over 8 ranks, mega fused', f'one {EP_BATCH_SHAPE} batch')
+    return dict(launches=launches, tokens_per_s=tokens_per_s, peak_gb=peak_gb,
+                seconds=seconds, profile=prof)
+
+
+def phase_ep(seed, arch):
+    """Phase 11; see the module docstring. Returns the JSON rows of #15,
+    #12 and #14."""
+    from deepgemm_tpu_torch.models.transformer import ModelConfig, init_params
+    from deepgemm_tpu_torch.parallel import dist
+    gen = torch.Generator(device='cuda').manual_seed(seed + 12)
+    a2a = ep_a2a(gen, arch)
+    t0 = time.perf_counter()
+    params = init_params(ModelConfig(**V3), seed=seed + 11, device='cuda')
+    torch.cuda.synchronize()
+    mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
+    log(f'phase 11 init: {time.perf_counter() - t0:.2f} s, '
+        f'{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights on the card; {mesh!r}, '
+        f'{mesh.comm_blocks()} blocks a rank for the communicating kernels, spin timeout '
+        f'{mesh.timeout} s')
+    dispatch, dispatch_launches = ep_dispatch(mesh, params['layers'][0]['w1'], gen, arch)
+    mega = ep_mega(mesh, params['layers'][0], gen, arch)
+    # the forward on a mesh of its own: the checks' symmetric buffers freed
+    del mesh
+    torch.cuda.empty_cache()
+    mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
+    fwd = ep_forward(mesh, params, seed)
+    del params, mesh
+    torch.cuda.empty_cache()
+
+    def row(name, source, replaces, launches, numbers, **extra):
+        return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
+                    replaces=replaces, launches=launches, **numbers, **extra)
+
+    return [
+        row('a2a', 'a2a.cu', 'deepgemm_tpu/parallel/collectives.py:75', fwd['launches']['a2a'],
+            a2a, path="the 8-rank forward under mega_comm='pallas'"),
+        row('dispatch_gemm_fp8', 'mega_ep.cu', 'deepgemm_tpu/kernels/fused_moe.py:185',
+            dispatch_launches['fp8'], dispatch['fp8'], path='its own entry point',
+            bf16=dict(dispatch['bf16'], launches=dispatch_launches['bf16'])),
+        row('mega_ep_moe', 'mega_ep.cu', 'deepgemm_tpu/kernels/fused_moe.py:1198',
+            fwd['launches']['mega_ep'], mega, path="the 8-rank forward, mega_comm='fused'",
+            forward=dict(tokens_per_s=fwd['tokens_per_s'], peak_gb=fwd['peak_gb'],
+                         seconds=fwd['seconds'], profile=fwd['profile'])),
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2890,6 +3430,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     surface_rows = phase_surface(args.seed, gen, H100_SXM)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ep_rows = phase_ep(args.seed, H100_SXM)
     torch.cuda.synchronize()
 
     # Each kernel's numbers are those of the path that runs it: the masked
@@ -2966,6 +3509,8 @@ def main(argv=None) -> int:
                         **mega['fp8'], modes=mega))
     # phases 9 and 10: each entry point's call is its own path
     kernels += entry_rows + surface_rows
+    # phase 11: #15 and #14 from the 8-rank forward, #12 from its own path
+    kernels += ep_rows
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

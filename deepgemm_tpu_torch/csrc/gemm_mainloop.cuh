@@ -340,9 +340,11 @@ __device__ __forceinline__ void load_operand(uint8_t* s, const uint8_t* base, in
     }
 }
 
+// One block's output tile: column tile bx, row tile by, problem bz (the
+// kernel's blockIdx; a persistent kernel passes its own, mega_ep.cu).
 template <class F, int BN, Layout kLayout, class OutT>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const GemmArgs p) {
+__device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const int by,
+                                          const int bz) {
     static_assert(BN % 32 == 0, "each warp owns BN/4 columns in n8 tiles");
     using Plan = SmemPlan<F, BN, kLayout>;
     constexpr int kWN = BN / 4;          // warp tile width
@@ -362,8 +364,8 @@ gemm_kernel(const GemmArgs p) {
                   "MN-major B: the dense and contiguous kernels");
     extern __shared__ __align__(16) uint8_t smem[];
 
-    const int m0 = blockIdx.y * kRows;
-    const int n0 = blockIdx.x * BN;
+    const int m0 = by * kRows;
+    const int n0 = bx * BN;
 
     // The block's problem: operands, depth, scales and output. b_bot and
     // sfb_bot: the bottom half's B and SFB (kContiguousDual), else b and sfb.
@@ -382,7 +384,7 @@ gemm_kernel(const GemmArgs p) {
     const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
     const int kb_row = F::kFp4B ? p.K / 2 : p.K * kEB;   // bytes of one row of B
     if constexpr (kLayout == Layout::kBatched) {
-        const int g = blockIdx.z;
+        const int g = bz;
         if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
         a += static_cast<int64_t>(g) * p.M * p.K * kEA;
         b += static_cast<int64_t>(g) * p.N * kb_row;
@@ -390,14 +392,14 @@ gemm_kernel(const GemmArgs p) {
         if constexpr (F::kScaleB) sfb += static_cast<int64_t>(g) * nsf * ksf;
         d_off = static_cast<int64_t>(g) * p.M * p.N;
     } else if constexpr (kLayout == Layout::kContiguous) {
-        const int gid = p.tile_gid[blockIdx.y];
+        const int gid = p.tile_gid[by];
         b += static_cast<int64_t>(gid) * p.N * kb_row;
         if constexpr (F::kScaleB) sfb += static_cast<int64_t>(gid) * nsf * ksf;
-        if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[blockIdx.y]);
+        if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[by]);
         if (m0 >= row_end) depth = 0;    // the whole tile is written as zero
     } else if constexpr (kDual) {
-        const int top = p.tile_gid[2 * blockIdx.y];
-        const int bot = p.tile_gid[2 * blockIdx.y + 1];
+        const int top = p.tile_gid[2 * by];
+        const int bot = p.tile_gid[2 * by + 1];
         straddle = top != bot;
         b += static_cast<int64_t>(top) * p.N * kb_row;
         b_bot += static_cast<int64_t>(bot) * p.N * kb_row;
@@ -406,7 +408,7 @@ gemm_kernel(const GemmArgs p) {
             sfb_bot += static_cast<int64_t>(bot) * nsf * ksf;
         }
     } else {
-        const int g = blockIdx.z;
+        const int g = bz;
         const int64_t k0 = p.k_start[g];
         depth = p.k_size[g];
         if constexpr (kLayout == Layout::kKGroupedFlat) {
@@ -690,6 +692,12 @@ gemm_kernel(const GemmArgs p) {
                                zero ? 0.f : x, zero ? 0.f : y);
                 }
             }
+}
+
+template <class F, int BN, Layout kLayout, class OutT>
+__global__ void __launch_bounds__(kThreads)
+gemm_kernel(const GemmArgs p) {
+    gemm_tile<F, BN, kLayout, OutT>(p, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <class F, int BN, Layout kLayout, class OutT>

@@ -28,6 +28,10 @@ class ArchSpec:
     # port's fold route pays a torch decode that the model's 2.5 bytes a
     # value undercount, and the fit absorbs it.
     fp4_decode_tflops: float
+    # NVLink, each way, to the other cards of the host: the link of an
+    # expert-parallel mesh across cards (heuristics/mega.py). Ranks that
+    # share one card move their bytes through its HBM instead.
+    link_bytes_per_s: float = 450e9
 
     def bound_ms(self, num_bytes: float, flops: float, operands: str):
         """(least milliseconds, 'bytes' | 'operations'); the operations at

@@ -1,8 +1,11 @@
 """What the kernels' wrappers share: the choice between a kernel and its
-plain PyTorch version, the operand checks, and the plain form of the exact
-FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52)."""
+plain PyTorch version, the operand checks, the launch counts, and the plain
+form of the exact FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52).
+The counterpart of the cross-rank entry barrier (common.py:89,
+``ici_entry_barrier``) is device code: csrc/comm.cuh."""
 
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -10,7 +13,17 @@ import torch
 from ..runtime.config import get_mk_alignment_for_contiguous_layout
 from ..utils.math import ceil_div
 
-_plain_on_cuda = False
+# How many plain_versions contexts are open (process-wide, all threads).
+_plain_on_cuda = 0
+# The ranks of a mesh launch from several threads: launch counts and the
+# depth above change under this lock.
+COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, key: str) -> None:
+    """``counts[key] += 1`` under :data:`COUNT_LOCK`."""
+    with COUNT_LOCK:
+        counts[key] += 1
 
 
 @contextlib.contextmanager
@@ -19,13 +32,17 @@ def plain_versions():
     CUDA tensors too, and launches nothing. For holding a kernel against its
     plain version on the card (``chip_smoke.py``, the GPU tests); nothing
     else opens it, and it never opens by itself: a kernel that fails to
-    build or launch raises."""
+    build or launch raises. It holds for every thread, the ranks of a mesh
+    included: open it around ``Mesh.map``, not inside a rank's function,
+    where it would reach the other ranks' calls too."""
     global _plain_on_cuda
-    before, _plain_on_cuda = _plain_on_cuda, True
+    with COUNT_LOCK:
+        _plain_on_cuda += 1
     try:
         yield
     finally:
-        _plain_on_cuda = before
+        with COUNT_LOCK:
+            _plain_on_cuda -= 1
 
 
 @contextlib.contextmanager
@@ -51,7 +68,7 @@ def use_plain(*tensors: torch.Tensor) -> bool:
     dev = devices.pop()
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {dev}')
-    return dev.type == 'cpu' or _plain_on_cuda
+    return dev.type == 'cpu' or _plain_on_cuda > 0
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,

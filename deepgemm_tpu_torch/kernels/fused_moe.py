@@ -1,6 +1,7 @@
-"""The fused MoE expert block at one rank (the mega kernel's D=1 form): the
-wrapper of the CUDA kernel, its plain PyTorch version, its launch count,
-the weight pack and the shape check.
+"""The fused MoE kernels: the expert block at one rank (the mega kernel's
+D=1 form), the general expert-parallel mega kernel and the fused dispatch +
+L1 GEMM; each wrapper with its plain PyTorch version and its launch count,
+the weight pack, the wave-pool and tile rules and the shape check.
 
 Replaces: deepgemm_tpu/kernels/fused_moe.py:_mega_kernel_local
 (``pl.pallas_call`` at fused_moe.py:690, ``_mega_local_call``), with the
@@ -15,9 +16,17 @@ streaming act back beside the weights. Bound on the H100: each expert's
 weights are streamed once (~44 MB fp8 at DeepSeek-V3 widths against 40
 slot rows), so bytes bound it.
 
-Not ported (ROADMAP.md, the multi-GPU tier, kernel #14): the D > 1 kernel
-(``send_x`` with more than one slab), ``force_general`` and wave pools
-(``pool > 1``, ``DGT_MEGA_POOL``); they raise.
+Over a mesh of D ranks (parallel/dist.py), inside ``Mesh.map``:
+- ``fused_mega_moe`` with D > 1 (or ``force_general``) replaces
+  ``_mega_kernel`` (``pl.pallas_call`` at fused_moe.py:1198): one launch a
+  rank of csrc/mega_ep.cu dispatches every slab to its rank, runs the
+  expert block (the one-rank kernel's body, csrc/mega_block.cuh) on each
+  pool of P slabs, and stores each result row into its source rank's
+  combine buffer. Its plain version is the mesh's host all-to-all around
+  the one-rank block's plain version.
+- ``fused_dispatch_gemm`` replaces ``_kernel`` (``pl.pallas_call`` at
+  fused_moe.py:185): the dispatch's one-sided pushes and the masked
+  kernel's mainloop on each slab as it lands.
 """
 
 import ctypes
@@ -29,17 +38,22 @@ import torch.nn.functional as F
 
 from .. import envs
 from ..heuristics.arch import H100_SXM
+from ..parallel import dist
 from ..runtime import build
-from ..utils.math import _dequantize_from_fp4_e2m1, per_token_cast_to_fp8, unpack_fp4_planar
-from .common import check_operand, promote_block, use_plain
+from ..utils.math import (_dequantize_from_fp4_e2m1, align, per_token_cast_to_fp8,
+                          unpack_fp4_planar)
+from .common import check_operand, count_launch, promote_block, use_plain
+from .grouped import masked_gemm_plain
 
-# Kernel launches per instance since the counts were last set to 0.
+# Kernel launches per instance since the counts were last set to 0: the
+# one-rank block, the general (expert-parallel) kernel, the fused dispatch
+# + L1 GEMM.
 launches = {'bf16': 0, 'fp8': 0, 'fp8_act_fp8': 0, 'fp4': 0, 'fp4_act_fp8': 0}
+ep_launches = dict(launches)
+dispatch_launches = {'bf16': 0, 'fp8': 0}
 
 TILE = 128              # the kernel's L1 (gate and up each) and L2 tile width
 GRAN_K = 128
-_MULTI_GPU = ('ROADMAP.md, the multi-GPU tier (kernel #14, kernels/fused_moe.py:_mega_kernel '
-              'of the JAX package)')
 # Upcast at most this many bytes of f32 weights at once in the plain version.
 _PLAIN_CHUNK_BYTES = 1 << 31
 
@@ -105,17 +119,19 @@ class MegaPackedWeights:
     w2_sf: Optional[torch.Tensor]     # [E, H/128, I/128] f32, or None
     w_fp4: bool = False
     act_fp8: bool = False
+    pool: int = 1            # the general kernel's wave pool (pick_wave_pool)
 
 
 def pack_mega_weights(w1: torch.Tensor, w2: torch.Tensor, w1_sf=None, w2_sf=None, *,
+                      cap: int = 0, x_dtype: torch.dtype = torch.float8_e4m3fn,
                       num_devices: int = 1, w_packed_fp4: bool = False,
                       act_fp8: Optional[bool] = None) -> MegaPackedWeights:
     """Pack the mega block's weights once. ``w_packed_fp4``: ``w1`` [E, 2I,
     H/2] and ``w2`` [E, H, I/2] are planar-128 FP4 codes (int8,
     utils/math.pack_fp4_planar) with their 128x128 block scales, decoded in
-    the kernel."""
-    if num_devices != 1:
-        raise NotImplementedError(f'pack_mega_weights for {num_devices} ranks: {_MULTI_GPU}')
+    the kernel. For ``num_devices`` > 1 the wave pool is chosen for the
+    later calls' slot capacity ``cap`` and token type ``x_dtype``, as JAX
+    does."""
     if w_packed_fp4:
         assert w1.dtype == torch.int8 and w2.dtype == torch.int8, (w1.dtype, w2.dtype)
         assert w1_sf is not None, 'packed-FP4 mega weights require SF'
@@ -127,10 +143,18 @@ def pack_mega_weights(w1: torch.Tensor, w2: torch.Tensor, w1_sf=None, w2_sf=None
         inter = two_i // 2
         assert w2.shape == (e_local, hidden, inter), (w2.shape,)
     check_shape(hidden, inter, w_fp4=w_packed_fp4)
+    act_fp8 = resolve_act_fp8(act_fp8)
+    pool = 1
+    if num_devices > 1:
+        if cap <= 0:
+            raise ValueError('pack_mega_weights for several ranks needs cap, the slot capacity '
+                             'the wave pool is chosen for')
+        pool = pick_wave_pool(num_devices, cap, hidden, inter,
+                              xb=torch.empty((), dtype=x_dtype).element_size(),
+                              wb=w1.element_size(), scaled=w1_sf is not None, act_fp8=act_fp8)
     f32 = lambda t: None if t is None else t.float().contiguous()
     return MegaPackedWeights(w1=w1.contiguous(), w2=w2.contiguous(), w1_sf=f32(w1_sf),
-                             w2_sf=f32(w2_sf), w_fp4=w_packed_fp4,
-                             act_fp8=resolve_act_fp8(act_fp8))
+                             w2_sf=f32(w2_sf), w_fp4=w_packed_fp4, act_fp8=act_fp8, pool=pool)
 
 
 def decode_fp4_planar(w: torch.Tensor) -> torch.Tensor:
@@ -234,7 +258,7 @@ def mega_local(x: torch.Tensor, xsf: Optional[torch.Tensor], rw: torch.Tensor,
                     kind, int(act_fp8), int(silu_tanh), float(clamp),
                     torch.cuda.current_stream(x.device).cuda_stream)
     build.check(build.load('mega_local'), code, 'mega_local')
-    launches[instance_name(scaled, w_fp4, act_fp8)] += 1
+    count_launch(launches, instance_name(scaled, w_fp4, act_fp8))
     return y
 
 
@@ -245,37 +269,361 @@ def instance_name(scaled: bool, w_fp4: bool, act_fp8: bool) -> str:
     return ('fp4' if w_fp4 else 'fp8') + ('_act_fp8' if act_fp8 else '')
 
 
-def fused_mega_moe(send_x: torch.Tensor, rw_steps: torch.Tensor,
-                   w1: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None, *,
-                   send_sf: Optional[torch.Tensor] = None, w1_sf=None, w2_sf=None,
-                   clamp: float = 256.0, packed: Optional[MegaPackedWeights] = None,
-                   force_general: bool = False, pool: int = 0,
-                   act_fp8: Optional[bool] = None) -> torch.Tensor:
-    """The fused mega MoE expert block at one rank (JAX's ``fused_mega_moe``
-    with D = 1, without the axis name).
 
-    ``send_x`` [1, E, cap, H] (bf16, or e4m3 with per-token ``send_sf``
-    [1, E, cap, >= H/128] f32), ``rw_steps`` [1, E, cap] f32; weights raw
-    (``w1`` [E, 2I, H] gate rows first, ``w2`` [E, H, I], fp8 with 128x128
-    block scales or bf16, packed in the call) or ``packed``
-    (:func:`pack_mega_weights`, whose act type wins). Returns ``combine``
-    [1, E, cap, H] bf16."""
-    d_dim, e_local, _, hidden = send_x.shape
-    if d_dim != 1 or force_general or pool > 1:
-        raise NotImplementedError(
-            f'fused_mega_moe with {d_dim} ranks, force_general={force_general}, '
-            f'pool={pool}: only the one-rank kernel is ported; the rest is {_MULTI_GPU}')
+
+# ---- the wave pool and the tile rule of the general kernel -----------------
+
+def _mega_vmem_bytes(b1: int, b2: int, *, hidden: int, inter: int, rows: int, xb: int, wb: int,
+                     scaled: bool, gran_k: int, local: bool, act_fp8: bool = True) -> int:
+    """JAX's working-set model of a mega tile pair (fused_moe.py:825-843):
+    weight tiles at ``b1`` / ``b2`` double-buffered, ``rows`` token rows of
+    x, act and y, and their scales."""
+    e = (2 * b1 * hidden * wb) * 2
+    e += (b2 * inter * wb) * 2
+    e += rows * hidden * xb * (2 if local else 1)
+    e += rows * inter * (1 if scaled and act_fp8 else 2)
+    e += 2 * rows * b2 * 2
+    if scaled:
+        ksf1 = ((hidden // gran_k + 127) // 128) * 128
+        e += rows * ksf1 * 4 * (2 if local else 1) \
+            + ((inter // gran_k) * rows * 4 if act_fp8 else 0)
+        e += 2 * (hidden // gran_k) * b1 * 4 * 2
+        e += (inter // gran_k) * b2 * 4 * 2
+    return e
+
+
+def pick_mega_tiles(hidden: int, inter: int, cap: int, *, xb: int, wb: int, scaled: bool,
+                    gran_k: int = 128, block_n: int = 0, block_h: int = 0, budget: int = 0,
+                    local: bool = False, pool: int = 1, act_fp8: bool = True):
+    """JAX's (bn1, bh2) rule (fused_moe.py:846-930): the widest divisor tiles
+    whose working set at ``pool * cap`` rows fits the budget, powers of two
+    first. The CUDA kernels have one tile, 128 wide (``check_shape``); the
+    rule is kept as the model :func:`pick_wave_pool` sizes a pool with.
+    (JAX's ``DGT_MEGA_TILES`` pin is not carried over.)"""
+    if block_n <= 0:
+        block_n = 256
+    if block_h <= 0:
+        block_h = 1024 if local else 256
+    if budget <= 0:
+        budget = 15 * 1024 * 1024 if local else 10 * 1024 * 1024 + 512 * 1024
+    bn1 = block_n if inter % block_n == 0 else inter
+    bh2 = block_h if hidden % block_h == 0 else hidden
+    if scaled:
+        assert bn1 % gran_k == 0, bn1
+
+    def est(b1, b2):
+        return _mega_vmem_bytes(b1, b2, hidden=hidden, inter=inter, rows=pool * cap, xb=xb,
+                                wb=wb, scaled=scaled, gran_k=gran_k, local=local,
+                                act_fp8=act_fp8)
+
+    def shrink_div(cur, total, quantum):
+        p2 = 1 << (cur - 1).bit_length() - 1          # largest power of two below cur
+        while p2 >= quantum:
+            if p2 % quantum == 0 and total % p2 == 0:
+                return p2
+            p2 //= 2
+        for cand in range(cur - quantum, quantum - 1, -quantum):
+            if total % cand == 0:
+                return cand
+        return None
+
+    q1 = gran_k if scaled else 128
+    while est(bn1, bh2) > budget:
+        s1 = shrink_div(bn1, inter, q1) if bn1 % q1 == 0 else None
+        s2 = shrink_div(bh2, hidden, 128) if bh2 % 128 == 0 else None
+        if s1 is not None and (s2 is None or bn1 * 2 * hidden >= bh2 * inter):
+            bn1 = s1
+        elif s2 is not None:
+            bh2 = s2
+        else:
+            break
+    assert inter % bn1 == 0 and hidden % bh2 == 0, (bn1, bh2, inter, hidden)
+    return bn1, bh2
+
+
+def pick_wave_pool(num_devices: int, cap: int, hidden: int, inter: int, *, xb: int, wb: int,
+                   scaled: bool, gran_k: int = 128, block_n: int = 0, block_h: int = 0,
+                   act_fp8: bool = True) -> int:
+    """The general kernel's wave pool P (fused_moe.py:933-981, JAX's rule):
+    the largest of 4 and 2 that divides D, keeps ``P * cap`` within 1024
+    rows and keeps the pooled working set within budget; else 1.
+    ``DGT_MEGA_POOL`` pins it. In the CUDA kernel a pool is the slabs that
+    are waited for together and whose rows share the expert's items."""
+    pin = envs.mega_pool()
+    if pin:
+        p = int(pin)
+        if p < 1 or num_devices % p:
+            raise ValueError(f'DGT_MEGA_POOL={pin}: a divisor of the rank count {num_devices}')
+        return p
+    budget = 9 * 1024 * 1024
+    for p in (4, 2):
+        if p > num_devices or num_devices % p or p * cap > 1024:
+            continue
+        bn1, bh2 = pick_mega_tiles(hidden, inter, cap, xb=xb, wb=wb, scaled=scaled,
+                                   gran_k=gran_k, block_n=block_n, block_h=block_h, local=False,
+                                   pool=p, act_fp8=act_fp8)
+        if _mega_vmem_bytes(bn1, bh2, hidden=hidden, inter=inter, rows=p * cap, xb=xb, wb=wb,
+                            scaled=scaled, gran_k=gran_k, local=False,
+                            act_fp8=act_fp8) <= budget:
+            return p
+    return 1
+
+
+# ---- the general (expert-parallel) mega kernel ------------------------------
+
+def _ep_lib():
+    lib = build.load('mega_ep')
+    if lib.dgt_mega_ep.argtypes is None:
+        lib.dgt_mega_ep.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_longlong] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_void_p, ctypes.c_void_p])
+        lib.dgt_mega_ep.restype = ctypes.c_int
+        lib.dgt_dispatch_gemm.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
+               ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+        lib.dgt_dispatch_gemm.restype = ctypes.c_int
+    return lib
+
+
+def _slab_layout(d_dim: int, e_local: int, cap: int, hidden: int, xb: int, scaled: bool):
+    """Byte layout of a receive buffer: D token slots, then D scale slots,
+    each 128-byte aligned (no cache line holds bytes of two slabs). Returns
+    (x_stride, sf_stride, sf_region, end)."""
+    x_stride = align(e_local * cap * hidden * xb, 128)
+    sf_stride = align(e_local * cap * (hidden // GRAN_K) * 4, 128) if scaled else 0
+    sf_region = d_dim * x_stride
+    return x_stride, sf_stride, sf_region, sf_region + d_dim * sf_stride
+
+
+def _my_rank(axis_name: str) -> int:
+    return dist.axis_index(axis_name) if dist.in_mesh() else 0
+
+
+def _a2a(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    return dist.all_to_all(x, axis_name) if dist.in_mesh() else x
+
+
+def mega_ep_plain(send_x, send_sf, rw_steps, w1, w1_sf, w2, w2_sf, *, pool=1, w_fp4=False,
+                  act_fp8=False, silu_tanh=False, clamp=256.0, axis_name='ep') -> torch.Tensor:
+    """The general kernel's function: the dispatch all-to-all, the one-rank
+    block on each step's slab (step s: the slab from rank (my - s) mod D,
+    with row weights ``rw_steps[s]``), the combine all-to-all. ``pool``
+    groups slabs and moves no bit."""
+    del pool
+    d_dim = send_x.shape[0]
+    my = _my_rank(axis_name)
+    recv = _a2a(send_x, axis_name)
+    recv_sf = None if send_sf is None else _a2a(send_sf, axis_name)
+    ystage = torch.empty(send_x.shape, dtype=torch.bfloat16, device=send_x.device)
+    for s in range(d_dim):
+        src = (my - s) % d_dim
+        ystage[src] = mega_local_plain(recv[src], None if recv_sf is None else recv_sf[src],
+                                       rw_steps[s], w1, w1_sf, w2, w2_sf, w_fp4=w_fp4,
+                                       act_fp8=act_fp8, silu_tanh=silu_tanh, clamp=clamp)
+    return _a2a(ystage, axis_name)
+
+
+def mega_ep(send_x: torch.Tensor, send_sf: Optional[torch.Tensor], rw_steps: torch.Tensor,
+            w1: torch.Tensor, w1_sf: Optional[torch.Tensor], w2: torch.Tensor,
+            w2_sf: Optional[torch.Tensor], *, pool: int = 1, w_fp4: bool = False,
+            act_fp8: bool = False, silu_tanh: bool = False, clamp: float = 256.0,
+            axis_name: str = 'ep') -> torch.Tensor:
+    """combine [D, E, cap, H] bf16 of the general mega kernel, inside
+    ``Mesh.map``: combine[d, e] is what rank d computed for the tokens this
+    rank sent to its expert e. ``send_x`` [D, E, cap, H] (e4m3 with
+    ``send_sf`` [D, E, cap, H/128] f32, or bf16), ``rw_steps`` [D, E, cap]
+    f32 in step order, weights as :func:`mega_local` takes them.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    kw = dict(pool=pool, w_fp4=w_fp4, act_fp8=act_fp8, silu_tanh=silu_tanh, clamp=clamp,
+              axis_name=axis_name)
+    if use_plain(send_x, send_sf, rw_steps, w1, w1_sf, w2, w2_sf):
+        return mega_ep_plain(send_x, send_sf, rw_steps, w1, w1_sf, w2, w2_sf, **kw)
+    mesh, rank = dist.current()
+    d_dim, e_local, cap, hidden = send_x.shape
+    if d_dim != mesh.size or dist.axis_size(axis_name) != d_dim:
+        raise NotImplementedError(f'the mega kernel spans the whole mesh ({mesh.size} ranks); '
+                                  f'send_x has {d_dim} slabs')
+    if pool < 1 or d_dim % pool:
+        raise ValueError(f'pool {pool}: a divisor of the rank count {d_dim}')
+    inter = w1.shape[1] // 2
+    scaled = send_sf is not None
+    if not scaled and (w_fp4 or act_fp8):
+        raise ValueError('FP4 weights and fp8 act go with scaled (e4m3) operands')
+    check_shape(hidden, inter, w_fp4=w_fp4)
+    wk = 2 if w_fp4 else 1
+    x_type = torch.float8_e4m3fn if scaled else torch.bfloat16
+    w_type = torch.int8 if w_fp4 else x_type
+    check_operand(send_x, 'send_x', x_type, (d_dim, e_local, cap, hidden))
+    check_operand(rw_steps, 'rw_steps', torch.float32, (d_dim, e_local, cap))
+    check_operand(w1, 'w1', w_type, (e_local, 2 * inter, hidden // wk))
+    check_operand(w2, 'w2', w_type, (e_local, hidden, inter // wk))
+    if scaled:
+        if w1_sf is None or w2_sf is None:
+            raise ValueError('scaled operands need w1_sf and w2_sf')
+        check_operand(send_sf, 'send_sf', torch.float32, (d_dim, e_local, cap, hidden // GRAN_K))
+        check_operand(w1_sf, 'w1_sf', torch.float32, (e_local, 2 * inter // 128, hidden // 128))
+        check_operand(w2_sf, 'w2_sf', torch.float32, (e_local, hidden // 128, inter // 128))
+    elif w1_sf is not None or w2_sf is not None:
+        raise ValueError('scales go with e4m3 operands only')
+    if min(e_local, cap) == 0:
+        raise ValueError(f'the kernel takes non-empty shapes; got E={e_local}, cap={cap}')
+    x_stride, sf_stride, sf_region, end = _slab_layout(d_dim, e_local, cap, hidden,
+                                                       send_x.element_size(), scaled)
+    y_region = align(end, 128)
+    y_bytes = d_dim * e_local * cap * hidden * 2
+    buf = dist.symmetric('mega', y_region + y_bytes)
+    blocks = mesh.comm_blocks()
+    act = torch.empty(blocks * ROWS * inter * (1 if act_fp8 else 2), dtype=torch.uint8,
+                      device=send_x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _ep_lib()
+    from ..parallel.collectives import comm_args
+    code = lib.dgt_mega_ep(send_x.data_ptr(), ptr(send_sf), rw_steps.data_ptr(), w1.data_ptr(),
+                           ptr(w1_sf), w2.data_ptr(), ptr(w2_sf), act.data_ptr(), e_local, cap,
+                           hidden, inter, pool, 2 if w_fp4 else int(scaled), int(act_fp8),
+                           int(silu_tanh), float(clamp), x_stride, sf_stride, sf_region,
+                           y_region, *comm_args(buf))
+    build.check(lib, code, 'mega_ep')
+    count_launch(ep_launches, instance_name(scaled, w_fp4, act_fp8))
+    # the combine region outlives the call: the next call may store into it
+    # once this rank has entered that call
+    return buf.data[y_region:y_region + y_bytes].view(torch.bfloat16) \
+        .view(d_dim, e_local, cap, hidden).clone()
+
+
+def fused_mega_moe(send_x: torch.Tensor, rw_steps: torch.Tensor,
+                   w1: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None,
+                   axis_name: str = 'ep', *, send_sf: Optional[torch.Tensor] = None,
+                   w1_sf=None, w2_sf=None, clamp: float = 256.0,
+                   packed: Optional[MegaPackedWeights] = None, force_general: bool = False,
+                   pool: int = 0, act_fp8: Optional[bool] = None) -> torch.Tensor:
+    """The fused mega MoE (JAX's ``fused_mega_moe``): inside ``Mesh.map``
+    over ``axis_name`` for D ranks, or outside a mesh at one rank.
+
+    ``send_x`` [D, E, cap, H]: slab d holds the tokens this rank routes to
+    rank d (bf16, or e4m3 with per-token ``send_sf`` [D, E, cap, >= H/128]
+    f32); ``rw_steps`` [D, E, cap] f32 in processing-step order (step s:
+    the tokens from rank (my - s) mod D); weights raw (``w1`` [E, 2I, H]
+    gate rows first, ``w2`` [E, H, I], fp8 with 128x128 block scales or
+    bf16, packed in the call) or ``packed`` (:func:`pack_mega_weights`,
+    whose act type and pool win; a different ``pool`` raises). Returns
+    ``combine`` [D, E, cap, H] bf16, combine[d, e] being rank d's results
+    for the tokens this rank sent to (d, e): the layout of the unfused
+    path's reverse all-to-all.
+
+    At one rank without ``force_general`` the one-rank kernel runs; else
+    the general kernel, with ``pool`` slabs a wave (``pick_wave_pool``,
+    ``DGT_MEGA_POOL``)."""
+    d_dim, e_local, cap, hidden = send_x.shape
+    num_devices = dist.axis_size(axis_name) if dist.in_mesh() else 1
+    if d_dim != num_devices:
+        raise ValueError(f'send_x has {d_dim} slabs for {num_devices} ranks')
     scaled = send_sf is not None
     if packed is None:
-        packed = pack_mega_weights(w1, w2, w1_sf, w2_sf, act_fp8=act_fp8)
+        packed = pack_mega_weights(w1, w2, w1_sf, w2_sf, cap=cap, x_dtype=send_x.dtype,
+                                   num_devices=num_devices, act_fp8=act_fp8)
+        pool = pool if pool > 0 else packed.pool
+    else:
+        if pool > 0 and pool != packed.pool:
+            raise ValueError(f'pool {pool}: the weights were packed for pool {packed.pool}')
+        pool = packed.pool
+    if d_dim % pool:
+        raise ValueError(f'pool {pool}: a divisor of the rank count {d_dim}')
     assert scaled == (packed.w1_sf is not None), 'the weights\' SF presence must match send_sf'
     assert packed.w1.shape[0] == e_local, (packed.w1.shape, e_local)
     act_fp8 = scaled and packed.act_fp8
     xsf = None
     if scaled:
-        xsf = send_sf[0, ..., :hidden // GRAN_K].float().contiguous()
+        xsf = send_sf[..., :hidden // GRAN_K].float().contiguous()
     # silu's form is the instance's, as in JAX's _l1_epilogue: tanh with bf16 act
-    y = mega_local(send_x[0].contiguous(), xsf, rw_steps[0].float().contiguous(), packed.w1,
-                   packed.w1_sf, packed.w2, packed.w2_sf, w_fp4=packed.w_fp4, act_fp8=act_fp8,
-                   silu_tanh=scaled and not act_fp8, clamp=clamp)
-    return y[None]
+    kw = dict(w_fp4=packed.w_fp4, act_fp8=act_fp8, silu_tanh=scaled and not act_fp8,
+              clamp=clamp)
+    weights = (packed.w1, packed.w1_sf, packed.w2, packed.w2_sf)
+    if num_devices == 1 and not force_general:
+        y = mega_local(send_x[0].contiguous(), None if xsf is None else xsf[0],
+                       rw_steps[0].float().contiguous(), *weights[:2], *weights[2:], **kw)
+        return y[None]
+    return mega_ep(send_x.contiguous(), xsf, rw_steps.float().contiguous(), *weights, pool=pool,
+                   axis_name=axis_name, **kw)
+
+
+# ---- the fused dispatch + L1 GEMM -------------------------------------------
+
+def dispatch_gemm_plain(send_x, w, send_sf=None, w_sf=None, axis_name='ep'):
+    """The kernel's function: the all-to-all, then the masked kernel's plain
+    version on every slab. Returns (out [E, D, cap, N] bf16, recv)."""
+    d_dim, e_local, cap, hidden = send_x.shape
+    recv = _a2a(send_x, axis_name)
+    a = recv.transpose(0, 1).reshape(e_local, d_dim * cap, hidden)
+    sfa = None
+    if send_sf is not None:
+        sfa = _a2a(send_sf, axis_name).transpose(0, 1).reshape(e_local, d_dim * cap, -1)
+    out = masked_gemm_plain(a, w, None, sfa=sfa, sfb=w_sf)
+    return out.view(e_local, d_dim, cap, w.shape[1]), recv
+
+
+def fused_dispatch_gemm(send_x: torch.Tensor, w: torch.Tensor, axis_name: str = 'ep',
+                        block_n: int = 256, collective_id: int = 7,
+                        send_sf: Optional[torch.Tensor] = None,
+                        w_sf: Optional[torch.Tensor] = None):
+    """Fused dispatch + L1 expert GEMM (JAX's ``fused_dispatch_gemm``),
+    inside ``Mesh.map`` over ``axis_name`` (or outside a mesh at one rank).
+
+    ``send_x`` [D, E, cap, H]: slab d holds the tokens this rank routes to
+    rank d; ``w`` [E, N, H]. FP8: ``send_x`` e4m3 with per-token
+    ``send_sf`` [D, E, cap, >= H/128] f32 (pushed beside the tokens) and
+    ``w_sf`` [E, N/128, H/128] f32. Returns (out [E, D, cap, N] bf16 in
+    source-rank order, out[e, src] = recv[src, e] . w[e]^T; recv [D, E,
+    cap, H], the tokens received). ``block_n`` and ``collective_id`` are JAX's tiling and barrier
+    names; the kernel's tile is 128 wide and its buffer the mesh's
+    'dispatch'."""
+    del block_n, collective_id
+    d_dim, e_local, cap, hidden = send_x.shape
+    num_devices = dist.axis_size(axis_name) if dist.in_mesh() else 1
+    if d_dim != num_devices:
+        raise ValueError(f'send_x has {d_dim} slabs for {num_devices} ranks')
+    scaled = send_sf is not None
+    if scaled:
+        send_sf = send_sf[..., :hidden // GRAN_K].float().contiguous()
+        w_sf = w_sf.float().contiguous()
+    if use_plain(send_x, w, send_sf, w_sf):
+        return dispatch_gemm_plain(send_x, w, send_sf, w_sf, axis_name)
+    mesh, rank = dist.current()
+    if d_dim != mesh.size:
+        raise NotImplementedError(f'the dispatch kernel spans the whole mesh ({mesh.size} '
+                                  f'ranks); send_x has {d_dim} slabs')
+    n = w.shape[1]
+    if hidden % 128 or n % 128:
+        raise ValueError(f'hidden {hidden} and N {n} must be multiples of 128')
+    x_type = torch.float8_e4m3fn if scaled else torch.bfloat16
+    send_x = send_x.contiguous()
+    check_operand(send_x, 'send_x', x_type, (d_dim, e_local, cap, hidden))
+    check_operand(w, 'w', x_type, (e_local, n, hidden))
+    if scaled:
+        check_operand(send_sf, 'send_sf', torch.float32, (d_dim, e_local, cap, hidden // 128))
+        check_operand(w_sf, 'w_sf', torch.float32, (e_local, n // 128, hidden // 128))
+    elif w_sf is not None:
+        raise ValueError('w_sf goes with e4m3 operands only')
+    if min(e_local, cap) == 0:
+        raise ValueError(f'the kernel takes non-empty shapes; got E={e_local}, cap={cap}')
+    x_stride, sf_stride, sf_region, end = _slab_layout(d_dim, e_local, cap, hidden,
+                                                       send_x.element_size(), scaled)
+    buf = dist.symmetric('dispatch', end)
+    out = torch.empty((e_local, d_dim, cap, n), dtype=torch.bfloat16, device=send_x.device)
+    lib = _ep_lib()
+    from ..parallel.collectives import comm_args
+    code = lib.dgt_dispatch_gemm(send_x.data_ptr(), send_sf.data_ptr() if scaled else None,
+                                 w.data_ptr(), w_sf.data_ptr() if scaled else None,
+                                 out.data_ptr(), e_local, cap, n, hidden, x_stride, sf_stride,
+                                 sf_region, *comm_args(buf))
+    build.check(lib, code, 'dispatch_gemm')
+    count_launch(dispatch_launches, 'fp8' if scaled else 'bf16')
+    slab = e_local * cap * hidden * send_x.element_size()
+    recv = buf.data[:d_dim * x_stride].view(d_dim, x_stride)[:, :slab].view(x_type) \
+        .reshape(d_dim, e_local, cap, hidden).clone()
+    return out, recv

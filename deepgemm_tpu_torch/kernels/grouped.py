@@ -54,8 +54,8 @@ from ..heuristics.configs import BLOCK_M, check_smem, get_gemm_config, smem_byte
 from ..runtime import build
 from ..runtime.config import get_mk_alignment_for_contiguous_layout, get_num_sms
 from ..utils.math import ceil_div
-from .common import (check_operand, promote_block, psum_group_starts, select_rows,
-                     sfb_shift, use_plain)
+from .common import (check_operand, count_launch, promote_block, psum_group_starts,
+                     select_rows, sfb_shift, use_plain)
 
 # Kernel launches per instantiation since the counts were last set to 0:
 # the masked kernel (bf16 out; 'fp8_f32' the fp8 instance with f32 out) and
@@ -171,7 +171,7 @@ def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
               num_groups, max_m, n, k, int(is_fp8), shift, cfg.block_n, int(out_f32),
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('masked'), code, 'masked_gemm')
-    launches['fp8_f32' if out_f32 else 'fp8' if is_fp8 else 'bf16'] += 1
+    count_launch(launches, 'fp8_f32' if out_f32 else 'fp8' if is_fp8 else 'bf16')
     return d
 
 

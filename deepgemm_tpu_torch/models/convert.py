@@ -1,18 +1,21 @@
 """Carry parameters across from the JAX package: a tree (dicts and lists)
 of numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it, becomes
-the same tree of tensors on ``device``, bit for bit; and walk such trees
-in the JAX package's leaf order, to hold the port's parameters and
-gradients against JAX's leaf by leaf.
+the same tree of tensors on ``device``, bit for bit; walk such trees in the
+JAX package's leaf order, to hold the port's parameters and gradients
+against JAX's leaf by leaf; and cut the expert weights into the shards of
+an expert-parallel mesh (JAX's ``param_shardings``: experts over 'ep').
 
 bf16 travels as an int16 view and e4m3 as a uint8 view, so neither numpy
 nor this module needs ``ml_dtypes``."""
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
 
 from ..runtime.config import resolve_device
+
+EXPERT_LEAVES = ('w1', 'w2')
 
 _VIEWS = {
     'bfloat16': (np.int16, torch.bfloat16),
@@ -59,3 +62,34 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def rank_experts(w: Any, mesh) -> List[torch.Tensor]:
+    """Each rank's experts of ``w`` [E, ...] (its 'ep' coordinate's slice of
+    E / ep experts): views where the rank's device holds ``w``, copies to
+    the rank's device elsewhere. A list (from :func:`shard_experts`) is
+    taken as it is."""
+    if isinstance(w, (list, tuple)):
+        if len(w) != mesh.size:
+            raise ValueError(f'{len(w)} expert shards for {mesh.size} ranks')
+        return list(w)
+    ep = mesh.shape[mesh.axis_names.index('ep')]
+    if w.shape[0] % ep:
+        raise ValueError(f'{w.shape[0]} experts do not split over ep={ep}')
+    per = w.shape[0] // ep
+    out = []
+    for rank, dev in enumerate(mesh.devices):
+        c = mesh.coords(rank)['ep']
+        out.append(w[c * per:(c + 1) * per].to(dev))
+    return out
+
+
+def shard_experts(params: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """``params`` with each layer's expert weights cut into per-rank shards
+    once (lists in rank order; views on one card, copies to each card on
+    several), the rest shared: the form ``forward(..., mesh)`` takes
+    without cutting anew each call."""
+    out = dict(params)
+    out['layers'] = [{key: rank_experts(v, mesh) if key in EXPERT_LEAVES else v
+                      for key, v in layer.items()} for layer in params['layers']]
+    return out

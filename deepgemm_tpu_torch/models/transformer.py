@@ -13,13 +13,24 @@ top-k over ``x @ router.T``, so a rounding moved upstream can flip an
 expert choice). On a CUDA card TF32 must stay off for those f32 products
 (PyTorch's default).
 
-With ``use_mega`` the MoE block runs the mega pipeline at one rank
+With ``use_mega`` the MoE block runs the mega pipeline
 (parallel/mega.py): 'xla', the unfused expert block (at one rank the
-bits of the plain MoE path), or 'fused', the fused expert-block kernel
-(csrc/mega_local.cu) in one launch a layer.
+bits of the plain MoE path), 'pallas', the same over the one-sided
+all-to-all kernel, or 'fused', the fused mega kernel in one launch a layer
+a rank.
 
-Parameters are a plain dict of tensors with the JAX package's layout.
-Still to be ported: multi-rank meshes (ROADMAP.md, the multi-GPU tier).
+Serving over an expert-parallel mesh (``forward(..., mesh)``, a
+parallel/dist.Mesh with axes ('dp', 'ep') or ('ep',)): the router and
+the attention run once on the whole batch (dp = tp = 1, as JAX replicates
+them), then the MoE block splits the flattened tokens over ('dp', 'ep')
+and each layer's experts over 'ep' (JAX's ``param_shardings``), runs the
+per-rank MoE on the mesh (one thread and stream a rank) and concatenates
+the ranks' outputs. ``mesh=None`` is the one-rank path, bit for bit.
+
+Parameters are a plain dict of tensors with the JAX package's layout;
+models/convert.shard_experts cuts the expert weights for a mesh ahead of
+time. Still to be ported: dp > 1 or tp > 1 meshes and the training step
+over a mesh (ROADMAP.md).
 """
 
 import dataclasses
@@ -29,11 +40,20 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.autograd import fp8_dense
+from ..parallel import dist
+from ..parallel.dist import Mesh
 from ..parallel.mega import mega_moe_forward
 from ..parallel.moe import MoEConfig, ep_moe_forward
 from ..runtime.config import resolve_device
 from ..utils.math import _CHUNK_ELEMS, quantize_experts
-from .convert import tree_leaves, tree_map
+from .convert import rank_experts, tree_leaves, tree_map
+
+# f32 elements of cast temporaries a rank holds at once (quantize_experts)
+# when ranks share a card and cast together: a quarter of one rank's. On an
+# 80 GB H100 beside DeepSeek-V3's weights, eight ranks at the full chunk ran
+# out of memory, and at an eighth each the casts' small launches from eight
+# threads left the card idle 63% of the forward (chip_smoke.py phase 11).
+_SHARED_CARD_CAST_ELEMS = _CHUNK_ELEMS // 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +71,7 @@ class ModelConfig:
     use_kernels: bool = False      # see MoEConfig.use_kernels
     use_mega: bool = False         # the mega MoE pipeline (inference)
     mega_chunks: Optional[int] = None  # None or > 0; moves no bit at one rank
-    mega_comm: str = 'xla'         # 'xla' | 'fused' ('pallas' raises: multi-GPU tier)
+    mega_comm: str = 'xla'         # 'xla' | 'pallas' (the one-sided a2a; a mesh) | 'fused'
     # FP8 training: attention projections through the differentiable fp8
     # dense op; with use_kernels also the expert GEMMs through the grouped
     # autograd op (see MoEConfig.fp8_training)
@@ -141,49 +161,68 @@ def attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
     return _linear_f32(ctx, wo).to(torch.bfloat16)
 
 
-def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
-    """Router + MoE at one rank. On the FP8 serving path (``use_fp8`` and
-    ``use_kernels``, not training) the expert weights are quantized in this
-    call, as the JAX model does, and freed on return; the fused mega path
-    takes them without a repack (its kernel pairs gate and up rows by
-    address). FP8 training quantizes inside the grouped autograd op, so the
-    weights stay bf16 leaves that receive their gradients."""
+def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Router + MoE, at one rank or over ``mesh`` (see the module
+    docstring). On the FP8 serving path (``use_fp8`` and ``use_kernels``,
+    not training) the expert weights are quantized in this call, each
+    rank its own, as the JAX model does, and freed on return; the fused
+    mega path takes them without a repack (its kernel pairs gate and up
+    rows by address). FP8 training quantizes inside the grouped autograd
+    op, so the weights stay bf16 leaves that receive their gradients."""
     b, s, h = x.shape
     tokens = x.reshape(b * s, h)
     logits = tokens.float() @ layer['router'].t()
     topk_w, topk_idx = torch.topk(logits, cfg.topk, dim=-1)
     topk_w = torch.softmax(topk_w, dim=-1)
-    w1, w2, w1_sf, w2_sf = layer['w1'], layer['w2'], None, None
     moe_cfg = cfg.moe_cfg()
-    if cfg.use_fp8 and cfg.use_kernels and not moe_cfg.fp8_training:
-        w1, w1_sf = quantize_experts(w1)
-        w2, w2_sf = quantize_experts(w2)
-    if cfg.use_mega:
-        y, _ = mega_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg,
-                                num_chunks=cfg.mega_chunks, comm=cfg.mega_comm)
+
+    def fwd(tok, idx, ww, w1, w2):
+        w1_sf = w2_sf = None
+        if cfg.use_fp8 and cfg.use_kernels and not moe_cfg.fp8_training:
+            shared = mesh is not None and mesh.ranks_on_device(dist.current()[1]) > 1
+            chunk = _SHARED_CARD_CAST_ELEMS if shared else _CHUNK_ELEMS
+            w1, w1_sf = quantize_experts(w1, chunk_elems=chunk)
+            w2, w2_sf = quantize_experts(w2, chunk_elems=chunk)
+        if cfg.use_mega:
+            y, _ = mega_moe_forward(tok, idx, ww, w1, w1_sf, w2, w2_sf, moe_cfg,
+                                    num_chunks=cfg.mega_chunks, comm=cfg.mega_comm)
+        else:
+            y, _ = ep_moe_forward(tok, idx, ww, w1, w1_sf, w2, w2_sf, moe_cfg)
+        return y
+
+    if mesh is None:
+        y = fwd(tokens, topk_idx, topk_w, layer['w1'], layer['w2'])
     else:
-        y, _ = ep_moe_forward(tokens, topk_idx, topk_w, w1, w1_sf, w2, w2_sf, moe_cfg)
+        n = mesh.size
+        if tokens.shape[0] % n:
+            raise ValueError(f'{tokens.shape[0]} tokens do not split over {n} ranks')
+        shard = lambda t: [c.to(d) for c, d in zip(t.chunk(n), mesh.devices)]
+        ys = mesh.map(fwd, shard(tokens), shard(topk_idx), shard(topk_w),
+                      rank_experts(layer['w1'], mesh), rank_experts(layer['w2'], mesh))
+        y = torch.cat([v.to(x.device) for v in ys])
     return y.reshape(b, s, h)
 
 
-def logits_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def logits_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """tokens [b, s] int -> logits [b, s, vocab] f32, on the parameters'
-    device; differentiable (the JAX package's ``forward``)."""
+    device; differentiable at one rank (the JAX package's ``forward``)."""
     embed = params['embed']
     x = embed[tokens.to(embed.device)]
     for layer in params['layers']:
         x = x + attention(rms_norm(x, layer['ln1']), layer['wqkv'], layer['wo'], cfg)
-        x = x + moe_block(rms_norm(x, layer['ln2']), layer, cfg)
+        x = x + moe_block(rms_norm(x, layer['ln2']), layer, cfg, mesh)
     x = rms_norm(x, params['final_norm'])
     return _linear_f32(x, embed)
 
 
 @torch.no_grad()
-def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
-    """Serving: :func:`logits_fn` without an autograd graph."""
-    return logits_fn(params, tokens, cfg)
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Serving: :func:`logits_fn` without an autograd graph; over ``mesh``
+    when given (the expert-parallel serving forward)."""
+    return logits_fn(params, tokens, cfg, mesh)
 
 
 def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, targets: torch.Tensor,

@@ -1,11 +1,16 @@
-"""MoE layer at one rank (ep = 1): dispatch -> expert GEMMs -> combine.
+"""Expert-parallel MoE layer: dispatch -> expert GEMMs -> combine.
 Counterpart of deepgemm_tpu/parallel/moe.py:36-237.
 
-With one rank the all-to-alls of the JAX version are the identity, so
-tokens are scattered straight into per-expert capacity slots
-``[E, cap, H]``. Pairs past an expert's capacity are dropped, as in the
-static-shape JAX plan. Nothing here syncs the host. Dispatch, SwiGLU and
-combine are differentiable, for the training step.
+Tokens are scattered into per-(rank, expert) capacity slots ``[ep,
+E_local, cap, H]`` (``[E, cap, H]``: rank r owns experts r * E_local ..);
+pairs past an expert's capacity are dropped, as in the static-shape JAX
+plan. Inside ``Mesh.map`` over ``axis_name`` (parallel/dist.py) the slots
+travel by the mesh's all-to-all (JAX's XLA collective), each rank runs its
+local experts on the ep * cap rows it received, and the results travel
+back by the reverse all-to-all. At one rank (outside a mesh, or a mesh
+axis of 1) the all-to-alls are the identity and are skipped, so the bits
+are those of the one-rank path. Nothing here syncs the host. At one rank
+dispatch, SwiGLU and combine are differentiable, for the training step.
 """
 
 import dataclasses
@@ -16,6 +21,7 @@ import torch.nn.functional as F
 from ..kernels.grouped import masked_gemm
 from ..ops.autograd import fp8_grouped_matmul
 from ..utils.math import align, ceil_div, per_token_cast_to_fp8
+from . import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +99,24 @@ def ep_dispatch_indices(topk_idx: torch.Tensor, num_experts: int, e_local: int,
     return expert // e_local, expert % e_local, slot, kept, num_dropped
 
 
-def local_expert_recv_stats(topk_idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """This step's routed-pair count of each expert, int32 [E], at one rank
-    (the JAX package's ``local_expert_recv_stats``): capacity drops
-    included, as the mega kernel's receive accounting counts them."""
-    return torch.bincount(topk_idx.reshape(-1).long(),
-                          minlength=cfg.num_experts).to(torch.int32)
+def ep_size(axis_name: str = 'ep') -> int:
+    """Ranks along ``axis_name`` inside ``Mesh.map``; 1 outside a mesh."""
+    return dist.axis_size(axis_name) if dist.in_mesh() else 1
+
+
+def local_expert_recv_stats(topk_idx: torch.Tensor, cfg: MoEConfig,
+                            axis_name: str = 'ep') -> torch.Tensor:
+    """This step's routed-pair count of each LOCAL expert, int32 [E_local]
+    (the JAX package's ``local_expert_recv_stats``), summed over the source
+    ranks by ``psum``: capacity drops included, as the mega kernel's receive
+    accounting counts them."""
+    counts = torch.bincount(topk_idx.reshape(-1).long(),
+                            minlength=cfg.num_experts).to(torch.int32)
+    ep = ep_size(axis_name)
+    if ep == 1:
+        return counts
+    total = dist.psum(counts.view(ep, cfg.num_experts // ep), axis_name)
+    return total[dist.axis_index(axis_name)]
 
 
 def scatter_to_slots(x: torch.Tensor, pair_w: torch.Tensor, expert: torch.Tensor,
@@ -137,19 +155,33 @@ def combine_pairs(y_exp: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
 
 def ep_moe_forward(x: torch.Tensor, topk_idx: torch.Tensor,
                    topk_weights: torch.Tensor, w1, w1_sf, w2, w2_sf,
-                   cfg: MoEConfig):
-    """x [T, H] bf16; topk_idx [T, K]; topk_weights [T, K] f32;
-    w1 [E, 2I, H], w2 [E, H, I] (e4m3 with [E, ., .] block scales, or bf16
-    with sf None). Returns (y [T, H] bf16, num_dropped [1])."""
-    t_count = x.shape[0]
+                   cfg: MoEConfig, axis_name: str = 'ep'):
+    """x [T, H] bf16 (this rank's tokens); topk_idx [T, K] global expert
+    ids; topk_weights [T, K] f32; w1 [E_local, 2I, H], w2 [E_local, H, I]
+    (e4m3 with [E_local, ., .] block scales, or bf16 with sf None), this
+    rank's experts. Returns (y [T, H] bf16, num_dropped [1])."""
+    t_count, hidden = x.shape
     k = topk_idx.shape[1]
+    ep = ep_size(axis_name)
+    e_local = cfg.num_experts // ep
     cap = moe_capacity(t_count, k, cfg.num_experts, cfg.capacity_factor)
     expert, slot, kept, num_dropped = dispatch_indices(topk_idx, cfg.num_experts, cap)
-    a1, row_w = scatter_to_slots(x, topk_weights.reshape(-1).float(), expert, slot, kept,
-                                 cfg.num_experts, cap, k)
-    gate_up = _expert_gemm(a1, w1, w1_sf, cfg)                   # [E, cap, 2I]
+    send_x, send_w = scatter_to_slots(x, topk_weights.reshape(-1).float(), expert, slot, kept,
+                                      cfg.num_experts, cap, k)
+    if ep == 1:
+        a1, row_w = send_x, send_w
+    else:
+        # [ep, E_local, cap, .] slots by destination -> by source
+        recv_x = dist.all_to_all(send_x.view(ep, e_local, cap, hidden), axis_name)
+        recv_w = dist.all_to_all(send_w.view(ep, e_local, cap), axis_name)
+        a1 = recv_x.transpose(0, 1).reshape(e_local, ep * cap, hidden)
+        row_w = recv_w.transpose(0, 1).reshape(e_local, ep * cap)
+    gate_up = _expert_gemm(a1, w1, w1_sf, cfg)                   # [E_local, ep*cap, 2I]
     act = swiglu_apply_weight(gate_up, row_w).to(torch.bfloat16)
-    y_exp = _expert_gemm(act, w2, w2_sf, cfg)                    # [E, cap, H]
+    y_exp = _expert_gemm(act, w2, w2_sf, cfg)                    # [E_local, ep*cap, H]
+    if ep > 1:
+        back = y_exp.view(e_local, ep, cap, hidden).transpose(0, 1).contiguous()
+        y_exp = dist.all_to_all(back, axis_name).view(cfg.num_experts, cap, hidden)
     return combine_pairs(y_exp, expert, slot, kept, t_count, k), num_dropped.reshape(1)
 
 

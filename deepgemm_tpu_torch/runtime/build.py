@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 SOURCES = ('dense', 'dense_dequant', 'masked', 'contiguous', 'k_grouped', 'mqa_logits',
-           'paged_mqa', 'sparse_attn', 'mega_local', 'hc_prenorm')
+           'paged_mqa', 'sparse_attn', 'mega_local', 'hc_prenorm', 'a2a', 'mega_ep')
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -117,19 +117,21 @@ def per_custom_dims_cast_to_fp8(x: torch.Tensor, dims, use_ue8m0: bool
     return cast_to_fp8(x * (1.0 / sf)), sf.squeeze()
 
 
-def quantize_experts(w: torch.Tensor, transpose: bool = False
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_experts(w: torch.Tensor, transpose: bool = False,
+                     chunk_elems: int = _CHUNK_ELEMS) -> Tuple[torch.Tensor, torch.Tensor]:
     """[E, N, K] bf16 -> (e4m3 [E, N, K], f32 128x128 block scales
     [E, N/128, K/128]); with ``transpose``, each expert's transpose
     [E, K, N] is cast instead, without a transposed copy of ``w``. A few
-    experts at a time, so the f32 temporaries stay near ``_CHUNK_ELEMS``
-    elements; bitwise what per_block_cast_to_fp8 gives expert by expert."""
+    experts at a time, so the f32 temporaries stay near ``chunk_elems``
+    elements (the ranks of a mesh that share a card cast at once and split
+    the budget); bitwise what per_block_cast_to_fp8 gives expert by
+    expert, whatever the chunk."""
     e_count = w.shape[0]
     n, k = w.shape[1:] if not transpose else w.shape[:0:-1]
     q = torch.empty((e_count, n, k), dtype=torch.float8_e4m3fn, device=w.device)
     sf = torch.empty((e_count, ceil_div(n, 128), ceil_div(k, 128)), dtype=torch.float32,
                      device=w.device)
-    step = max(1, _CHUNK_ELEMS // max(1, n * k))
+    step = max(1, chunk_elems // max(1, n * k))
     for e0 in range(0, e_count, step):
         part = w[e0:e0 + step]
         q[e0:e0 + step], sf[e0:e0 + step] = per_block_cast_to_fp8(

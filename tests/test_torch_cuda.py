@@ -1045,3 +1045,258 @@ def test_k_grouped_flat_is_bitwise_tn(gen, with_c):
     torch.cuda.synchronize()
     assert k_grouped.flat_launches == before + 1
     assert torch.equal(d, d_tn) and calc_diff(d, ref) < 1e-5
+
+
+# ---- the expert-parallel tier on [cuda:0] * D (and on D cards) -------------
+
+def _ep_devices(placement, d):
+    """The ranks' devices: all on card 0, or one card each (skips unless the
+    machine has d cards)."""
+    if placement == 'one card':
+        return ['cuda:0'] * d
+    if torch.cuda.device_count() < d:
+        pytest.skip(f'needs {d} cards for one rank a card; this machine has '
+                    f'{torch.cuda.device_count()}')
+    return [f'cuda:{i}' for i in range(d)]
+
+
+def _ep_mesh(placement, d, timeout=30.0):
+    from deepgemm_tpu_torch.parallel import dist
+    return dist.make_mesh([('ep', d)], _ep_devices(placement, d), timeout=timeout)
+
+
+def _on(devices, t):
+    return [t[i].to(dev) for i, dev in enumerate(devices)]
+
+
+@pytest.mark.parametrize('placement', ['one card', 'cards'])
+@pytest.mark.parametrize('d', [1, 2, 4])
+def test_a2a_kernel_is_bitwise_the_all_to_all(gen, d, placement):
+    """#15 bitwise the mesh's host all-to-all on every rank, on three
+    back-to-back calls with other inputs (the receive buffer reused), for a
+    bf16 slot payload and its f32 weight sideband (4-byte words)."""
+    from deepgemm_tpu_torch.parallel import collectives, dist
+    mesh = _ep_mesh(placement, d)
+    for call in range(3):
+        x = _randn(gen, d, d, 3, 40, 256)
+        w = torch.rand((d, d, 3, 40), generator=gen, device='cuda')
+        before = collectives.launches
+        outs = mesh.map(lambda a, b: (collectives.pallas_all_to_all(a, 'ep'),
+                                      collectives.pallas_all_to_all(b, 'ep'),
+                                      dist.all_to_all(a, 'ep'), dist.all_to_all(b, 'ep')),
+                        _on(mesh.devices, x), _on(mesh.devices, w))
+        torch.cuda.synchronize()
+        assert collectives.launches == before + 2 * d
+        for r, (ka, kb, ha, hb) in enumerate(outs):
+            assert torch.equal(ka, ha) and torch.equal(kb, hb), (call, r)
+            assert torch.equal(ka[0].cpu(), x[0, r].cpu())
+
+
+@pytest.mark.parametrize('placement', ['one card', 'cards'])
+@pytest.mark.parametrize('d,fp8', [(1, True), (2, True), (4, True), (4, False)])
+def test_dispatch_gemm_kernel_is_bitwise_the_masked_kernel(gen, d, fp8, placement):
+    """#12: recv bitwise the all-to-all; out bitwise the masked kernel on
+    recv, and within 1e-5 of the plain version."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.parallel import dist
+    mesh = _ep_mesh(placement, d)
+    e_local, cap, n, h = 2, 40, 256, 256
+    x = _randn(gen, d, d, e_local, cap, h)
+    w = _randn(gen, d, e_local, n, h) * 0.05
+    if fp8:
+        xq, xsf = per_token_cast_to_fp8(x.view(-1, h), use_ue8m0=False)
+        xq, xsf = xq.view(x.shape), xsf.view(*x.shape[:-1], -1)
+        wq, wsf = quantize_experts(w.view(-1, n, h))
+        wq, wsf = wq.view(d, e_local, n, h), wsf.view(d, e_local, n // 128, -1)
+    else:
+        xq, xsf, wq, wsf = x, None, w, None
+
+    def rank(s, ssf, ww, wwsf):
+        out, recv = fused_moe.fused_dispatch_gemm(s, ww, send_sf=ssf, w_sf=wwsf)
+        want_recv = dist.all_to_all(s, 'ep')
+        a = want_recv.transpose(0, 1).reshape(e_local, d * cap, h)
+        sfa = None
+        if ssf is not None:
+            sfa = dist.all_to_all(ssf, 'ep').transpose(0, 1).reshape(e_local, d * cap, -1)
+        masked = grouped.masked_gemm(a, ww, torch.full((e_local,), d * cap, dtype=torch.int32,
+                                                       device=s.device), sfa=sfa, sfb=wwsf)
+        return out, recv, want_recv, masked.view(e_local, d, cap, n)
+
+    none = [None] * d
+    args = (_on(mesh.devices, xq), none if xsf is None else _on(mesh.devices, xsf),
+            _on(mesh.devices, wq), none if wsf is None else _on(mesh.devices, wsf))
+    before = dict(fused_moe.dispatch_launches)
+    outs = mesh.map(rank, *args)
+    torch.cuda.synchronize()
+    kind = 'fp8' if fp8 else 'bf16'
+    assert fused_moe.dispatch_launches[kind] == before[kind] + d
+    with plain_versions():
+        plains = mesh.map(lambda s, ssf, ww, wwsf: fused_moe.fused_dispatch_gemm(
+            s, ww, send_sf=ssf, w_sf=wwsf)[0], *args)
+    for (out, recv, want_recv, masked), plain in zip(outs, plains):
+        assert torch.equal(recv.view(torch.uint8), want_recv.view(torch.uint8))
+        assert torch.equal(out, masked)
+        assert calc_diff(out, plain) < 1e-5
+
+
+def _ep_mega_inputs(gen, mode, d, e_local=2, cap=40, hidden=256, inter=512):
+    """Per-rank inputs of the general kernel in ``mode``: send [D*D, E, cap,
+    H] (rank r's slabs r*D .. r*D+D-1), its scales, rw_steps, and D ranks'
+    expert weights [D*E, ...]."""
+    scaled, w_fp4, act_fp8 = _MEGA_MODES[mode]
+    x = _randn(gen, d * d, e_local, cap, hidden)
+    x[..., cap - 5:, :] = 0
+    rw = torch.rand((d * d, e_local, cap), generator=gen, device='cuda')
+    w1 = _randn(gen, d * e_local, 2 * inter, hidden) * 0.05
+    w2 = _randn(gen, d * e_local, hidden, inter) * 0.05
+    if not scaled:
+        return x, None, rw, (w1, None, w2, None), {}
+    xq, xsf = per_token_cast_to_fp8(x.view(-1, hidden), use_ue8m0=False)
+    xq, xsf = xq.view(x.shape), xsf.view(*x.shape[:-1], -1)
+    if w_fp4:
+        (w1q, w1sf), (w2q, w2sf) = _fp4_blocks(w1), _fp4_blocks(w2)
+    else:
+        (w1q, w1sf), (w2q, w2sf) = quantize_experts(w1), quantize_experts(w2)
+    return xq, xsf, rw, (w1q, w1sf, w2q, w2sf), dict(w_fp4=w_fp4, act_fp8=act_fp8)
+
+
+def _run_mega_ep(mesh, send, send_sf, rw, weights, kw, pool, force=False):
+    from deepgemm_tpu_torch.kernels import fused_moe
+    d = mesh.size
+    e_local = send.shape[1]
+    cut = lambda t, n: None if t is None else [t[r * n:(r + 1) * n].to(dev)
+                                               for r, dev in enumerate(mesh.devices)]
+    w1, w1sf, w2, w2sf = weights
+    silu_tanh = send_sf is not None and not kw.get('act_fp8', False)
+
+    def rank(s, ssf, r, a1, b1, a2, b2):
+        xsf = None if ssf is None else ssf.float()
+        return fused_moe.mega_ep(s, xsf, r, a1, b1, a2, b2, pool=pool, silu_tanh=silu_tanh,
+                                 **kw)
+
+    none = [None] * d
+    return mesh.map(rank, cut(send, d), cut(send_sf, d) or none, cut(rw, d),
+                    cut(w1, e_local), cut(w1sf, e_local) or none, cut(w2, e_local),
+                    cut(w2sf, e_local) or none)
+
+
+@pytest.mark.parametrize('placement', ['one card', 'cards'])
+@pytest.mark.parametrize('d,mode', [(1, 'fp8'), (2, 'fp8'), (4, 'fp8'), (4, 'bf16'),
+                                    (4, 'fp8_act_fp8'), (2, 'fp4'), (2, 'fp4_act_fp8')])
+def test_mega_ep_kernel_is_bitwise_the_one_rank_kernel(gen, d, mode, placement):
+    """#14: each rank's combine slab from rank s bitwise the one-rank kernel
+    (#13) on the rows it sent to s; pools 1 .. D bitwise each other; within
+    1e-5 of the plain version; FP4 bitwise the decoded fp8; at D = 1 the
+    general kernel (force_general) bitwise the one-rank kernel."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    mesh = _ep_mesh(placement, d)
+    send, send_sf, rw, weights, kw = _ep_mega_inputs(gen, mode, d)
+    e_local = send.shape[1]
+    silu_tanh = send_sf is not None and not kw.get('act_fp8', False)
+    before = dict(fused_moe.ep_launches)
+    pools = {p: _run_mega_ep(mesh, send, send_sf, rw, weights, kw, p)
+             for p in (1, 2, 4) if d % p == 0}
+    torch.cuda.synchronize()
+    assert fused_moe.ep_launches[mode] == before[mode] + d * len(pools)
+    with plain_versions():
+        plain = _run_mega_ep(mesh, send, send_sf, rw, weights, kw, 1)
+    w1, w1sf, w2, w2sf = weights
+    experts = lambda t, s: None if t is None else t[s * e_local:(s + 1) * e_local]
+    for r in range(d):
+        for p, got in pools.items():
+            assert torch.equal(got[r].cpu(), pools[1][r].cpu()), (p, r)
+        assert calc_diff(pools[1][r].cpu(), plain[r].cpu()) < 1e-5
+        for s in range(d):
+            block = fused_moe.mega_local(
+                send[r * d + s], None if send_sf is None else send_sf[r * d + s],
+                rw[s * d + (s - r) % d], experts(w1, s), experts(w1sf, s), experts(w2, s),
+                experts(w2sf, s), silu_tanh=silu_tanh, **kw)
+            assert torch.equal(pools[1][r][s].cpu(), block.cpu()), (r, s)
+    if kw.get('w_fp4'):
+        dec = (fused_moe.decode_fp4_planar(w1), w1sf, fused_moe.decode_fp4_planar(w2), w2sf)
+        fp8 = _run_mega_ep(mesh, send, send_sf, rw, dec, dict(kw, w_fp4=False), 1)
+        for r in range(d):
+            assert torch.equal(fp8[r].cpu(), pools[1][r].cpu())
+
+
+@pytest.mark.parametrize('comm', ['xla', 'pallas', 'fused'])
+def test_model_forward_over_a_mesh_on_the_card(gen, comm):
+    """The fp8 model over ('ep', 4) ranks on card 0, one chunk: 'xla' and
+    'pallas' two masked launches a layer a rank, 'pallas' three all-to-all
+    launches a layer a rank (tokens, weights, combine) and bitwise 'xla';
+    'fused' one general-kernel launch a layer a rank and nothing else, its
+    MoE layer within JAX's fused-vs-unfused limit of 'xla''s; each within
+    1e-5 of the plain versions."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.parallel import collectives, dist
+    mesh = dist.make_mesh([('dp', 1), ('ep', 4)], ['cuda:0'] * 4, timeout=30.0)
+    base = dict(vocab=512, hidden=256, num_layers=2, num_heads=2, head_dim=64, num_experts=8,
+                topk=2, moe_intermediate=256, capacity_factor=8.0, use_fp8=True,
+                use_kernels=True)
+    params = tt.init_params(tt.ModelConfig(**base), seed=0)
+    tokens = torch.randint(0, 512, (4, 16), generator=gen, device='cuda')
+    cfg = tt.ModelConfig(**base, use_mega=True, mega_comm=comm, mega_chunks=1)
+    xla = tt.forward(params, tokens, tt.ModelConfig(**base, use_mega=True, mega_comm='xla',
+                                                    mega_chunks=1), mesh)
+    counts = (collectives.launches, dict(fused_moe.ep_launches), dict(grouped.launches))
+    logits = tt.forward(params, tokens, cfg, mesh)
+    torch.cuda.synchronize()
+    a2a = collectives.launches - counts[0]
+    mega = fused_moe.ep_launches['fp8'] - counts[1]['fp8']
+    masked = sum(grouped.launches.values()) - sum(counts[2].values())
+    layers, ranks = base['num_layers'], 4
+    with plain_versions():
+        plain = tt.forward(params, tokens, cfg, mesh)
+    assert torch.isfinite(logits).all()
+    if comm == 'fused':
+        assert (mega, masked, a2a) == (layers * ranks, 0, 0)
+        # JAX's fused-vs-unfused limit holds per MoE layer (a routing flip
+        # after it moves the logits further)
+        layer = params['layers'][0]
+        moe_in = tt.rms_norm(params['embed'][tokens], layer['ln2'])
+        assert calc_diff(tt.moe_block(moe_in, layer, cfg, mesh),
+                         tt.moe_block(moe_in, layer, tt.ModelConfig(
+                             **base, use_mega=True, mega_comm='xla', mega_chunks=1), mesh)) < 1e-3
+    else:
+        # one chunk: the dispatch (tokens, weights) and the combine all-to-all
+        assert (a2a, masked) == ((3 if comm == 'pallas' else 0) * layers * ranks,
+                                 2 * layers * ranks)
+        assert torch.equal(logits, xla)
+    assert calc_diff(logits, plain) < 1e-5
+
+
+_TRAP_SCRIPT = r'''
+import sys, torch
+from deepgemm_tpu_torch.parallel import collectives, dist
+mesh = dist.make_mesh([('ep', 2)], ['cuda:0'] * 2, timeout=1.0)
+x = torch.zeros(2, 64, device='cuda')
+mesh.map(lambda v: collectives.pallas_all_to_all(v, 'ep'), [x, x])
+torch.cuda.synchronize()
+# rank 1 never enters the second call: rank 0's entry barrier must trap
+mesh.map(lambda v: collectives.pallas_all_to_all(v, 'ep') if dist.axis_index('ep') == 0
+         else v, [x, x])
+try:
+    torch.cuda.synchronize()
+    print('no error')
+except RuntimeError as exc:
+    print('error:', str(exc).splitlines()[0])
+print('diagnostic:', collectives.comm_diagnostic(mesh))
+'''
+
+
+def test_a_missing_peer_traps_instead_of_hanging(gen):
+    """A rank whose peer never enters the call: its kernel's spin gives up
+    after the mesh's timeout (1 s here), writes its diagnostic words and
+    traps; the host sees a CUDA error, not a hang. In a child process, since
+    a trap ends the CUDA context."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=f'{root}{os.pathsep}{os.environ.get("PYTHONPATH", "")}')
+    proc = subprocess.run([sys.executable, '-c', _TRAP_SCRIPT], capture_output=True, text=True,
+                          timeout=240, env=env, cwd=root)
+    out = proc.stdout
+    assert 'error:' in out, (out, proc.stderr[-2000:])
+    assert "diagnostic: [(0, 'barrier', 1" in out, out

@@ -341,19 +341,26 @@ def test_moe_helpers():
 
 
 def test_multi_gpu_paths_raise():
+    """The several-rank paths, called outside a mesh, raise for what they
+    lack: 'pallas' a mesh, a send of two slabs its ranks, a pool that does
+    not divide the ranks, a pack for two ranks its slot capacity. (Inside a
+    mesh they run: tests/test_torch_parallel.py.) force_general at one rank
+    runs the general kernel's plain version, the one-rank block's bits."""
     cfg = MoEConfig(num_experts=4, hidden=128, intermediate=128, topk=2)
     x, idx, w, w1, w2 = _moe_inputs(1, 16, cfg)
-    with pytest.raises(NotImplementedError, match='multi-GPU tier'):
+    with pytest.raises(ValueError, match='Mesh.map'):
         tmega.mega_moe_forward(x, idx, w, w1, None, w2, None, cfg, comm='pallas')
-    send = torch.zeros(2, 4, 8, 128, dtype=torch.bfloat16)
-    rw = torch.zeros(2, 4, 8)
-    with pytest.raises(NotImplementedError, match='multi-GPU tier'):
+    g = torch.Generator().manual_seed(0)
+    send = torch.randn((2, 4, 8, 128), generator=g).bfloat16()
+    rw = torch.rand((2, 4, 8), generator=g)
+    with pytest.raises(ValueError, match='2 slabs for 1 ranks'):
         tfm.fused_mega_moe(send, rw, w1, w2)
-    for kw in (dict(force_general=True), dict(pool=2)):
-        with pytest.raises(NotImplementedError, match='multi-GPU tier'):
-            tfm.fused_mega_moe(send[:1], rw[:1], w1, w2, **kw)
-    with pytest.raises(NotImplementedError, match='multi-GPU tier'):
+    with pytest.raises(ValueError, match='divisor'):
+        tfm.fused_mega_moe(send[:1], rw[:1], w1, w2, pool=2)
+    with pytest.raises(ValueError, match='cap'):
         tfm.pack_mega_weights(w1, w2, num_devices=2)
+    assert torch.equal(tfm.fused_mega_moe(send[:1], rw[:1], w1, w2, force_general=True),
+                       tfm.fused_mega_moe(send[:1], rw[:1], w1, w2))
 
 
 @pytest.mark.parametrize('mode', list(MODES))
