@@ -2,12 +2,24 @@
 """Run the PyTorch/CUDA port (deepgemm_tpu_torch) on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --gemm-times [--package-root DIR]
+    python3 chip_smoke.py --ep-times [--package-root DIR]
+
+The second form builds and times only phase 3 and the training step's
+dense and k-grouped calls (no plain versions) of the deepgemm_tpu_torch
+under DIR, and prints them as one JSON line; the third runs only phase 11's
+main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
+with the device's idle share). Run either for two trees in one call
+(parent, change, change, parent) to compare them.
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
-  2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/;
-  3. the dense FP8 kernel against its plain version at 4096^3 and
-     128x4096x7168, then the library entry fp8_gemm_nt (launches counted);
+  2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
+     and the ptxas report (registers, shared memory, spills) of the Hopper
+     mainloop's instances (csrc/gemm_sm90.cuh);
+  3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
+     4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
+     counted, bitwise the wrapper's launch);
   4. the masked grouped kernel, bf16 and fp8, against its plain version at
      the model's expert-GEMM shapes (G=256, max_m=40: 4096x7168 and
      7168x2048), with full and with seeded random masked_m (valid rows);
@@ -26,12 +38,15 @@ Phases, one line each (a failure in any phase exits non-zero):
   6. the training path: three FP8 SGD steps (lr 0.5) on one [2, 1024]
      batch at the same widths, 1 layer (capacity factor 1.99: 128 rows per
      expert): launches per step (dense 6, contiguous 4, k-grouped 2,
-     masked 0), every kernel call of step 1 against its plain version on
+     masked 0, the k-grouped relayout 4), every kernel call of step 1
+     against its plain version on
      the step's own inputs (16 seeded experts of each grouped call, 256
      rows of each dense call), a finite loss that falls from step 1 to 3,
      seconds per step, tokens/s and peak memory; one more step under
      torch.profiler; then each call's kernel, plain version and bf16
-     PyTorch yardstick timed at the step's full shapes;
+     PyTorch yardstick timed at the step's full shapes, and each k-grouped
+     call's relayout on its own (bitwise its plain version, beside
+     x.t().contiguous()) with its share of the call;
   7. the serving engine over the lightning indexer: 64 slots, the indexer
      at DeepSeek-V3.2-Exp widths (64 heads x 128, top-2048, e4m3 pages of 64
      tokens), attention streams of 128 heads x 128 bf16; 64 prompts of
@@ -210,6 +225,42 @@ def phase_build():
         for line in text.splitlines():
             if any(word in line for word in ('entry function', 'registers', 'spill')):
                 log(f'  ptxas {name}: {line.strip()}')
+    hopper = hopper_instances(reports)
+    if hopper:
+        log(f'phase 2 Hopper mainloop (csrc/gemm_sm90.cuh): {len(hopper)} instances in '
+            f'{sorted({lib for lib, _ in hopper})}; registers at entry '
+            f'{sorted({v["registers"] for v in hopper.values()})} (consumers raise theirs to 232 '
+            f'with setmaxnreg), shared memory static {max(v["smem"] for v in hopper.values())} '
+            f'bytes (the stages are dynamic), spill stores up to '
+            f'{max(v["spill_stores"] for v in hopper.values())} bytes, spill loads up to '
+            f'{max(v["spill_loads"] for v in hopper.values())} bytes')
+
+
+def hopper_instances(reports):
+    """{(library, kernel): registers, static smem, spill bytes} of the
+    Hopper mainloop's instances (dgt::sm90::gemm_kernel), from ptxas -v."""
+    import re
+    found, current = {}, None
+    for lib, text in reports.items():
+        for line in text.splitlines():
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                current = (lib, entry.group(1)) if 'sm9011gemm_kernel' in entry.group(1) else None
+                if current:
+                    found[current] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
+                continue
+            if current is None:
+                continue
+            spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+            if spill:
+                found[current].update(spill_stores=int(spill.group(1)),
+                                      spill_loads=int(spill.group(2)))
+            used = re.search(r'Used (\d+) registers', line)
+            if used:
+                found[current]['registers'] = int(used.group(1))
+                smem = re.search(r'(\d+) bytes smem', line)
+                found[current]['smem'] = int(smem.group(1)) if smem else 0
+    return found
 
 
 DENSE_SHAPES = ((4096, 4096, 4096), (128, 4096, 7168))    # bench.py:202-203
@@ -236,7 +287,8 @@ def phase_dense(gen, arch):
         quant = calc_diff(d_k, library())
         require(quant < 1e-3, f'dense {m}x{n}x{k}: calc_diff {quant} against bf16 a @ b.T')
 
-        # the library entry a user calls: one counted launch
+        # the library entry a user calls: one counted launch, the same bits
+        # (the kernel is deterministic: a second launch gives them again)
         dense.launches = 0
         d_api = dgt.fp8_gemm_nt((aq, sfa), (bq, sfb))
         torch.cuda.synchronize()
@@ -253,7 +305,7 @@ def phase_dense(gen, arch):
             f'max_abs_err={err:.4g} vs_bf16_matmul={quant:.3e} kernel_ms={ms:.4f} '
             f'plain_ms={plain_ms:.4f} library_ms(torch.matmul bf16)={library_ms:.4f} '
             f'bound_ms={bound[0]:.4f} ({bound[1]}) TFLOPS={2 * m * n * k / ms / 1e9:.1f} '
-            f'fp8_gemm_nt_launches=1')
+            f'fp8_gemm_nt_launches=1, bitwise the wrapper\'s launch')
         del a, b, aq, bq, d_k, d_p, d_api
     return entries
 
@@ -568,7 +620,7 @@ V3_TRAIN = dict(V3, num_layers=1, capacity_factor=1.99)
 TRAIN_SHAPE, TRAIN_STEPS, TRAIN_LR = (2, 1024), 3, 0.5
 CHECK_EXPERTS = 16      # experts whose rows and dw hold each grouped kernel to its plain version
 CHECK_ROWS = 256        # rows of A that hold each dense call to its plain version
-PER_STEP = dict(dense=6, contiguous=4, k_grouped=2, masked=0)
+PER_STEP = dict(dense=6, contiguous=4, k_grouped=2, masked=0, relayout=4)
 # the kernel calls of one step, in the order the step makes them
 CALL_NAMES = dict(
     dense=('qkv fwd', 'o fwd', 'o dgrad', 'o wgrad', 'qkv dgrad', 'qkv wgrad'),
@@ -688,17 +740,50 @@ def check_captured(records):
     return results
 
 
-def time_train_kernels(results, gen, arch):
+def time_relayout(x, sizes, arch, name):
+    """The FP8 k-grouped wrapper's relayout of one TN operand at full shape
+    (the transposing gather kernel): bitwise its plain version, timed beside
+    it and beside x.t().contiguous(), which computes the same function where
+    every group is a whole 128 rows deep, as in the training step."""
+    from deepgemm_tpu_torch.kernels import k_grouped
+    from deepgemm_tpu_torch.kernels.common import k_major_relayout, k_major_relayout_plain
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    starts, sz, _ = k_grouped.compute_k_group_metadata(sizes, False)
+    ldk = 128 * int(((sz + 127) // 128).sum())
+    src = k_grouped._k_major_columns(starts, sz, x.shape[0], 128, ldk)[0]
+    got = k_major_relayout(x, src, 'k_grouped')
+    want = k_major_relayout_plain(x, src)
+    library = lambda: x.view(torch.uint8).t().contiguous()
+    require(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+            f'relayout {name}: the kernel is not bitwise its plain version')
+    same = torch.equal(library(), got.view(torch.uint8))
+    del got, want
+    ms = bench_kernel(lambda: k_major_relayout(x, src, 'k_grouped'), iters=5)
+    plain_ms = bench_kernel(lambda: k_major_relayout_plain(x, src), iters=2, warmup=1)
+    library_ms = bench_kernel(library, iters=5)
+    nbytes = x.numel() + x.shape[1] * ldk + 4 * ldk
+    bound = arch.bound_ms(nbytes, 0, 'fp8')
+    log(f'phase 6 time relayout {name} [{x.shape[0]} x {x.shape[1]} -> {x.shape[1]} x {ldk}]: '
+        f'bitwise plain; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+        f'library_ms(x.t().contiguous(), {"the same bytes" if same else "other bytes"})='
+        f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}')
+    return dict(name=name, shape=[x.shape[0], x.shape[1], ldk],
+                **numbers(ms, plain_ms, library_ms, 0.0, bound))
+
+
+def time_train_kernels(results, gen, arch, time_plain=True):
     """Each kernel call of the step, timed at its full shapes on seeded
-    inputs of the step's kinds (the kernel, its plain version, one bf16
-    PyTorch call on the same shapes), with its bound. Returns per-kind
-    lists of number dicts."""
+    inputs of the step's kinds (the kernel, its plain version if
+    ``time_plain``, one bf16 PyTorch call on the same shapes), with its bound;
+    each k-grouped call's relayout timed on its own where the package has
+    one. Returns per-kind lists of number dicts (the relayouts under
+    'relayout')."""
     from deepgemm_tpu_torch.kernels import dense, grouped, k_grouped
     from deepgemm_tpu_torch.testing import count_bytes
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import (per_block_cast_to_fp8, per_channel_cast_to_fp8,
                                                per_token_cast_to_fp8, quantize_experts)
-    entries = {kind: [] for kind in CALL_NAMES}
+    entries = {kind: [] for kind in (*CALL_NAMES, 'relayout')}
     for kind, calls in results.items():
         for rec in calls:
             name, err = rec['name'], rec['err']
@@ -738,13 +823,23 @@ def time_train_kernels(results, gen, arch):
                 out_bytes = g * m * n * (4 if rec['out_dtype'] == torch.float32 else 2)
                 flops, inputs = 2 * m * n * total_k, (aq, bq, sfa, sfb, sizes)
             ms = bench_kernel(kernel, iters=5)
-            plain_ms = bench_kernel(plain, iters=1, warmup=1)
+            plain_ms = bench_kernel(plain, iters=1, warmup=1) if time_plain else None
             library_ms = bench_kernel(library, iters=5)
             bound = arch.bound_ms(count_bytes(*inputs) + out_bytes, flops, 'fp8')
+            extra, share = {}, ''
+            if kind == 'k_grouped' and hasattr(k_grouped, 'tn_relayout'):
+                moved = [time_relayout(x, sizes, arch, f'{name} {label}')
+                         for x, label in ((aq, 'A'), (bq, 'B'))]
+                entries['relayout'] += moved
+                relayout_ms = sum(e['ms'] for e in moved)
+                extra = dict(relayout_ms=relayout_ms, relayout_share=relayout_ms / ms)
+                share = (f'relayout_ms={relayout_ms:.4f} ({100 * relayout_ms / ms:.1f}% of the '
+                         f'call) ')
             entries[kind].append(dict(name=name, shape=list(rec['shape']), check_calc_diff=rec['diff'],
-                                      **numbers(ms, plain_ms, library_ms, err, bound)))
-            log(f'phase 6 time {kind} {name} shape={rec["shape"]}: kernel_ms={ms:.4f} '
-                f'plain_ms={plain_ms:.4f} library_ms(bf16 torch.{"matmul" if kind == "dense" else "bmm"})='
+                                      **extra, **numbers(ms, plain_ms, library_ms, err, bound)))
+            plain_text = f'{plain_ms:.4f}' if plain_ms is not None else 'not timed'
+            log(f'phase 6 time {kind} {name} shape={rec["shape"]}: kernel_ms={ms:.4f} {share}'
+                f'plain_ms={plain_text} library_ms(bf16 torch.{"matmul" if kind == "dense" else "bmm"})='
                 f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) '
                 f'GB/s={(count_bytes(*inputs) + out_bytes) / ms / 1e6:.1f} '
                 f'TFLOPS={flops / ms / 1e9:.1f}')
@@ -761,7 +856,7 @@ def phase_train(seed, arch):
     loss that falls from step 1 to step 3. Prints the step time, tokens/s,
     peak memory, a profile of one more step; then times each kernel call at
     its full shapes. Returns (per-kind timing entries, launches)."""
-    from deepgemm_tpu_torch.kernels import dense, grouped, k_grouped
+    from deepgemm_tpu_torch.kernels import common, dense, grouped, k_grouped
     from deepgemm_tpu_torch.models.transformer import ModelConfig, init_params, train_step
     cfg = ModelConfig(**V3_TRAIN, use_fp8=True, use_kernels=True, use_fp8_training=True)
     t0 = time.perf_counter()
@@ -778,13 +873,15 @@ def phase_train(seed, arch):
         return dict(dense=dense.launches, contiguous=grouped.contiguous_launches['fp8'],
                     k_grouped=k_grouped.launches['fp8'],
                     masked=sum(grouped.launches.values()),
-                    bf16=grouped.contiguous_launches['bf16'] + k_grouped.launches['bf16'])
+                    bf16=grouped.contiguous_launches['bf16'] + k_grouped.launches['bf16'],
+                    relayout=common.relayout_launches['k_grouped'])
 
     # the main path: counts at 0 just before, read just after the steps
     dense.launches = 0
     grouped.launches.update(bf16=0, fp8=0)
     grouped.contiguous_launches.update(bf16=0, fp8=0)
     k_grouped.launches.update(bf16=0, fp8=0)
+    common.relayout_launches.update(dense=0, k_grouped=0)
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, records = [], [], []
     for step in range(TRAIN_STEPS):
@@ -816,7 +913,7 @@ def phase_train(seed, arch):
     del params
     torch.cuda.empty_cache()
     entries = time_train_kernels(results, gen, arch)
-    return entries, {kind: seen[kind] for kind in CALL_NAMES}
+    return entries, {kind: seen[kind] for kind in (*CALL_NAMES, 'relayout')}
 
 
 # Phase 7: the continuous-batching engine over the lightning indexer. The
@@ -2415,6 +2512,11 @@ def phase_entry_points(seed, gen, arch):
 # k 2048) for a decode batch, a small and a large prefill, FP4 at scale
 # granularity 32, the NN contiguous grouped GEMM on phase 9's layout, and the
 # flattened NT k-grouped GEMM at the training step's L2 wgrad shape.
+# The two GEMM bodies the kernels JSON line names.
+HOPPER_DESIGN = ('wgmma e4m3 m64n128k32 from TMA-fed 128-byte-swizzled stages, warp-specialised '
+                 'persistent grid, f32 promotion per 128-deep block, TMA-store epilogue '
+                 '(csrc/gemm_sm90.cuh)')
+MMA_SYNC_DESIGN = 'mma.sync m16n8 from a 4-stage cp.async ring (csrc/gemm_mainloop.cuh)'
 LAYOUTS = ('nn', 'tn', 'tt')
 PACKED_SHAPE = (4096, 4096, 7168)
 PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
@@ -2645,6 +2747,21 @@ def phase_planar(gen, arch):
         del a, aq, sfa, d
     del b, b4, sf4, planar, codes
     torch.cuda.empty_cache()
+    # where the two routes' op times, lines through the two largest m,
+    # cross, and the fp4_decode_tflops that puts the crossover of
+    # heuristics/arch.fp4_inkernel_profitable there
+    (m0, t0, f0), (m1, t1, f1) = [(e['shape'][0], e['op_ms'], e['fold_op_ms'])
+                                  for e in entries[-2:]]
+    gain = (t1 - t0 - f1 + f0) / (m1 - m0)
+    if gain > 0:
+        cross = m0 + (f0 - t0) / gain
+        fit = 1e-12 / (1 / (arch.hbm_bytes_per_s * cross) + 1 / (0.9 * arch.fp8_flops))
+        log(f'phase 10 planar FP4 routes cross at m={cross:.0f} (lines through m {m0} and {m1}); '
+            f'the fp4_decode_tflops that puts the model\'s crossover there: {fit:.1f} (the '
+            f'H100 row holds {arch.fp4_decode_tflops})')
+    else:
+        log(f'phase 10 planar FP4 routes: the in-kernel route grows no faster than the fold '
+            f'between m {m0} and {m1}; they do not cross')
     return entries, launches
 
 
@@ -2840,24 +2957,27 @@ def phase_surface(seed, gen, arch):
     nn, nn_launches = phase_contiguous_nn(seed, gen, arch)
     flat, flat_launches = phase_k_grouped_flat(gen, arch)
 
-    def row(name, source, replaces, launches, entries):
+    def row(name, source, replaces, launches, entries, design=MMA_SYNC_DESIGN):
         return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
-                    replaces=replaces, launches=launches, **summed(entries), shapes=entries)
+                    replaces=replaces, launches=launches, design=design, **summed(entries),
+                    shapes=entries)
 
     dense_at = 'deepgemm_tpu/kernels/dense.py:291'
     return [
         *(row(f'dense_fp8_gemm_{layout}', 'dense.cu', dense_at, layout_launches[layout],
-              layouts[layout]) for layout in LAYOUTS),
-        row('dense_fp8_gemm_nt_c', 'dense.cu', dense_at, c_launches, c_entries),
+              layouts[layout], design=f'k-major copy of the MN-major operand, then {HOPPER_DESIGN}')
+          for layout in LAYOUTS),
+        row('dense_fp8_gemm_nt_c', 'dense.cu', dense_at, c_launches, c_entries, HOPPER_DESIGN),
         row('dense_fp8_gemm_dequant', 'dense_dequant.cu', dense_at, packed_launches, packed),
-        row('dense_fp8_gemm_nt_planar_fp4', 'dense.cu', dense_at, planar_launches, planar),
+        row('dense_fp8_gemm_nt_planar_fp4', 'dense.cu', dense_at, planar_launches, planar,
+            f'{HOPPER_DESIGN}; planar FP4 B decoded in shared memory'),
         row('dense_fp8_gemm_nt_fp4_gran32', 'dense_dequant.cu', dense_at, gran32_launches,
             [gran32]),
         *(row(f'contiguous_grouped_gemm_nn_{kind}', 'contiguous.cu',
               'deepgemm_tpu/kernels/grouped.py:240', nn_launches[kind], nn[kind])
           for kind in ('fp8', 'bf16')),
         row('k_grouped_gemm_nt_flat_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
-            flat_launches, [flat]),
+            flat_launches, [flat], f'{HOPPER_DESIGN}; a tensor map per group'),
     ]
 
 
@@ -3232,56 +3352,59 @@ def ep_walk(mesh, params, tokens, cfg_fused, cfg_xla):
     return diffs, dropped, torch.matmul(rms_norm(x, params['final_norm']).float(), embed.t())
 
 
-def ep_forward(mesh, params, seed):
-    """The model forward over the 8-rank mesh through its entry point:
-    'fused' (the main path) on three batches with launches, tokens/s and
-    peak memory; 'xla' and 'pallas' (one chunk) on the first, 'pallas'
-    bitwise 'xla'; the per-layer walk; the logits beside the one-rank
-    forward's; a profile. Returns the launch counts."""
+def ep_zero():
+    """Sets the counts that the 8-rank forward reads to 0."""
     from deepgemm_tpu_torch.kernels import dense, fused_moe, grouped
+    from deepgemm_tpu_torch.parallel import collectives
+    for counts in (fused_moe.launches, fused_moe.ep_launches, fused_moe.dispatch_launches):
+        for key in counts:
+            counts[key] = 0
+    grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
+    dense.launches = 0
+    collectives.launches = 0
+
+
+def ep_seen():
+    """The kernel launches of the 8-rank forward since :func:`ep_zero`."""
+    from deepgemm_tpu_torch.kernels import dense, fused_moe, grouped
+    from deepgemm_tpu_torch.parallel import collectives
+    return dict(mega_ep=sum(fused_moe.ep_launches.values()),
+                mega_local=sum(fused_moe.launches.values()),
+                masked=sum(grouped.launches.values()), a2a=collectives.launches,
+                dispatch=sum(fused_moe.dispatch_launches.values()), dense=dense.launches)
+
+
+def ep_main_path(mesh, params, seed):
+    """Phase 11's main path: the model forward over the 8-rank mesh through
+    its entry point, mega_comm='fused', on three [8, 128] batches: launches
+    (the general kernel 1 a layer a rank, nothing else), finite logits of
+    the right shape, tokens/s after the first batch and peak memory.
+    Returns (the sharded parameters, the batches, the fused config, the
+    logits, the numbers)."""
+    from deepgemm_tpu_torch.kernels import fused_moe
     from deepgemm_tpu_torch.models.convert import shard_experts
     from deepgemm_tpu_torch.models.transformer import ModelConfig, forward
-    from deepgemm_tpu_torch.parallel import collectives
-    from deepgemm_tpu_torch.testing import calc_diff
     gen = torch.Generator(device='cuda').manual_seed(seed + 13)
     batches = [torch.randint(0, V3['vocab'], EP_BATCH_SHAPE, generator=gen, device='cuda')
                for _ in range(BATCHES)]
-    base = dict(V3, use_fp8=True, use_kernels=True, use_mega=True)
-    cfg_fused = ModelConfig(**base, mega_comm='fused')
-    cfg_xla = ModelConfig(**base, mega_comm='xla', mega_chunks=1)
-    cfg_pallas = ModelConfig(**base, mega_comm='pallas', mega_chunks=1)
+    cfg_fused = ModelConfig(**V3, use_fp8=True, use_kernels=True, use_mega=True,
+                            mega_comm='fused')
     sharded = shard_experts(params, mesh)                  # views: one card
     layers = V3['num_layers']
-
-    def zero():
-        for counts in (fused_moe.launches, fused_moe.ep_launches, fused_moe.dispatch_launches):
-            for key in counts:
-                counts[key] = 0
-        grouped.launches.update(bf16=0, fp8=0, fp8_f32=0)
-        dense.launches = 0
-        collectives.launches = 0
-
-    def seen():
-        return dict(mega_ep=sum(fused_moe.ep_launches.values()),
-                    mega_local=sum(fused_moe.launches.values()),
-                    masked=sum(grouped.launches.values()), a2a=collectives.launches,
-                    dispatch=sum(fused_moe.dispatch_launches.values()), dense=dense.launches)
-
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     # the main path: counts at 0 just before, read just after
-    zero()
+    ep_zero()
     logits, seconds = [], []
     for tokens in batches:
         t0 = time.perf_counter()
         logits.append(forward(sharded, tokens, cfg_fused, mesh))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    got = seen()
+    got = ep_seen()
     want = dict(mega_ep=layers * EP * BATCHES, mega_local=0, masked=0, a2a=0, dispatch=0, dense=0)
     require(got == want and fused_moe.ep_launches['fp8'] == want['mega_ep'],
             f'mesh forward fused: launches {got}, expected {want} (fp8 instance)')
-    launches = dict(mega_ep=got['mega_ep'])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_tok = EP_BATCH_SHAPE[0] * EP_BATCH_SHAPE[1]
     tokens_per_s = (BATCHES - 1) * n_tok / sum(seconds[1:])
@@ -3292,15 +3415,34 @@ def ep_forward(mesh, params, seed):
         f'kernel {layers} a rank, nothing else) tokens/s={tokens_per_s:.1f} (batches 2-{BATCHES} '
         f'of {EP_BATCH_SHAPE}; seconds per batch {[round(v, 4) for v in seconds]}, the first '
         f'with warm-up, fp8 weight quantization in every call) peak_mem={peak_gb:.2f} GB')
+    return sharded, batches, cfg_fused, logits, dict(
+        launches=dict(mega_ep=got['mega_ep']), tokens_per_s=tokens_per_s, peak_gb=peak_gb,
+        seconds=seconds)
+
+
+def ep_forward(mesh, params, seed):
+    """The model forward over the 8-rank mesh through its entry point:
+    'fused' (the main path, :func:`ep_main_path`); 'xla' and 'pallas' (one
+    chunk) on the first batch, 'pallas' bitwise 'xla'; the per-layer walk;
+    the logits beside the one-rank forward's; a profile. Returns the
+    numbers of the main path and the profile."""
+    from deepgemm_tpu_torch.models.transformer import ModelConfig, forward
+    from deepgemm_tpu_torch.testing import calc_diff
+    sharded, batches, cfg_fused, logits, numbers = ep_main_path(mesh, params, seed)
+    base = dict(V3, use_fp8=True, use_kernels=True, use_mega=True)
+    cfg_xla = ModelConfig(**base, mega_comm='xla', mega_chunks=1)
+    cfg_pallas = ModelConfig(**base, mega_comm='pallas', mega_chunks=1)
+    layers = V3['num_layers']
+    launches = numbers['launches']
     # 'xla' and 'pallas', one chunk each: bitwise equal
-    zero()
+    ep_zero()
     l_xla = forward(sharded, batches[0], cfg_xla, mesh)
     torch.cuda.synchronize()
-    got_xla = seen()
-    zero()
+    got_xla = ep_seen()
+    ep_zero()
     l_pallas = forward(sharded, batches[0], cfg_pallas, mesh)
     torch.cuda.synchronize()
-    got_pallas = seen()
+    got_pallas = ep_seen()
     want_xla = dict(mega_ep=0, mega_local=0, masked=2 * layers * EP, a2a=0, dispatch=0, dense=0)
     want_pallas = dict(want_xla, a2a=3 * layers * EP)
     require(got_xla == want_xla and got_pallas == want_pallas,
@@ -3335,8 +3477,7 @@ def ep_forward(mesh, params, seed):
     del one_fused, one_unfused, l_xla, l_pallas, logits, walked
     prof = profile_mesh(lambda: forward(sharded, batches[0], cfg_fused, mesh),
                         'forward over 8 ranks, mega fused', f'one {EP_BATCH_SHAPE} batch')
-    return dict(launches=launches, tokens_per_s=tokens_per_s, peak_gb=peak_gb,
-                seconds=seconds, profile=prof)
+    return dict(numbers, profile=prof)
 
 
 def phase_ep(seed, arch):
@@ -3381,14 +3522,71 @@ def phase_ep(seed, arch):
     ]
 
 
+# The training step's dense and k-grouped calls (phase 6's shapes: V3
+# widths, [2, 1024] tokens, 256 experts of 128 rows), for --gemm-times:
+# (kind, name, shape, gran_n, output type).
+TRAIN_GEMMS = (
+    ('dense', 'qkv fwd', (2048, 49152, 7168), 128, torch.bfloat16),
+    ('dense', 'o fwd', (2048, 7168, 16384), 128, torch.bfloat16),
+    ('dense', 'o dgrad', (2048, 16384, 7168), 128, torch.bfloat16),
+    ('dense', 'o wgrad', (7168, 16384, 2048), 1, torch.float32),
+    ('dense', 'qkv dgrad', (2048, 7168, 49152), 128, torch.bfloat16),
+    ('dense', 'qkv wgrad', (49152, 7168, 2048), 1, torch.float32),
+    ('k_grouped', 'L2 wgrad', (7168, 2048, 32768, 256), None, torch.bfloat16),
+    ('k_grouped', 'L1 wgrad', (4096, 7168, 32768, 256), None, torch.bfloat16),
+)
+
+
+def gemm_times(seed, arch):
+    """--gemm-times: phase 3 and the training step's dense and k-grouped
+    calls at full shapes, each timed (the kernel and a bf16 PyTorch call;
+    no plain version), for comparing two trees' kernels in one call."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    phase3 = phase_dense(gen, arch)
+    results = {'dense': [], 'contiguous': [], 'k_grouped': []}
+    for kind, name, shape, gran_n, out_dtype in TRAIN_GEMMS:
+        rec = dict(name=name, shape=shape, out_dtype=out_dtype, err=float('nan'),
+                   diff=float('nan'))
+        if gran_n is not None:
+            rec['gran_n'] = gran_n
+        results[kind].append(rec)
+    train = time_train_kernels(results, gen, arch, time_plain=False)
+    return dict(phase3=phase3, dense=train['dense'], k_grouped=train['k_grouped'],
+                relayout=train['relayout'])
+
+
+def ep_times(seed):
+    """--ep-times: phase 11's main path alone (:func:`ep_main_path`, then one
+    batch under the profiler: wall time and the device's idle share), for
+    comparing two trees' end-to-end numbers in one call."""
+    from deepgemm_tpu_torch.models.transformer import ModelConfig, forward, init_params
+    from deepgemm_tpu_torch.parallel import dist
+    params = init_params(ModelConfig(**V3), seed=seed + 11, device='cuda')
+    mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
+    sharded, batches, cfg_fused, logits, numbers = ep_main_path(mesh, params, seed)
+    del logits
+    prof = profile_mesh(lambda: forward(sharded, batches[0], cfg_fused, mesh),
+                        'forward over 8 ranks, mega fused', f'one {EP_BATCH_SHAPE} batch')
+    return dict(numbers, profile=prof)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--gemm-times', action='store_true',
+                        help='only build and time phase 3 and the training step\'s dense and '
+                             'k-grouped calls (no plain versions), then print them as JSON')
+    parser.add_argument('--ep-times', action='store_true',
+                        help='only build and run phase 11\'s main path (the 8-rank forward, '
+                             'timed and profiled), then print its numbers as JSON')
+    parser.add_argument('--package-root', default=os.path.dirname(os.path.abspath(__file__)),
+                        help='the directory that holds the deepgemm_tpu_torch to run (default: '
+                             'the one beside this script)')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.package_root))
     try:
         import deepgemm_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -3404,6 +3602,16 @@ def main(argv=None) -> int:
     log(f'phase 1 card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)})')
     phase_build()
+    if args.gemm_times:
+        print(json.dumps({'gemm_times': gemm_times(args.seed, H100_SXM),
+                          'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.ep_times:
+        print(json.dumps({'ep_times': ep_times(args.seed),
+                          'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
     gen = torch.Generator(device='cuda').manual_seed(args.seed)
     dense_entries = phase_dense(gen, H100_SXM)
     torch.cuda.synchronize()
@@ -3446,7 +3654,8 @@ def main(argv=None) -> int:
 
     kernels = [
         kernel('dense_fp8_gemm_nt', 'dense.cu', 'deepgemm_tpu/kernels/dense.py:291',
-               train_counts['dense'], train['dense'], phase3_shapes=dense_entries),
+               train_counts['dense'], train['dense'], design=HOPPER_DESIGN,
+               phase3_shapes=dense_entries),
         *(kernel(f'masked_grouped_gemm_{kind}', 'masked.cu',
                  'deepgemm_tpu/kernels/grouped.py:576', counts[kind], masked[kind])
           for kind in ('bf16', 'fp8')),
@@ -3454,7 +3663,13 @@ def main(argv=None) -> int:
                'deepgemm_tpu/kernels/grouped.py:240', train_counts['contiguous'],
                train['contiguous']),
         kernel('k_grouped_gemm_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
-               train_counts['k_grouped'], train['k_grouped']),
+               train_counts['k_grouped'], train['k_grouped'], design=HOPPER_DESIGN,
+               relayout_ms=sum(e['relayout_ms'] for e in train['k_grouped'])),
+        # the FP8 k-grouped wrapper's TN relayout, one launch an operand
+        # (JAX's wrapper transposes its operands in XLA, k_grouped.py:438-440)
+        kernel('k_major_relayout', 'relayout.cuh', 'deepgemm_tpu/kernels/k_grouped.py:438',
+               train_counts['relayout'], train['relayout'],
+               design='one transposing gather, 128 x 128-byte tiles'),
     ]
     # phase 7: the MQA logits kernel's numbers are the prefill path's call,
     # with the JAX bench's prefill shape beside; the others are the decode

@@ -1,5 +1,8 @@
-// Shared mainloop of the port's GEMM kernels: dense FP8 (every layout and
-// scale strategy), masked grouped, contiguous grouped and k-grouped.
+// Shared mainloop of the port's mma.sync GEMM kernels: the dense forms
+// that are not e4m3 x e4m3 'promote' (the 'dequant' strategy, the bf16
+// operands), masked grouped, contiguous grouped and the bf16 k-grouped
+// kernel. The dense e4m3 'promote' forms and the FP8 k-grouped kernel run
+// the Hopper mainloop of gemm_sm90.cuh.
 //
 // Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
 // (_build_dense_gemm), kernels/grouped.py (_build_masked, _build_contiguous)
@@ -19,8 +22,8 @@
 //     mma.sync m16n8 tiles with f32 accumulation.
 //   * What an instance computes is its Form, fixed at compile time: each
 //     operand's element type (e4m3, or bf16), its major (k-major, or
-//     MN-major: A [K, M], B [K, N]), the scale step (none, 'promote' or
-//     'dequant') and whether B is planar-packed FP4. e4m3 x e4m3 under
+//     MN-major: A [K, M], B [K, N]) and the scale step (none, 'promote' or
+//     'dequant'). e4m3 x e4m3 under
 //     'promote' runs m16n8k32 e4m3; every other form runs m16n8k16 bf16, an
 //     e4m3 operand widened to bf16 as its fragment is loaded (exact), times
 //     its bf16 scale under 'dequant' (exact for power-of-two scales).
@@ -36,21 +39,13 @@
 //     k-contiguous only, and ldmatrix.trans moves 16-bit elements only. The
 //     fragments, their k order and the promotion are then the k-major
 //     form's, so every layout is bitwise the NT kernel on transposed copies.
-//   * Planar FP4 B (128 packed bytes hold 256 codes: the low nibbles k 0-127
-//     of the group, the high nibbles k 128-255): stage kt loads the group's
-//     128 bytes and its fragment words decode nibble plane kt & 1 to e4m3
-//     (one __byte_perm). The group is loaded for both of its stages, the
-//     second time mostly from L2. With B's (1, 128) scales as per-row SFB
-//     this is bitwise the e4m3 kernel on the decoded codes.
 //   * 'promote': each stage's product goes to a fresh f32 partial that is
 //     scaled and added to the accumulator in the reference multiply order,
 //     with explicit _rn intrinsics so nothing is contracted into an FMA; a
 //     bf16 operand (a folded FP4 operand) has unit scales, whose multiply is
 //     skipped (x * 1 is x). SFB holds one f32 per gran_n rows of B (128: the
-//     128x128 block scales; 1: per channel). Where the scales lie is fixed
-//     by the Layout: m-major as the casts make them (SFA [.., M, ksf], SFB
-//     [.., nsf, ksf]) for kBatched and kContiguous, k-first [nsf_total, M|N]
-//     for the k-grouped layouts.
+//     128x128 block scales; 1: per channel), m-major as the casts make them
+//     (SFA [.., M, ksf], SFB [.., nsf, ksf]).
 //   * Which problem a block computes is the Layout's business, read on the
 //     device only (no call syncs the host, every launch is graph safe):
 //       kBatched    grid z = group; a, b, d advance by a group stride. With
@@ -69,15 +64,11 @@
 //                   each stage, each pass exactly kContiguous's 64-row tile
 //                   (the same fragments, the same k order, the same
 //                   promotion per row), so its bits are kContiguous's.
-//       kKGrouped   grid z = group; the group's depth is k_size[g] columns
-//                   of A and B from column k_start[g] (16-element aligned),
-//                   its scales start at scale block sf_start[g]; an empty
-//                   group writes c (or zero).
-//       kKGroupedFlat  the same, each group's A and B stored k-major and
-//                   flattened: A [M, k_size[g]] at element M * k_start[g],
-//                   B [N, k_size[g]] at N * k_start[g], read in place.
+//       kKGrouped   (bf16) grid z = group; the group's depth is k_size[g]
+//                   columns of A and B from column k_start[g] (16-element
+//                   aligned); an empty group writes c (or zero).
 //   * Output bf16 or f32 (OutT). What only one layout needs (c, the zero
-//     rows, k-first scales, a row stride apart from the depth) is decided at
+//     rows, a row stride apart from the depth) is decided at
 //     compile time, so the other layouts carry no branch or runtime stride
 //     for it.
 //
@@ -106,7 +97,7 @@ constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
-enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual, kKGroupedFlat };
+enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual };
 enum class Scale { kNone, kPromote, kDequant };
 
 // Rows of A a block computes, and the B slabs a stage holds.
@@ -120,23 +111,22 @@ __host__ __device__ constexpr int b_slabs() {
 }
 template <Layout kLayout>
 __host__ __device__ constexpr bool k_grouped() {
-    return kLayout == Layout::kKGrouped || kLayout == Layout::kKGroupedFlat;
+    return kLayout == Layout::kKGrouped;
 }
 
 // What an instance computes. kEA / kEB: bytes per element of A and B (1:
-// e4m3, or planar FP4 codes for B with kFp4B; 2: bf16). kAMn / kBMn: the
+// e4m3; 2: bf16). kAMn / kBMn: the
 // operand is MN-major (A [K, M], B [K, N]; B [G, K, N] when grouped). kC:
 // the dense kernel adds c in its epilogue; a compile-time choice, since a
 // runtime one cost the e4m3 forms without c ~5% on the H100.
 template <int kEA_, int kEB_, Scale kScale_, bool kAMn_ = false, bool kBMn_ = false,
-          bool kFp4B_ = false, bool kC_ = false>
+          bool kC_ = false>
 struct Form {
     static constexpr int kEA = kEA_;
     static constexpr int kEB = kEB_;
     static constexpr Scale kScale = kScale_;
     static constexpr bool kAMn = kAMn_;
     static constexpr bool kBMn = kBMn_;
-    static constexpr bool kFp4B = kFp4B_;
     static constexpr bool kC = kC_;             // the dense kernel's c, added to the finished sum
     static constexpr bool kMmaE4m3 = kEA == 1 && kEB == 1 && kScale != Scale::kDequant;
     static constexpr int kKE = kEA == 2 && kEB == 2 ? 64 : 128;    // k elements per stage
@@ -147,8 +137,6 @@ struct Form {
     static_assert((kEA == 1 || kEA == 2) && (kEB == 1 || kEB == 2), "e4m3 or bf16 operands");
     static_assert((kScale == Scale::kNone) == (kEA == 2 && kEB == 2),
                   "scales go with e4m3 operands; bf16 x bf16 is unscaled");
-    static_assert(!kFp4B || (kMmaE4m3 && kScale == Scale::kPromote && !kBMn),
-                  "planar FP4 B: k-major, e4m3 A, 'promote'");
 };
 
 using FormE4m3 = Form<1, 1, Scale::kPromote>;   // the promoted e4m3 NT form
@@ -176,9 +164,9 @@ constexpr int smem_bytes() {
 }
 
 struct GemmArgs {
-    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk], flat: per
-                             // group [M, k_size]); MN-major [K, M]
-    const uint8_t* b;        // B: k-major [G, N, K] (planar FP4: [N, K/2]); MN-major [G, K, N]
+    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk]); MN-major
+                             // [K, M]
+    const uint8_t* b;        // B: k-major [G, N, K]; MN-major [G, K, N]
     const float* sfa;        // f32 scales of A, or nullptr (unscaled)
     const float* sfb;        // f32 scales of B, or nullptr
     const float* c;          // f32: k-grouped [G, M, N], the sum's start; kBatched [M, N],
@@ -191,17 +179,14 @@ struct GemmArgs {
     const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile;
                              // kContiguousDual: [M / 128] group of each half tile
     const int* tile_row_end; // kContiguous: [ceil(M / kBM)] rows at or past it are zero, or nullptr
-    const int* k_start;      // k-grouped: [G] first column of the group (flat: first k)
+    const int* k_start;      // k-grouped: [G] first column of the group
     const int* k_size;       // k-grouped: [G] depth of the group
-    const int* sf_start;     // k-grouped: [G] first scale block of the group
 };
 
 // Offset of the scale of (row r, k block kb) within one problem's scales:
-// m-major [rows, ksf], or k-first [nsf_total, rows] for the k-grouped layouts.
-template <Layout kLayout>
-__device__ __forceinline__ int64_t sf_offset(int r, int kb, int ksf, int rows) {
-    if constexpr (k_grouped<kLayout>()) return static_cast<int64_t>(kb) * rows + r;
-    else return static_cast<int64_t>(r) * ksf + kb;
+// m-major [rows, ksf].
+__device__ __forceinline__ int64_t sf_offset(int r, int kb, int ksf) {
+    return static_cast<int64_t>(r) * ksf + kb;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -352,11 +337,13 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     constexpr int kEA = F::kEA, kEB = F::kEB, kKE = F::kKE;
     constexpr bool kDual = kLayout == Layout::kContiguousDual;
     constexpr bool kKG = k_grouped<kLayout>();
+    static_assert(!kKG || F::kScale == Scale::kNone,
+                  "the FP8 k-grouped kernel runs the Hopper mainloop (gemm_sm90.cuh)");
     constexpr bool kPromote = F::kScale == Scale::kPromote;
     constexpr bool kDequant = F::kScale == Scale::kDequant;
     constexpr int kRows = block_rows<kLayout>();
     constexpr int kQ = kRows / kBM;      // 64-row passes over each stage
-    static_assert(!kDual || (!F::kAMn && !F::kBMn && !F::kFp4B && kEA == kEB),
+    static_assert(!kDual || (!F::kAMn && !F::kBMn && kEA == kEB),
                   "dual-B takes the NT forms of one element size");
     static_assert(!F::kAMn || kLayout == Layout::kBatched, "MN-major A: the dense kernel");
     static_assert(!F::kC || kLayout == Layout::kBatched, "c in the epilogue: the dense kernel");
@@ -382,7 +369,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     int64_t ld_k = p.K;                  // row stride of a k-major operand, elements
     const int ksf = (p.K + 127) / 128;   // m-major scales: k blocks per row
     const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
-    const int kb_row = F::kFp4B ? p.K / 2 : p.K * kEB;   // bytes of one row of B
+    const int kb_row = p.K * kEB;        // bytes of one row of B
     if constexpr (kLayout == Layout::kBatched) {
         const int g = bz;
         if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
@@ -411,26 +398,17 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         const int g = bz;
         const int64_t k0 = p.k_start[g];
         depth = p.k_size[g];
-        if constexpr (kLayout == Layout::kKGroupedFlat) {
-            a += k0 * p.M * kEA;
-            b += k0 * p.N * kEB;
-            ld_k = depth;
-        } else {
-            a += k0 * kEA;
-            b += k0 * kEB;
-            ld_k = p.ldk;
-        }
-        if constexpr (F::kScaleA) sfa += static_cast<int64_t>(p.sf_start[g]) * p.M;
-        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(p.sf_start[g]) * p.N;
+        a += k0 * kEA;
+        b += k0 * kEB;
+        ld_k = p.ldk;
         d_off = static_cast<int64_t>(g) * p.M * p.N;
     }
 
     // Row strides (bytes) and the bytes of k each k-major row holds.
     const int64_t lda = F::kAMn ? static_cast<int64_t>(p.M) * kEA : ld_k * kEA;
-    const int64_t ldb = F::kBMn ? static_cast<int64_t>(p.N) * kEB
-                      : F::kFp4B ? ld_k / 2 : ld_k * kEB;
+    const int64_t ldb = F::kBMn ? static_cast<int64_t>(p.N) * kEB : ld_k * kEB;
     const int64_t ka_bytes = static_cast<int64_t>(depth) * kEA;
-    const int64_t kb_bytes = F::kFp4B ? depth / 2 : static_cast<int64_t>(depth) * kEB;
+    const int64_t kb_bytes = static_cast<int64_t>(depth) * kEB;
     const int num_kt = static_cast<int>((ka_bytes + kKE * kEA - 1) / (kKE * kEA));
 
     const int tid = threadIdx.x;
@@ -445,7 +423,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     // row), which ran ~15% faster at 4096^3 than a pass per operand.
     auto load_stage = [&](int slot, int kt) {
         uint8_t* s = smem + slot * Plan::kStage;
-        if constexpr (!F::kAMn && !F::kBMn && !F::kFp4B && kEA == kEB) {
+        if constexpr (!F::kAMn && !F::kBMn && kEA == kEB) {
             const int stage_rows = kRows + (straddle ? 2 : 1) * BN;
             const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
             #pragma unroll
@@ -465,8 +443,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         const int64_t k_elem0 = static_cast<int64_t>(kt) * kKE;
         load_operand<F::kAMn, kEA, kKE, kRows>(s, a, lda, m0, p.M, k_elem0 * kEA, ka_bytes,
                                                k_elem0, depth, kKE * kEA, F::kPitchA, tid);
-        const int64_t kcol_b = F::kFp4B ? static_cast<int64_t>(kt >> 1) * kKBytes : k_elem0 * kEB;
-        load_operand<F::kBMn, kEB, kKE, BN>(s + Plan::kA, b, ldb, n0, p.N, kcol_b, kb_bytes,
+        load_operand<F::kBMn, kEB, kKE, BN>(s + Plan::kA, b, ldb, n0, p.N, k_elem0 * kEB, kb_bytes,
                                             k_elem0, depth, kKE * kEB, F::kPitchB, tid);
     };
 
@@ -557,10 +534,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
                         const uint8_t* pb = sb + (wn + j * 8 + gr) * F::kPitchB + kk + tg * 4;
                         bfr[j][0] = ld_shared_u32(pb);
                         bfr[j][1] = ld_shared_u32(pb + 16);
-                        if constexpr (F::kFp4B) {
-                            bfr[j][0] = fp4x4_to_e4m3x4(bfr[j][0], kt & 1);
-                            bfr[j][1] = fp4x4_to_e4m3x4(bfr[j][1], kt & 1);
-                        }
                     }
                     #pragma unroll
                     for (int i = 0; i < 2; ++i)
@@ -581,15 +554,14 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
                         for (int h = 0; h < 2; ++h) {
                             const int row = q0 + wm + i * 16 + gr + h * 8;
                             sa_bf[i][h] = F::kScaleA && row < p.M
-                                ? bf16x2_splat(__ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)))
+                                ? bf16x2_splat(__ldg(sfa + sf_offset(row, kt, ksf)))
                                 : 0u;
                         }
                     #pragma unroll
                     for (int j = 0; j < kNT; ++j) {
                         const int col = n0 + wn + j * 8 + gr;
                         sb_bf[j] = F::kScaleB && col < p.N
-                            ? bf16x2_splat(__ldg(sfb_q + sf_offset<kLayout>(col >> p.sfb_shift, kt,
-                                                                            ksf, p.N)))
+                            ? bf16x2_splat(__ldg(sfb_q + sf_offset(col >> p.sfb_shift, kt, ksf)))
                             : 0u;
                     }
                 }
@@ -639,7 +611,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
                     for (int h = 0; h < 2; ++h) {
                         const int row = q0 + wm + i * 16 + gr + h * 8;
                         sa_v[i][h] = F::kScaleA && row < p.M
-                            ? __ldg(sfa + sf_offset<kLayout>(row, kt, ksf, p.M)) : 0.f;
+                            ? __ldg(sfa + sf_offset(row, kt, ksf)) : 0.f;
                     }
                 #pragma unroll
                 for (int j = 0; j < kNT; ++j)
@@ -647,7 +619,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
                     for (int e = 0; e < 2; ++e) {
                         const int col = n0 + wn + j * 8 + tg * 2 + e;
                         sb_v[j][e] = F::kScaleB && col < p.N
-                            ? __ldg(sfb_q + sf_offset<kLayout>(col >> p.sfb_shift, kt, ksf, p.N))
+                            ? __ldg(sfb_q + sf_offset(col >> p.sfb_shift, kt, ksf))
                             : 0.f;
                     }
                 #pragma unroll
@@ -734,9 +706,9 @@ inline cudaError_t launch_gemm_out(const GemmArgs& p, int grid_z, int block_n, i
 // A dense instance, with c added in its epilogue where p.c is set.
 template <class F>
 struct WithC;
-template <int kEA, int kEB, Scale kScale, bool kAMn, bool kBMn, bool kFp4B, bool kC>
-struct WithC<Form<kEA, kEB, kScale, kAMn, kBMn, kFp4B, kC>> {
-    using type = Form<kEA, kEB, kScale, kAMn, kBMn, kFp4B, true>;
+template <int kEA, int kEB, Scale kScale, bool kAMn, bool kBMn, bool kC>
+struct WithC<Form<kEA, kEB, kScale, kAMn, kBMn, kC>> {
+    using type = Form<kEA, kEB, kScale, kAMn, kBMn, true>;
 };
 
 template <class F>
@@ -768,6 +740,9 @@ inline GemmArgs nt_args(const void* a, const void* b, const void* sfa, const voi
 
 }  // namespace dgt
 
+#ifndef DGT_ERROR_STRING_DEFINED
+#define DGT_ERROR_STRING_DEFINED
 extern "C" const char* dgt_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif

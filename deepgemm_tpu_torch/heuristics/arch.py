@@ -26,7 +26,13 @@ class ArchSpec:
     # package fits its column to its own chip (deepgemm_tpu/heuristics/
     # arch.py:55-60). A model parameter, not a rate the card reaches: the
     # port's fold route pays a torch decode that the model's 2.5 bytes a
-    # value undercount, and the fit absorbs it.
+    # value undercount, and the fit absorbs it. Both routes run the wgmma
+    # kernel. chip_smoke.py phase 10 prints each run's crossover and fit
+    # (lines through the op times at m 128 and 4096, n 7168, k 2048; NVIDIA
+    # H100 80GB HBM3, 700 W). Three runs put it at m ~17500, ~18800 and
+    # ~303000 (fits 1728.6, 1732.1, 1778.0): the fold's time is mostly its
+    # host-side torch decode, which varies from machine to machine. The
+    # value is the median.
     fp4_decode_tflops: float
     # NVLink, each way, to the other cards of the host: the link of an
     # expert-parallel mesh across cards (heuristics/mega.py). Ranks that
@@ -45,7 +51,7 @@ class ArchSpec:
 H100_SXM = ArchSpec(name='H100 SXM', num_sms=132, smem_per_block=232448,
                     l2_bytes=50 << 20, hbm_bytes_per_s=3.35e12,
                     bf16_flops=989e12, fp8_flops=1979e12, tf32_flops=495e12,
-                    fp4_decode_tflops=1666.0)
+                    fp4_decode_tflops=1732.0)
 
 
 def detect_arch() -> ArchSpec:

@@ -1,5 +1,11 @@
-"""Tile choice for the port's GEMM kernels (csrc/gemm_mainloop.cuh), in the
-role of deepgemm_tpu/heuristics/configs.py:get_gemm_config.
+"""Tile choice for the port's GEMM kernels, in the role of
+deepgemm_tpu/heuristics/configs.py:get_gemm_config: :func:`get_sm90_config`
+for the Hopper mainloop (csrc/gemm_sm90.cuh: the dense e4m3 'promote' forms
+and the FP8 k-grouped kernel), :func:`get_gemm_config` for the mma.sync
+mainloop (csrc/gemm_mainloop.cuh: the masked, contiguous and dual-B kernels,
+the dense 'dequant' and bf16-operand forms, the bf16 k-grouped kernel).
+
+The mma.sync mainloop:
 
 The kernel's block is 64 rows by ``block_n`` columns, 128 k elements a stage
 (64 for bf16 x bf16), 4 stages. Two widths are built: 128 (the default, half the shared
@@ -17,6 +23,7 @@ csrc/gemm_mainloop.cuh plans it (``SmemPlan``); the wrappers check it
 against a block's 227 KiB before they launch."""
 
 import dataclasses
+import functools
 
 from ..utils.math import ceil_div
 from .arch import H100_SXM
@@ -78,3 +85,61 @@ def get_gemm_config(m: int, n: int, num_groups: int = 1,
 # asserts it at compile time). The JAX package picks its tile against the
 # TPU's VMEM (deepgemm_tpu/heuristics/configs.py:get_dual_b_config).
 DUAL_B_CONFIG = GemmConfig(block_m=4 * BLOCK_M, block_n=64, b_slabs=2)
+
+
+# The Hopper mainloop (csrc/gemm_sm90.cuh). A tile is block_m rows (64 or
+# 128: one or two consumer warpgroups of 64 rows) by SM90_BLOCK_N columns;
+# a stage holds one 128-deep k block of A and B (e4m3, 128-byte swizzled) and
+# its scales; the epilogue stages each warpgroup's 64 rows in a swizzled
+# shared tile for its TMA stores. (The kernel asserts at compile time that a
+# consumer thread's two f32 register sets fit its setmaxnreg budget.)
+SM90_BLOCK_N = 128
+SM90_BLOCK_K = 128
+SM90_MAX_STAGES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Config:
+    block_m: int
+    block_n: int
+    num_stages: int
+    num_sms: int            # the persistent grid: min(tiles, SMs)
+    smem_bytes: int
+
+
+def sm90_smem_bytes(block_m: int, num_stages: int, out_bytes: int, table_groups: int = 0) -> int:
+    """Shared memory of a Hopper-mainloop instance as csrc/gemm_sm90.cuh
+    (``Plan``) lays it out: 1024 bytes of alignment slack, the epilogue's
+    staging tile (64 rows of block_n outputs per warpgroup), per stage A and
+    B (128 bytes a row), their scales (4 bytes a row of A and a column of B)
+    and two 8-byte barriers, and for the k-grouped kernel a table of 8 bytes
+    a group."""
+    block_n = SM90_BLOCK_N
+    staging = (block_m // 64) * 64 * block_n * out_bytes
+    stage = block_m * SM90_BLOCK_K + block_n * SM90_BLOCK_K + (block_m + block_n) * 4 + 16
+    return 1024 + staging + num_stages * stage + 8 * table_groups
+
+
+@functools.lru_cache(maxsize=1024)
+def get_sm90_config(m: int, n: int, num_groups: int = 1, out_bytes: int = 2,
+                    num_sms: int = H100_SXM.num_sms, k_grouped: bool = False) -> Sm90Config:
+    """The Hopper mainloop's tile for ``num_groups`` problems of [m, n]
+    (dense: 1; k-grouped: G, with its per-group table) with an output of
+    ``out_bytes`` (2 bf16, 4 f32). 128 rows (two consumer warpgroups)
+    unless m fits 64 rows or the 128-row tiles would leave SMs idle; as
+    many stages as the shared memory left beside the epilogue's staging
+    tile holds, at most SM90_MAX_STAGES; one block per SM, at most one per
+    tile."""
+    tiles = lambda bm: ceil_div(m, bm) * ceil_div(n, SM90_BLOCK_N) * num_groups
+    block_m = 64 if m <= 64 or tiles(128) < num_sms else 128
+    table = num_groups if k_grouped else 0
+    smem = lambda stages: sm90_smem_bytes(block_m, stages, out_bytes, table)
+    smem_limit = H100_SXM.smem_per_block
+    stages = SM90_MAX_STAGES
+    while stages > 2 and smem(stages) > smem_limit:
+        stages -= 1
+    if smem(stages) > smem_limit:
+        raise ValueError(f'{num_groups} groups: the Hopper mainloop\'s shared memory '
+                         f'({smem(stages)} bytes) exceeds a block\'s {smem_limit}')
+    return Sm90Config(block_m=block_m, block_n=SM90_BLOCK_N, num_stages=stages,
+                      num_sms=max(1, min(tiles(block_m), num_sms)), smem_bytes=smem(stages))

@@ -1,15 +1,19 @@
 """What the kernels' wrappers share: the choice between a kernel and its
-plain PyTorch version, the operand checks, the launch counts, and the plain
-form of the exact FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52).
+plain PyTorch version, the operand checks, the launch counts, the plain
+form of the exact FP8 promotion step (deepgemm_tpu/kernels/common.py:27-52),
+and the k-major relayout that the Hopper mainloop's wrappers run before it
+(csrc/relayout.cuh).
 The counterpart of the cross-rank entry barrier (common.py:89,
 ``ici_entry_barrier``) is device code: csrc/comm.cuh."""
 
 import contextlib
+import ctypes
 import threading
 from typing import Optional, Sequence
 
 import torch
 
+from ..runtime import build
 from ..runtime.config import get_mk_alignment_for_contiguous_layout
 from ..utils.math import ceil_div
 
@@ -18,6 +22,12 @@ _plain_on_cuda = 0
 # The ranks of a mesh launch from several threads: launch counts and the
 # depth above change under this lock.
 COUNT_LOCK = threading.Lock()
+
+
+# Launches of the k-major relayout since the counts were last set to 0, by
+# the library whose copy ran: 'dense' (an MN-major operand of the dense
+# kernel) or 'k_grouped' (the FP8 k-grouped kernel's TN operands).
+relayout_launches = {'dense': 0, 'k_grouped': 0}
 
 
 def count_launch(counts: dict, key: str) -> None:
@@ -138,3 +148,43 @@ def promote_block(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor],
             term = term * sfa[..., :, s:s + 1]
         total = term if total is None else total + term
     return total
+
+
+def k_major_relayout_plain(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The relayout kernel's function in plain PyTorch: out[d, c] =
+    x[src[c], d], zero where src[c] < 0. One row gather, one mask, one
+    transposing copy."""
+    raw = x.view(torch.uint8) if x.element_size() == 1 else x.view(torch.int16)
+    if x.shape[0] == 0:
+        return torch.zeros((x.shape[1], src.numel()), dtype=x.dtype, device=x.device)
+    gathered = raw.index_select(0, src.long().clamp(min=0))
+    gathered.masked_fill_((src < 0)[:, None], 0)
+    return gathered.t().contiguous().view(x.dtype)
+
+
+def k_major_relayout(x: torch.Tensor, src: torch.Tensor, lib: str) -> torch.Tensor:
+    """out [dim, ldk] with out[d, c] = x[src[c], d] (zero where src[c] < 0)
+    for an e4m3 x [rows, dim] and src int32 [ldk], ldk % 16 == 0: one
+    transposing gather, each byte read once and written once (with src the
+    identity, a transposing copy). ``lib`` ('dense' or 'k_grouped') is the
+    library whose copy of csrc/relayout.cuh runs and the key it counts
+    under. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if use_plain(x, src):
+        return k_major_relayout_plain(x, src)
+    rows, dim = x.shape
+    ldk = src.numel()
+    check_operand(x, 'x', torch.float8_e4m3fn, (rows, dim))
+    check_operand(src, 'src', torch.int32, (ldk,))
+    if ldk % 16 or ldk == 0 or dim == 0:
+        raise ValueError(f'the relayout takes ldk % 16 == 0 and ldk, dim > 0; got {ldk}, {dim}')
+    out = torch.empty((dim, ldk), dtype=x.dtype, device=x.device)
+    fn = build.load(lib).dgt_k_major_relayout
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    code = fn(x.data_ptr(), src.data_ptr(), out.data_ptr(), dim, ldk,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(build.load(lib), code, 'k_major_relayout')
+    count_launch(relayout_launches, lib)
+    return out

@@ -15,16 +15,20 @@ at dense.py:291), with kernels/common.py:promote_block:
     granularity of 32 or 64, folded into bf16 by the op layer, as JAX folds
     it), or two of them;
   * a bf16 or an f32 output.
-Kernels: csrc/dense.cu (e4m3 under 'promote', planar FP4 B) and
-csrc/dense_dequant.cu (the bf16 MMA: 'dequant', the bf16 operands), on the
-mainloop of csrc/gemm_mainloop.cuh.
+Kernels: csrc/dense.cu (e4m3 under 'promote', planar FP4 B) on the Hopper
+mainloop of csrc/gemm_sm90.cuh (wgmma + TMA, warp-specialised, persistent),
+and csrc/dense_dequant.cu (the bf16 MMA: 'dequant', the bf16 operands) on the
+mma.sync mainloop of csrc/gemm_mainloop.cuh.
 Bound on the H100: a 4096^3 product does 2*4096^3 operations on 32 MiB of
 fp8 input, ~2000 operations a byte, so the fp8 tensor-core rate bounds it
 (the bf16 MMA forms: the bf16 rate); at m = 128 the weights' bytes weigh as
-much. The design streams 128-deep k slices through a 4-stage cp.async ring
-into mma.sync tiles, turns an MN-major stage k-major in shared memory, and
-applies the scales per slice in registers; it reaches a fraction of the
-wgmma rate, which a later kernel earns.
+much. The e4m3 'promote' kernel streams 128-deep k blocks by TMA into
+wgmma, promotes each block's f32 partial with its scales in registers, and
+takes an MN-major operand as a k-major copy made here (wgmma reads e4m3
+k-major only), so every layout is bitwise the NT kernel on transposed
+copies, and the scales k-first (a row per block, copied in bulk a stage;
+the C entry lays them out in a pre-pass); the 'dequant' body transposes
+MN-major stages in shared memory.
 """
 
 import ctypes
@@ -32,11 +36,13 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import BLOCK_M, check_smem, get_gemm_config, smem_bytes
+from ..heuristics.configs import (BLOCK_M, check_smem, get_gemm_config, get_sm90_config,
+                                  smem_bytes)
 from ..runtime import build
 from ..runtime.config import get_num_sms
-from ..utils.math import _dequantize_from_fp4_e2m1, ceil_div, unpack_fp4_planar
-from .common import check_operand, f32_products, promote_block, sfb_shift, use_plain
+from ..utils.math import _dequantize_from_fp4_e2m1, align, ceil_div, unpack_fp4_planar
+from .common import (check_operand, f32_products, k_major_relayout, promote_block, sfb_shift,
+                     use_plain)
 
 # Kernel launches since the counts were last set to 0: all forms, and per
 # form (see :func:`form_of`).
@@ -51,7 +57,7 @@ _E4M3 = torch.float8_e4m3fn
 def _fp8_entry():
     fn = build.load('dense').dgt_dense_fp8_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,6 +87,17 @@ def form_of(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_mn: bool = F
 
 def _k_major(x: torch.Tensor, mn: bool) -> torch.Tensor:
     return x.t().contiguous() if mn else x
+
+
+def _k_major_e4m3(x: torch.Tensor, mn: bool) -> torch.Tensor:
+    """An MN-major e4m3 operand [k, rows] as a k-major copy [rows, k] (the
+    transposing gather of csrc/relayout.cuh with the identity for its source
+    rows: each byte read once and written once; counted as
+    common.relayout_launches['dense']); a k-major one as it is."""
+    if not mn:
+        return x
+    return k_major_relayout(x, torch.arange(x.shape[0], dtype=torch.int32, device=x.device),
+                            'dense')
 
 
 def _decode_planar(b: torch.Tensor) -> torch.Tensor:
@@ -189,20 +206,28 @@ def dense_gemm(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor] = N
         raise ValueError(f'planar FP4 B takes k % 256 == 0 (a packed group is 256 codes); '
                          f'got k={k}')
     shift = sfb_shift(gran_n)
-    cfg = get_gemm_config(m, n, 1, num_sms=get_num_sms(a.device))
-    check_smem(smem_bytes(BLOCK_M, cfg.block_n, elem_a, elem_b, a_mn, b_mn), 'dense_gemm')
     d = torch.empty((m, n), dtype=out_dtype, device=a.device)
     out_f32 = int(out_dtype == torch.float32)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    ptrs = (a.data_ptr(), b.data_ptr(), None if sfa is None else sfa.data_ptr(),
-            None if sfb is None else sfb.data_ptr(), None if c is None else c.data_ptr(),
-            d.data_ptr())
+    num_sms = get_num_sms(a.device)
     if not (a_bf16 or b_bf16) and strategy == 'promote':
         lib = 'dense'
-        code = _fp8_entry()(*ptrs, m, n, k, shift, cfg.block_n, out_f32, int(a_mn),
-                            int(b_mn), int(fp4_b), stream)
+        a_k, b_k = _k_major_e4m3(a, a_mn), _k_major_e4m3(b, b_mn)
+        # the scales' k-first copies, which the entry writes in a pre-pass
+        sfa_ld, sfb_ld = align(m, 4), align(sfb.shape[0], 4)
+        scratch = torch.empty(ksf * (sfa_ld + sfb_ld), dtype=torch.float32, device=a.device)
+        cfg = get_sm90_config(m, n, 1, out_dtype.itemsize, num_sms=num_sms)
+        code = _fp8_entry()(a_k.data_ptr(), b_k.data_ptr(), sfa.data_ptr(), sfb.data_ptr(),
+                            scratch.data_ptr(), None if c is None else c.data_ptr(), d.data_ptr(),
+                            m, n, k, sfa_ld, sfb_ld, shift, cfg.block_m, cfg.num_stages,
+                            cfg.num_sms, out_f32, int(fp4_b), stream)
     else:
         lib = 'dense_dequant'
+        cfg = get_gemm_config(m, n, 1, num_sms=num_sms)
+        check_smem(smem_bytes(BLOCK_M, cfg.block_n, elem_a, elem_b, a_mn, b_mn), 'dense_gemm')
+        ptrs = (a.data_ptr(), b.data_ptr(), None if sfa is None else sfa.data_ptr(),
+                None if sfb is None else sfb.data_ptr(), None if c is None else c.data_ptr(),
+                d.data_ptr())
         code = _bf16_mma_entry()(*ptrs, m, n, k, shift, cfg.block_n, out_f32, int(a_mn),
                                  int(b_mn), int(a_bf16), int(b_bf16),
                                  int(strategy == 'dequant'), stream)

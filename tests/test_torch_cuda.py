@@ -11,6 +11,7 @@ import torch
 
 from deepgemm_tpu_torch.kernels import (dense, grouped, k_grouped, mqa_logits, paged_mqa,
                                         sparse_attn)
+from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.kernels.common import plain_versions
 from deepgemm_tpu_torch.models import transformer as tt
 from deepgemm_tpu_torch.models.convert import tree_leaves, tree_map
@@ -207,11 +208,88 @@ def test_one_layer_forward_kernel_matches_plain(gen, use_fp8):
     assert calc_diff(lk, lp) < 1e-5
 
 
-def test_train_step_kernel_matches_plain(gen):
+class StepDecisions:
+    """The discrete choices of an FP8 training step, recorded on one step
+    and replayed on another: each e4m3 cast of the FP8 ops (codes and
+    scales), the router's top-k experts, and each bf16 gradient as SGD
+    takes it. Two steps whose products differ in their last bits (the
+    wgmma kernels against their plain versions) otherwise part ways at
+    these choices: an element near an e4m3 or bf16 rounding edge, or a
+    near-tie route, flips, and the bf16 updates of about one bf16 step
+    then differ far beyond 1e-5. Replayed, a cast whose input is within
+    calc_diff 1e-5 of the recorded one takes the recorded codes and
+    scales, the router takes the recorded experts (with its own weights at
+    them), and a bf16 gradient within 1e-5 takes the recorded value where
+    the two are one bf16 step apart or equal. Anything further apart keeps
+    its own result, so a fault still shows in what follows."""
+
+    CASTS = ('per_token_cast_to_fp8', 'per_block_cast_to_fp8', 'per_channel_cast_to_fp8',
+             'quantize_experts')
+
+    def __init__(self, monkeypatch, cfg):
+        from deepgemm_tpu_torch.ops import autograd
+        self.monkeypatch, self.cfg, self.log, self.replaying = monkeypatch, cfg, [], False
+        self.taken = {'recorded': 0, 'own': 0}
+        for name in self.CASTS:
+            fn = getattr(autograd, name)
+            monkeypatch.setattr(autograd, name, lambda x, *a, _fn=fn, _name=name, **kw:
+                                self._choose(_name, x, lambda: _fn(x, *a, **kw)))
+        topk, sgd = torch.topk, tt._sgd_
+        monkeypatch.setattr(torch, 'topk', lambda x, k, *a, **kw: self._route(x, k, topk, *a, **kw))
+        monkeypatch.setattr(tt, '_sgd_', lambda p, g, lr: sgd(p, self._grad(g), lr))
+
+    def replay(self):
+        self.replaying, self.pos = True, 0
+
+    def _next(self, kind, x):
+        rec_kind, rec_x, rec_out = self.log[self.pos]
+        self.pos += 1
+        assert rec_kind == kind and rec_x.shape == x.shape, (rec_kind, kind)
+        return rec_x, rec_out
+
+    def _choose(self, kind, x, compute):
+        if not self.replaying:
+            out = compute()
+            self.log.append((kind, x.detach().clone(), out))
+            return out
+        rec_x, rec_out = self._next(kind, x)
+        if torch.equal(rec_x, x) or calc_diff(x.float(), rec_x.float()) >= 1e-5:
+            self.taken['own'] += not torch.equal(rec_x, x)
+            return compute()
+        self.taken['recorded'] += 1
+        return rec_out
+
+    def _route(self, x, k, topk, *a, **kw):
+        if x.dim() != 2 or x.shape[-1] != self.cfg.num_experts or k != self.cfg.topk:
+            return topk(x, k, *a, **kw)
+        idx = self._choose('topk', x, lambda: topk(x, k, *a, **kw))[1]
+        return x.gather(-1, idx), idx
+
+    def _grad(self, g):
+        if g.dtype != torch.bfloat16:
+            return g
+        if not self.replaying:
+            self.log.append(('grad', g.clone(), None))
+            return g
+        rec_g, _ = self._next('grad', g)
+        if torch.equal(rec_g, g) or calc_diff(g.float(), rec_g.float()) >= 1e-5:
+            self.taken['own'] += not torch.equal(rec_g, g)
+            return g
+        self.taken['recorded'] += 1
+        apart = (g.view(torch.int16).int() - rec_g.view(torch.int16).int()).abs()
+        return torch.where(apart <= 1, rec_g, g)
+
+
+def test_train_step_kernel_matches_plain(gen, monkeypatch):
     """A whole FP8 training step at a tiny size: through the kernels (dense
     6, contiguous 4, k-grouped 2 launches) and through their plain versions
     from the same parameters: the loss, every updated parameter and every
-    update (new - old) agree."""
+    update (new - old) agree, the plain step run on the kernel step's
+    casts, routes and bf16 gradient roundings where its own are within
+    last-bit noise of them (:class:`StepDecisions`); and each of the step's
+    twelve kernel calls agrees with its plain version on the step's own
+    inputs."""
+    from deepgemm_tpu_torch.ops import gemm, k_grouped as kg_ops, m_grouped
     base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
                 num_experts=8, topk=2, moe_intermediate=256, capacity_factor=7.9,
                 use_fp8_training=True, use_kernels=True)
@@ -220,20 +298,94 @@ def test_train_step_kernel_matches_plain(gen):
     old = tree_leaves(tree_map(torch.clone, params))
     tokens, targets = (torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
                        for _ in range(2))
+    calls, entries = [], ((gemm, 'dense_gemm'), (m_grouped, 'contiguous_gemm'),
+                          (kg_ops, 'k_grouped_gemm'))
+    kernels = {name: getattr(module, name) for module, name in entries}
+
+    def held_to_plain(name):
+        def call(*args, **kw):
+            out = kernels[name](*args, **kw)
+            with plain_versions():
+                ref = kernels[name](*args, **kw)
+            calls.append((name, calc_diff(out, ref)))
+            return out
+        return call
+
+    for module, name in entries:
+        monkeypatch.setattr(module, name, held_to_plain(name))
+    decisions = StepDecisions(monkeypatch, cfg)
     dense.launches = 0
     grouped.contiguous_launches.update(bf16=0, fp8=0)
     k_grouped.launches.update(bf16=0, fp8=0)
     loss_k, new_k = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg, lr=5e-2)
     torch.cuda.synchronize()
     assert (dense.launches, grouped.contiguous_launches['fp8'], k_grouped.launches['fp8']) == (6, 4, 2)
+    assert sorted(name for name, _ in calls) == (['contiguous_gemm'] * 4 + ['dense_gemm'] * 6
+                                                 + ['k_grouped_gemm'] * 2)
+    assert all(diff < 1e-5 for _, diff in calls), calls
+    for module, name in entries:
+        monkeypatch.setattr(module, name, kernels[name])
+    decisions.replay()
     with plain_versions():
         loss_p, new_p = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg,
                                       lr=5e-2)
     assert (dense.launches, grouped.contiguous_launches['fp8'], k_grouped.launches['fp8']) == (6, 4, 2)
+    assert decisions.pos == len(decisions.log) and decisions.taken['own'] == 0, decisions.taken
     assert torch.isfinite(loss_k) and calc_diff(loss_k, loss_p) < 1e-5
-    for i, (k, p, o) in enumerate(zip(tree_leaves(new_k), tree_leaves(new_p), old)):
+    gaps = _update_gaps(new_k, new_p, old)
+    print(f'update gaps per leaf {[f"{g:.3e}" for g in gaps]}; choices {decisions.taken}')
+    for i, (k, p) in enumerate(zip(tree_leaves(new_k), tree_leaves(new_p))):
         assert calc_diff(k, p) < 1e-5, i
-        assert calc_diff(k.float() - o.float(), p.float() - o.float()) < 1e-5, i
+        assert gaps[i] < 1e-5, i
+
+
+def _update_gaps(new_a, new_b, old):
+    """calc_diff of the updates (new - old) of two steps, leaf by leaf."""
+    return [calc_diff(a.float() - o.float(), b.float() - o.float())
+            for a, b, o in zip(tree_leaves(new_a), tree_leaves(new_b), old)]
+
+
+@pytest.mark.parametrize('fault', ['wgrad_times_1.01', 'qkv_row_times_1.5', 'qkv_dgrad_k_block'])
+def test_train_step_replay_keeps_a_fault_visible(gen, monkeypatch, fault):
+    """The replay of :class:`StepDecisions` hides no fault of a kernel's
+    size: with one planted in the kernel step's dense calls (every wgrad
+    output 1% large; one row of the qkv forward 1.5x; the qkv dgrad's last
+    128-deep k block dropped), some update differs from the replayed plain
+    step's by more than 1e-3, a hundred times the limit."""
+    from deepgemm_tpu_torch.ops import gemm
+    base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
+                num_experts=8, topk=2, moe_intermediate=256, capacity_factor=7.9,
+                use_fp8_training=True, use_kernels=True)
+    cfg = tt.ModelConfig(**base)
+    params = tt.init_params(cfg, seed=0)
+    old = tree_leaves(tree_map(torch.clone, params))
+    tokens, targets = (torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
+                       for _ in range(2))
+    dense_gemm = gemm.dense_gemm
+
+    def faulty(a, *args, **kw):
+        if fault == 'qkv_dgrad_k_block' and a.shape[1] == 3 * cfg.qkv_dim:
+            a = a.clone()
+            a.view(torch.uint8)[:, -128:] = 0
+        out = dense_gemm(a, *args, **kw)
+        if fault == 'wgrad_times_1.01' and kw.get('gran_n') == 1:
+            out = out * 1.01
+        if fault == 'qkv_row_times_1.5' and out.shape[1] == 3 * cfg.qkv_dim:
+            out = out.clone()
+            out[5] *= 1.5
+        return out
+
+    decisions = StepDecisions(monkeypatch, cfg)
+    monkeypatch.setattr(gemm, 'dense_gemm', faulty)
+    _, new_k = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg, lr=5e-2)
+    monkeypatch.setattr(gemm, 'dense_gemm', dense_gemm)
+    decisions.replay()
+    with plain_versions():
+        _, new_p = tt.train_step(tree_map(torch.clone, params), tokens, targets, cfg, lr=5e-2)
+    gaps = _update_gaps(new_k, new_p, old)
+    print(f'{fault}: update gaps per leaf {[f"{g:.3e}" for g in gaps]}; choices '
+          f'{decisions.taken}')
+    assert max(gaps) > 1e-3
 
 
 # ---- the indexer kernels and the serving engine -------------------------------------
@@ -912,6 +1064,20 @@ def test_dense_layouts_are_bitwise_nt_on_transposes(gen, layout, strategy):
     assert dense.form_launches == {f'{strategy}_{layout}': 2, f'{strategy}_nt': 2}
 
 
+@pytest.mark.parametrize('layout', ['nn', 'tn', 'tt'])
+def test_dense_mn_major_copies_count_as_dense(gen, layout):
+    """An MN-major operand of the dense kernel is made k-major by the dense
+    library's copy of the relayout (csrc/relayout.cuh), counted under
+    'dense', one launch an MN-major operand, none under 'k_grouped'."""
+    aq, bq, sfa, sfb = _dense_case(gen, 80, 192, 400)
+    a_mn, b_mn = layout[0] == 't', layout[1] == 'n'
+    common.relayout_launches.update(dense=0, k_grouped=0)
+    dense.dense_gemm(_t8(aq) if a_mn else aq, _t8(bq) if b_mn else bq, sfa, sfb, a_mn=a_mn,
+                     b_mn=b_mn)
+    torch.cuda.synchronize()
+    assert common.relayout_launches == {'dense': a_mn + b_mn, 'k_grouped': 0}
+
+
 @pytest.mark.parametrize('recipe', [(1, 128, 128), (1, 1, 128)])
 def test_c_accumulation_on_the_card(gen, recipe):
     """c is added once to the finished f32 sum: in f32 the kernel's output
@@ -1045,6 +1211,113 @@ def test_k_grouped_flat_is_bitwise_tn(gen, with_c):
     torch.cuda.synchronize()
     assert k_grouped.flat_launches == before + 1
     assert torch.equal(d, d_tn) and calc_diff(d, ref) < 1e-5
+
+
+# ---- the Hopper mainloop (csrc/gemm_sm90.cuh): dense and k-grouped ----------
+
+
+@pytest.mark.parametrize('m,n,k,gran,out,with_c', [
+    (1, 192, 16, 128, torch.bfloat16, False),
+    (16, 7170, 400, 1, torch.float32, True),
+    (80, 192, 7168, 128, torch.float32, True),
+    (2049, 7170, 400, 1, torch.bfloat16, True),      # 17 x 57 tiles: the persistent walk wraps
+    (2049, 192, 16, 1, torch.float32, False),
+    (80, 7170, 16, 128, torch.bfloat16, False),
+    (16, 192, 7168, 1, torch.bfloat16, False),
+    (1, 7170, 7168, 1, torch.float32, True),
+])
+def test_hopper_dense_matches_plain_at_ragged_shapes(gen, m, n, k, gran, out, with_c):
+    """The wgmma mainloop against its plain version at ragged m, n and k
+    (m below one 64-row tile, n off whole 16-byte output rows, k below one
+    128-deep block), per-block and per-channel B scales, bf16 and f32 out,
+    with c: within 1e-5; c added once to the finished sum (bitwise); the
+    same bits on a second launch."""
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, gran_n=gran)
+    c = torch.randn((m, n), generator=gen, device='cuda') * 32 if with_c else None
+    dense.form_launches.clear()
+    d = dense.dense_gemm(aq, bq, sfa, sfb, c=c, gran_n=gran, out_dtype=out)
+    again = dense.dense_gemm(aq, bq, sfa, sfb, c=c, gran_n=gran, out_dtype=out)
+    ref = dense.dense_gemm_plain(aq, bq, sfa, sfb, c=c, gran_n=gran, out_dtype=out)
+    torch.cuda.synchronize()
+    assert dense.form_launches == {'promote_nt+c' if with_c else 'promote_nt': 2}
+    assert calc_diff(d, ref) < 1e-5
+    assert torch.equal(d, again)
+    if with_c:
+        d32 = dense.dense_gemm(aq, bq, sfa, sfb, gran_n=gran, out_dtype=torch.float32)
+        assert torch.equal(d, (d32 + c).to(out))
+
+
+@pytest.mark.parametrize('sizes,m,n', [([0, 16, 144, 384], 96, 200), ([128] * 256, 512, 512)])
+@pytest.mark.parametrize('with_c', [False, True])
+def test_hopper_k_grouped_matches_plain(gen, sizes, m, n, with_c):
+    """The FP8 k-grouped kernel (the wgmma mainloop, persistent over group
+    tiles) at uneven depths (an empty group, one of 16, depths off 128) and
+    at the training step's 256 groups of 128, with c or none: within 1e-5
+    of the plain version, the same bits on a second launch, bf16 the f32
+    sum rounded once, and the flat form bitwise the TN one."""
+    from deepgemm_tpu_torch.kernels.k_grouped import unflatten_k_major
+    a, b, layout, kw = _k_grouped_case(gen, sizes, m, n, True, False)
+    c = torch.randn((len(sizes), m, n), generator=gen, device='cuda') if with_c else None
+    starts = [sum(sizes[:g]) for g in range(len(sizes))]
+    flat = lambda x: torch.cat([x[s:s + kg].view(torch.uint8).t().contiguous().view(-1)
+                                for s, kg in zip(starts, sizes)]).view(x.dtype)
+    a_f, b_f = flat(a), flat(b)
+    assert torch.equal(unflatten_k_major(a_f, sizes, m).view(torch.uint8),
+                       a[:sum(sizes)].view(torch.uint8))
+    before = (dict(k_grouped.launches), k_grouped.flat_launches)
+    d = k_grouped.k_grouped_gemm(a, b, layout, c, **kw)
+    again = k_grouped.k_grouped_gemm(a, b, layout, c, **kw)
+    d16 = k_grouped.k_grouped_gemm(a, b, layout, c, out_dtype=torch.bfloat16, **kw)
+    d_flat = k_grouped.k_grouped_gemm_flat(a_f, b_f, sizes, m, n, c, kw['sfa'], kw['sfb'])
+    ref = k_grouped.k_grouped_gemm_plain(a, b, layout, c, **kw)
+    torch.cuda.synchronize()
+    assert k_grouped.launches['fp8'] == before[0]['fp8'] + 3
+    assert k_grouped.flat_launches == before[1] + 1
+    assert calc_diff(d, ref) < 1e-5
+    assert torch.equal(d, again) and torch.equal(d16, d.to(torch.bfloat16))
+    assert torch.equal(d_flat, d)
+
+
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_k_major_relayout_kernel_is_bitwise_plain(gen, use_psum_layout):
+    """The transposing gather that lays the TN operands out for the FP8
+    k-grouped kernel (group g at column 128 sf_start[g], zeros elsewhere):
+    bitwise its plain version, on rows of whole 16-byte chunks and not."""
+    for dim in (200, 7170):
+        x, _, layout, kw = _k_grouped_case(gen, (200, 0, 37, 256), dim, 64, True,
+                                           use_psum_layout)
+        before = common.relayout_launches['k_grouped']
+        nsf = kw['sfa'].shape[0]
+        got = k_grouped.tn_relayout(x, x, layout, nsf, use_psum_layout)
+        with plain_versions():
+            want = k_grouped.tn_relayout(x, x, layout, nsf, use_psum_layout)
+        torch.cuda.synchronize()
+        assert common.relayout_launches['k_grouped'] == before + 2
+        assert got[4] == want[4] == 128 * nsf
+        for g_, w_ in zip(got[:2], want[:2]):
+            assert torch.equal(g_.view(torch.uint8), w_.view(torch.uint8)), dim
+
+
+def test_training_step_forms_launch_the_hopper_kernels(gen):
+    """The six dense calls of a training step (forward and dgrad with 128 x
+    128 block scales, bf16 out; wgrad per-channel, f32 out) are the NT
+    'promote' form, which runs the wgmma mainloop (csrc/dense.cu), and the
+    two wgrad calls the FP8 k-grouped kernel with its two relayouts."""
+    base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
+                num_experts=8, topk=2, moe_intermediate=256, capacity_factor=7.9,
+                use_fp8_training=True, use_kernels=True)
+    cfg = tt.ModelConfig(**base)
+    params = tt.init_params(cfg, seed=0)
+    tokens, targets = (torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
+                       for _ in range(2))
+    dense.form_launches.clear()
+    k_grouped.launches.update(bf16=0, fp8=0)
+    common.relayout_launches.update(dense=0, k_grouped=0)
+    tt.train_step(params, tokens, targets, cfg, lr=5e-2)
+    torch.cuda.synchronize()
+    assert dense.form_launches == {'promote_nt': 6}
+    assert k_grouped.launches == {'bf16': 0, 'fp8': 2}
+    assert common.relayout_launches == {'dense': 0, 'k_grouped': 4}
 
 
 # ---- the expert-parallel tier on [cuda:0] * D (and on D cards) -------------

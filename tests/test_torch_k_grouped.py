@@ -101,3 +101,30 @@ def test_k_major_relayout(use_psum_layout):
     for g in range(4):
         want[:, pstarts[g]:pstarts[g] + sizes[g]] = x[starts[g]:starts[g] + sizes[g]].T
     assert np.array_equal(km.view(torch.int16).numpy(), want)
+
+
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_k_major_relayout_for_the_fp8_kernel(use_psum_layout):
+    """The FP8 kernel's k-major copy: group g's rows land at column 128 x
+    sf_start[g] (its 128-deep blocks, counted by its scale rows, are the
+    copy's width: 128 x nsf), in order, with zeros everywhere else; rows
+    outside every group are dropped."""
+    sizes = [5, 0, 137, 16]
+    rng = np.random.RandomState(5)
+    if use_psum_layout:          # starts 0, 128, 128, 384 at the 128-row alignment
+        starts, layout, total_k = [0, 128, 128, 384], [5, 128, 265, 400], 420
+    else:
+        starts, layout, total_k = [0, 5, 5, 142], sizes, sum(sizes)
+    x = torch.from_numpy(rng.randint(1, 100, (total_k, 48)).astype(np.uint8))
+    x = x.view(torch.float8_e4m3fn)
+    nsf = 1 + 0 + 2 + 1
+    a_km, b_km, sz, sf0, ldk = k_grouped.tn_relayout(x, x, torch.tensor(layout), nsf,
+                                                     use_psum_layout)
+    assert ldk == 128 * nsf and sz.tolist() == sizes and sf0.tolist() == [0, 1, 1, 3]
+    want = np.zeros((48, ldk), np.uint8)
+    raw = x.view(torch.uint8).numpy()
+    for g in range(4):
+        col = 128 * sf0[g].item()
+        want[:, col:col + sizes[g]] = raw[starts[g]:starts[g] + sizes[g]].T
+    assert np.array_equal(a_km.view(torch.uint8).numpy(), want)
+    assert torch.equal(a_km.view(torch.uint8), b_km.view(torch.uint8))

@@ -361,10 +361,11 @@ def test_runtime_knobs_store_and_read(monkeypatch):
         grouped.compute_tile_gids(ends.int(), 4, 512, 64, True)
 
 
-@pytest.mark.parametrize('m,want', [(16, True), (16384, False)])
+@pytest.mark.parametrize('m,want', [(16, True), (16384, True), (65536, False)])
 def test_fp4_inkernel_policy_on_the_h100_row(m, want):
     """In-kernel FP4 decode wins where B's bytes set the time (small m),
     the fold where the operations do (large m); the H100 is the row every
-    device resolves to."""
+    device resolves to. The crossover (n 7168, k 2048) is at m ~18800 since
+    both routes run the wgmma kernel (~7700 on the mma.sync one)."""
     assert detect_arch() is H100_SXM
     assert fp4_inkernel_profitable(H100_SXM, m, 7168, 2048) is want

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 import deepgemm_tpu_torch as dgt
-from deepgemm_tpu_torch.heuristics.configs import DUAL_B_CONFIG, GemmConfig, get_gemm_config
+from deepgemm_tpu_torch.heuristics.configs import (DUAL_B_CONFIG, GemmConfig, get_gemm_config,
+                                                   get_sm90_config, sm90_smem_bytes)
 from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.models import convert, transformer
 from deepgemm_tpu_torch.runtime import build
@@ -74,6 +75,36 @@ def test_tile_chooser(m, n, groups, block_n):
     cfg = get_gemm_config(m, n, groups, num_sms=132)
     assert cfg.block_n == block_n and cfg.block_m == 64
     assert cfg.smem_bytes <= 232448
+
+
+@pytest.mark.parametrize('m,n,groups,out_bytes,block_m,stages', [
+    (4096, 4096, 1, 2, 128, 5),       # phase 3: 1024 tiles
+    (128, 4096, 1, 2, 64, 8),         # phase 3: 32 tiles of 128 rows would leave SMs idle
+    (2048, 49152, 1, 2, 128, 5),      # phase 6: qkv fwd
+    (2048, 7168, 1, 2, 128, 5),       # phase 6: o fwd, qkv dgrad
+    (2048, 16384, 1, 2, 128, 5),      # phase 6: o dgrad
+    (7168, 16384, 1, 4, 128, 4),      # phase 6: o wgrad, f32 out
+    (49152, 7168, 1, 4, 128, 4),      # phase 6: qkv wgrad, f32 out
+    (7168, 2048, 256, 2, 128, 5),     # phase 6: k-grouped L2 wgrad, bf16 out
+    (4096, 7168, 256, 2, 128, 5),     # phase 6: k-grouped L1 wgrad, bf16 out
+    (7168, 2048, 256, 4, 128, 4),     # phase 10: k-grouped flat, f32 out
+    (16, 7168, 1, 2, 64, 8),          # phase 10: planar FP4 B at m 16
+    (4096, 7168, 1, 2, 128, 5),       # phase 10: planar FP4 B at m 4096
+])
+def test_sm90_tile_chooser(m, n, groups, out_bytes, block_m, stages):
+    """The Hopper mainloop's tile at the chip run's shapes: 128 columns,
+    the rows intended, the stages intended (as many as a block's shared
+    memory holds beside the epilogue's staging tile and the k-grouped group
+    table, at most 8), a persistent grid of at most one block an SM."""
+    k_grouped = groups > 1
+    cfg = get_sm90_config(m, n, groups, out_bytes, num_sms=132, k_grouped=k_grouped)
+    assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (block_m, 128, stages)
+    table = groups if k_grouped else 0
+    assert cfg.smem_bytes == sm90_smem_bytes(block_m, stages, out_bytes, table) <= 232448
+    if stages < 8:
+        assert sm90_smem_bytes(block_m, stages + 1, out_bytes, table) > 232448
+    tiles = -(-m // block_m) * -(-n // 128) * groups
+    assert cfg.num_sms == min(tiles, 132)
 
 
 def test_plain_versions_switch_is_explicit_and_scoped():
