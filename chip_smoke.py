@@ -4,19 +4,25 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --gemm-times [--package-root DIR]
     python3 chip_smoke.py --ep-times [--package-root DIR]
+    python3 chip_smoke.py --variants
 
 The second form builds and times only phase 3 and the training step's
-dense and k-grouped calls (no plain versions) of the deepgemm_tpu_torch
+dense, contiguous and k-grouped calls (no plain versions) of the deepgemm_tpu_torch
 under DIR, and prints them as one JSON line; the third runs only phase 11's
 main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
 with the device's idle share). Run either for two trees in one call
-(parent, change, change, parent) to compare them.
+(parent, change, change, parent) to compare them. The fourth times the
+contiguous grouped kernel against copies of itself built with a part
+removed (the A loads, the B loads, the MMA, the stores, the NN form's
+transpose) and with its ring held at 3, 4 or as many stages as fit, all in
+turns in one process: what bounds it.
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
      and the ptxas report (registers, shared memory, spills) of the Hopper
-     mainloop's instances (csrc/gemm_sm90.cuh);
+     mainloop's instances (csrc/gemm_sm90.cuh: the dense, k-grouped and
+     contiguous kernels), each library's count and spills on a line;
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -38,7 +44,8 @@ Phases, one line each (a failure in any phase exits non-zero):
   6. the training path: three FP8 SGD steps (lr 0.5) on one [2, 1024]
      batch at the same widths, 1 layer (capacity factor 1.99: 128 rows per
      expert): launches per step (dense 6, contiguous 4, k-grouped 2,
-     masked 0, the k-grouped relayout 4), every kernel call of step 1
+     masked 0, the k-grouped relayout 4; the contiguous calls through the
+     wgmma body's e4m3 NT form on 128-row tiles), every kernel call of step 1
      against its plain version on
      the step's own inputs (16 seeded experts of each grouped call, 256
      rows of each dense call), a finite loss that falls from step 1 to 3,
@@ -106,7 +113,7 @@ Phases, one line each (a failure in any phase exits non-zero):
      the dense kernel's; the contiguous kernel's dual-B form under
      DGT_GROUPED_DUAL_B=1 at the training step's shapes (256 experts, L1 and
      L2, fp8 and bf16) on a seeded uneven layout of 128-row multiples,
-     bitwise the 64-row kernel, its own launch count with the 64-row
+     bitwise the contiguous kernel, its own launch count with the contiguous
      kernel's unchanged; fp8_fp4_gemm_nt with a packed FP4 B at 4096 x 4096
      x 7168, bitwise the e4m3 dense kernel fed the decoded codes and per-row
      scales. Each against its plain version (calc_diff < TOL) and timed
@@ -234,6 +241,12 @@ def phase_build():
             f'bytes (the stages are dynamic), spill stores up to '
             f'{max(v["spill_stores"] for v in hopper.values())} bytes, spill loads up to '
             f'{max(v["spill_loads"] for v in hopper.values())} bytes')
+        for lib in sorted({lib for lib, _ in hopper}):
+            mine = [v for (name, _), v in hopper.items() if name == lib]
+            log(f'phase 2 Hopper mainloop in {lib}: {len(mine)} instances, registers at entry '
+                f'{sorted({v["registers"] for v in mine})}, spill stores '
+                f'{sum(v["spill_stores"] for v in mine)} bytes, spill loads '
+                f'{sum(v["spill_loads"] for v in mine)} bytes')
 
 
 def hopper_instances(reports):
@@ -880,6 +893,7 @@ def phase_train(seed, arch):
     dense.launches = 0
     grouped.launches.update(bf16=0, fp8=0)
     grouped.contiguous_launches.update(bf16=0, fp8=0)
+    grouped.contiguous_form_launches.clear()
     k_grouped.launches.update(bf16=0, fp8=0)
     common.relayout_launches.update(dense=0, k_grouped=0)
     torch.cuda.reset_peak_memory_stats()
@@ -897,13 +911,17 @@ def phase_train(seed, arch):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
     seen = counts()
+    forms = dict(grouped.contiguous_form_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {kind: TRAIN_STEPS * n for kind, n in PER_STEP.items()}
     require(seen == dict(want, bf16=0), f'train: launches {seen}, expected {want} and no bf16')
+    require(forms == {grouped.contiguous_form('fp8', 'nt', 128): want['contiguous']},
+            f'train: contiguous launches by form {forms}')
     require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
             f'train: losses {losses} are not finite and falling')
     tokens_per_s = (TRAIN_STEPS - 1) * tokens.numel() / sum(seconds[1:])
-    log(f'phase 6 train: launches={seen} (per step {PER_STEP}) losses={losses} '
+    log(f'phase 6 train: launches={seen} (per step {PER_STEP}; contiguous by form {forms}) '
+        f'losses={losses} '
         f'seconds per step {[round(v, 4) for v in seconds]} (the first with warm-up and '
         f'the recording of its kernel calls) tokens/s={tokens_per_s:.1f} '
         f'peak_mem={peak_gb:.2f} GB (steps 2-{TRAIN_STEPS}; step 1 with its recordings '
@@ -913,7 +931,8 @@ def phase_train(seed, arch):
     del params
     torch.cuda.empty_cache()
     entries = time_train_kernels(results, gen, arch)
-    return entries, {kind: seen[kind] for kind in (*CALL_NAMES, 'relayout')}
+    return entries, dict({kind: seen[kind] for kind in (*CALL_NAMES, 'relayout')},
+                         contiguous_forms=forms)
 
 
 # Phase 7: the continuous-batching engine over the lightning indexer. The
@@ -2353,9 +2372,10 @@ def dual_layout(seed):
 def phase_dual_b(seed, gen, arch):
     """The dual-B form under DGT_GROUPED_DUAL_B=1 at the training step's
     contiguous shapes on a seeded uneven layout, fp8 and bf16: its own
-    launch count with the 64-row kernel's unchanged, bitwise the 64-row
-    kernel on the same layout, against its plain version, times beside the
-    64-row kernel's. Returns ({kind: entries}, {kind: launches})."""
+    launch count (by form: the wgmma body's dual item) with the contiguous
+    kernel's unchanged, bitwise the contiguous kernel on the same layout,
+    against its plain version, times beside the contiguous kernel's.
+    Returns ({kind: entries}, {kind: launches})."""
     import deepgemm_tpu_torch as dgt
     from deepgemm_tpu_torch.kernels import grouped
     from deepgemm_tpu_torch.testing import calc_diff, count_bytes
@@ -2380,19 +2400,22 @@ def phase_dual_b(seed, gen, arch):
                   lambda: dgt.m_grouped_bf16_gemm_nt_contiguous(a, b, grouped_layout=ids)))
         for kind, ops, kw, op in cases:
             grouped.dual_b_launches.update(bf16=0, fp8=0)
+            grouped.contiguous_form_launches.clear()
             before = dict(grouped.contiguous_launches)
             with env('DGT_GROUPED_DUAL_B', '1'):
                 d = op()
             torch.cuda.synchronize()
             seen = dict(grouped.dual_b_launches)
+            forms = dict(grouped.contiguous_form_launches)
             require(seen[kind] == 1 and sum(seen.values()) == 1
-                    and grouped.contiguous_launches == before,
-                    f'dual-B {kind} {label}: launches {seen}, 64-row kernel '
-                    f'{grouped.contiguous_launches} (before {before})')
+                    and grouped.contiguous_launches == before
+                    and forms == {grouped.contiguous_form(kind, 'dual', 256): 1},
+                    f'dual-B {kind} {label}: launches {seen} (by form {forms}), contiguous '
+                    f'kernel {grouped.contiguous_launches} (before {before})')
             launches[kind] += seen[kind]
             d3 = grouped.contiguous_gemm(*ops, ids, **kw)
             torch.cuda.synchronize()
-            require(torch.equal(d, d3), f'dual-B {kind} {label}: not bitwise the 64-row kernel')
+            require(torch.equal(d, d3), f'dual-B {kind} {label}: not bitwise the contiguous kernel')
             d_p = grouped.contiguous_dual_gemm_plain(*ops, ids, **kw)
             diff, err = compare(d, d_p)
             require(diff < TOL, f'dual-B {kind} {label}: calc_diff {diff} against the plain version')
@@ -2413,13 +2436,14 @@ def phase_dual_b(seed, gen, arch):
             moved = count_bytes(ops[0], kw.get('sfa'), ids) + b_live + sfb_live + 2 * m * n
             bound = arch.bound_ms(moved, 2 * m * n * k, kind)
             entries[kind].append(dict(shape=[m, n, k, DUAL_EXPERTS], label=label,
-                                      contiguous_64_row_ms=ms3,
+                                      contiguous_ms=ms3, forms=forms,
                                       **numbers(ms, plain_ms, library_ms, err, bound)))
             log(f'phase 9 dual-B {kind} {label} m={m} n={n} k={k} ({live_experts} of '
                 f'{DUAL_EXPERTS} experts with rows, {odd} groups starting at 128 mod 256, '
-                f'{straddles} straddling tiles): dual-B launches 1, 64-row kernel 0; bitwise the '
-                f'64-row kernel; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
-                f'kernel_ms={ms:.4f} (64-row kernel {ms3:.4f}) plain_ms={plain_ms:.4f} '
+                f'{straddles} straddling tiles): dual-B launches 1 ({forms}), contiguous kernel 0; '
+                f'bitwise the contiguous kernel; calc_diff={diff:.3e} (limit {TOL}) '
+                f'max_abs_err={err:.4g}; kernel_ms={ms:.4f} (contiguous kernel {ms3:.4f}) '
+                f'plain_ms={plain_ms:.4f} '
                 + (f'library_ms(torch._grouped_mm bf16)={library_ms:.4f} (calc_diff from the '
                    f'kernel {lib_diff:.3e}) ' if library else
                    'library_ms=null (torch._scaled_grouped_mm takes row-wise scales, not '
@@ -2497,7 +2521,8 @@ def phase_entry_points(seed, gen, arch):
         row('dense_fp8_gemm_nt_skip_head_mid', 'dense.cu', 'deepgemm_tpu/kernels/dense.py:291',
             skip_launches, [skip]),
         *(row(f'contiguous_dual_b_gemm_{kind}', 'contiguous.cu',
-              'deepgemm_tpu/kernels/grouped.py:401', dual_launches[kind], dual[kind])
+              'deepgemm_tpu/kernels/grouped.py:401', dual_launches[kind], dual[kind],
+              design=f'{CONTIGUOUS_DESIGN}; 256 x 64 items, a 128-row half a warpgroup')
           for kind in ('fp8', 'bf16')),
         row('dense_fp8_gemm_nt_fp4_fold', 'dense.cu', 'deepgemm_tpu/kernels/dense.py:291',
             fp4_launches, [fp4]),
@@ -2517,6 +2542,10 @@ HOPPER_DESIGN = ('wgmma e4m3 m64n128k32 from TMA-fed 128-byte-swizzled stages, w
                  'persistent grid, f32 promotion per 128-deep block, TMA-store epilogue '
                  '(csrc/gemm_sm90.cuh)')
 MMA_SYNC_DESIGN = 'mma.sync m16n8 from a 4-stage cp.async ring (csrc/gemm_mainloop.cuh)'
+CONTIGUOUS_DESIGN = ('wgmma (e4m3 m64nNk32 with the f32 promotion, or bf16 m64nNk16) from '
+                     'TMA-fed 128-byte-swizzled stages over (row tile, column tile) items, the '
+                     'group from tile_gid in device memory, B through a 3-D tensor map '
+                     '(csrc/gemm_sm90.cuh)')
 LAYOUTS = ('nn', 'tn', 'tt')
 PACKED_SHAPE = (4096, 4096, 7168)
 PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
@@ -2801,10 +2830,14 @@ def phase_contiguous_nn(seed, gen, arch):
     """The NN contiguous form at the training step's shapes on phase 9's
     seeded uneven layout, fp8 and bf16: one launch of the NN kernel through
     the op, bitwise the NT kernel on B transposed, against the plain
-    version, timed. Returns ({kind: entries}, {kind: launches})."""
+    version, timed beside the NT kernel on the same layout and the
+    transposing copy of B that NT would need first (torch's, and the copy's
+    bytes bound: B read and written once). Returns ({kind: entries}, {kind:
+    launches})."""
     import deepgemm_tpu_torch as dgt
     from deepgemm_tpu_torch.kernels import grouped
     from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
     ids, counts, _ = dual_layout(seed)
     ends = counts.cumsum(0).to(torch.int32).cuda()
@@ -2830,16 +2863,25 @@ def phase_contiguous_nn(seed, gen, arch):
                 ops, kw = (a, b_nn), {}
                 op = lambda: dgt.m_grouped_bf16_gemm_nn_contiguous(a, b_nn, grouped_layout=ids)
             grouped.contiguous_nn_launches.update(bf16=0, fp8=0)
+            grouped.contiguous_form_launches.clear()
             before = dict(grouped.contiguous_launches)
             d = op()
             torch.cuda.synchronize()
             seen = dict(grouped.contiguous_nn_launches)
+            forms = dict(grouped.contiguous_form_launches)
             require(seen[kind] == 1 and sum(seen.values()) == 1
-                    and grouped.contiguous_launches == before,
-                    f'NN {kind} {label}: launches {seen}, NT {grouped.contiguous_launches}')
+                    and grouped.contiguous_launches == before
+                    and forms == {grouped.contiguous_form(kind, 'nn', 128): 1},
+                    f'NN {kind} {label}: launches {seen} (by form {forms}), NT '
+                    f'{grouped.contiguous_launches}')
             launches[kind] += 1
             require(torch.equal(d, grouped.contiguous_gemm(ops[0], b_nt, ids, **kw)),
                     f'NN {kind} {label}: not bitwise the NT kernel on B transposed')
+            nt_ms = bench_kernel(lambda: grouped.contiguous_gemm(ops[0], b_nt, ids, **kw))
+            copy_ms = bench_kernel(
+                lambda: b_nn.view(torch.uint8 if kind == 'fp8' else b_nn.dtype).transpose(
+                    1, 2).contiguous(), iters=3)
+            copy_bound = arch.bound_ms(2 * count_bytes(b_nn), 0, kind)[0]
             library = None
             if kind == 'bf16':
                 # one torch call of the same function, B in its own preferred layout
@@ -2859,12 +2901,15 @@ def phase_contiguous_nn(seed, gen, arch):
             sfb_live = 0 if not kw else kw['sfb'].numel() // DUAL_EXPERTS * live * 4
             moved = count_bytes(ops[0], kw.get('sfa'), ids) + b_live + sfb_live + 2 * m * n
             bound = arch.bound_ms(moved, 2 * m * n * k, kind)
-            entries[kind].append(dict(shape=[m, n, k, DUAL_EXPERTS], label=label,
+            entries[kind].append(dict(shape=[m, n, k, DUAL_EXPERTS], label=label, forms=forms,
+                                      nt_ms=nt_ms, b_transpose_copy_ms=copy_ms,
+                                      b_transpose_copy_bound_ms=copy_bound,
                                       **numbers(ms, plain_ms, library_ms, err, bound)))
             log(f'phase 10 contiguous NN {kind} {label} m={m} n={n} k={k} ({live} of '
-                f'{DUAL_EXPERTS} experts with rows): NN launches 1, NT 0; bitwise the NT kernel '
-                f'on B transposed; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
-                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                f'{DUAL_EXPERTS} experts with rows): NN launches 1 ({forms}), NT 0; bitwise the NT '
+                f'kernel on B transposed; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
+                f'kernel_ms={ms:.4f} (NT on the same layout {nt_ms:.4f}, B\'s transposing copy '
+                f'{copy_ms:.4f}, its bound {copy_bound:.4f}) plain_ms={plain_ms:.4f} '
                 + (f'library_ms(torch._grouped_mm bf16)={library_ms:.4f} ' if library else
                    'library_ms=null (torch._scaled_grouped_mm takes row-wise scales, not '
                    '1x128 / 128x128 block scales) ')
@@ -2974,7 +3019,10 @@ def phase_surface(seed, gen, arch):
         row('dense_fp8_gemm_nt_fp4_gran32', 'dense_dequant.cu', dense_at, gran32_launches,
             [gran32]),
         *(row(f'contiguous_grouped_gemm_nn_{kind}', 'contiguous.cu',
-              'deepgemm_tpu/kernels/grouped.py:240', nn_launches[kind], nn[kind])
+              'deepgemm_tpu/kernels/grouped.py:240', nn_launches[kind], nn[kind],
+              f'{CONTIGUOUS_DESIGN}; B MN-major: ' + (
+                  'each stage transposed in shared memory' if kind == 'fp8' else
+                  "wgmma's transposed B"))
           for kind in ('fp8', 'bf16')),
         row('k_grouped_gemm_nt_flat_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
             flat_launches, [flat], f'{HOPPER_DESIGN}; a tensor map per group'),
@@ -3522,9 +3570,9 @@ def phase_ep(seed, arch):
     ]
 
 
-# The training step's dense and k-grouped calls (phase 6's shapes: V3
-# widths, [2, 1024] tokens, 256 experts of 128 rows), for --gemm-times:
-# (kind, name, shape, gran_n, output type).
+# The training step's dense, contiguous and k-grouped calls (phase 6's
+# shapes: V3 widths, [2, 1024] tokens, 256 experts of 128 rows), for
+# --gemm-times: (kind, name, shape, gran_n, output type).
 TRAIN_GEMMS = (
     ('dense', 'qkv fwd', (2048, 49152, 7168), 128, torch.bfloat16),
     ('dense', 'o fwd', (2048, 7168, 16384), 128, torch.bfloat16),
@@ -3532,15 +3580,20 @@ TRAIN_GEMMS = (
     ('dense', 'o wgrad', (7168, 16384, 2048), 1, torch.float32),
     ('dense', 'qkv dgrad', (2048, 7168, 49152), 128, torch.bfloat16),
     ('dense', 'qkv wgrad', (49152, 7168, 2048), 1, torch.float32),
+    ('contiguous', 'L1 fwd', (32768, 4096, 7168, 256), 128, torch.bfloat16),
+    ('contiguous', 'L2 fwd', (32768, 7168, 2048, 256), 128, torch.bfloat16),
+    ('contiguous', 'L2 dgrad', (32768, 2048, 7168, 256), 128, torch.bfloat16),
+    ('contiguous', 'L1 dgrad', (32768, 7168, 4096, 256), 128, torch.bfloat16),
     ('k_grouped', 'L2 wgrad', (7168, 2048, 32768, 256), None, torch.bfloat16),
     ('k_grouped', 'L1 wgrad', (4096, 7168, 32768, 256), None, torch.bfloat16),
 )
 
 
 def gemm_times(seed, arch):
-    """--gemm-times: phase 3 and the training step's dense and k-grouped
-    calls at full shapes, each timed (the kernel and a bf16 PyTorch call;
-    no plain version), for comparing two trees' kernels in one call."""
+    """--gemm-times: phase 3 and the training step's dense, contiguous and
+    k-grouped calls at full shapes, each timed (the kernel and a bf16
+    PyTorch call; no plain version), for comparing two trees' kernels in one
+    call."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     phase3 = phase_dense(gen, arch)
     results = {'dense': [], 'contiguous': [], 'k_grouped': []}
@@ -3551,8 +3604,180 @@ def gemm_times(seed, arch):
             rec['gran_n'] = gran_n
         results[kind].append(rec)
     train = time_train_kernels(results, gen, arch, time_plain=False)
-    return dict(phase3=phase3, dense=train['dense'], k_grouped=train['k_grouped'],
-                relayout=train['relayout'])
+    return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
+                k_grouped=train['k_grouped'], relayout=train['relayout'])
+
+
+# --variants: copies of csrc/gemm_sm90.cuh with one part of the contiguous
+# kernel removed (its output is then wrong: only its time is read) or one
+# setting changed, each edit a (text, replacement) that must match the
+# source.
+_BYTES = 'const uint32_t bytes = (kBM + b_tiles * kBN) * kBK +'
+CONTIGUOUS_VARIANTS = {
+    'no A loads': (('tma_load_2d(smem_a + s * kBM * kBK, ma, full + s, col0 + kb * kBK, it.m0);',
+                    ''),
+                   (_BYTES, 'const uint32_t bytes = (b_tiles * kBN) * kBK +')),
+    'no B loads': (('tma_load_3d(sb, mb, full + s, kb * kBK, it.n0, it.b0);', ''),
+                   ('tma_load_3d(sb, mb, full + s, it.n0, kb * kBK, it.b0);', ''),
+                   ('tma_load_3d(sb + box * 64 * 128,', 'if (0) tma_load_3d(sb + box * 64 * 128,'),
+                   (_BYTES, 'const uint32_t bytes = kBM * kBK +')),
+    'no MMA': (('wgmma_e4m3(part[h], da + 2 * k, db + 2 * k, k);', ';'),
+               ('wgmma_bf16<kBMn ? 1 : 0>(acc[h], da + 2 * k, db + (kBMn ? 128 : 2) * k, 1);',
+                ';')),
+    'no stores': (('tma_store_3d(&map_d, stage_out', 'if (0) tma_store_3d(&map_d, stage_out'),),
+    'no transpose': (('transpose_b_stage(smem_b + s * kBN', 'if (0) transpose_b_stage(smem_b + s * kBN'),
+                     ('transpose_b_stage(smem_b + s1 * kBN',
+                      'if (0) transpose_b_stage(smem_b + s1 * kBN')),
+    # not a part removed: the loads' L2 promotion at 128 bytes in place of 256
+    'L2 promotion 128B': (('CU_TENSOR_MAP_L2_PROMOTION_L2_256B,', 'CU_TENSOR_MAP_L2_PROMOTION_L2_128B,'),),
+}
+VARIANT_STAGES = (3, 4, 8)      # ring caps for the package's own build (8: as many as fit)
+# A timeline build: each block's producer lane and first consumer thread sum
+# the clock64() cycles they spend waiting on the ring's barriers (the
+# producer on a free stage, the consumer on a loaded one) beside the block's
+# total, for one launch; read back through dgt_timeline_read.
+TIMELINE_EDITS = (
+    ('namespace sm90 {\n', 'namespace sm90 {\n__device__ long long timeline[1024][4];\n'),
+    ('    extern __shared__ __align__(1024) uint8_t smem_raw[];\n',
+     '    extern __shared__ __align__(1024) uint8_t smem_raw[];\n'
+     '    const long long t_begin = clock64();\n    long long t_wait = 0;\n'),
+    ('                mbar_wait(empty + s, phase ^ 1);\n',
+     '                { const long long t0 = clock64(); mbar_wait(empty + s, phase ^ 1); '
+     't_wait += clock64() - t0; }\n'),
+    ('        return;\n    }\n\n    // ---- consumers',
+     '        timeline[blockIdx.x][0] = t_wait;\n'
+     '        timeline[blockIdx.x][1] = clock64() - t_begin;\n'
+     '        return;\n    }\n\n    // ---- consumers'),
+    ('\n            mbar_wait(full + s, phase);\n            uint8_t* sb_tile',
+     '\n            { const long long t0 = clock64(); mbar_wait(full + s, phase); '
+     't_wait += clock64() - t0; }\n            uint8_t* sb_tile'),
+    ('    if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");\n}',
+     '    if (threadIdx.x == 0) {\n        timeline[blockIdx.x][2] = t_wait;\n'
+     '        timeline[blockIdx.x][3] = clock64() - t_begin;\n    }\n'
+     '    if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");\n}'),
+)
+TIMELINE_READER = """
+extern "C" int dgt_timeline_read(void* out) {
+    return static_cast<int>(cudaMemcpyFromSymbol(out, dgt::sm90::timeline,
+                                                 sizeof(dgt::sm90::timeline)));
+}
+"""
+
+
+def build_variants():
+    """Each variant's contiguous library and the timeline build, compiled at
+    once into the build directory; returns {name: its library}."""
+    import ctypes
+    import shutil
+    from deepgemm_tpu_torch.runtime import build
+    jobs = {}
+    for name, edits in (*CONTIGUOUS_VARIANTS.items(), ('timeline', TIMELINE_EDITS)):
+        d = build.build_dir() / 'variants' / name.replace(' ', '_')
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = (d / 'gemm_sm90.cuh').read_text()
+        for old, new in edits:
+            require(old in text, f'variant {name!r}: {old!r} is not in csrc/gemm_sm90.cuh')
+            text = text.replace(old, new)
+        if name == 'timeline':
+            text += TIMELINE_READER
+        (d / 'gemm_sm90.cuh').write_text(text)
+        jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(d / 'lib.so'),
+                                        str(d / 'contiguous.cu')], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), d / 'lib.so')
+    libs = {}
+    for name, (proc, out) in jobs.items():
+        text, _ = proc.communicate()
+        require(proc.returncode == 0, f'variant {name!r} does not build:\n{text[-3000:]}')
+        lib = ctypes.CDLL(str(out))
+        lib.dgt_contiguous_gemm.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
+            ctypes.c_void_p]
+        lib.dgt_contiguous_gemm.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def timeline_shares(lib, fn):
+    """One launch of ``fn`` through the timeline build: the shares of the
+    blocks' cycles that their producers spent waiting for a free stage and
+    their first consumer threads for a loaded one."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    out = (ctypes.c_longlong * (1024 * 4))()
+    require(lib.dgt_timeline_read(out) == 0, 'timeline: the read failed')
+    rows = [out[4 * i:4 * i + 4] for i in range(1024)]
+    rows = [r for r in rows if r[1] > 0 and r[3] > 0]
+    return dict(blocks=len(rows),
+                producer_waits_for_free_stage=sum(r[0] for r in rows) / sum(r[1] for r in rows),
+                consumer_waits_for_loaded_stage=sum(r[2] for r in rows) / sum(r[3] for r in rows))
+
+
+def variant_times(seed, rounds=3):
+    """--variants: the contiguous kernel at the training step's L1 forward
+    (256 experts of 128 rows; fp8 NT, bf16 NT, fp8 NN) and on phase 9's
+    uneven layout (bf16 NT), its own build at each ring cap and each variant
+    build at the default cap, all in turns for ``rounds`` rounds (ms, the
+    mean of 10 L2-flushed launches each); then one launch of the timeline
+    build (the ring's waits)."""
+    from deepgemm_tpu_torch.heuristics import configs
+    from deepgemm_tpu_torch.kernels import grouped
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    libs = build_variants()
+    timeline = libs.pop('timeline')
+    entries = {name: lib.dgt_contiguous_gemm for name, lib in libs.items()}
+    own_entry, own_chooser = grouped._contiguous_entry, grouped.get_sm90_config
+    default_cap = configs.CONTIGUOUS_MAX_STAGES
+
+    def use(entry, cap):
+        grouped._contiguous_entry = (lambda: entry) if entry is not None else own_entry
+
+        def chooser(*args, **kw):
+            configs.CONTIGUOUS_MAX_STAGES = cap
+            try:
+                return configs.get_sm90_config.__wrapped__(*args, **kw)
+            finally:
+                configs.CONTIGUOUS_MAX_STAGES = default_cap
+        grouped.get_sm90_config = chooser
+
+    configurations = [(f'stages<={cap}', None, cap) for cap in VARIANT_STAGES]
+    configurations += [(name, entry, default_cap) for name, entry in entries.items()]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    g, (n, k) = DUAL_EXPERTS, DUAL_SHAPES[0][1:]
+    uniform = torch.arange(g, dtype=torch.int32, device='cuda').repeat_interleave(128)
+    uneven = dual_layout(seed)[0]
+    results = {}
+    try:
+        for layout, ids in (('uniform', uniform), ('uneven', uneven)):
+            m = ids.numel()
+            a = randn_bf16((m, k), gen, 1.0)
+            b = randn_bf16((g, n, k), gen, k ** -0.5)
+            cases = {'bf16 nt': lambda: grouped.contiguous_gemm(a, b, ids)}
+            if layout == 'uniform':
+                aq, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+                bq, sfb = quantize_experts(b)
+                bq_mn = bq.view(torch.uint8).transpose(1, 2).contiguous().view(bq.dtype)
+                cases['fp8 nt'] = lambda: grouped.contiguous_gemm(aq, bq, ids, sfa=sfa, sfb=sfb)
+                cases['fp8 nn'] = lambda: grouped.contiguous_gemm(aq, bq_mn, ids, sfa=sfa, sfb=sfb,
+                                                                  b_mn=True)
+            for case, fn in cases.items():
+                times = {}
+                for _ in range(rounds):
+                    for label, entry, cap in configurations:
+                        use(entry, cap)
+                        times.setdefault(label, []).append(bench_kernel(fn, iters=10))
+                use(timeline.dgt_contiguous_gemm, default_cap)
+                shares = timeline_shares(timeline, fn)
+                results[f'{layout} {case}'] = dict(times, timeline=shares)
+                log(f'variants {layout} {case} m={m} n={n} k={k}: ' + ' '.join(
+                    f'{label}={min(v):.4f}/{max(v):.4f}' for label, v in times.items()) +
+                    f'; timeline {shares}')
+            del a, b, cases
+            torch.cuda.empty_cache()
+    finally:
+        grouped._contiguous_entry, grouped.get_sm90_config = own_entry, own_chooser
+    return results
 
 
 def ep_times(seed):
@@ -3574,11 +3799,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--gemm-times', action='store_true',
-                        help='only build and time phase 3 and the training step\'s dense and '
-                             'k-grouped calls (no plain versions), then print them as JSON')
+                        help='only build and time phase 3 and the training step\'s dense, '
+                             'contiguous and k-grouped calls (no plain versions), then print '
+                             'them as JSON')
     parser.add_argument('--ep-times', action='store_true',
                         help='only build and run phase 11\'s main path (the 8-rank forward, '
                              'timed and profiled), then print its numbers as JSON')
+    parser.add_argument('--variants', action='store_true',
+                        help='only build and time the contiguous kernel against its variant '
+                             'builds and ring caps (what bounds it), then print them as JSON')
     parser.add_argument('--package-root', default=os.path.dirname(os.path.abspath(__file__)),
                         help='the directory that holds the deepgemm_tpu_torch to run (default: '
                              'the one beside this script)')
@@ -3610,6 +3839,10 @@ def main(argv=None) -> int:
     if args.ep_times:
         print(json.dumps({'ep_times': ep_times(args.seed),
                           'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.variants:
+        print(json.dumps({'variants': variant_times(args.seed)}))
         print(card)
         return 0
     gen = torch.Generator(device='cuda').manual_seed(args.seed)
@@ -3661,7 +3894,8 @@ def main(argv=None) -> int:
           for kind in ('bf16', 'fp8')),
         kernel('contiguous_grouped_gemm_fp8', 'contiguous.cu',
                'deepgemm_tpu/kernels/grouped.py:240', train_counts['contiguous'],
-               train['contiguous']),
+               train['contiguous'], design=CONTIGUOUS_DESIGN,
+               forms=train_counts['contiguous_forms']),
         kernel('k_grouped_gemm_fp8', 'k_grouped.cu', 'deepgemm_tpu/kernels/k_grouped.py:237',
                train_counts['k_grouped'], train['k_grouped'], design=HOPPER_DESIGN,
                relayout_ms=sum(e['relayout_ms'] for e in train['k_grouped'])),

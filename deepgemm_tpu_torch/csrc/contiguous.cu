@@ -1,90 +1,128 @@
-// Contiguous m-grouped NT GEMM, bf16 or scaled FP8:
+// Contiguous m-grouped GEMM, bf16 or scaled FP8, NT or NN:
 //   d[m, n] = a[m, k] . b[gid(m-tile)][n, k]^T   (fp8: the f32 promotion per 128-k block)
 // Replaces deepgemm_tpu/kernels/grouped.py:_build_contiguous (pl.pallas_call at
-// grouped.py:240). The rows of a and d are the groups' row blocks, each
-// starting on a multiple of the mk alignment (128, a multiple of the 64-row
-// tile), so no tile straddles two groups. Each tile's group and its group's
-// end row come from tile_gid / tile_row_end, which the wrapper computes on the
-// device from grouped_layout (kernels/grouped.py:compute_tile_gids): the
-// host never reads the layout. The mainloop and its notes are in
-// gemm_mainloop.cuh.
+// grouped.py:240) and its dual-B variant _build_contiguous_dual_b
+// (pl.pallas_call at grouped.py:401). The rows of a and d are the groups' row
+// blocks, each starting on a multiple of the mk alignment, so no tile
+// straddles two groups. Each tile's group and its group's end row come from
+// tile_gid / tile_row_end, which the wrapper computes on the device from
+// grouped_layout (kernels/grouped.py:compute_tile_gids): the host never reads
+// the layout.
 //
-// The dual-B entry replaces deepgemm_tpu/kernels/grouped.py:
-// _build_contiguous_dual_b (pl.pallas_call at grouped.py:401): the same
-// function over 256-row tiles (Layout::kContiguousDual), for layouts whose
-// groups start on 128 but not always on 256 rows. A tile whose two 128-row
-// halves belong to different groups stages both groups' B; any other tile
-// stages one B for 256 rows, where the 64-row tiles stage it four times.
-// Its bits are the 64-row kernel's: each 64-row pass is that kernel's tile.
-//
-// The NN entry is the same kernel over an MN-major B [G, k, n] (the NN
-// layout of deepgemm_tpu/ops/m_grouped.py, B's BlockSpec at grouped.py:139-145):
-// each stage's B tile is loaded as it lies and transposed in shared memory
-// (gemm_mainloop.cuh), so its bits are the NT kernel's on
-// b.transpose(1, 2).contiguous().
+// All forms run the Hopper mainloop of gemm_sm90.cuh (its notes say how):
+// 128-row tiles where the mk alignment is a multiple of 128, 64-row ones
+// otherwise; the NN form (B [G, k, n], B's BlockSpec at grouped.py:139-145)
+// reads B as it lies and is bitwise NT on b.transpose(1, 2).contiguous();
+// the dual-B form (256-row tiles whose 128-row halves may belong to two
+// groups, tile_gid [m/256][2]) is bitwise the contiguous form.
 
-#include "convert.cuh"
-#include "gemm_mainloop.cuh"
+#include "gemm_sm90.cuh"
 
-// a [m, k], b [G, n, k] (both bf16, or both e4m3 with sfa [m, ceil(k/128)] f32
-// and sfb [G, ceil(n/gran_n), ceil(k/128)] f32, gran_n = 1 << sfb_shift),
-// tile_gid [ceil(m/64)] int32, tile_row_end [ceil(m/64)] int32 or null (rows at
-// or past it are written as zero: ensure_zero_padding), d [m, n] bf16.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int dgt_contiguous_gemm_nt(const void* a, const void* b, const void* sfa,
-                                      const void* sfb, const void* tile_gid,
-                                      const void* tile_row_end, void* d, int m, int n,
-                                      int k, int is_fp8, int sfb_shift, int block_n,
-                                      void* stream) {
-    dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, m, n, k, sfb_shift);
-    p.tile_gid = static_cast<const int*>(tile_gid);
-    p.tile_row_end = static_cast<const int*>(tile_row_end);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    constexpr auto kContiguous = dgt::Layout::kContiguous;
-    const cudaError_t err =
-        is_fp8 ? dgt::launch_gemm_bn<dgt::FormE4m3, kContiguous, __nv_bfloat16>(p, 1, block_n, s)
-               : dgt::launch_gemm_bn<dgt::FormBf16, kContiguous, __nv_bfloat16>(p, 1, block_n, s);
-    return static_cast<int>(err);
+using namespace dgt::sm90;
+
+namespace {
+
+using Bf16 = __nv_bfloat16;
+
+template <int kBM, int kBN, Kind kKind, BForm kBForm, bool kBMn>
+cudaError_t launch_contiguous(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                              const CUtensorMap& map_d, const Args& p, int num_sms,
+                              cudaStream_t s) {
+    return launch<kBM, kBN, Bf16, kKind, kBForm, kBMn>(map_a, map_b, map_d, p, num_sms, s);
 }
 
-// The NN form: the arguments of dgt_contiguous_gemm_nt with b [G, k, n]
-// (n % 16 == 0 for e4m3, n % 8 == 0 for bf16: whole 16-byte rows); the
-// scales as there, sfb [G, ceil(n/gran_n), ceil(k/128)]. Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int dgt_contiguous_gemm_nn(const void* a, const void* b, const void* sfa,
-                                      const void* sfb, const void* tile_gid,
-                                      const void* tile_row_end, void* d, int m, int n,
-                                      int k, int is_fp8, int sfb_shift, int block_n,
-                                      void* stream) {
-    dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, m, n, k, sfb_shift);
-    p.tile_gid = static_cast<const int*>(tile_gid);
-    p.tile_row_end = static_cast<const int*>(tile_row_end);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    constexpr auto kContiguous = dgt::Layout::kContiguous;
-    using E4m3Nn = dgt::Form<1, 1, dgt::Scale::kPromote, false, true>;
-    using Bf16Nn = dgt::Form<2, 2, dgt::Scale::kNone, false, true>;
-    const cudaError_t err =
-        is_fp8 ? dgt::launch_gemm_bn<E4m3Nn, kContiguous, __nv_bfloat16>(p, 1, block_n, s)
-               : dgt::launch_gemm_bn<Bf16Nn, kContiguous, __nv_bfloat16>(p, 1, block_n, s);
-    return static_cast<int>(err);
+// The 64- or 128-row instance of one form.
+template <BForm kBForm, bool kBMn>
+cudaError_t launch_rows(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                        const CUtensorMap& map_d, const Args& p, int block_m, int num_sms,
+                        cudaStream_t s) {
+    constexpr Kind kC = Kind::kContiguous;
+    if (block_m == 128)
+        return launch_contiguous<128, 128, kC, kBForm, kBMn>(map_a, map_b, map_d, p, num_sms, s);
+    if (block_m == 64)
+        return launch_contiguous<64, 128, kC, kBForm, kBMn>(map_a, map_b, map_d, p, num_sms, s);
+    return cudaErrorInvalidValue;
 }
 
-// The dual-B form: a, b, sfa, sfb, d and is_fp8 as above; m % 256 == 0;
-// tile_gid [m/128] int32, the group of each 128-row half (pairs per 256-row
-// tile). The tile is 64 columns wide: two B slabs of 128 columns exceed the
-// shared memory of a block. Returns the cudaError_t of the launch (0 = success).
-static_assert(dgt::smem_bytes<dgt::FormE4m3, 64, dgt::Layout::kContiguousDual>() <= 232448,
-              "the dual-B tile must fit the 227 KiB an H100 block may use");
-extern "C" int dgt_contiguous_dual_gemm_nt(const void* a, const void* b, const void* sfa,
-                                           const void* sfb, const void* tile_gid, void* d,
-                                           int m, int n, int k, int is_fp8, int sfb_shift,
-                                           void* stream) {
-    dgt::GemmArgs p = dgt::nt_args(a, b, sfa, sfb, d, m, n, k, sfb_shift);
-    p.tile_gid = static_cast<const int*>(tile_gid);
+}  // namespace
+
+// a [m, k] and b [G, n, k] (b_mn: [G, k, n]), both bf16, or both e4m3 with
+// sfa [m, ceil(k/128)] f32 and sfb [G, ceil(n/gran_n), ceil(k/128)] f32
+// (gran_n = 1 << sfb_shift) and scratch ceil(k/128) * (sfa_ld + G sfb_ld) f32
+// for their k-first copies (sfa_ld, sfb_ld: m and ceil(n/gran_n) rounded up
+// to 4); k % 16 == 0, n even (b_mn: n % 16 == 0 e4m3, n % 8 == 0 bf16).
+// block_m 64 or 128: tile_gid [ceil(m/block_m)] int32, tile_row_end the same
+// or null (rows at or past it are written as zero: ensure_zero_padding);
+// block_m 256, the dual-B form (NT, m % 256 == 0; 64 columns a tile):
+// tile_gid [m/256][2], the group of each 128-row half. d [m, n] bf16. num_stages and num_sms from
+// heuristics/configs.py:get_sm90_config. Returns the cudaError_t of the
+// launches (0 = success).
+extern "C" int dgt_contiguous_gemm(const void* a, const void* b, const void* sfa,
+                                   const void* sfb, void* scratch, const void* tile_gid,
+                                   const void* tile_row_end, void* d, int m, int n, int k,
+                                   int num_groups, int sfa_ld, int sfb_ld, int sfb_shift,
+                                   int is_fp8, int b_mn, int block_m, int num_stages,
+                                   int num_sms, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    constexpr auto kDual = dgt::Layout::kContiguousDual;
-    const cudaError_t err =
-        is_fp8 ? dgt::launch_gemm<dgt::FormE4m3, 64, kDual, __nv_bfloat16>(p, 1, s)
-               : dgt::launch_gemm<dgt::FormBf16, 64, kDual, __nv_bfloat16>(p, 1, s);
+    const bool dual = block_m == 256;
+    if (dual && b_mn) return static_cast<int>(cudaErrorInvalidValue);
+    const int ksf = (k + kBK - 1) / kBK;
+    const int nsf = ((n - 1) >> sfb_shift) + 1;
+    const uint64_t elem = is_fp8 ? 1 : 2;
+    Args p = {};
+    if (is_fp8) {
+        const cudaError_t err = launch_k_first(sfa, sfb, scratch, m, nsf, ksf, sfa_ld, sfb_ld,
+                                               num_groups, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        p.sfa = static_cast<const float*>(scratch);
+        p.sfb = p.sfa + static_cast<int64_t>(ksf) * sfa_ld;
+        p.sfa_ld = sfa_ld;
+        p.sfb_ld = sfb_ld;
+        p.sfb_group_stride = static_cast<int64_t>(ksf) * sfb_ld;
+    }
+    const uint64_t k_bytes = static_cast<uint64_t>(k) * elem;
+    const uint64_t n_bytes = static_cast<uint64_t>(n) * elem;
+    CUtensorMap map_a, map_b, map_d = {};
+    // B: [G, n, k] in boxes of block_n rows, or MN-major [G, k, n] in boxes of
+    // one stage's k rows (128 e4m3, 64 bf16)
+    const bool mapped =
+        make_map(&map_a, a, k_bytes, m, k_bytes, dual ? 256 : block_m) &&
+        (b_mn ? make_map_3d(&map_b, b, n_bytes, k, n_bytes, num_groups, is_fp8 ? 128 : 64)
+              : make_map_3d(&map_b, b, k_bytes, n, k_bytes, num_groups, dual ? 64 : 128));
+    if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
+    p.tma_store = make_out_map(&map_d, d, n, m, 1, 0) ? 1 : 0;
+    p.d = d;
+    p.M = m;
+    p.N = n;
+    p.num_kb = static_cast<int>((k_bytes + kBK - 1) / kBK);
+    p.sfb_shift = sfb_shift;
+    p.num_groups = num_groups;
+    p.num_stages = num_stages;
+    p.tile_gid = static_cast<const int*>(tile_gid);
+    p.tile_row_end = static_cast<const int*>(tile_row_end);
+    cudaError_t err;
+    if (dual) {
+        constexpr Kind kD = Kind::kContiguousDual;
+        err = !is_fp8 ? launch_contiguous<256, 64, kD, BForm::kUnscaled, false>(
+                            map_a, map_b, map_d, p, num_sms, s)
+            : sfb_shift >= 7 ? launch_contiguous<256, 64, kD, BForm::kBlockScaled, false>(
+                                   map_a, map_b, map_d, p, num_sms, s)
+                             : launch_contiguous<256, 64, kD, BForm::kChannelScaled, false>(
+                                   map_a, map_b, map_d, p, num_sms, s);
+    } else if (!is_fp8) {
+        err = b_mn ? launch_rows<BForm::kUnscaled, true>(map_a, map_b, map_d, p, block_m, num_sms, s)
+                   : launch_rows<BForm::kUnscaled, false>(map_a, map_b, map_d, p, block_m, num_sms,
+                                                          s);
+    } else if (sfb_shift >= 7) {
+        err = b_mn ? launch_rows<BForm::kBlockScaled, true>(map_a, map_b, map_d, p, block_m,
+                                                            num_sms, s)
+                   : launch_rows<BForm::kBlockScaled, false>(map_a, map_b, map_d, p, block_m,
+                                                             num_sms, s);
+    } else {
+        err = b_mn ? launch_rows<BForm::kChannelScaled, true>(map_a, map_b, map_d, p, block_m,
+                                                              num_sms, s)
+                   : launch_rows<BForm::kChannelScaled, false>(map_a, map_b, map_d, p, block_m,
+                                                               num_sms, s);
+    }
     return static_cast<int>(err);
 }

@@ -40,17 +40,13 @@ extern "C" int dgt_dense_fp8_gemm(const void* a, const void* b, const void* sfa,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int ksf = (k + kBK - 1) / kBK;
     const int nsf = ((n - 1) >> sfb_shift) + 1;
-    float* sfa_k = static_cast<float*>(scratch);
-    float* sfb_k = sfa_k + static_cast<int64_t>(ksf) * sfa_ld;
-    const int64_t elems = static_cast<int64_t>(ksf) * (sfa_ld + sfb_ld);
-    k_first_kernel<<<static_cast<unsigned>((elems + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(sfa), static_cast<const float*>(sfb), sfa_k, sfb_k, m, nsf, ksf,
-        sfa_ld, sfb_ld);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_k_first(sfa, sfb, scratch, m, nsf, ksf, sfa_ld, sfb_ld, 1, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const float* sfa_k = static_cast<const float*>(scratch);
+    const float* sfb_k = sfa_k + static_cast<int64_t>(ksf) * sfa_ld;
     const uint64_t b_row = fp4_b ? static_cast<uint64_t>(k) / 2 : static_cast<uint64_t>(k);
     CUtensorMap map_a, map_b;
-    if (!make_map(&map_a, a, k, m, k, block_m) || !make_map(&map_b, b, b_row, n, b_row, kBN))
+    if (!make_map(&map_a, a, k, m, k, block_m) || !make_map(&map_b, b, b_row, n, b_row, kDenseBN))
         return static_cast<int>(cudaErrorInvalidValue);
     Args p = {};
     p.sfa = sfa_k;

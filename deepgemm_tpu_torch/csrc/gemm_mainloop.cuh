@@ -1,12 +1,13 @@
 // Shared mainloop of the port's mma.sync GEMM kernels: the dense forms
 // that are not e4m3 x e4m3 'promote' (the 'dequant' strategy, the bf16
-// operands), masked grouped, contiguous grouped and the bf16 k-grouped
-// kernel. The dense e4m3 'promote' forms and the FP8 k-grouped kernel run
-// the Hopper mainloop of gemm_sm90.cuh.
+// operands), masked grouped and the bf16 k-grouped kernel, and the block
+// body of the mega MoE kernels (mega_ep.cu). The dense e4m3 'promote' forms,
+// the FP8 k-grouped kernel and the contiguous grouped kernels run the Hopper
+// mainloop of gemm_sm90.cuh.
 //
 // Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
-// (_build_dense_gemm), kernels/grouped.py (_build_masked, _build_contiguous)
-// and kernels/k_grouped.py (_build_k_grouped), including the exact f32
+// (_build_dense_gemm), kernels/grouped.py (_build_masked) and
+// kernels/k_grouped.py (_build_k_grouped), including the exact f32
 // promotion step of deepgemm_tpu/kernels/common.py:27-52:
 //     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p,
 // and the 'dequant' step of deepgemm_tpu/kernels/dense.py:248-255:
@@ -52,23 +53,11 @@
 //                   masked_m the block returns at once when its first row is
 //                   at or past masked_m[g]; rows past it inside a live tile
 //                   are unspecified, as in the masked contract.
-//       kContiguous A and d are the concatenated row blocks of all groups;
-//                   the m-tile's group is tile_gid[m-tile] (B's group), and
-//                   rows at or past tile_row_end[m-tile] are written as
-//                   zero (a tile wholly past it skips the mainloop).
-//       kContiguousDual  the same rows in 256-row tiles (the dual-B variant):
-//                   the top and the bottom 128 rows of tile t take the
-//                   groups tile_gid[2t] and tile_gid[2t + 1]. A stage holds
-//                   a second B slab for a tile whose halves differ (loaded
-//                   only then), and the tile runs as four 64-row passes over
-//                   each stage, each pass exactly kContiguous's 64-row tile
-//                   (the same fragments, the same k order, the same
-//                   promotion per row), so its bits are kContiguous's.
 //       kKGrouped   (bf16) grid z = group; the group's depth is k_size[g]
 //                   columns of A and B from column k_start[g] (16-element
 //                   aligned); an empty group writes c (or zero).
-//   * Output bf16 or f32 (OutT). What only one layout needs (c, the zero
-//     rows, a row stride apart from the depth) is decided at
+//   * Output bf16 or f32 (OutT). What only one layout needs (c, a row
+//     stride apart from the depth) is decided at
 //     compile time, so the other layouts carry no branch or runtime stride
 //     for it.
 //
@@ -97,18 +86,9 @@ constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
-enum class Layout { kBatched, kContiguous, kKGrouped, kContiguousDual };
+enum class Layout { kBatched, kKGrouped };
 enum class Scale { kNone, kPromote, kDequant };
 
-// Rows of A a block computes, and the B slabs a stage holds.
-template <Layout kLayout>
-__host__ __device__ constexpr int block_rows() {
-    return kLayout == Layout::kContiguousDual ? 4 * kBM : kBM;
-}
-template <Layout kLayout>
-__host__ __device__ constexpr int b_slabs() {
-    return kLayout == Layout::kContiguousDual ? 2 : 1;
-}
 template <Layout kLayout>
 __host__ __device__ constexpr bool k_grouped() {
     return kLayout == Layout::kKGrouped;
@@ -116,7 +96,7 @@ __host__ __device__ constexpr bool k_grouped() {
 
 // What an instance computes. kEA / kEB: bytes per element of A and B (1:
 // e4m3; 2: bf16). kAMn / kBMn: the
-// operand is MN-major (A [K, M], B [K, N]; B [G, K, N] when grouped). kC:
+// operand is MN-major (A [K, M], B [K, N]). kC:
 // the dense kernel adds c in its epilogue; a compile-time choice, since a
 // runtime one cost the e4m3 forms without c ~5% on the H100.
 template <int kEA_, int kEB_, Scale kScale_, bool kAMn_ = false, bool kBMn_ = false,
@@ -147,13 +127,12 @@ using FormBf16 = Form<2, 2, Scale::kNone>;      // the unscaled bf16 NT form
 // operand, the transposed stage.
 template <class F, int BN, Layout kLayout>
 struct SmemPlan {
-    static constexpr int kRows = block_rows<kLayout>();
-    static constexpr int kRawPitchA = kRows * F::kEA + 16;
+    static constexpr int kRawPitchA = kBM * F::kEA + 16;
     static constexpr int kRawPitchB = BN * F::kEB + 16;
-    static constexpr int kA = F::kAMn ? F::kKE * kRawPitchA : kRows * F::kPitchA;
+    static constexpr int kA = F::kAMn ? F::kKE * kRawPitchA : kBM * F::kPitchA;
     static constexpr int kB = F::kBMn ? F::kKE * kRawPitchB : BN * F::kPitchB;
-    static constexpr int kStage = kA + b_slabs<kLayout>() * kB;
-    static constexpr int kTA = F::kAMn ? kRows * F::kPitchA : 0;
+    static constexpr int kStage = kA + kB;
+    static constexpr int kTA = F::kAMn ? kBM * F::kPitchA : 0;
     static constexpr int kTB = F::kBMn ? BN * F::kPitchB : 0;
     static constexpr int kBytes = kStages * kStage + kTA + kTB;
 };
@@ -166,19 +145,16 @@ constexpr int smem_bytes() {
 struct GemmArgs {
     const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk]); MN-major
                              // [K, M]
-    const uint8_t* b;        // B: k-major [G, N, K]; MN-major [G, K, N]
+    const uint8_t* b;        // B: k-major [G, N, K]; MN-major [K, N]
     const float* sfa;        // f32 scales of A, or nullptr (unscaled)
     const float* sfb;        // f32 scales of B, or nullptr
     const float* c;          // f32: k-grouped [G, M, N], the sum's start; kBatched [M, N],
                              // added to the finished sum; or nullptr
-    void* d;                 // OutT; [G, M, N] (kBatched, k-grouped) or [M, N]
+    void* d;                 // OutT; [G, M, N]
     int M, N, K;             // K: the depth of every problem (not k-grouped)
     int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
     int64_t ldk;             // kKGrouped: row stride of A and of B, elements
     const int* masked_m;     // kBatched: [G] live rows, or nullptr (all rows live)
-    const int* tile_gid;     // kContiguous: [ceil(M / kBM)] group of each m-tile;
-                             // kContiguousDual: [M / 128] group of each half tile
-    const int* tile_row_end; // kContiguous: [ceil(M / kBM)] rows at or past it are zero, or nullptr
     const int* k_start;      // k-grouped: [G] first column of the group
     const int* k_size;       // k-grouped: [G] depth of the group
 };
@@ -292,7 +268,7 @@ __device__ __forceinline__ void transpose_stage(const uint8_t* raw, int raw_pitc
     }
 }
 
-// Load kRows (k-major: rows x row_bytes from row0; MN-major: kKE k-rows x
+// Load D rows (k-major: rows x row_bytes from row0; MN-major: kKE k-rows x
 // D elements from column col0) of one operand's stage with cp.async.
 template <bool kMn, int kE, int kKE, int D>
 __device__ __forceinline__ void load_operand(uint8_t* s, const uint8_t* base, int64_t ld,
@@ -335,36 +311,25 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     constexpr int kWN = BN / 4;          // warp tile width
     constexpr int kNT = kWN / 8;         // n8 tiles per warp
     constexpr int kEA = F::kEA, kEB = F::kEB, kKE = F::kKE;
-    constexpr bool kDual = kLayout == Layout::kContiguousDual;
     constexpr bool kKG = k_grouped<kLayout>();
     static_assert(!kKG || F::kScale == Scale::kNone,
                   "the FP8 k-grouped kernel runs the Hopper mainloop (gemm_sm90.cuh)");
     constexpr bool kPromote = F::kScale == Scale::kPromote;
     constexpr bool kDequant = F::kScale == Scale::kDequant;
-    constexpr int kRows = block_rows<kLayout>();
-    constexpr int kQ = kRows / kBM;      // 64-row passes over each stage
-    static_assert(!kDual || (!F::kAMn && !F::kBMn && kEA == kEB),
-                  "dual-B takes the NT forms of one element size");
     static_assert(!F::kAMn || kLayout == Layout::kBatched, "MN-major A: the dense kernel");
     static_assert(!F::kC || kLayout == Layout::kBatched, "c in the epilogue: the dense kernel");
-    static_assert(!F::kBMn || kLayout == Layout::kBatched || kLayout == Layout::kContiguous,
-                  "MN-major B: the dense and contiguous kernels");
+    static_assert(!F::kBMn || kLayout == Layout::kBatched, "MN-major B: the dense kernel");
     extern __shared__ __align__(16) uint8_t smem[];
 
-    const int m0 = by * kRows;
+    const int m0 = by * kBM;
     const int n0 = bx * BN;
 
-    // The block's problem: operands, depth, scales and output. b_bot and
-    // sfb_bot: the bottom half's B and SFB (kContiguousDual), else b and sfb.
+    // The block's problem: operands, depth, scales and output.
     const uint8_t* a = p.a;
     const uint8_t* b = p.b;
     const float* sfa = p.sfa;
     const float* sfb = p.sfb;
-    const uint8_t* b_bot = p.b;
-    const float* sfb_bot = p.sfb;
-    bool straddle = false;               // the halves' groups differ
     int depth = p.K;
-    int row_end = p.M;
     int64_t d_off = 0;                   // elements of d (and c) before this problem
     int64_t ld_k = p.K;                  // row stride of a k-major operand, elements
     const int ksf = (p.K + 127) / 128;   // m-major scales: k blocks per row
@@ -378,22 +343,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         if constexpr (F::kScaleA) sfa += static_cast<int64_t>(g) * p.M * ksf;
         if constexpr (F::kScaleB) sfb += static_cast<int64_t>(g) * nsf * ksf;
         d_off = static_cast<int64_t>(g) * p.M * p.N;
-    } else if constexpr (kLayout == Layout::kContiguous) {
-        const int gid = p.tile_gid[by];
-        b += static_cast<int64_t>(gid) * p.N * kb_row;
-        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(gid) * nsf * ksf;
-        if (p.tile_row_end != nullptr) row_end = min(row_end, p.tile_row_end[by]);
-        if (m0 >= row_end) depth = 0;    // the whole tile is written as zero
-    } else if constexpr (kDual) {
-        const int top = p.tile_gid[2 * by];
-        const int bot = p.tile_gid[2 * by + 1];
-        straddle = top != bot;
-        b += static_cast<int64_t>(top) * p.N * kb_row;
-        b_bot += static_cast<int64_t>(bot) * p.N * kb_row;
-        if constexpr (F::kScaleB) {
-            sfb += static_cast<int64_t>(top) * nsf * ksf;
-            sfb_bot += static_cast<int64_t>(bot) * nsf * ksf;
-        }
     } else {
         const int g = bz;
         const int64_t k0 = p.k_start[g];
@@ -417,23 +366,20 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     const int wn = (warp % 4) * kWN;
     const int gr = lane >> 2, tg = lane & 3;
 
-    // One stage: A's region, then B's; on a straddling dual tile a second B
-    // region holds the bottom half's B. Two k-major operands of one element
+    // One stage: A's region, then B's. Two k-major operands of one element
     // size load in one pass over the stage's rows (8 chunks of 16 bytes a
     // row), which ran ~15% faster at 4096^3 than a pass per operand.
     auto load_stage = [&](int slot, int kt) {
         uint8_t* s = smem + slot * Plan::kStage;
         if constexpr (!F::kAMn && !F::kBMn && kEA == kEB) {
-            const int stage_rows = kRows + (straddle ? 2 : 1) * BN;
             const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
             #pragma unroll
-            for (int c = tid; c < stage_rows * 8; c += kThreads) {
+            for (int c = tid; c < (kBM + BN) * 8; c += kThreads) {
                 const int r = c >> 3, ch = c & 7;
                 const int64_t kb = kb0 + ch * 16;
-                const bool is_a = r < kRows;
-                const bool is_bot = r >= kRows + BN;
-                const int grow = is_a ? m0 + r : n0 + (r - kRows - (is_bot ? BN : 0));
-                const uint8_t* base = is_a ? a : (is_bot ? b_bot : b);
+                const bool is_a = r < kBM;
+                const int grow = is_a ? m0 + r : n0 + (r - kBM);
+                const uint8_t* base = is_a ? a : b;
                 const bool valid = grow < (is_a ? p.M : p.N) && kb < ka_bytes;
                 const uint8_t* src = valid ? base + grow * lda + kb : base;
                 cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
@@ -441,32 +387,30 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
             return;
         }
         const int64_t k_elem0 = static_cast<int64_t>(kt) * kKE;
-        load_operand<F::kAMn, kEA, kKE, kRows>(s, a, lda, m0, p.M, k_elem0 * kEA, ka_bytes,
+        load_operand<F::kAMn, kEA, kKE, kBM>(s, a, lda, m0, p.M, k_elem0 * kEA, ka_bytes,
                                                k_elem0, depth, kKE * kEA, F::kPitchA, tid);
         load_operand<F::kBMn, kEB, kKE, BN>(s + Plan::kA, b, ldb, n0, p.N, k_elem0 * kEB, kb_bytes,
                                             k_elem0, depth, kKE * kEB, F::kPitchB, tid);
     };
 
-    float acc[kQ][2][kNT][4];
+    float acc[2][kNT][4];
     float part[2][kNT][4];
     // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
     #pragma unroll
-    for (int q = 0; q < kQ; ++q)
+    for (int i = 0; i < 2; ++i)
         #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < kNT; ++j)
             #pragma unroll
-            for (int j = 0; j < kNT; ++j)
-                #pragma unroll
-                for (int v = 0; v < 4; ++v) {
-                    float init = 0.f;
-                    if (kKG && p.c != nullptr) {
-                        const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
-                        const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
-                        if (row < p.M && col < p.N)
-                            init = __ldg(p.c + d_off + static_cast<int64_t>(row) * p.N + col);
-                    }
-                    acc[q][i][j][v] = init;
+            for (int v = 0; v < 4; ++v) {
+                float init = 0.f;
+                if (kKG && p.c != nullptr) {
+                    const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
+                    const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
+                    if (row < p.M && col < p.N)
+                        init = __ldg(p.c + d_off + static_cast<int64_t>(row) * p.N + col);
                 }
+                acc[i][j][v] = init;
+            }
 
     #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
@@ -485,185 +429,169 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
             cp_async_commit();
         }
         uint8_t* const stage = smem + (kt % kStages) * Plan::kStage;
-        const uint8_t* sa_all = stage;
-        const uint8_t* sb_top = stage + Plan::kA;
+        const uint8_t* sa = stage;
+        const uint8_t* sb = stage + Plan::kA;
         if constexpr (F::kAMn) {
-            transpose_stage<kEA, kKE, kRows>(stage, Plan::kRawPitchA, ta, F::kPitchA, tid);
-            sa_all = ta;
+            transpose_stage<kEA, kKE, kBM>(stage, Plan::kRawPitchA, ta, F::kPitchA, tid);
+            sa = ta;
         }
         if constexpr (F::kBMn) {
             transpose_stage<kEB, kKE, BN>(stage + Plan::kA, Plan::kRawPitchB, tb, F::kPitchB, tid);
-            sb_top = tb;
+            sb = tb;
         }
         if constexpr (F::kAMn || F::kBMn) __syncthreads();   // the k-major stage is whole
-        const uint8_t* sb_bot = straddle ? sb_top + Plan::kB : sb_top;
 
-        #pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-            // pass q: rows [q * kBM, (q + 1) * kBM) of the tile, with the
-            // bottom half's B from the third pass on
-            const uint8_t* sa = sa_all + q * kBM * F::kPitchA;
-            const bool bottom = kDual && q >= kQ / 2;
-            const uint8_t* sb = bottom ? sb_bot : sb_top;
-            const int q0 = m0 + q * kBM;
-            const float* sfb_q = bottom ? sfb_bot : sfb;
+        if constexpr (kPromote) {
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j)
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
+        }
 
-            if constexpr (kPromote) {
+        if constexpr (F::kMmaE4m3) {
+            #pragma unroll
+            for (int kk = 0; kk < kKBytes; kk += 32) {
+                uint32_t af[2][4], bfr[kNT][2];
+                #pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const uint8_t* pa = sa + (wm + i * 16 + gr) * F::kPitchA + kk + tg * 4;
+                    af[i][0] = ld_shared_u32(pa);
+                    af[i][1] = ld_shared_u32(pa + 8 * F::kPitchA);
+                    af[i][2] = ld_shared_u32(pa + 16);
+                    af[i][3] = ld_shared_u32(pa + 8 * F::kPitchA + 16);
+                }
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j) {
+                    const uint8_t* pb = sb + (wn + j * 8 + gr) * F::kPitchB + kk + tg * 4;
+                    bfr[j][0] = ld_shared_u32(pb);
+                    bfr[j][1] = ld_shared_u32(pb + 16);
+                }
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
                     #pragma unroll
-                    for (int j = 0; j < kNT; ++j)
-                        #pragma unroll
-                        for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
+                    for (int j = 0; j < kNT; ++j) {
+                        if constexpr (kPromote) MmaE4m3::mma(part[i][j], af[i], bfr[j]);
+                        else MmaE4m3::mma(acc[i][j], af[i], bfr[j]);
+                    }
             }
-
-            if constexpr (F::kMmaE4m3) {
-                #pragma unroll
-                for (int kk = 0; kk < kKBytes; kk += 32) {
-                    uint32_t af[2][4], bfr[kNT][2];
-                    #pragma unroll
-                    for (int i = 0; i < 2; ++i) {
-                        const uint8_t* pa = sa + (wm + i * 16 + gr) * F::kPitchA + kk + tg * 4;
-                        af[i][0] = ld_shared_u32(pa);
-                        af[i][1] = ld_shared_u32(pa + 8 * F::kPitchA);
-                        af[i][2] = ld_shared_u32(pa + 16);
-                        af[i][3] = ld_shared_u32(pa + 8 * F::kPitchA + 16);
-                    }
-                    #pragma unroll
-                    for (int j = 0; j < kNT; ++j) {
-                        const uint8_t* pb = sb + (wn + j * 8 + gr) * F::kPitchB + kk + tg * 4;
-                        bfr[j][0] = ld_shared_u32(pb);
-                        bfr[j][1] = ld_shared_u32(pb + 16);
-                    }
-                    #pragma unroll
-                    for (int i = 0; i < 2; ++i)
-                        #pragma unroll
-                        for (int j = 0; j < kNT; ++j) {
-                            if constexpr (kPromote) MmaE4m3::mma(part[i][j], af[i], bfr[j]);
-                            else MmaE4m3::mma(acc[q][i][j], af[i], bfr[j]);
-                        }
-                }
-            } else {
-                // bf16 MMA: e4m3 operands widened (times their bf16 scale
-                // under 'dequant'), bf16 operands as they are
-                uint32_t sa_bf[2][2], sb_bf[kNT];
-                if constexpr (kDequant) {
-                    #pragma unroll
-                    for (int i = 0; i < 2; ++i)
-                        #pragma unroll
-                        for (int h = 0; h < 2; ++h) {
-                            const int row = q0 + wm + i * 16 + gr + h * 8;
-                            sa_bf[i][h] = F::kScaleA && row < p.M
-                                ? bf16x2_splat(__ldg(sfa + sf_offset(row, kt, ksf)))
-                                : 0u;
-                        }
-                    #pragma unroll
-                    for (int j = 0; j < kNT; ++j) {
-                        const int col = n0 + wn + j * 8 + gr;
-                        sb_bf[j] = F::kScaleB && col < p.N
-                            ? bf16x2_splat(__ldg(sfb_q + sf_offset(col >> p.sfb_shift, kt, ksf)))
-                            : 0u;
-                    }
-                }
-                #pragma unroll
-                for (int kk = 0; kk < kKE; kk += 16) {
-                    uint32_t af[2][4], bfr[kNT][2];
-                    #pragma unroll
-                    for (int i = 0; i < 2; ++i) {
-                        const uint8_t* ra = sa + (wm + i * 16 + gr) * F::kPitchA;
-                        af[i][0] = bf16_frag<kEA>(ra, kk + 2 * tg);
-                        af[i][1] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 2 * tg);
-                        af[i][2] = bf16_frag<kEA>(ra, kk + 8 + 2 * tg);
-                        af[i][3] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 8 + 2 * tg);
-                        if constexpr (kDequant && F::kScaleA) {
-                            #pragma unroll
-                            for (int r = 0; r < 4; ++r) af[i][r] = mul_bf16x2(af[i][r], sa_bf[i][r & 1]);
-                        }
-                    }
-                    #pragma unroll
-                    for (int j = 0; j < kNT; ++j) {
-                        const uint8_t* rb = sb + (wn + j * 8 + gr) * F::kPitchB;
-                        bfr[j][0] = bf16_frag<kEB>(rb, kk + 2 * tg);
-                        bfr[j][1] = bf16_frag<kEB>(rb, kk + 8 + 2 * tg);
-                        if constexpr (kDequant && F::kScaleB) {
-                            bfr[j][0] = mul_bf16x2(bfr[j][0], sb_bf[j]);
-                            bfr[j][1] = mul_bf16x2(bfr[j][1], sb_bf[j]);
-                        }
-                    }
-                    #pragma unroll
-                    for (int i = 0; i < 2; ++i)
-                        #pragma unroll
-                        for (int j = 0; j < kNT; ++j) {
-                            if constexpr (kPromote) MmaBf16::mma(part[i][j], af[i], bfr[j]);
-                            else MmaBf16::mma(acc[q][i][j], af[i], bfr[j]);
-                        }
-                }
-            }
-
-            if constexpr (kPromote) {
-                // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
-                // row or column past the edge reads its scale as zero; a bf16
-                // operand's unit scale is not multiplied
-                float sa_v[2][2], sb_v[kNT][2];
+        } else {
+            // bf16 MMA: e4m3 operands widened (times their bf16 scale
+            // under 'dequant'), bf16 operands as they are
+            uint32_t sa_bf[2][2], sb_bf[kNT];
+            if constexpr (kDequant) {
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
                     #pragma unroll
                     for (int h = 0; h < 2; ++h) {
-                        const int row = q0 + wm + i * 16 + gr + h * 8;
-                        sa_v[i][h] = F::kScaleA && row < p.M
-                            ? __ldg(sfa + sf_offset(row, kt, ksf)) : 0.f;
+                        const int row = m0 + wm + i * 16 + gr + h * 8;
+                        sa_bf[i][h] = F::kScaleA && row < p.M
+                            ? bf16x2_splat(__ldg(sfa + sf_offset(row, kt, ksf)))
+                            : 0u;
                     }
                 #pragma unroll
-                for (int j = 0; j < kNT; ++j)
-                    #pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        const int col = n0 + wn + j * 8 + tg * 2 + e;
-                        sb_v[j][e] = F::kScaleB && col < p.N
-                            ? __ldg(sfb_q + sf_offset(col >> p.sfb_shift, kt, ksf))
-                            : 0.f;
+                for (int j = 0; j < kNT; ++j) {
+                    const int col = n0 + wn + j * 8 + gr;
+                    sb_bf[j] = F::kScaleB && col < p.N
+                        ? bf16x2_splat(__ldg(sfb + sf_offset(col >> p.sfb_shift, kt, ksf)))
+                        : 0u;
+                }
+            }
+            #pragma unroll
+            for (int kk = 0; kk < kKE; kk += 16) {
+                uint32_t af[2][4], bfr[kNT][2];
+                #pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const uint8_t* ra = sa + (wm + i * 16 + gr) * F::kPitchA;
+                    af[i][0] = bf16_frag<kEA>(ra, kk + 2 * tg);
+                    af[i][1] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 2 * tg);
+                    af[i][2] = bf16_frag<kEA>(ra, kk + 8 + 2 * tg);
+                    af[i][3] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 8 + 2 * tg);
+                    if constexpr (kDequant && F::kScaleA) {
+                        #pragma unroll
+                        for (int r = 0; r < 4; ++r) af[i][r] = mul_bf16x2(af[i][r], sa_bf[i][r & 1]);
                     }
+                }
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j) {
+                    const uint8_t* rb = sb + (wn + j * 8 + gr) * F::kPitchB;
+                    bfr[j][0] = bf16_frag<kEB>(rb, kk + 2 * tg);
+                    bfr[j][1] = bf16_frag<kEB>(rb, kk + 8 + 2 * tg);
+                    if constexpr (kDequant && F::kScaleB) {
+                        bfr[j][0] = mul_bf16x2(bfr[j][0], sb_bf[j]);
+                        bfr[j][1] = mul_bf16x2(bfr[j][1], sb_bf[j]);
+                    }
+                }
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
                     #pragma unroll
-                    for (int j = 0; j < kNT; ++j)
-                        #pragma unroll
-                        for (int v = 0; v < 4; ++v) {
-                            float t = part[i][j][v];
-                            if constexpr (F::kScaleB) t = __fmul_rn(t, sb_v[j][v & 1]);
-                            if constexpr (F::kScaleA) t = __fmul_rn(t, sa_v[i][v >> 1]);
-                            acc[q][i][j][v] = __fadd_rn(acc[q][i][j][v], t);
-                        }
+                    for (int j = 0; j < kNT; ++j) {
+                        if constexpr (kPromote) MmaBf16::mma(part[i][j], af[i], bfr[j]);
+                        else MmaBf16::mma(acc[i][j], af[i], bfr[j]);
+                    }
             }
+        }
+
+        if constexpr (kPromote) {
+            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
+            // row or column past the edge reads its scale as zero; a bf16
+            // operand's unit scale is not multiplied
+            float sa_v[2][2], sb_v[kNT][2];
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int row = m0 + wm + i * 16 + gr + h * 8;
+                    sa_v[i][h] = F::kScaleA && row < p.M
+                        ? __ldg(sfa + sf_offset(row, kt, ksf)) : 0.f;
+                }
+            #pragma unroll
+            for (int j = 0; j < kNT; ++j)
+                #pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = n0 + wn + j * 8 + tg * 2 + e;
+                    sb_v[j][e] = F::kScaleB && col < p.N
+                        ? __ldg(sfb + sf_offset(col >> p.sfb_shift, kt, ksf))
+                        : 0.f;
+                }
+            #pragma unroll
+            for (int i = 0; i < 2; ++i)
+                #pragma unroll
+                for (int j = 0; j < kNT; ++j)
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) {
+                        float t = part[i][j][v];
+                        if constexpr (F::kScaleB) t = __fmul_rn(t, sb_v[j][v & 1]);
+                        if constexpr (F::kScaleA) t = __fmul_rn(t, sa_v[i][v >> 1]);
+                        acc[i][j][v] = __fadd_rn(acc[i][j][v], t);
+                    }
         }
     }
     cp_async_wait<0>();
 
     OutT* d = static_cast<OutT*>(p.d) + d_off;
     #pragma unroll
-    for (int q = 0; q < kQ; ++q)
+    for (int i = 0; i < 2; ++i)
         #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int h = 0; h < 2; ++h) {
+            const int row = m0 + wm + i * 16 + gr + h * 8;
+            if (row >= p.M) continue;
             #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = m0 + q * kBM + wm + i * 16 + gr + h * 8;
-                if (row >= p.M) continue;
-                const bool zero = kLayout == Layout::kContiguous && row >= row_end;
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                    const int col = n0 + wn + j * 8 + tg * 2;
-                    if (col >= p.N) continue;   // N is even: col + 1 < N too
-                    float x = acc[q][i][j][2 * h], y = acc[q][i][j][2 * h + 1];
-                    if constexpr (F::kC) {
-                        // the dense kernel's c: added once to the finished sum
-                        const float2 cv = __ldg(reinterpret_cast<const float2*>(
-                            p.c + static_cast<int64_t>(row) * p.N + col));
-                        x = __fadd_rn(x, cv.x);
-                        y = __fadd_rn(y, cv.y);
-                    }
-                    store_pair(d + static_cast<int64_t>(row) * p.N + col,
-                               zero ? 0.f : x, zero ? 0.f : y);
+            for (int j = 0; j < kNT; ++j) {
+                const int col = n0 + wn + j * 8 + tg * 2;
+                if (col >= p.N) continue;   // N is even: col + 1 < N too
+                float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+                if constexpr (F::kC) {
+                    // the dense kernel's c: added once to the finished sum
+                    const float2 cv = __ldg(reinterpret_cast<const float2*>(
+                        p.c + static_cast<int64_t>(row) * p.N + col));
+                    x = __fadd_rn(x, cv.x);
+                    y = __fadd_rn(y, cv.y);
                 }
+                store_pair(d + static_cast<int64_t>(row) * p.N + col, x, y);
             }
+        }
 }
 
 template <class F, int BN, Layout kLayout, class OutT>
@@ -677,11 +605,10 @@ inline cudaError_t launch_gemm(const GemmArgs& p, int grid_z, cudaStream_t strea
     auto kernel = gemm_kernel<F, BN, kLayout, OutT>;
     constexpr int smem = smem_bytes<F, BN, kLayout>();
     static_assert(smem <= 232448, "an H100 block may use 227 KiB of shared memory");
-    constexpr int rows = block_rows<kLayout>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + BN - 1) / BN, (p.M + rows - 1) / rows, grid_z);
+    const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM, grid_z);
     kernel<<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
 }

@@ -1,15 +1,17 @@
-// The Hopper mainloop of the dense FP8 GEMM and the k-grouped FP8 weight
-// gradient: wgmma from shared memory fed by TMA, warp-specialised and
-// persistent.
+// The Hopper mainloop of the dense FP8 GEMM, the k-grouped FP8 weight
+// gradient and the contiguous m-grouped GEMM: wgmma from shared memory fed
+// by TMA, warp-specialised and persistent.
 //
 // Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
 // (_build_dense_gemm, pl.pallas_call at dense.py:291) for e4m3 operands
-// under 'promote', and of deepgemm_tpu/kernels/k_grouped.py
-// (_build_k_grouped, pl.pallas_call at k_grouped.py:237) for e4m3
-// operands, with the f32 promotion of deepgemm_tpu/kernels/common.py:27-52:
+// under 'promote', of deepgemm_tpu/kernels/k_grouped.py (_build_k_grouped,
+// pl.pallas_call at k_grouped.py:237) for e4m3 operands, and of
+// deepgemm_tpu/kernels/grouped.py (_build_contiguous, pl.pallas_call at
+// grouped.py:240; _build_contiguous_dual_b, at grouped.py:401) for bf16 and
+// e4m3 operands, with the f32 promotion of deepgemm_tpu/kernels/common.py:27-52:
 //     acc += p * (sfa[m] * sfb[n])   for each 128-deep k block's product p.
-// The 'dequant' forms, the bf16 operands and the bf16 k-grouped form stay on
-// the mma.sync mainloop (gemm_mainloop.cuh).
+// The dense 'dequant' forms and bf16 operands, the masked kernel and the bf16
+// k-grouped form stay on the mma.sync mainloop (gemm_mainloop.cuh).
 //
 // What bounds it on the H100: a large dense product is tensor-core bound (2
 // x 4096^3 operations on 32 MiB of fp8: ~2000 operations a byte, against the
@@ -17,30 +19,42 @@
 // rate (e4m3 mma.sync runs as f16 HMMA on sm_90a). The k-grouped wgrad of a
 // training step does 256 operations a written output element: its output
 // bytes bound it, so its epilogue writes whole lines while the next work
-// item's loads are in flight.
+// item's loads are in flight. The contiguous grouped GEMM of a training step
+// (256 experts of 128 rows) does 256 operations a weight byte: the experts'
+// weights bound it, so each expert's weights stream from HBM once.
 //
 // Design:
-//   * A persistent grid of at most one block an SM walks the output tiles
-//     (kBM x kBN; kBN = 128, kBM = 64 or 128), rasterised in bands of
-//     kSwizzleM row tiles so that the blocks running at once share rows of A
-//     and B in L2. A k-grouped work item is (group, row tile, column tile),
-//     the groups one after another.
+//   * A persistent grid of at most one block an SM walks the work items
+//     (output tiles of kBM x kBN). Dense: kBN = 128, kBM = 64 or 128,
+//     rasterised in bands of kSwizzleM row tiles so that the blocks running
+//     at once share rows of A and B in L2. k-grouped: (group, row tile,
+//     column tile), the groups one after another. Contiguous: (row tile,
+//     column tile) with the column tiles of one row tile on neighbouring
+//     blocks, so its A rows stay in L2 while each reads its own slice of the
+//     group's B; a row tile's group is tile_gid[row tile] (device memory, as
+//     the k-grouped items read k_size: no call syncs the host). The mk
+//     alignment makes every row tile one group's (kBM 128 where it is a
+//     multiple of 128: one pass over each expert's weights; else 64).
 //   * One producer warp keeps TMA loads in flight into a ring of stages
 //     (full and empty mbarriers a stage, the phase parity from a running
 //     count that carries over from one work item to the next). A stage is
-//     one 128-deep k block: A [kBM x 128] and B [kBN x 128] e4m3, 128-byte
-//     swizzled, zero-filled by TMA past m, n and k, plus the stage's scales,
-//     k-first rows copied in bulk beside them. The producer is one lane: an
-//     earlier design copied m-major scales with 4-byte cp.async from all 32
-//     lanes, whose arrivals reached the barrier thousands of cycles late
-//     and whose 40 registers spilled. The k-grouped scales are k-first
-//     already; the dense entry lays its scales out k-first in a pre-pass
-//     (k_first_kernel) on the same stream.
-//   * kBM / 64 consumer warpgroups (setmaxnreg moves registers from the
-//     producer to them) each run four wgmma m64n128k32 e4m3 a stage into a
-//     fresh f32 partial (scale-d 0 on the first), wait for it, and promote
-//     it into the f32 accumulator with one FFMA an element: sfa per row,
-//     sfb per 128 columns (gran_n >= 128, one value a tile) or per column.
+//     128 bytes of k (128 e4m3 values, one scale block, or 64 bf16 values):
+//     A [kBM rows] and B [kBN rows] 128-byte swizzled, zero-filled by TMA past
+//     m, n and k (the contiguous B through a 3-D map [G, n, k], so a tile past
+//     n inside one group reads zeros, not the next group), plus the stage's
+//     scales, k-first rows copied in bulk beside them. The producer is one
+//     lane: an earlier design copied m-major scales with 4-byte cp.async from
+//     all 32 lanes, whose arrivals reached the barrier thousands of cycles
+//     late and whose 40 registers spilled. The k-grouped scales are k-first
+//     already; the dense and contiguous entries lay theirs out k-first in a
+//     pre-pass (k_first_kernel) on the same stream.
+//   * Consumer warpgroups (setmaxnreg moves registers from the producer to
+//     them) each own 64 rows of the tile (the dual-B item: 128, as two m64
+//     halves). e4m3: four wgmma m64nNk32 a stage into a fresh f32 partial
+//     (scale-d 0 on the first), wait for it, and promote it into the f32
+//     accumulator with one FFMA an element: sfa per row, sfb per 128 columns
+//     (gran_n >= 128, one value a tile) or per column. bf16 (no scales): four
+//     wgmma m64nNk16 a stage straight into the accumulator.
 //   * Planar FP4 B (128 packed bytes a row hold 256 codes: the low nibbles
 //     k 0-127 of the group, the high nibbles k 128-255): the producer loads
 //     a group's bytes for each of its two stages; the consumers decode nibble
@@ -48,18 +62,41 @@
 //     so the swizzle carries over), fence the writes into the async proxy
 //     and meet at a barrier before the wgmma. With B's (1, 128) scales as
 //     per-column SFB this is bitwise the e4m3 kernel on the decoded codes.
+//   * MN-major B [G, k, n] (the contiguous NN form), loaded as it lies: bf16
+//     in [64 k x 64 n] boxes that wgmma reads through its transpose-B
+//     descriptor; e4m3 (wgmma takes 8-bit operands k-major only) in one
+//     [128 k x 128 n] box that the consumers transpose into a k-major
+//     swizzled tile (4 x 4 byte blocks by __byte_perm, each warp's reads and
+//     writes on 32 banks; transpose_b_stage), fence and meet at a barrier
+//     before the wgmma, as the FP4 decode does; two such tiles, so the next
+//     stage is turned while the wgmma of this one runs. The tile is the
+//     bytes a k-major load of B^T gives, so NN is bitwise NT on
+//     b.transpose(1, 2) without a relayout of the weights in device memory
+//     (these calls are bytes-bound: a relayout would read and write every
+//     weight byte once more).
+//   * The dual-B item (Kind::kContiguousDual): 256 rows by 64 columns, each
+//     consumer warpgroup one 128-row half (two m64 wgmmas a step) against its
+//     own half's group's B (tile_gid [m/256][2]); a stage holds one B tile
+//     when the halves share a group and two when they straddle, so a 256-row
+//     expert's B is read once. 64 columns: at 128 the e4m3 partial and sum
+//     of two halves exceed a consumer thread's registers, and the bf16 item
+//     spilled and ran slower than the contiguous kernel on the H100. Each 64
+//     rows compute what the contiguous kernel's tile computes, in the same k
+//     order, so its bits are the contiguous kernel's.
 //   * Epilogue: c (c[g] for the k-grouped kernel) is added once to the
 //     finished f32 sum, so d with c is bitwise d without c, plus c. (The
 //     k-grouped kernel once started its sum from c[g], as JAX's does: 32
 //     more loads a thread at each tile's start, and the register pressure
 //     corrupted one n8 slice of the in-flight wgmma partial now and then.)
-//     Each warpgroup writes its 64 rows, rounded to bf16
-//     or as f32, into a 128-byte swizzled shared tile (conflict-free from
-//     the accumulator layout), and one thread hands it to TMA stores (a 3-D
-//     tensor map [G, M, N] that clips at m and n), which drain while the
-//     consumers go on to the next tile. Where an output row is not whole
-//     16-byte chunks (a tensor map's stride cannot be), the warpgroup
-//     stores the tile itself: 16-byte chunks, pairs at the ragged edge.
+//     The contiguous kernel's rows at or past tile_row_end (ensure_zero_padding)
+//     are written as zero, and a tile wholly past it skips its mainloop. Each
+//     64 rows, rounded to bf16 or as f32, go into a 128-byte swizzled shared
+//     tile (conflict-free from the accumulator layout), and one thread hands
+//     it to TMA stores (a 3-D tensor map [G, M, N] that clips at m and n),
+//     which drain while the consumers go on to the next tile. Where an output
+//     row is not whole 16-byte chunks (a tensor map's stride cannot be), the
+//     warpgroup stores the tile itself: 16-byte chunks, pairs at the ragged
+//     edge.
 //   * k-grouped: group g's depth is k_size[g] (device memory: no call syncs
 //     the host), its scale rows start at sf_start[g] (scales k-first [nsf,
 //     m] and [nsf, n]), an empty group writes c (or zero). The TN form reads
@@ -76,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "convert.cuh"
@@ -83,55 +121,84 @@
 namespace dgt {
 namespace sm90 {
 
-constexpr int kBN = 128;               // output columns a tile
 constexpr int kBK = 128;               // k bytes a stage (one scale block of e4m3)
-constexpr int kSwizzleM = 8;           // row tiles a raster band
+constexpr int kDenseBN = 128;          // output columns of a dense or k-grouped tile
+constexpr int kSwizzleM = 8;           // row tiles a raster band (dense, k-grouped)
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kSmemLimit = 232448;     // bytes a block may use on the H100
-// a consumer thread holds two f32 sets of kBN / 2 (the 128-deep block's
-// partial and the accumulator), with room left for addresses and scales
-static_assert(2 * (kBN / 2) + 64 <= kConsumerRegs, "two register sets a consumer thread");
 
-enum class Kind { kDense, kKGrouped, kKGroupedFlat };
+enum class Kind { kDense, kKGrouped, kKGroupedFlat, kContiguous, kContiguousDual };
 // How B is scaled and stored: one scale per 128 or more rows of B (a single
-// value a tile), one per fewer rows (per column of the tile), or planar FP4
-// codes with per-row scales.
-enum class BForm { kBlockScaled, kChannelScaled, kPlanarFp4 };
+// value a tile), one per fewer rows (per column of the tile), planar FP4
+// codes with per-row scales, or bf16 with no scales (A bf16 too).
+enum class BForm { kBlockScaled, kChannelScaled, kPlanarFp4, kUnscaled };
 
 struct Args {
     int tma_store;           // 1: map_d holds the output (its rows are whole 16-byte chunks)
     // scales k-first, one row per 128-deep block: sfa [ksf or nsf, sfa_ld], one per row
-    // of A; sfb [ksf or nsf, sfb_ld], one per gran_n rows of B (k-grouped: per row)
+    // of A; sfb [ksf or nsf, sfb_ld], one per gran_n rows of B (k-grouped: per row;
+    // contiguous: [G, ksf, sfb_ld], group g's from g * sfb_group_stride)
     const float* sfa;
     const float* sfb;
     int sfa_ld, sfb_ld;      // row strides: M and ceil(N / gran_n), rounded up to 4
+    int64_t sfb_group_stride;
     const float* c;          // f32 or nullptr: [M, N] or [G, M, N], added to the finished sum
     void* d;                 // OutT [M, N] or [G, M, N]
     int M, N;
-    int num_kb;              // dense: 128-deep k blocks (ceil(K / 128))
+    int num_kb;              // dense, contiguous: 128-byte k blocks (ceil(K bytes / 128))
     int sfb_shift;           // log2(gran_n) (k-grouped: 0)
-    int num_groups;          // k-grouped: G (dense: 1)
+    int num_groups;          // k-grouped: G (dense: 1; contiguous: B's G, not a factor of the items)
     int num_stages;
     const int* k_size;       // k-grouped [G]: each group's depth
     const int* sf_start;     // k-grouped [G]: each group's first scale row
     const CUtensorMap* group_maps;   // flat: [G][2] tensor maps of A and B
+    const int* tile_gid;     // contiguous: [row tiles] each tile's group (dual: [row tiles][2])
+    const int* tile_row_end; // contiguous: [row tiles] rows at or past it are zero, or nullptr
 };
 
-template <int kBM, class OutT>
+template <Kind kKind>
+__host__ __device__ constexpr bool is_contiguous() {
+    return kKind == Kind::kContiguous || kKind == Kind::kContiguousDual;
+}
+
+template <Kind kKind>
+__host__ __device__ constexpr bool is_k_grouped() {
+    return kKind == Kind::kKGrouped || kKind == Kind::kKGroupedFlat;
+}
+
+template <int kBM, int kBN, class OutT, Kind kKind, BForm kBForm, bool kBMn>
 struct Plan {
-    static constexpr int kWG = kBM / 64;                      // consumer warpgroups
+    static constexpr bool kDual = kKind == Kind::kContiguousDual;
+    static constexpr int kSub = kDual ? 2 : 1;                // m64 halves a warpgroup owns
+    static constexpr int kWG = kBM / (64 * kSub);             // consumer warpgroups
     static constexpr int kThreads = (kWG + 1) * 128;
+    static constexpr int kBTiles = kDual ? 2 : 1;             // B tiles a stage holds
+    static constexpr bool kScaled = kBForm != BForm::kUnscaled;
+    static constexpr bool kTransposeB = kBMn && kScaled;      // e4m3 MN-major B
     static constexpr int kEpc = 16 / static_cast<int>(sizeof(OutT));     // outputs a 16-byte chunk
     static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(OutT));  // outputs a swizzle row
     static constexpr int kBoxes = kBN / kBoxCols;             // 128-byte column boxes a tile
     static constexpr int kStagingWG = kBoxes * 64 * 128;      // a warpgroup's staging tile
-    static constexpr int kStageBytes = kBM * kBK + kBN * kBK + (kBM + kBN) * 4;
-    static constexpr int kFixedBytes = 1024 + kWG * kStagingWG;   // alignment slack, staging
+    static constexpr int kSfA = kScaled ? kBM : 0;            // scales a stage
+    static constexpr int kSfB = kScaled ? kBTiles * kBN : 0;
+    static constexpr int kStageBytes = kBM * kBK + kBTiles * kBN * kBK + (kSfA + kSfB) * 4;
+    static constexpr int kTransposed = kTransposeB ? 2 * kBN * kBK : 0;   // two k-major B tiles
+    static constexpr int kFixedBytes = 1024 + kWG * kStagingWG + kTransposed;
     // the k-grouped kernel adds a table of 8 bytes a group
     static int smem_bytes(int stages, int table_groups) {
         return kFixedBytes + stages * (kStageBytes + 16) + 8 * table_groups;
     }
+    static_assert(kBN == 64 || kBN == 128, "tiles of 64 or 128 columns");
+    static_assert(kWG >= 1 && kWG * 64 * kSub == kBM, "64 rows a consumer warpgroup (dual: 128)");
+    // a consumer thread holds the accumulator and, for e4m3, the 128-deep
+    // block's partial: kSub sets of kBN / 2 each, with room for addresses
+    static_assert(kSub * (kScaled ? 2 : 1) * (kBN / 2) + 64 <= kConsumerRegs,
+                  "the register sets of a consumer thread");
+    static_assert(!kBMn || kKind == Kind::kContiguous, "MN-major B: the contiguous kernel");
+    static_assert(kScaled || is_contiguous<kKind>(), "bf16 operands: the contiguous kernels");
+    static_assert(!kDual || (kBM == 256 && kBN == 64), "the dual-B item is 256 x 64");
+    static_assert(kBForm != BForm::kPlanarFp4 || kKind == Kind::kDense, "planar FP4 B: dense");
 };
 
 // Byte offset of 16-byte chunk `chunk` of row r (0-63) in a warpgroup's
@@ -195,6 +262,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+           "r"(smem_u32(bar))
+        : "memory");
+}
+
 // A contiguous copy of `bytes` (a multiple of 16) from global to shared
 // memory that completes on bar.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -225,43 +302,117 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
          | (1ull << 62);
 }
 
+// An MN-major bf16 B tile [64 k rows x 128 n] as two boxes of [64 k x 64 n]
+// (128-byte rows of n, 128-byte swizzled): the leading offset is the stride
+// between the 64-column boxes (8 KiB), the stride offset between 8-row atoms
+// of k (1024 bytes). A k16 step is 16 rows: +2048 bytes.
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p) {
+    return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((64 * 128) >> 4) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (1ull << 62);
+}
+
 __device__ __forceinline__ void fence_operand(float& r) {
     asm volatile("" : "+f"(r) :: "memory");
 }
 
-// d[64 x 128] (+)= a[64 x 32] . b[128 x 32]^T, e4m3 from shared memory,
-// f32 in registers; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k32(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+#define DGT_D32 \
+    "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31" \
+    "}"
+#define DGT_D64 \
+    "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, " \
+    "%56, %57, %58, %59, %60, %61, %62, %63" \
+    "}"
+#define DGT_OUT8(d, o) \
+    "+f"(d[(o)]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]), \
+    "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+#define DGT_OUT32(d) DGT_OUT8(d, 0), DGT_OUT8(d, 8), DGT_OUT8(d, 16), DGT_OUT8(d, 24)
+#define DGT_OUT64(d) \
+    DGT_OUT32(d), DGT_OUT8(d, 32), DGT_OUT8(d, 40), DGT_OUT8(d, 48), DGT_OUT8(d, 56)
+
+// d[64 x N] (+)= a[64 x 32] . b[N x 32]^T, e4m3 from shared memory (both
+// k-major), f32 in registers; scale_d 0 overwrites d. N = 2 x the registers.
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " DGT_D64
+                 ", %64, %65, p, 1, 1;\n}\n"
+                 : DGT_OUT64(d) : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 " DGT_D32
+                 ", %32, %33, p, 1, 1;\n}\n"
+                 : DGT_OUT32(d) : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x N] (+)= a[64 x 16] . b[N x 16]^T, bf16 from shared memory, A
+// k-major, B k-major or (kTransB) MN-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DGT_D64
+                 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+                 : DGT_OUT64(d) : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DGT_D32
+                 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+                 : DGT_OUT32(d) : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+#undef DGT_D32
+#undef DGT_D64
+#undef DGT_OUT8
+#undef DGT_OUT32
+#undef DGT_OUT64
+
+// An e4m3 B stage as TMA loads it MN-major (128 k rows of 128 n bytes,
+// 128-byte swizzled) into the k-major tile a k-major load gives (128 n rows
+// of 128 k bytes, 128-byte swizzled): 1024 blocks of 4 k x 4 n bytes, each
+// read as four words and written as four by __byte_perm. Block f of warp
+// round w = f / 32, lane l = f % 32, is (bk, bn) with bk from lane bits
+// 0, 1, 3, 4 and bn from bits 2, 3, 1, 4 (crossed with w), so each round's
+// reads and its writes fall on 32 distinct banks.
+__device__ __forceinline__ void transpose_b_stage(const uint8_t* raw, uint8_t* t, int tid,
+                                                  int threads) {
+    for (int f = tid; f < 1024; f += threads) {
+        const int l = f & 31, w = f >> 5;
+        const int bk = (l & 3) | (((l >> 3) & 3) << 2) | ((w & 1) << 4);
+        const int bn = ((l >> 2) & 1) | ((((l >> 3) ^ (w >> 2)) & 1) << 1) |
+                       ((((l >> 1) ^ (w >> 3)) & 1) << 2) | ((((l >> 4) ^ (w >> 4)) & 1) << 3) |
+                       (((w >> 1) & 1) << 4);
+        uint32_t v[4];
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int k = 4 * bk + i;
+            v[i] = *reinterpret_cast<const uint32_t*>(
+                raw + k * 128 + (((bn >> 2) ^ (k & 7)) << 4) + ((bn & 3) << 2));
+        }
+        const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140), hi01 = __byte_perm(v[0], v[1], 0x7362);
+        const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140), hi23 = __byte_perm(v[2], v[3], 0x7362);
+        const uint32_t o[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                               __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int n = 4 * bn + j;
+            *reinterpret_cast<uint32_t*>(t + n * 128 + (((bk >> 2) ^ (n & 7)) << 4) +
+                                         ((bk & 3) << 2)) = o[j];
+        }
+    }
 }
 
 template <class OutT>
@@ -273,10 +424,12 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
     }
 }
 
-// One work item: problem g (0 for dense), its output tile, its depth in
-// 128-deep blocks.
+// One work item: problem g (0 for dense and contiguous), its output tile,
+// its depth in 128-byte blocks; contiguous: B's group of each half (b0, b1;
+// equal but for a straddling dual-B tile) and the rows' end (rows at or
+// past it are zero).
 struct Item {
-    int g, m0, n0, num_kb;
+    int g, m0, n0, num_kb, b0, b1, row_end;
 };
 
 // The first scale column of B a tile copies: the 16-byte chunk that holds
@@ -285,10 +438,13 @@ __device__ __forceinline__ int sfb_first(const Args& p, int n0) {
     return (n0 >> p.sfb_shift) & ~3;
 }
 
-// The work item t: the groups one after another, each group's tiles in
-// bands of kSwizzleM row tiles. k-grouped: each group's (128-deep blocks,
-// first scale row) from the table the block copies into shared memory.
-template <int kBM, Kind kKind>
+// The work item t. Dense and k-grouped: the groups one after another, each
+// group's tiles in bands of kSwizzleM row tiles; k-grouped: each group's
+// (128-deep blocks, first scale row) from the table the block copies into
+// shared memory. Contiguous: the column tiles of a row tile one after
+// another (the bands ran 10-15% slower at the training step's shapes on the
+// H100), the tile's group(s) and end row from device memory.
+template <int kBM, int kBN, Kind kKind>
 __device__ __forceinline__ Item item_of(const Args& p, const int2* groups, int t, int tiles_m,
                                         int tiles_n) {
     const int per_group = tiles_m * tiles_n;
@@ -298,34 +454,56 @@ __device__ __forceinline__ Item item_of(const Args& p, const int2* groups, int t
     const int first_m = (r / band) * kSwizzleM;
     const int rows = min(tiles_m - first_m, kSwizzleM);
     const int in = r - (r / band) * band;
+    int mt = first_m + in % rows;
     Item it;
-    it.g = g;
-    it.m0 = (first_m + in % rows) * kBM;
+    it.g = it.b0 = it.b1 = g;
+    it.m0 = mt * kBM;
     it.n0 = (in / rows) * kBN;
-    it.num_kb = kKind == Kind::kDense ? p.num_kb : groups[g].x;
+    it.row_end = INT_MAX;
+    if constexpr (is_contiguous<kKind>()) {
+        mt = t / tiles_n;
+        it.m0 = mt * kBM;
+        it.n0 = (t - mt * tiles_n) * kBN;
+        it.num_kb = p.num_kb;
+        if constexpr (kKind == Kind::kContiguousDual) {
+            it.b0 = __ldg(p.tile_gid + 2 * mt);
+            it.b1 = __ldg(p.tile_gid + 2 * mt + 1);
+        } else {
+            it.b0 = it.b1 = __ldg(p.tile_gid + mt);
+            if (p.tile_row_end != nullptr) {
+                it.row_end = __ldg(p.tile_row_end + mt);
+                if (it.m0 >= it.row_end) it.num_kb = 0;   // the whole tile is written as zero
+            }
+        }
+    } else {
+        it.num_kb = kKind == Kind::kDense ? p.num_kb : groups[g].x;
+    }
     return it;
 }
 
-template <int kBM, class OutT, Kind kKind, BForm kBForm>
-__global__ void __launch_bounds__(Plan<kBM, OutT>::kThreads, 1)
+template <int kBM, int kBN, class OutT, Kind kKind, BForm kBForm, bool kBMn>
+__global__ void __launch_bounds__((Plan<kBM, kBN, OutT, kKind, kBForm, kBMn>::kThreads), 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             const __grid_constant__ CUtensorMap map_d, const Args p) {
-    using P = Plan<kBM, OutT>;
-    constexpr int kWG = P::kWG;
-    constexpr bool kKG = kKind != Kind::kDense;
+    using P = Plan<kBM, kBN, OutT, kKind, kBForm, kBMn>;
+    constexpr int kWG = P::kWG, kSub = P::kSub, kBTiles = P::kBTiles;
+    constexpr bool kKG = is_k_grouped<kKind>();
+    constexpr bool kContig = is_contiguous<kKind>();
+    constexpr bool kScaled = P::kScaled;
     static_assert(!kKG || kBForm == BForm::kChannelScaled, "k-grouped: per-channel scales");
     extern __shared__ __align__(1024) uint8_t smem_raw[];
 
-    // carve: A and B stages and the staging tiles (1024-aligned for the
-    // swizzle), scales, barriers
+    // carve: A and B stages, the staging tiles and the transposed B tiles
+    // (1024-aligned for the swizzle), scales, barriers
     const int S = p.num_stages;
     uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     uint8_t* smem_a = base;
     uint8_t* smem_b = smem_a + S * kBM * kBK;
-    uint8_t* staging = smem_b + S * kBN * kBK;
-    float* sfa_s = reinterpret_cast<float*>(staging + kWG * P::kStagingWG);
-    float* sfb_s = sfa_s + S * kBM;
-    uint64_t* full = reinterpret_cast<uint64_t*>(sfb_s + S * kBN);
+    uint8_t* staging = smem_b + S * kBTiles * kBN * kBK;
+    uint8_t* transposed = staging + kWG * P::kStagingWG;
+    float* sfa_s = reinterpret_cast<float*>(transposed + P::kTransposed);
+    float* sfb_s = sfa_s + S * P::kSfA;
+    uint64_t* full = reinterpret_cast<uint64_t*>(sfb_s + S * P::kSfB);
     uint64_t* empty = full + S;
     int2* groups = reinterpret_cast<int2*>(empty + S);
 
@@ -344,7 +522,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
 
     const int tiles_m = (p.M + kBM - 1) / kBM;
     const int tiles_n = (p.N + kBN - 1) / kBN;
-    const int num_items = tiles_m * tiles_n * p.num_groups;
+    const int num_items = tiles_m * tiles_n * (kContig ? 1 : p.num_groups);
     const int wg = threadIdx.x / 128;
     const int lane = threadIdx.x % 32;
 
@@ -361,7 +539,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         int s = 0;
         uint32_t phase = 0;
         for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
-            const Item it = item_of<kBM, kKind>(p, groups, t, tiles_m, tiles_n);
+            const Item it = item_of<kBM, kBN, kKind>(p, groups, t, tiles_m, tiles_n);
             const CUtensorMap* ma = &map_a;
             const CUtensorMap* mb = &map_b;
             int col0 = 0, sf0 = 0;
@@ -371,6 +549,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                 ma = p.group_maps + 2 * it.g;
                 mb = ma + 1;
             }
+            const int b_tiles = it.b1 != it.b0 ? 2 : 1;   // a straddling dual-B tile: 2
             // the stage's scales: a k-first row each, whole 16-byte chunks
             // (the rows' stride is; a row or column of the tile past the
             // live part keeps stale scales, and its outputs are never stored)
@@ -378,47 +557,95 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
             const int sb_col = sfb_first(p, it.n0);
             const int sb_n = min((((it.n0 + kBN - 1) >> p.sfb_shift) - sb_col + 4) & ~3,
                                  p.sfb_ld - sb_col);
+            const uint32_t bytes = (kBM + b_tiles * kBN) * kBK +
+                                   (kScaled ? 4 * (sa_n + b_tiles * sb_n) : 0);
             for (int kb = 0; kb < it.num_kb; ++kb) {
                 mbar_wait(empty + s, phase ^ 1);
-                mbar_arrive_expect_tx(full + s, (kBM + kBN) * kBK + 4 * (sa_n + sb_n));
+                mbar_arrive_expect_tx(full + s, bytes);
                 tma_load_2d(smem_a + s * kBM * kBK, ma, full + s, col0 + kb * kBK, it.m0);
-                const int col_b = kBForm == BForm::kPlanarFp4 ? (kb >> 1) * kBK : col0 + kb * kBK;
-                tma_load_2d(smem_b + s * kBN * kBK, mb, full + s, col_b, it.n0);
-                const int64_t row = sf0 + kb;
-                bulk_load(sfa_s + s * kBM, p.sfa + row * p.sfa_ld + it.m0, 4 * sa_n, full + s);
-                bulk_load(sfb_s + s * kBN, p.sfb + row * p.sfb_ld + sb_col, 4 * sb_n, full + s);
+                uint8_t* sb = smem_b + s * kBTiles * kBN * kBK;
+                if constexpr (!kContig) {
+                    const int col_b = kBForm == BForm::kPlanarFp4 ? (kb >> 1) * kBK
+                                                                  : col0 + kb * kBK;
+                    tma_load_2d(sb, mb, full + s, col_b, it.n0);
+                } else if constexpr (!kBMn) {
+                    tma_load_3d(sb, mb, full + s, kb * kBK, it.n0, it.b0);
+                    if (b_tiles == 2)
+                        tma_load_3d(sb + kBN * kBK, mb, full + s, kb * kBK, it.n0, it.b1);
+                } else if constexpr (kScaled) {
+                    // e4m3 [128 k rows x 128 n bytes]
+                    tma_load_3d(sb, mb, full + s, it.n0, kb * kBK, it.b0);
+                } else {
+                    // bf16 [64 k rows x 128 n]: two boxes of 64 columns
+                    #pragma unroll
+                    for (int box = 0; box < kBN / 64; ++box)
+                        tma_load_3d(sb + box * 64 * 128, mb, full + s, 2 * it.n0 + box * 128,
+                                    kb * (kBK / 2), it.b0);
+                }
+                if constexpr (kScaled) {
+                    const int64_t row = sf0 + kb;
+                    bulk_load(sfa_s + s * P::kSfA, p.sfa + row * p.sfa_ld + it.m0, 4 * sa_n,
+                              full + s);
+                    float* sbs = sfb_s + s * P::kSfB;
+                    const float* src = p.sfb + row * p.sfb_ld + sb_col;
+                    bulk_load(sbs, src + it.b0 * p.sfb_group_stride, 4 * sb_n, full + s);
+                    if (b_tiles == 2)
+                        bulk_load(sbs + kBN, src + it.b1 * p.sfb_group_stride, 4 * sb_n, full + s);
+                }
                 if (++s == S) { s = 0; phase ^= 1; }
             }
         }
         return;
     }
 
-    // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile ----
+    // ---- consumers: warpgroup wg owns rows [64 kSub wg, 64 kSub (wg + 1)) of each tile ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
-    const int r0 = wg * 64 + warp * 16 + lane / 4;     // the thread's rows: r0, r0 + 8
-    const int q = 2 * (lane % 4);                       // its columns: 8 j + q, 8 j + q + 1
+    const int rr = warp * 16 + lane / 4;             // its rows of a 64-row half: rr, rr + 8
+    const int q = 2 * (lane % 4);                    // its columns: 8 j + q, 8 j + q + 1
+    // its rows of the tile, for the scales: one index per half, computed once
+    // (an index formed in the loop ran the dense kernel 10-20% slower)
+    int rows[kSub];
+    #pragma unroll
+    for (int h = 0; h < kSub; ++h) rows[h] = (wg * kSub + h) * 64 + rr;
     OutT* const dst_all = static_cast<OutT*>(p.d);
     uint8_t* const stage_out = staging + wg * P::kStagingWG;
     constexpr int kEpc = P::kEpc;
-    constexpr int kCpr = kBN / kEpc;                                // chunks a row
+    constexpr int kCpr = kBN / kEpc;                 // chunks a row
+    constexpr int kJ = kBN / 8;                      // n8 column groups a tile
 
-    float acc[kBN / 2], part[kBN / 2];
+    float acc[kSub][kBN / 2], part[kSub][kBN / 2];
     #pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+    for (int h = 0; h < kSub; ++h)
+        #pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) part[h][i] = 0.f;
     int s = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, rounds = 0;
     for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
-        const Item it = item_of<kBM, kKind>(p, groups, t, tiles_m, tiles_n);
+        const Item it = item_of<kBM, kBN, kKind>(p, groups, t, tiles_m, tiles_n);
         const int64_t out_off = static_cast<int64_t>(it.g) * p.M * p.N;
+        // the B tile this warpgroup reads: the second of a straddling dual-B stage
+        const int bt = (P::kDual && wg == 1 && it.b1 != it.b0) ? 1 : 0;
 
         #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        for (int h = 0; h < kSub; ++h)
+            #pragma unroll
+            for (int i = 0; i < kBN / 2; ++i) acc[h][i] = 0.f;
+        if constexpr (P::kTransposeB) {
+            // the item's first B stage, k-major; each later one is turned
+            // while the wgmma of the one before runs
+            if (it.num_kb > 0) {
+                mbar_wait(full + s, phase);
+                transpose_b_stage(smem_b + s * kBN * kBK, transposed + (rounds & 1) * kBN * kBK,
+                                  threadIdx.x, kWG * 128);
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            }
+        }
 
         for (int kb = 0; kb < it.num_kb; ++kb) {
             mbar_wait(full + s, phase);
-            uint8_t* sb_tile = smem_b + s * kBN * kBK;
+            uint8_t* sb_tile = smem_b + (s * kBTiles + bt) * kBN * kBK;
             if constexpr (kBForm == BForm::kPlanarFp4) {
                 // nibble plane kb & 1 of the packed group, decoded to e4m3 in place
                 uint4* words = reinterpret_cast<uint4*>(sb_tile);
@@ -433,54 +660,92 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                 asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
                 named_barrier(1, kWG * 128);
             }
-            const uint64_t da = smem_desc(smem_a + s * kBM * kBK + wg * 64 * kBK);
-            const uint64_t db = smem_desc(sb_tile);
+            if constexpr (P::kTransposeB) {
+                // this round's k-major tile, each warpgroup's half written (the
+                // barrier also means the other warpgroup's wgmma of the round
+                // before has finished, so the other tile may be rewritten)
+                named_barrier(1, kWG * 128);
+                sb_tile = transposed + (rounds & 1) * kBN * kBK;
+            }
+            ++rounds;
+            const uint64_t db = (kBMn && !kScaled) ? smem_desc_mn(sb_tile) : smem_desc(sb_tile);
             #pragma unroll
-            for (int i = 0; i < 64; ++i) fence_operand(part[i]);
+            for (int h = 0; h < kSub; ++h)
+                #pragma unroll
+                for (int i = 0; i < kBN / 2; ++i) fence_operand(kScaled ? part[h][i] : acc[h][i]);
             asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
             #pragma unroll
-            for (int k = 0; k < kBK / 32; ++k)
-                wgmma_m64n128k32(part, da + 2 * k, db + 2 * k, k);   // +32 bytes: +2 in 16-byte units
+            for (int h = 0; h < kSub; ++h) {
+                const uint64_t da = smem_desc(smem_a + s * kBM * kBK + (wg * kSub + h) * 64 * kBK);
+                #pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    // +32 bytes of a k-major row: +2 in 16-byte units; MN-major
+                    // B: +16 rows of 128 bytes
+                    if constexpr (kScaled)
+                        wgmma_e4m3(part[h], da + 2 * k, db + 2 * k, k);
+                    else
+                        wgmma_bf16<kBMn ? 1 : 0>(acc[h], da + 2 * k, db + (kBMn ? 128 : 2) * k, 1);
+                }
+            }
             asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            if constexpr (P::kTransposeB) {
+                // the next stage into the other k-major tile, under the wgmma
+                if (kb + 1 < it.num_kb) {
+                    const int s1 = s + 1 == S ? 0 : s + 1;
+                    mbar_wait(full + s1, s + 1 == S ? phase ^ 1 : phase);
+                    transpose_b_stage(smem_b + s1 * kBN * kBK,
+                                      transposed + (rounds & 1) * kBN * kBK, threadIdx.x,
+                                      kWG * 128);
+                    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                }
+            }
             #pragma unroll
-            for (int i = 0; i < 64; ++i) fence_operand(part[i]);
+            for (int h = 0; h < kSub; ++h)
+                #pragma unroll
+                for (int i = 0; i < kBN / 2; ++i) fence_operand(kScaled ? part[h][i] : acc[h][i]);
             asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 
-            // promote: acc += p * (sfa[row] * sfb[col])
-            const float* sa = sfa_s + s * kBM;
-            const float* sb = sfb_s + s * kBN;
-            const float sa0 = sa[r0], sa1 = sa[r0 + 8];
-            if constexpr (kBForm == BForm::kBlockScaled) {
-                const float b = sb[(it.n0 >> p.sfb_shift) - sfb_first(p, it.n0)];
-                const float s0 = sa0 * b, s1 = sa1 * b;
+            if constexpr (kScaled) {
+                // promote: acc += p * (sfa[row] * sfb[col])
+                const float* sa = sfa_s + s * P::kSfA;
+                const float* sb = sfb_s + s * P::kSfB;
+                if constexpr (P::kDual) sb += bt * kBN;
                 #pragma unroll
-                for (int j = 0; j < 16; ++j) {
-                    acc[4 * j] = fmaf(part[4 * j], s0, acc[4 * j]);
-                    acc[4 * j + 1] = fmaf(part[4 * j + 1], s0, acc[4 * j + 1]);
-                    acc[4 * j + 2] = fmaf(part[4 * j + 2], s1, acc[4 * j + 2]);
-                    acc[4 * j + 3] = fmaf(part[4 * j + 3], s1, acc[4 * j + 3]);
-                }
-            } else if (p.sfb_shift == 0) {
-                #pragma unroll
-                for (int j = 0; j < 16; ++j) {
-                    const float2 b2 = *reinterpret_cast<const float2*>(sb + 8 * j + q);
-                    acc[4 * j] = fmaf(part[4 * j], sa0 * b2.x, acc[4 * j]);
-                    acc[4 * j + 1] = fmaf(part[4 * j + 1], sa0 * b2.y, acc[4 * j + 1]);
-                    acc[4 * j + 2] = fmaf(part[4 * j + 2], sa1 * b2.x, acc[4 * j + 2]);
-                    acc[4 * j + 3] = fmaf(part[4 * j + 3], sa1 * b2.y, acc[4 * j + 3]);
-                }
-            } else {
-                // one scale per 2 to 64 rows of B: a column's scale by its index
-                const int first = sfb_first(p, it.n0);
-                #pragma unroll
-                for (int j = 0; j < 16; ++j) {
-                    const int col = it.n0 + 8 * j + q;
-                    const float b0 = sb[(col >> p.sfb_shift) - first];
-                    const float b1 = sb[((col + 1) >> p.sfb_shift) - first];
-                    acc[4 * j] = fmaf(part[4 * j], sa0 * b0, acc[4 * j]);
-                    acc[4 * j + 1] = fmaf(part[4 * j + 1], sa0 * b1, acc[4 * j + 1]);
-                    acc[4 * j + 2] = fmaf(part[4 * j + 2], sa1 * b0, acc[4 * j + 2]);
-                    acc[4 * j + 3] = fmaf(part[4 * j + 3], sa1 * b1, acc[4 * j + 3]);
+                for (int h = 0; h < kSub; ++h) {
+                    const float sa0 = sa[rows[h]], sa1 = sa[rows[h] + 8];
+                    if constexpr (kBForm == BForm::kBlockScaled) {
+                        const float b = sb[(it.n0 >> p.sfb_shift) - sfb_first(p, it.n0)];
+                        const float s0 = sa0 * b, s1 = sa1 * b;
+                        #pragma unroll
+                        for (int j = 0; j < kJ; ++j) {
+                            acc[h][4 * j] = fmaf(part[h][4 * j], s0, acc[h][4 * j]);
+                            acc[h][4 * j + 1] = fmaf(part[h][4 * j + 1], s0, acc[h][4 * j + 1]);
+                            acc[h][4 * j + 2] = fmaf(part[h][4 * j + 2], s1, acc[h][4 * j + 2]);
+                            acc[h][4 * j + 3] = fmaf(part[h][4 * j + 3], s1, acc[h][4 * j + 3]);
+                        }
+                    } else if (p.sfb_shift == 0) {
+                        #pragma unroll
+                        for (int j = 0; j < kJ; ++j) {
+                            const float2 b2 = *reinterpret_cast<const float2*>(sb + 8 * j + q);
+                            acc[h][4 * j] = fmaf(part[h][4 * j], sa0 * b2.x, acc[h][4 * j]);
+                            acc[h][4 * j + 1] = fmaf(part[h][4 * j + 1], sa0 * b2.y, acc[h][4 * j + 1]);
+                            acc[h][4 * j + 2] = fmaf(part[h][4 * j + 2], sa1 * b2.x, acc[h][4 * j + 2]);
+                            acc[h][4 * j + 3] = fmaf(part[h][4 * j + 3], sa1 * b2.y, acc[h][4 * j + 3]);
+                        }
+                    } else {
+                        // one scale per 2 to 64 rows of B: a column's scale by its index
+                        const int first = sfb_first(p, it.n0);
+                        #pragma unroll
+                        for (int j = 0; j < kJ; ++j) {
+                            const int col = it.n0 + 8 * j + q;
+                            const float b0 = sb[(col >> p.sfb_shift) - first];
+                            const float b1 = sb[((col + 1) >> p.sfb_shift) - first];
+                            acc[h][4 * j] = fmaf(part[h][4 * j], sa0 * b0, acc[h][4 * j]);
+                            acc[h][4 * j + 1] = fmaf(part[h][4 * j + 1], sa0 * b1, acc[h][4 * j + 1]);
+                            acc[h][4 * j + 2] = fmaf(part[h][4 * j + 2], sa1 * b0, acc[h][4 * j + 2]);
+                            acc[h][4 * j + 3] = fmaf(part[h][4 * j + 3], sa1 * b1, acc[h][4 * j + 3]);
+                        }
+                    }
                 }
             }
             __syncwarp();
@@ -488,65 +753,71 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
             if (++s == S) { s = 0; phase ^= 1; }
         }
 
-        // epilogue: c added once to the finished sum, rounded, staged, stored;
-        // first the staging tile must be free: the last tile's TMA stores
-        // have read it, or this warpgroup's own stores are done
-        if (p.tma_store && tid == 0)
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        named_barrier(2 + wg, 128);
+        // epilogue, a 64-row half at a time: c added once to the finished
+        // sum, rows past row_end zeroed, rounded, staged, stored; first the
+        // staging tile must be free: the last half's TMA stores have read
+        // it, or this warpgroup's own stores are done
         #pragma unroll
-        for (int j = 0; j < 16; ++j)
-            #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int r = r0 - wg * 64 + 8 * h, cl = 8 * j + q;
-                float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
-                if (p.c != nullptr) {
-                    const int row = it.m0 + wg * 64 + r, col = it.n0 + cl;
-                    if (row < p.M && col < p.N) {
-                        const float2 cv = __ldg(reinterpret_cast<const float2*>(
-                            p.c + out_off + static_cast<int64_t>(row) * p.N + col));
-                        x = __fadd_rn(x, cv.x);
-                        y = __fadd_rn(y, cv.y);
-                    }
-                }
-                const int byte = cl * static_cast<int>(sizeof(OutT));
-                store_pair(reinterpret_cast<OutT*>(stage_out + staging_offset(r, byte >> 4) +
-                                                   (byte & 15)),
-                           x, y);
-            }
-        if (p.tma_store) {
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int h = 0; h < kSub; ++h) {
+            const int row0 = it.m0 + (wg * kSub + h) * 64;
+            if (p.tma_store && tid == 0)
+                asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
             named_barrier(2 + wg, 128);
-            if (tid == 0) {
+            #pragma unroll
+            for (int j = 0; j < kJ; ++j)
                 #pragma unroll
-                for (int box = 0; box < P::kBoxes; ++box)
-                    tma_store_3d(&map_d, stage_out + box * 64 * 128,
-                                 it.n0 + box * P::kBoxCols, it.m0 + wg * 64, it.g);
-                asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int r = rr + 8 * hh, cl = 8 * j + q;
+                    float x = acc[h][4 * j + 2 * hh], y = acc[h][4 * j + 2 * hh + 1];
+                    if (p.c != nullptr) {
+                        const int row = row0 + r, col = it.n0 + cl;
+                        if (row < p.M && col < p.N) {
+                            const float2 cv = __ldg(reinterpret_cast<const float2*>(
+                                p.c + out_off + static_cast<int64_t>(row) * p.N + col));
+                            x = __fadd_rn(x, cv.x);
+                            y = __fadd_rn(y, cv.y);
+                        }
+                    }
+                    if (kKind == Kind::kContiguous && row0 + r >= it.row_end) x = y = 0.f;
+                    const int byte = cl * static_cast<int>(sizeof(OutT));
+                    store_pair(reinterpret_cast<OutT*>(stage_out + staging_offset(r, byte >> 4) +
+                                                       (byte & 15)),
+                               x, y);
+                }
+            if (p.tma_store) {
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                named_barrier(2 + wg, 128);
+                if (tid == 0) {
+                    #pragma unroll
+                    for (int box = 0; box < P::kBoxes; ++box)
+                        tma_store_3d(&map_d, stage_out + box * 64 * 128,
+                                     it.n0 + box * P::kBoxCols, row0, it.g);
+                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                }
+                continue;
             }
-            continue;
-        }
-        named_barrier(2 + wg, 128);
-        OutT* const dst = dst_all + out_off;
-        for (int i = tid; i < 64 * kCpr; i += 128) {
-            const int r = i / kCpr, ch = i % kCpr;
-            const int row = it.m0 + wg * 64 + r, col = it.n0 + ch * kEpc;
-            if (row >= p.M) continue;
-            const uint8_t* src = stage_out + staging_offset(r, ch);
-            OutT* out = dst + static_cast<int64_t>(row) * p.N + col;
-            if (col + kEpc <= p.N && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-                *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
-            } else {
-                // a chunk off 16-byte alignment, or the ragged edge: pairs (N is even)
-                #pragma unroll
-                for (int e = 0; e < kEpc; e += 2) {
-                    if (col + e >= p.N) break;
-                    if constexpr (sizeof(OutT) == 2)
-                        *reinterpret_cast<uint32_t*>(out + e) =
-                            *reinterpret_cast<const uint32_t*>(src + 2 * e);
-                    else
-                        *reinterpret_cast<uint2*>(out + e) =
-                            *reinterpret_cast<const uint2*>(src + 4 * e);
+            named_barrier(2 + wg, 128);
+            OutT* const dst = dst_all + out_off;
+            for (int i = tid; i < 64 * kCpr; i += 128) {
+                const int r = i / kCpr, ch = i % kCpr;
+                const int row = row0 + r, col = it.n0 + ch * kEpc;
+                if (row >= p.M || col >= p.N) continue;
+                const uint8_t* src = stage_out + staging_offset(r, ch);
+                OutT* out = dst + static_cast<int64_t>(row) * p.N + col;
+                if (col + kEpc <= p.N && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+                    *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+                } else {
+                    // a chunk off 16-byte alignment, or the ragged edge: pairs (N is even)
+                    #pragma unroll
+                    for (int e = 0; e < kEpc; e += 2) {
+                        if (col + e >= p.N) break;
+                        if constexpr (sizeof(OutT) == 2)
+                            *reinterpret_cast<uint32_t*>(out + e) =
+                                *reinterpret_cast<const uint32_t*>(src + 2 * e);
+                        else
+                            *reinterpret_cast<uint2*>(out + e) =
+                                *reinterpret_cast<const uint2*>(src + 4 * e);
+                    }
                 }
             }
         }
@@ -554,25 +825,41 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// The dense kernel's scales k-first, as the producer copies them: sfa [m,
-// ksf] -> sfa_k [ksf, sfa_ld] and sfb [nsf, ksf] -> sfb_k [ksf, sfb_ld], zero
-// in the pad columns; one thread an output element.
+// Scales k-first, as the producer copies them: sfa [m, ksf] -> sfa_k [ksf,
+// sfa_ld] and, for each of `groups` problems, sfb [nsf, ksf] -> sfb_k [ksf,
+// sfb_ld], zero in the pad columns; one thread an output element.
 __global__ void k_first_kernel(const float* __restrict__ sfa, const float* __restrict__ sfb,
                                float* __restrict__ sfa_k, float* __restrict__ sfb_k, int m,
-                               int nsf, int ksf, int sfa_ld, int sfb_ld) {
+                               int nsf, int ksf, int sfa_ld, int sfb_ld, int groups) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     const int64_t na = static_cast<int64_t>(ksf) * sfa_ld;
+    const int64_t per_group = static_cast<int64_t>(ksf) * sfb_ld;
     if (i < na) {
         const int kb = static_cast<int>(i / sfa_ld), r = static_cast<int>(i % sfa_ld);
         sfa_k[i] = r < m ? __ldg(sfa + static_cast<int64_t>(r) * ksf + kb) : 0.f;
-    } else if (i < na + static_cast<int64_t>(ksf) * sfb_ld) {
+    } else if (i < na + groups * per_group) {
         const int64_t j = i - na;
-        const int kb = static_cast<int>(j / sfb_ld), r = static_cast<int>(j % sfb_ld);
-        sfb_k[j] = r < nsf ? __ldg(sfb + static_cast<int64_t>(r) * ksf + kb) : 0.f;
+        const int64_t g = j / per_group, jj = j % per_group;
+        const int kb = static_cast<int>(jj / sfb_ld), r = static_cast<int>(jj % sfb_ld);
+        sfb_k[j] = r < nsf ? __ldg(sfb + (g * nsf + r) * ksf + kb) : 0.f;
     }
 }
 
 // ---- host side: tensor maps and launches ----
+
+// sfa and `groups` problems' sfb k-first into scratch (sfa_k, then sfb_k)
+// on the stream.
+inline cudaError_t launch_k_first(const void* sfa, const void* sfb, void* scratch, int m, int nsf,
+                                  int ksf, int sfa_ld, int sfb_ld, int groups,
+                                  cudaStream_t stream) {
+    float* sfa_k = static_cast<float*>(scratch);
+    float* sfb_k = sfa_k + static_cast<int64_t>(ksf) * sfa_ld;
+    const int64_t elems = static_cast<int64_t>(ksf) * (sfa_ld + static_cast<int64_t>(groups) * sfb_ld);
+    k_first_kernel<<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(sfa), static_cast<const float*>(sfb), sfa_k, sfb_k, m, nsf, ksf,
+        sfa_ld, sfb_ld, groups);
+    return cudaGetLastError();
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -581,7 +868,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
 
 // cuTensorMapEncodeTiled from the driver through the runtime, so the
 // library needs no link to libcuda.
-inline EncodeTiled encode_tiled() {
+static inline EncodeTiled encode_tiled() {
     static EncodeTiled fn = nullptr;
     if (fn == nullptr) {
         void* ptr = nullptr;
@@ -592,6 +879,23 @@ inline EncodeTiled encode_tiled() {
             fn = reinterpret_cast<EncodeTiled>(ptr);
     }
     return fn;
+}
+
+// A byte tensor [groups, rows, row_bytes] with row stride ld bytes, read in
+// boxes of box_rows x 128 bytes (one group), 128-byte swizzled; zero past its
+// edges, and so past a group's rows.
+inline bool make_map_3d(CUtensorMap* map, const void* base, uint64_t row_bytes, uint64_t rows,
+                        uint64_t ld, uint64_t groups, uint32_t box_rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {row_bytes, rows, groups};
+    const cuuint64_t strides[2] = {ld, ld * rows};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBK), box_rows, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A byte matrix [rows, row_bytes] with row stride ld bytes, read in boxes of
@@ -628,14 +932,17 @@ inline bool make_out_map(CUtensorMap* map, void* d, uint64_t n, uint64_t m, uint
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kBM, class OutT, Kind kKind, BForm kBForm>
-inline cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                          const CUtensorMap& map_d, const Args& p, int num_sms,
-                          cudaStream_t stream) {
-    using P = Plan<kBM, OutT>;
-    const int smem = P::smem_bytes(p.num_stages, kKind == Kind::kDense ? 0 : p.num_groups);
+// static: internal linkage, so each library keeps its own opt-in flags (a
+// function-local static of an inline template is one object across every
+// library the process loads that instantiates it).
+template <int kBM, int kBN, class OutT, Kind kKind, BForm kBForm, bool kBMn = false>
+static inline cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                 const CUtensorMap& map_d, const Args& p, int num_sms,
+                                 cudaStream_t stream) {
+    using P = Plan<kBM, kBN, OutT, kKind, kBForm, kBMn>;
+    const int smem = P::smem_bytes(p.num_stages, is_k_grouped<kKind>() ? p.num_groups : 0);
     if (p.num_stages < 2 || smem > kSmemLimit) return cudaErrorInvalidValue;
-    auto kernel = gemm_kernel<kBM, OutT, kKind, kBForm>;
+    auto kernel = gemm_kernel<kBM, kBN, OutT, kKind, kBForm, kBMn>;
     // the instance's shared memory, opted in once a device
     static bool opted_in[64] = {};
     int dev = 0;
@@ -647,15 +954,15 @@ inline cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
         if (dev < 64) opted_in[dev] = true;
     }
     const long long items = static_cast<long long>((p.M + kBM - 1) / kBM) *
-                            ((p.N + kBN - 1) / kBN) * p.num_groups;
+                            ((p.N + kBN - 1) / kBN) * (is_contiguous<kKind>() ? 1 : p.num_groups);
     const int grid = static_cast<int>(items < num_sms ? items : num_sms);
     if (grid == 0) return cudaSuccess;
     kernel<<<grid, P::kThreads, smem, stream>>>(map_a, map_b, map_d, p);
     return cudaGetLastError();
 }
 
-// The instance of block_m (64 or 128) and the output type, with the
-// output's tensor map where its rows allow one.
+// The dense or k-grouped instance of block_m (64 or 128) and the output
+// type, with the output's tensor map where its rows allow one.
 template <Kind kKind, BForm kBForm>
 inline cudaError_t launch_any(const CUtensorMap& map_a, const CUtensorMap& map_b, Args p,
                               int block_m, int out_f32, int num_sms, cudaStream_t stream) {
@@ -663,12 +970,14 @@ inline cudaError_t launch_any(const CUtensorMap& map_a, const CUtensorMap& map_b
     p.tma_store = make_out_map(&map_d, p.d, p.N, p.M, p.num_groups, out_f32) ? 1 : 0;
     if (block_m == 128)
         return out_f32
-            ? launch<128, float, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream)
-            : launch<128, __nv_bfloat16, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream);
+            ? launch<128, kDenseBN, float, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream)
+            : launch<128, kDenseBN, __nv_bfloat16, kKind, kBForm>(map_a, map_b, map_d, p,
+                                                                  num_sms, stream);
     if (block_m == 64)
         return out_f32
-            ? launch<64, float, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream)
-            : launch<64, __nv_bfloat16, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream);
+            ? launch<64, kDenseBN, float, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream)
+            : launch<64, kDenseBN, __nv_bfloat16, kKind, kBForm>(map_a, map_b, map_d, p,
+                                                                 num_sms, stream);
     return cudaErrorInvalidValue;
 }
 

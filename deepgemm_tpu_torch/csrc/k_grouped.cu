@@ -52,7 +52,7 @@ extern "C" int dgt_k_grouped_fp8_gemm(const void* a, const void* b, const void* 
                                       int num_stages, int num_sms, int out_f32, void* stream) {
     using namespace dgt::sm90;
     CUtensorMap map_a, map_b;
-    if (!make_map(&map_a, a, ldk, m, ldk, block_m) || !make_map(&map_b, b, ldk, n, ldk, kBN))
+    if (!make_map(&map_a, a, ldk, m, ldk, block_m) || !make_map(&map_b, b, ldk, n, ldk, kDenseBN))
         return static_cast<int>(cudaErrorInvalidValue);
     Args p = {};
     p.sfa = static_cast<const float*>(sfa);
@@ -90,7 +90,7 @@ extern "C" int dgt_k_grouped_fp8_gemm_flat(const void* a, const void* b, const v
     for (int g = 0; g < num_groups; ++g) {
         const long long kg = ks[g];
         if (kg > 0 && (!make_map(&host[2 * g], a8 + k0 * m, kg, m, kg, block_m) ||
-                       !make_map(&host[2 * g + 1], b8 + k0 * n, kg, n, kg, kBN)))
+                       !make_map(&host[2 * g + 1], b8 + k0 * n, kg, n, kg, kDenseBN)))
             return static_cast<int>(cudaErrorInvalidValue);
         k0 += kg;
     }

@@ -1,9 +1,10 @@
 """Tile choice for the port's GEMM kernels, in the role of
 deepgemm_tpu/heuristics/configs.py:get_gemm_config: :func:`get_sm90_config`
-for the Hopper mainloop (csrc/gemm_sm90.cuh: the dense e4m3 'promote' forms
-and the FP8 k-grouped kernel), :func:`get_gemm_config` for the mma.sync
-mainloop (csrc/gemm_mainloop.cuh: the masked, contiguous and dual-B kernels,
-the dense 'dequant' and bf16-operand forms, the bf16 k-grouped kernel).
+for the Hopper mainloop (csrc/gemm_sm90.cuh: the dense e4m3 'promote' forms,
+the FP8 k-grouped kernel and every form of the contiguous grouped kernel),
+:func:`get_gemm_config` for the mma.sync mainloop (csrc/gemm_mainloop.cuh:
+the masked kernel, the dense 'dequant' and bf16-operand forms, the bf16
+k-grouped kernel).
 
 The mma.sync mainloop:
 
@@ -12,11 +13,7 @@ The kernel's block is 64 rows by ``block_n`` columns, 128 k elements a stage
 memory traffic per output) and 64, taken when the 128-wide grid would leave
 SMs idle (fewer blocks than two waves of SMs can hold). Every layout uses
 the same rule on its own grid: the dense and masked kernels one problem per
-group, the contiguous kernel the concatenated rows of all groups, the
-k-grouped kernel one [m, n] output per group.
-
-The contiguous kernel's dual-B form (``DUAL_B_CONFIG``) takes 256-row
-tiles with a second B slab a stage; its width is fixed by shared memory.
+group, the k-grouped kernel one [m, n] output per group.
 
 :func:`smem_bytes` is the shared memory of an instance as
 csrc/gemm_mainloop.cuh plans it (``SmemPlan``); the wrappers check it
@@ -24,6 +21,7 @@ against a block's 227 KiB before they launch."""
 
 import dataclasses
 import functools
+from typing import Optional
 
 from ..utils.math import ceil_div
 from .arch import H100_SXM
@@ -35,7 +33,7 @@ BLOCK_N_CHOICES = (128, 64)
 
 
 def smem_bytes(block_m: int, block_n: int, elem_a: int = 1, elem_b: int = 1,
-               a_mn: bool = False, b_mn: bool = False, b_slabs: int = 1) -> int:
+               a_mn: bool = False, b_mn: bool = False) -> int:
     """Shared memory of one kernel instance: ``elem_a`` / ``elem_b`` bytes
     per element (1 e4m3 or planar FP4, 2 bf16), ``a_mn`` / ``b_mn`` an
     MN-major operand (its stages raw, plus one transposed k-major stage).
@@ -44,7 +42,7 @@ def smem_bytes(block_m: int, block_n: int, elem_a: int = 1, elem_b: int = 1,
     pitch_a, pitch_b = ke * elem_a + 16, ke * elem_b + 16
     stage_a = ke * (block_m * elem_a + 16) if a_mn else block_m * pitch_a
     stage_b = ke * (block_n * elem_b + 16) if b_mn else block_n * pitch_b
-    return (STAGES * (stage_a + b_slabs * stage_b) + (block_m * pitch_a if a_mn else 0)
+    return (STAGES * (stage_a + stage_b) + (block_m * pitch_a if a_mn else 0)
             + (block_n * pitch_b if b_mn else 0))
 
 
@@ -59,43 +57,42 @@ def check_smem(nbytes: int, what: str):
 class GemmConfig:
     block_m: int
     block_n: int
-    b_slabs: int = 1        # B tiles a stage holds: 2 in the dual-B form
 
     @property
     def smem_bytes(self) -> int:
         """The shared memory of the e4m3 (or bf16) NT instance at this tile."""
-        return smem_bytes(self.block_m, self.block_n, b_slabs=self.b_slabs)
+        return smem_bytes(self.block_m, self.block_n)
 
 
 def get_gemm_config(m: int, n: int, num_groups: int = 1,
                     num_sms: int = H100_SXM.num_sms) -> GemmConfig:
     """``m`` is the row count of one problem and ``num_groups`` the number
-    of problems in the grid: max_m and G for the masked kernel, the total
-    row count and 1 for the contiguous kernel, m and G for the k-grouped
-    kernel."""
+    of problems in the grid: max_m and G for the masked kernel, m and 1 for
+    the dense kernel, m and G for the k-grouped kernel."""
     blocks_at = {bn: ceil_div(m, BLOCK_M) * ceil_div(n, bn) * num_groups
                  for bn in BLOCK_N_CHOICES}
     block_n = 128 if blocks_at[128] >= 2 * num_sms else 64
     return GemmConfig(block_m=BLOCK_M, block_n=block_n)
 
 
-# The dual-B tile, fixed: 256 rows by 64 columns with a second B slab, 4
-# stages of (256 + 2 x 64) rows of 144 bytes, 221184 bytes of shared memory;
-# 128 columns would take 294912, above a block's 232448 (csrc/contiguous.cu
-# asserts it at compile time). The JAX package picks its tile against the
-# TPU's VMEM (deepgemm_tpu/heuristics/configs.py:get_dual_b_config).
-DUAL_B_CONFIG = GemmConfig(block_m=4 * BLOCK_M, block_n=64, b_slabs=2)
-
-
 # The Hopper mainloop (csrc/gemm_sm90.cuh). A tile is block_m rows (64 or
 # 128: one or two consumer warpgroups of 64 rows) by SM90_BLOCK_N columns;
-# a stage holds one 128-deep k block of A and B (e4m3, 128-byte swizzled) and
-# its scales; the epilogue stages each warpgroup's 64 rows in a swizzled
-# shared tile for its TMA stores. (The kernel asserts at compile time that a
-# consumer thread's two f32 register sets fit its setmaxnreg budget.)
+# a stage holds 128 bytes of k of A and B (128-byte swizzled) and, for e4m3,
+# their scales; the epilogue stages each warpgroup's 64 rows in a swizzled
+# shared tile for its TMA stores. The contiguous kernel's e4m3 NN form adds
+# two k-major B tiles (the transposed stages); its dual-B form is a 256 x 64
+# tile (two warpgroups of 128 rows) with room for two B tiles a stage. (The
+# kernel asserts at compile time that a consumer thread's f32 register sets
+# fit its setmaxnreg budget.)
 SM90_BLOCK_N = 128
 SM90_BLOCK_K = 128
 SM90_MAX_STAGES = 8
+# The contiguous kernel's ring: 4 stages ran faster than the 5-6 that fit on
+# the H100 at the training step's shapes (chip_smoke.py --variants), so no
+# more are taken.
+CONTIGUOUS_MAX_STAGES = 4
+DUAL_BLOCK_M, DUAL_BLOCK_N = 256, 64
+CONTIGUOUS_FORMS = ('nt', 'nn', 'dual')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,39 +104,71 @@ class Sm90Config:
     smem_bytes: int
 
 
-def sm90_smem_bytes(block_m: int, num_stages: int, out_bytes: int, table_groups: int = 0) -> int:
+def sm90_smem_bytes(block_m: int, num_stages: int, out_bytes: int, table_groups: int = 0,
+                    block_n: int = SM90_BLOCK_N, b_tiles: int = 1, scaled: bool = True,
+                    transposed_b: bool = False) -> int:
     """Shared memory of a Hopper-mainloop instance as csrc/gemm_sm90.cuh
     (``Plan``) lays it out: 1024 bytes of alignment slack, the epilogue's
-    staging tile (64 rows of block_n outputs per warpgroup), per stage A and
-    B (128 bytes a row), their scales (4 bytes a row of A and a column of B)
-    and two 8-byte barriers, and for the k-grouped kernel a table of 8 bytes
-    a group."""
-    block_n = SM90_BLOCK_N
-    staging = (block_m // 64) * 64 * block_n * out_bytes
-    stage = block_m * SM90_BLOCK_K + block_n * SM90_BLOCK_K + (block_m + block_n) * 4 + 16
-    return 1024 + staging + num_stages * stage + 8 * table_groups
+    staging tile (64 rows of block_n outputs per warpgroup of 64, or of 128
+    rows in the dual-B tile), two k-major B tiles where an e4m3 B is
+    transposed, per stage A and ``b_tiles`` B tiles (128 bytes a row), their
+    scales where ``scaled`` (4 bytes a row of A and a column of B) and two
+    8-byte barriers, and for the k-grouped kernel a table of 8 bytes a
+    group."""
+    warpgroups = block_m // (128 if b_tiles == 2 else 64)
+    staging = warpgroups * 64 * block_n * out_bytes
+    transposed = 2 * block_n * SM90_BLOCK_K if transposed_b else 0
+    scales = (block_m + b_tiles * block_n) * 4 if scaled else 0
+    stage = block_m * SM90_BLOCK_K + b_tiles * block_n * SM90_BLOCK_K + scales + 16
+    return 1024 + staging + transposed + num_stages * stage + 8 * table_groups
+
+
+def contiguous_block_m(mk_alignment: int) -> int:
+    """The contiguous kernel's rows a tile: 128 (each expert's weights
+    stream once for 128 rows) where the mk alignment is a multiple of 128,
+    else 64; no tile then straddles two groups."""
+    return 128 if mk_alignment % 128 == 0 else 64
 
 
 @functools.lru_cache(maxsize=1024)
 def get_sm90_config(m: int, n: int, num_groups: int = 1, out_bytes: int = 2,
-                    num_sms: int = H100_SXM.num_sms, k_grouped: bool = False) -> Sm90Config:
+                    num_sms: int = H100_SXM.num_sms, k_grouped: bool = False,
+                    contiguous: Optional[str] = None, elem: int = 1,
+                    mk_alignment: int = 128) -> Sm90Config:
     """The Hopper mainloop's tile for ``num_groups`` problems of [m, n]
     (dense: 1; k-grouped: G, with its per-group table) with an output of
-    ``out_bytes`` (2 bf16, 4 f32). 128 rows (two consumer warpgroups)
-    unless m fits 64 rows or the 128-row tiles would leave SMs idle; as
-    many stages as the shared memory left beside the epilogue's staging
-    tile holds, at most SM90_MAX_STAGES; one block per SM, at most one per
-    tile."""
-    tiles = lambda bm: ceil_div(m, bm) * ceil_div(n, SM90_BLOCK_N) * num_groups
-    block_m = 64 if m <= 64 or tiles(128) < num_sms else 128
+    ``out_bytes`` (2 bf16, 4 f32): 128 rows (two consumer warpgroups)
+    unless m fits 64 rows or the 128-row tiles would leave SMs idle.
+
+    ``contiguous`` ('nt', 'nn' or 'dual') is the contiguous grouped kernel
+    over the m rows of all ``num_groups`` groups, operands of ``elem`` bytes
+    (1 e4m3, 2 bf16): :func:`contiguous_block_m` rows for the mk alignment
+    ('dual': the 256 x 64 tile), one work item a tile whatever the group.
+
+    As many stages as the shared memory left beside the fixed parts holds,
+    at most SM90_MAX_STAGES (contiguous: CONTIGUOUS_MAX_STAGES); one block
+    per SM, at most one per tile."""
+    if contiguous is not None and contiguous not in CONTIGUOUS_FORMS:
+        raise ValueError(f'contiguous form {contiguous!r}: one of {CONTIGUOUS_FORMS}')
+    block_n, b_tiles = SM90_BLOCK_N, 1
+    if contiguous == 'dual':
+        block_m, block_n, b_tiles = DUAL_BLOCK_M, DUAL_BLOCK_N, 2
+    elif contiguous is not None:
+        block_m = contiguous_block_m(mk_alignment)
+    items = lambda bm: ceil_div(m, bm) * ceil_div(n, block_n) * (
+        1 if contiguous else num_groups)
+    if contiguous is None:
+        block_m = 64 if m <= 64 or items(128) < num_sms else 128
     table = num_groups if k_grouped else 0
-    smem = lambda stages: sm90_smem_bytes(block_m, stages, out_bytes, table)
+    smem = lambda stages: sm90_smem_bytes(block_m, stages, out_bytes, table, block_n, b_tiles,
+                                          scaled=elem == 1,
+                                          transposed_b=contiguous == 'nn' and elem == 1)
     smem_limit = H100_SXM.smem_per_block
-    stages = SM90_MAX_STAGES
+    stages = SM90_MAX_STAGES if contiguous is None else CONTIGUOUS_MAX_STAGES
     while stages > 2 and smem(stages) > smem_limit:
         stages -= 1
     if smem(stages) > smem_limit:
         raise ValueError(f'{num_groups} groups: the Hopper mainloop\'s shared memory '
                          f'({smem(stages)} bytes) exceeds a block\'s {smem_limit}')
-    return Sm90Config(block_m=block_m, block_n=SM90_BLOCK_N, num_stages=stages,
-                      num_sms=max(1, min(tiles(block_m), num_sms)), smem_bytes=smem(stages))
+    return Sm90Config(block_m=block_m, block_n=block_n, num_stages=stages,
+                      num_sms=max(1, min(items(block_m), num_sms)), smem_bytes=smem(stages))

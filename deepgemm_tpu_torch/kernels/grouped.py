@@ -15,34 +15,34 @@ bytes; m-tiles at or past ``masked_m[g]`` exit before loading anything.
 
 Contiguous (prefill and training). Replaces:
 deepgemm_tpu/kernels/grouped.py:_build_contiguous (``pl.pallas_call`` at
-grouped.py:240), NT layout (k-major B).
-Kernel: csrc/contiguous.cu on the same mainloop. Each 64-row m-tile's group
-and its group's end row come from :func:`compute_tile_gids`, a few device
-ops on ``grouped_layout``: the host never reads the layout. The JAX
-kernel's static equal-group and compare-chain paths are host-side speed
-variants of the same function, so this one device-side lookup serves them
-all. Bound on the H100: at the training step's shapes (256 experts of 128
-rows against 4096 x 7168 or 7168 x 2048 weights) each expert's fp8 weights
-are read once for 128 rows, 256 operations per weight byte, below the
-H100's ~590 fp8 operations per HBM byte, so weight bytes bound it. The grid
-is one block per (n-tile, m-tile); the two m-tiles of an expert read its
-weights one after the other, the second mostly from L2.
-
-Contiguous, NN layout (MN-major B [G, k, n]). Replaces the NN form of the
-same kernel (B's BlockSpec at deepgemm_tpu/kernels/grouped.py:139-145).
-Kernel: the NN entry of csrc/contiguous.cu, the same mainloop with each B
-stage loaded as it lies and transposed in shared memory; bitwise the NT
-kernel on ``b.transpose(1, 2).contiguous()``, so the same bound holds.
+grouped.py:240), NT (k-major B [G, n, k]) and NN (MN-major B [G, k, n], B's
+BlockSpec at grouped.py:139-145), bf16 and e4m3 with the promotion.
+Kernel: csrc/contiguous.cu on the Hopper mainloop of csrc/gemm_sm90.cuh
+(wgmma + TMA, warp-specialised, persistent). Each m-tile's group and its
+group's end row come from :func:`compute_tile_gids`, a few device ops on
+``grouped_layout``: the host never reads the layout. The JAX kernel's
+static equal-group and compare-chain paths are host-side speed variants of
+the same function, so this one device-side lookup serves them all. Bound on
+the H100: at the training step's shapes (256 experts of 128 rows against
+4096 x 7168 or 7168 x 2048 weights) each expert's fp8 weights are read once
+for 128 rows, 256 operations per weight byte, below the H100's ~590 fp8
+operations per HBM byte, so weight bytes bound it. The tiles are 128 rows
+where the mk alignment is a multiple of 128 (one pass over each expert's
+weights), else 64, and the column tiles of one row tile run on neighbouring
+SMs, so its A rows are read from L2. The NN form reads B as it lies (bf16:
+wgmma's transposed B; e4m3: each stage transposed in shared memory) and is
+bitwise the NT form on ``b.transpose(1, 2).contiguous()``.
 
 Contiguous, dual-B form (``DGT_GROUPED_DUAL_B=1``). Replaces:
 deepgemm_tpu/kernels/grouped.py:_build_contiguous_dual_b (``pl.pallas_call``
-at grouped.py:401). Kernel: the second entry of csrc/contiguous.cu, the same
-function over 256-row tiles whose two 128-row halves each read their own
-group's B (:func:`compute_dual_tile_gids`, on the device). A tile whose
-halves share a group stages its B once for 256 rows; a straddling tile
-stages both. Each of the tile's four 64-row passes is the 64-row kernel's
-tile, so the result is bitwise the contiguous kernel's. It is pinned only,
-as in JAX (measured negative on the v5e there; its H100 time is in PERF.md).
+at grouped.py:401). Kernel: the same entry of csrc/contiguous.cu over
+256 x 64 tiles whose two 128-row halves each read their own group's B
+(:func:`compute_dual_tile_gids`, on the device). A tile whose halves share
+a group stages its B once for 256 rows; a straddling tile stages both. Each
+half computes what the contiguous kernel's tile computes, in the same order,
+so the result is bitwise the contiguous kernel's. It is pinned only, as in
+JAX (measured negative on the v5e there; its H100 time is in PERF.md): on
+the card it can save L2 traffic, not HBM bytes.
 """
 
 import ctypes
@@ -50,23 +50,29 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import BLOCK_M, check_smem, get_gemm_config, smem_bytes
+from ..heuristics.configs import (BLOCK_M, DUAL_BLOCK_M, contiguous_block_m, get_gemm_config,
+                                  get_sm90_config)
 from ..runtime import build
 from ..runtime.config import get_mk_alignment_for_contiguous_layout, get_num_sms
-from ..utils.math import ceil_div
-from .common import (check_operand, count_launch, promote_block, psum_group_starts,
+from ..utils.math import align, ceil_div
+from .common import (COUNT_LOCK, check_operand, count_launch, promote_block, psum_group_starts,
                      select_rows, sfb_shift, use_plain)
 
 # Kernel launches per instantiation since the counts were last set to 0:
 # the masked kernel (bf16 out; 'fp8_f32' the fp8 instance with f32 out) and
-# the contiguous kernel.
+# the contiguous kernel's NT, NN and dual-B forms.
 launches = {'bf16': 0, 'fp8': 0, 'fp8_f32': 0}
 contiguous_launches = {'bf16': 0, 'fp8': 0}
 contiguous_nn_launches = {'bf16': 0, 'fp8': 0}
 dual_b_launches = {'bf16': 0, 'fp8': 0}
+# The contiguous kernel's launches by body and form (see :func:`contiguous_form`).
+contiguous_form_launches = {}
+
+# The body that runs the contiguous kernel's forms (csrc/gemm_sm90.cuh).
+CONTIGUOUS_BODY = 'wgmma'
 
 # Rows of each half of a dual-B tile.
-_DUAL_HALF = 128
+_DUAL_HALF = DUAL_BLOCK_M // 2
 
 # Upcast at most this many bytes of f32 weights at once in the plain version
 # (all 256 experts of a DeepSeek-V3 layer at once would take 30 GB).
@@ -81,21 +87,19 @@ def _entry():
     return fn
 
 
-def _contiguous_entry(b_mn: bool = False):
-    lib = build.load('contiguous')
-    fn = lib.dgt_contiguous_gemm_nn if b_mn else lib.dgt_contiguous_gemm_nt
+def _contiguous_entry():
+    fn = build.load('contiguous').dgt_contiguous_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _dual_entry():
-    fn = build.load('contiguous').dgt_contiguous_dual_gemm_nt
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def contiguous_form(kind: str, layout: str, block_m: int) -> str:
+    """The key a contiguous launch is counted under in
+    :data:`contiguous_form_launches`: the body, the form ('nt', 'nn' or
+    'dual'), the operands ('bf16' or 'fp8') and the tile's rows."""
+    return f'{CONTIGUOUS_BODY}_{layout}_{kind}_m{block_m}'
 
 
 def masked_gemm_plain(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
@@ -184,9 +188,10 @@ def compute_tile_gids(grouped_layout: torch.Tensor, num_groups: int, m: int,
     ``grouped_layout`` is per-row group ids with -1 padding ([m]), or, with
     ``use_psum_layout``, per-group end rows ([G]; group g starts at the
     previous end aligned up to the mk alignment). ``block_m`` must divide
-    that alignment, so a tile holds the rows of one group; a tile of
-    padding rows only takes the group before it, whose end row precedes the
-    tile (the zero-padding epilogue then blanks it whole)."""
+    that alignment, so a tile holds the rows of one group (the kernel's
+    tiles: :func:`contiguous_block_m`); a tile of padding rows only takes
+    the group before it, whose end row precedes the tile (the zero-padding
+    epilogue then blanks it whole)."""
     align = get_mk_alignment_for_contiguous_layout()
     if align % block_m:
         raise ValueError(f'the mk alignment {align} is not a multiple of the kernel\'s '
@@ -292,8 +297,7 @@ def _transposed(b: torch.Tensor) -> torch.Tensor:
 
 def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout,
                                b_mn=False):
-    """Raise unless the operands are what the contiguous kernels take;
-    returns whether they are e4m3."""
+    """Raise unless the operands are what the contiguous kernels take."""
     m, k = a.shape
     num_groups = b.shape[0]
     n = b.shape[2] if b_mn else b.shape[1]
@@ -316,7 +320,42 @@ def _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_
     if min(num_groups, m, n, k) == 0 or k % 16 or n % 2:
         raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
                          f'even n; got G={num_groups}, m={m}, n={n}, k={k}')
-    return is_fp8
+
+
+def _launch_contiguous(a, b, gids, row_ends, sfa, sfb, gran_n, b_mn, layout):
+    """d [m, n] bf16 from the contiguous kernel's form ``layout`` ('nt',
+    'nn' or 'dual') over the groups of its tiles ``gids`` (the chooser's
+    tiles: :func:`contiguous_block_m` rows, 256 for 'dual') and their end
+    rows (or None); counts the launch."""
+    m, k = a.shape
+    num_groups = b.shape[0]
+    n = b.shape[2] if b_mn else b.shape[1]
+    is_fp8 = a.dtype == torch.float8_e4m3fn
+    kind = 'fp8' if is_fp8 else 'bf16'
+    ksf = ceil_div(k, 128)
+    sfa_ld = align(m, 4)
+    sfb_ld = align(ceil_div(n, gran_n), 4)
+    # the scales' k-first copies, which the entry writes in a pre-pass
+    scratch = (torch.empty(ksf * (sfa_ld + num_groups * sfb_ld), dtype=torch.float32,
+                           device=a.device) if is_fp8 else None)
+    cfg = get_sm90_config(m, n, num_groups, 2, num_sms=get_num_sms(a.device),
+                          contiguous=layout, elem=a.element_size(),
+                          mk_alignment=get_mk_alignment_for_contiguous_layout())
+    d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    code = _contiguous_entry()(
+        a.data_ptr(), b.data_ptr(), sfa.data_ptr() if is_fp8 else None,
+        sfb.data_ptr() if is_fp8 else None, None if scratch is None else scratch.data_ptr(),
+        gids.data_ptr(), None if row_ends is None else row_ends.data_ptr(), d.data_ptr(),
+        m, n, k, num_groups, sfa_ld, sfb_ld, sfb_shift(gran_n), int(is_fp8), int(b_mn),
+        cfg.block_m, cfg.num_stages, cfg.num_sms, torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(build.load('contiguous'), code, f'contiguous_gemm ({layout})')
+    counts = {'nt': contiguous_launches, 'nn': contiguous_nn_launches,
+              'dual': dual_b_launches}[layout]
+    form = contiguous_form(kind, layout, cfg.block_m)
+    with COUNT_LOCK:
+        counts[kind] += 1
+        contiguous_form_launches[form] = contiguous_form_launches.get(form, 0) + 1
+    return d
 
 
 def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
@@ -340,28 +379,12 @@ def contiguous_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tens
     if use_plain(a, b, grouped_layout, sfa, sfb):
         return contiguous_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
                                      use_psum_layout, ensure_zero_padding, b_mn)
-    is_fp8 = _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n,
-                                        use_psum_layout, b_mn)
-    m, k = a.shape
-    num_groups = b.shape[0]
-    n = b.shape[2] if b_mn else b.shape[1]
-    shift = sfb_shift(gran_n)
-    gids, row_ends = compute_tile_gids(grouped_layout, num_groups, m, BLOCK_M,
+    _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout, b_mn)
+    block_m = contiguous_block_m(get_mk_alignment_for_contiguous_layout())
+    gids, row_ends = compute_tile_gids(grouped_layout, b.shape[0], a.shape[0], block_m,
                                        use_psum_layout)
-    cfg = get_gemm_config(m, n, 1, num_sms=get_num_sms(a.device))
-    elem = a.element_size()
-    check_smem(smem_bytes(BLOCK_M, cfg.block_n, elem, elem, b_mn=b_mn), 'contiguous_gemm')
-    d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    fn = _contiguous_entry(b_mn)
-    code = fn(a.data_ptr(), b.data_ptr(),
-              sfa.data_ptr() if is_fp8 else None,
-              sfb.data_ptr() if is_fp8 else None,
-              gids.data_ptr(), row_ends.data_ptr() if ensure_zero_padding else None,
-              d.data_ptr(), m, n, k, int(is_fp8), shift, cfg.block_n,
-              torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(build.load('contiguous'), code, 'contiguous_gemm')
-    (contiguous_nn_launches if b_mn else contiguous_launches)['fp8' if is_fp8 else 'bf16'] += 1
-    return d
+    return _launch_contiguous(a, b, gids, row_ends if ensure_zero_padding else None, sfa, sfb,
+                              gran_n, b_mn, 'nn' if b_mn else 'nt')
 
 
 def contiguous_dual_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch.Tensor,
@@ -376,18 +399,6 @@ def contiguous_dual_gemm(a: torch.Tensor, b: torch.Tensor, grouped_layout: torch
     if use_plain(a, b, grouped_layout, sfa, sfb):
         return contiguous_dual_gemm_plain(a, b, grouped_layout, sfa, sfb, gran_n,
                                           use_psum_layout)
-    is_fp8 = _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n,
-                                        use_psum_layout)
-    m, k = a.shape
-    num_groups, n = b.shape[:2]
-    shift = sfb_shift(gran_n)
-    pairs = compute_dual_tile_gids(grouped_layout, num_groups, m, use_psum_layout)
-    d = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    code = _dual_entry()(a.data_ptr(), b.data_ptr(),
-                         sfa.data_ptr() if is_fp8 else None,
-                         sfb.data_ptr() if is_fp8 else None,
-                         pairs.data_ptr(), d.data_ptr(), m, n, k, int(is_fp8), shift,
-                         torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(build.load('contiguous'), code, 'contiguous_dual_gemm')
-    dual_b_launches['fp8' if is_fp8 else 'bf16'] += 1
-    return d
+    _check_contiguous_operands(a, b, grouped_layout, sfa, sfb, gran_n, use_psum_layout)
+    pairs = compute_dual_tile_gids(grouped_layout, b.shape[0], a.shape[0], use_psum_layout)
+    return _launch_contiguous(a, b, pairs, None, sfa, sfb, gran_n, False, 'dual')

@@ -105,7 +105,8 @@ def set_block_size_multiple_of(block_m: int, block_n: int):
 def set_mk_alignment_for_contiguous_layout(alignment: int):
     """The psum layouts' group alignment: each group starts at the previous
     group's end aligned up to it (rows for the m-grouped GEMMs, k for the
-    k-grouped). The contiguous kernel's 64-row tiles need a multiple of 64."""
+    k-grouped). The contiguous kernel's tiles are 128 rows where it is a
+    multiple of 128, else 64 rows, which need a multiple of 64."""
     runtime().mk_alignment = int(alignment)
 
 

@@ -129,6 +129,90 @@ def test_contiguous_kernel_matches_plain(gen, fp8, use_psum_layout, ensure_zero_
         assert not d[~live].float().any()
 
 
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('b_mn', [False, True])
+def test_contiguous_64_row_tiles_are_bitwise_the_128_row_tiles(gen, fp8, b_mn):
+    """An mk alignment of 64 runs the contiguous kernel on 64-row tiles;
+    each row's sum is the 128-row tiles' (NT and NN, zero padding on)."""
+    import deepgemm_tpu_torch as dgt
+    a, b, layout, kw, live = _contiguous_case(gen, (70, 0, 200, 130), 208, 320, fp8, False)
+    if b_mn:
+        b = (b.view(torch.uint8) if fp8 else b).transpose(1, 2).contiguous().view(b.dtype)
+    kw.update(ensure_zero_padding=True, b_mn=b_mn)
+    layout_name, kind = 'nn' if b_mn else 'nt', 'fp8' if fp8 else 'bf16'
+    grouped.contiguous_form_launches.clear()
+    d128 = grouped.contiguous_gemm(a, b, layout, **kw)
+    before = dgt.get_mk_alignment_for_contiguous_layout()
+    dgt.set_mk_alignment_for_contiguous_layout(64)
+    try:
+        d64 = grouped.contiguous_gemm(a, b, layout, **kw)
+    finally:
+        dgt.set_mk_alignment_for_contiguous_layout(before)
+    ref = grouped.contiguous_gemm_plain(a, b, layout, **kw)
+    torch.cuda.synchronize()
+    assert grouped.contiguous_form_launches == {
+        grouped.contiguous_form(kind, layout_name, 128): 1,
+        grouped.contiguous_form(kind, layout_name, 64): 1}
+    assert torch.equal(d64, d128)
+    assert calc_diff(d64, ref) < 1e-5 and not d64[~live].float().any()
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('form', ['nt', 'nn', 'dual'])
+def test_contiguous_launches_repeat_bitwise(gen, fp8, form):
+    """Five launches of each contiguous form on the same inputs give the
+    same bits: a hazard between the mainloop's wgmma and its registers or
+    stages would show as a rare difference."""
+    a, b, layout, kw = _dual_case(gen, (128, 384, 0, 256, 256), 192, 336, fp8, False)
+    if form == 'nn':
+        b = (b.view(torch.uint8) if fp8 else b).transpose(1, 2).contiguous().view(b.dtype)
+        kw.update(b_mn=True)
+    call = grouped.contiguous_dual_gemm if form == 'dual' else grouped.contiguous_gemm
+    outs = [call(a, b, layout, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], d) for d in outs[1:])
+
+
+@pytest.mark.parametrize('form', ['nt', 'nn', 'dual'])
+def test_contiguous_per_channel_scales(gen, form):
+    """B scaled per row (gran_n 1, the wgrad recipe's scales): each form
+    against the plain version, the NN and dual-B forms bitwise NT."""
+    a, b, layout, _ = _dual_case(gen, (128, 384, 0, 256, 256), 192, 336, False, False)
+    aq, sfa = per_token_cast_to_fp8(a, use_ue8m0=False)
+    casts = [per_token_cast_to_fp8(b[g], use_ue8m0=False) for g in range(b.shape[0])]
+    bq = torch.stack([q for q, _ in casts])
+    kw = dict(sfa=sfa, sfb=torch.stack([sf for _, sf in casts]), gran_n=1)
+    d_nt = grouped.contiguous_gemm(aq, bq, layout, **kw)
+    if form == 'nn':
+        bq_mn = bq.view(torch.uint8).transpose(1, 2).contiguous().view(bq.dtype)
+        d = grouped.contiguous_gemm(aq, bq_mn, layout, b_mn=True, **kw)
+    elif form == 'dual':
+        d = grouped.contiguous_dual_gemm(aq, bq, layout, **kw)
+    else:
+        d = d_nt
+    ref = grouped.contiguous_gemm_plain(aq, bq, layout, **kw)
+    torch.cuda.synchronize()
+    assert calc_diff(d, ref) < 1e-5
+    assert torch.equal(d, d_nt)
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+@pytest.mark.parametrize('dual', [False, True])
+def test_contiguous_rows_of_ragged_16_byte_chunks(gen, fp8, dual):
+    """n = 202: an output row of 404 bytes is not whole 16-byte chunks, so
+    the kernel stores its tiles itself (no TMA store); against the plain
+    version, the dual-B form bitwise the contiguous one."""
+    a, b, layout, kw = _dual_case(gen, (128, 384, 256), 202, 256, fp8, False)
+    d = grouped.contiguous_gemm(a, b, layout, **kw)
+    ref = grouped.contiguous_gemm_plain(a, b, layout, **kw)
+    if dual:
+        d_dual = grouped.contiguous_dual_gemm(a, b, layout, **kw)
+    torch.cuda.synchronize()
+    assert calc_diff(d, ref) < 1e-5
+    if dual:
+        assert torch.equal(d_dual, d)
+
+
 def _k_grouped_case(gen, sizes, m, n, fp8, use_psum_layout):
     """TN operands over groups of ``sizes`` rows (16-row-unaligned among
     them), gap rows nonzero; fp8 with each group cast on its own, its
@@ -1301,8 +1385,10 @@ def test_k_major_relayout_kernel_is_bitwise_plain(gen, use_psum_layout):
 def test_training_step_forms_launch_the_hopper_kernels(gen):
     """The six dense calls of a training step (forward and dgrad with 128 x
     128 block scales, bf16 out; wgrad per-channel, f32 out) are the NT
-    'promote' form, which runs the wgmma mainloop (csrc/dense.cu), and the
-    two wgrad calls the FP8 k-grouped kernel with its two relayouts."""
+    'promote' form, which runs the wgmma mainloop (csrc/dense.cu), the four
+    contiguous calls (the experts' forward and dgrad) its e4m3 NT form on
+    128-row tiles (csrc/contiguous.cu), and the two wgrad calls the FP8
+    k-grouped kernel with its two relayouts."""
     base = dict(vocab=512, hidden=256, num_layers=1, num_heads=2, head_dim=64,
                 num_experts=8, topk=2, moe_intermediate=256, capacity_factor=7.9,
                 use_fp8_training=True, use_kernels=True)
@@ -1311,11 +1397,13 @@ def test_training_step_forms_launch_the_hopper_kernels(gen):
     tokens, targets = (torch.randint(0, 512, (2, 32), generator=gen, device='cuda')
                        for _ in range(2))
     dense.form_launches.clear()
+    grouped.contiguous_form_launches.clear()
     k_grouped.launches.update(bf16=0, fp8=0)
     common.relayout_launches.update(dense=0, k_grouped=0)
     tt.train_step(params, tokens, targets, cfg, lr=5e-2)
     torch.cuda.synchronize()
     assert dense.form_launches == {'promote_nt': 6}
+    assert grouped.contiguous_form_launches == {'wgmma_nt_fp8_m128': 4}
     assert k_grouped.launches == {'bf16': 0, 'fp8': 2}
     assert common.relayout_launches == {'dense': 0, 'k_grouped': 4}
 

@@ -157,6 +157,28 @@ def test_tile_gids_follow_the_layout(use_psum_layout):
     assert row_ends.tolist() == [70] * 2 + [328] * 4 + [514] * 4
 
 
+@pytest.mark.parametrize('use_psum_layout', [False, True])
+def test_tile_gids_at_128_rows_match_jax(use_psum_layout):
+    """The kernel's 128-row tiles at the default mk alignment: each tile's
+    group and end row as JAX's compute_tile_gids gives them, on a layout of
+    four groups (70, 0, 200 and 130 live rows) with an empty one."""
+    from deepgemm_tpu.kernels import grouped as jax_grouped
+    rows = (70, 0, 200, 130)
+    ids = np.full(sum(-(-r // 128) * 128 for r in rows), -1, np.int32)
+    ends, start = [], 0
+    for g, r in enumerate(rows):
+        ids[start:start + r] = g
+        ends.append(start + r)
+        start += -(-r // 128) * 128
+    layout = np.asarray(ends, np.int32) if use_psum_layout else ids
+    gids, row_ends = grouped.compute_tile_gids(_t(layout), len(rows), len(ids), 128,
+                                               use_psum_layout)
+    j_gids, j_ends = jax_grouped.compute_tile_gids(jnp.asarray(layout), len(rows), len(ids),
+                                                   128, use_psum_layout)
+    assert gids.tolist() == np.asarray(j_gids).tolist() == [0, 2, 2, 3, 3]
+    assert row_ends.tolist() == np.asarray(j_ends).tolist() == [70, 328, 328, 514, 514]
+
+
 # The JAX suite's dual-B layout (tests/test_gemm_grouped.py, the dual-B test):
 # groups of 128, 384 and 256 rows start at rows 0, 128 and 512, so the first
 # 256-row tile straddles groups 0 and 1 at its half line.

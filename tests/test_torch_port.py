@@ -9,8 +9,7 @@ import pytest
 import torch
 
 import deepgemm_tpu_torch as dgt
-from deepgemm_tpu_torch.heuristics.configs import (DUAL_B_CONFIG, GemmConfig, get_gemm_config,
-                                                   get_sm90_config, sm90_smem_bytes)
+from deepgemm_tpu_torch.heuristics.configs import get_gemm_config, get_sm90_config, sm90_smem_bytes
 from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.models import convert, transformer
 from deepgemm_tpu_torch.runtime import build
@@ -67,8 +66,8 @@ def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
     (128, 4096, 1, 64),        # 64 blocks at 128 wide: too few for 132 SMs
     (40, 4096, 256, 128),      # the masked L1 shape
     (40, 7168, 256, 128),      # the masked L2 shape
-    (32768, 4096, 1, 128),     # the contiguous L1 forward of the training step
-    (256, 7168, 1, 64),        # contiguous, 4 x 56 blocks at 128 wide: too few
+    (32768, 4096, 1, 128),     # a tall dense problem
+    (256, 7168, 1, 64),        # 4 x 56 blocks at 128 wide: too few
     (4096, 7168, 256, 128),    # the k-grouped L1 wgrad of the training step
 ])
 def test_tile_chooser(m, n, groups, block_n):
@@ -77,7 +76,7 @@ def test_tile_chooser(m, n, groups, block_n):
     assert cfg.smem_bytes <= 232448
 
 
-@pytest.mark.parametrize('m,n,groups,out_bytes,block_m,stages', [
+_SM90_CASES = [
     (4096, 4096, 1, 2, 128, 5),       # phase 3: 1024 tiles
     (128, 4096, 1, 2, 64, 8),         # phase 3: 32 tiles of 128 rows would leave SMs idle
     (2048, 49152, 1, 2, 128, 5),      # phase 6: qkv fwd
@@ -90,20 +89,52 @@ def test_tile_chooser(m, n, groups, block_n):
     (7168, 2048, 256, 4, 128, 4),     # phase 10: k-grouped flat, f32 out
     (16, 7168, 1, 2, 64, 8),          # phase 10: planar FP4 B at m 16
     (4096, 7168, 1, 2, 128, 5),       # phase 10: planar FP4 B at m 4096
+]
+# The contiguous kernel's items (256 experts): (form, operand bytes, mk
+# alignment) after the shape, rows and stages. At alignment 128 its tiles
+# are 128 rows (one pass over each expert's weights), at 64 they are 64;
+# e4m3 stages carry scales, the e4m3 NN form two k-major B tiles, the dual-B
+# form 256 x 64 tiles with two B tiles a stage; its ring is held at 4
+# stages (CONTIGUOUS_MAX_STAGES), which every form's shared memory holds.
+_CONTIGUOUS_CASES = [
+    (32768, 4096, 256, 2, 128, 4, 'nt', 1, 128),    # phase 6: L1 fwd
+    (32768, 7168, 256, 2, 128, 4, 'nt', 1, 128),    # phase 6: L2 fwd, L1 dgrad
+    (32768, 4096, 256, 2, 128, 4, 'nt', 2, 128),    # phase 9's layout, bf16
+    (32768, 4096, 256, 2, 128, 4, 'nn', 1, 128),    # phase 10: NN e4m3 (transposed in smem)
+    (32768, 7168, 256, 2, 128, 4, 'nn', 2, 128),    # phase 10: NN bf16 (wgmma's transposed B)
+    (32768, 4096, 256, 2, 256, 4, 'dual', 1, 128),  # phase 9: dual-B e4m3
+    (32768, 7168, 256, 2, 256, 4, 'dual', 2, 128),  # phase 9: dual-B bf16
+    (32768, 4096, 256, 2, 64, 4, 'nt', 1, 64),      # mk alignment 64: 64-row tiles
+    (32768, 4096, 256, 2, 64, 4, 'nt', 2, 64),
+    (32768, 4096, 256, 2, 64, 4, 'nn', 1, 64),
+]
+
+
+@pytest.mark.parametrize('m,n,groups,out_bytes,block_m,stages,form,elem,alignment', [
+    *(pytest.param(*case, None, 1, 128, id='-'.join(map(str, case))) for case in _SM90_CASES),
+    *(pytest.param(*case, id='contiguous-' + '-'.join(map(str, case))) for case in _CONTIGUOUS_CASES),
 ])
-def test_sm90_tile_chooser(m, n, groups, out_bytes, block_m, stages):
-    """The Hopper mainloop's tile at the chip run's shapes: 128 columns,
-    the rows intended, the stages intended (as many as a block's shared
-    memory holds beside the epilogue's staging tile and the k-grouped group
-    table, at most 8), a persistent grid of at most one block an SM."""
-    k_grouped = groups > 1
-    cfg = get_sm90_config(m, n, groups, out_bytes, num_sms=132, k_grouped=k_grouped)
-    assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (block_m, 128, stages)
+def test_sm90_tile_chooser(m, n, groups, out_bytes, block_m, stages, form, elem, alignment):
+    """The Hopper mainloop's tile at the chip run's shapes: 128 columns (the
+    dual-B form 64), the rows intended, the stages intended (as many as a
+    block's shared memory holds beside the epilogue's staging tile, the
+    k-grouped group table and the transposed B tiles, at most 8; the
+    contiguous kernel at most 4), a persistent grid of at most one block an
+    SM (the contiguous kernel's items are its tiles, whatever their
+    groups)."""
+    k_grouped = form is None and groups > 1
+    cfg = get_sm90_config(m, n, groups, out_bytes, num_sms=132, k_grouped=k_grouped,
+                          contiguous=form, elem=elem, mk_alignment=alignment)
+    block_n = 64 if form == 'dual' else 128
+    assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (block_m, block_n, stages)
     table = groups if k_grouped else 0
-    assert cfg.smem_bytes == sm90_smem_bytes(block_m, stages, out_bytes, table) <= 232448
-    if stages < 8:
-        assert sm90_smem_bytes(block_m, stages + 1, out_bytes, table) > 232448
-    tiles = -(-m // block_m) * -(-n // 128) * groups
+    smem = lambda st: sm90_smem_bytes(block_m, st, out_bytes, table, block_n,
+                                      b_tiles=2 if form == 'dual' else 1, scaled=elem == 1,
+                                      transposed_b=form == 'nn' and elem == 1)
+    assert cfg.smem_bytes == smem(stages) <= 232448
+    if stages < (4 if form else 8):
+        assert smem(stages + 1) > 232448
+    tiles = -(-m // block_m) * -(-n // block_n) * (1 if form else groups)
     assert cfg.num_sms == min(tiles, 132)
 
 
@@ -139,12 +170,15 @@ def test_mega_public_names():
 
 
 def test_dual_b_tile_fits_a_block():
-    """The dual-B tile (256 rows, two B slabs) fits a block's shared memory
-    at 64 columns and would not at 128."""
-    cfg = DUAL_B_CONFIG
-    assert (cfg.block_m, cfg.block_n, cfg.b_slabs) == (256, 64, 2)
-    assert cfg.smem_bytes == 221184 <= 232448
-    assert GemmConfig(block_m=256, block_n=128, b_slabs=2).smem_bytes > 232448
+    """The dual-B tile of the Hopper mainloop (256 rows, room for two B
+    tiles a stage) holds 4 stages in a block's shared memory at 64 columns,
+    e4m3 and bf16; at 128 columns e4m3 would hold only 2."""
+    for elem in (1, 2):
+        cfg = get_sm90_config(32768, 4096, 256, contiguous='dual', elem=elem, num_sms=132)
+        assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (256, 64, 4)
+        assert cfg.smem_bytes <= 232448
+    assert sm90_smem_bytes(256, 2, 2, 0, 128, b_tiles=2) <= 232448
+    assert sm90_smem_bytes(256, 3, 2, 0, 128, b_tiles=2) > 232448
 
 
 def test_einsum_hc_public_names():
