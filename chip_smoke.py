@@ -5,24 +5,31 @@
     python3 chip_smoke.py --gemm-times [--package-root DIR]
     python3 chip_smoke.py --ep-times [--package-root DIR]
     python3 chip_smoke.py --variants
+    python3 chip_smoke.py --mqa-variants
 
-The second form builds and times only phase 3 and the training step's
-dense, contiguous and k-grouped calls (no plain versions) of the deepgemm_tpu_torch
-under DIR, and prints them as one JSON line; the third runs only phase 11's
+The second form builds and times only phase 3, the training step's
+dense, contiguous and k-grouped calls, phase 7's three MQA logits calls and
+the paged MQA entries at the decode shape (no plain versions) of the
+deepgemm_tpu_torch under DIR, and prints them as one JSON line; the third runs only phase 11's
 main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
 with the device's idle share). Run either for two trees in one call
 (parent, change, change, parent) to compare them. The fourth times the
 contiguous grouped kernel against copies of itself built with a part
 removed (the A loads, the B loads, the MMA, the stores, the NN form's
 transpose) and with its ring held at 3, 4 or as many stages as fit, all in
-turns in one process: what bounds it.
+turns in one process: what bounds it. The fifth does the same for the MQA
+logits kernel's e4m3 calls of phase 7 (without the wgmma, without the head
+sum, with neither the head sum nor the stores, and with only the pipeline's
+barriers and loop left).
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
      and the ptxas report (registers, shared memory, spills) of the Hopper
      mainloop's instances (csrc/gemm_sm90.cuh: the dense, k-grouped and
-     contiguous kernels), each library's count and spills on a line;
+     contiguous kernels), each library's count and spills on a line, then
+     the MQA logits kernel's wgmma instances (csrc/mqa_sm90.cuh), each
+     named with its registers and spills (none may spill);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -84,9 +91,11 @@ Phases, one line each (a failure in any phase exits non-zero):
      metadata for the step's context lengths, then batch invariance in a
      fresh engine; then the prefill path (indexer_sparse_attention on the
      last 64 rows of an 8192-token prompt: MQA logits 1, attention 1, each
-     held to its plain version) and the MQA logits kernel at the JAX bench's
+     held to its plain version, the MQA logits instance that launched named
+     beside its ptxas report) and the MQA logits kernel at the JAX bench's
      prefill shape (2048 x 8192, 64 heads x 128) against its plain version,
-     e4m3 and with FP4 q and kv (the bf16 instance).
+     e4m3 and with FP4 q and kv (the bf16 instance), each of the three calls
+     timed beside its bound and torch.matmul.
   8. the mega MoE forward: the model at the phase 5 widths (2 layers) with
      use_mega and the fused comm on three [2, 64] batches, with bf16 act
      and with DGT_MEGA_ACT_FP8=1: launches per forward (mega 1 a layer,
@@ -247,6 +256,53 @@ def phase_build():
                 f'{sorted({v["registers"] for v in mine})}, spill stores '
                 f'{sum(v["spill_stores"] for v in mine)} bytes, spill loads '
                 f'{sum(v["spill_loads"] for v in mine)} bytes')
+    MQA_INSTANCES.update(mqa_instances(reports))
+    if MQA_INSTANCES:
+        log(f'phase 2 MQA logits (csrc/mqa_sm90.cuh, wgmma + TMA): {len(MQA_INSTANCES)} instances: '
+            + '; '.join(f'{mqa_instance_name(key)} registers {v["registers"]} spill stores '
+                        f'{v["spill_stores"]} loads {v["spill_loads"]}'
+                        for key, v in sorted(MQA_INSTANCES.items())))
+        spilled = [mqa_instance_name(k) for k, v in MQA_INSTANCES.items()
+                   if v['spill_stores'] or v['spill_loads']]
+        require(not spilled, f'MQA logits instances spill: {spilled}')
+
+
+# (q bf16, kv bf16, a query's columns) -> registers and spill bytes of the
+# MQA logits kernel's instances, from phase 2's ptxas report
+MQA_INSTANCES = {}
+
+
+def mqa_instance_name(key):
+    """The template instance, as csrc/mqa_sm90.cuh spells its arguments."""
+    q_bf16, kv_bf16, columns = key
+    elem = lambda bf16: 'kBf16' if bf16 else 'kE4m3'
+    return f'mqa_logits_sm90<{elem(q_bf16)}, {elem(kv_bf16)}, {columns}>'
+
+
+def mqa_instances(reports):
+    """{(q bf16, kv bf16, a query's columns): registers, spill bytes} of the MQA
+    logits kernel's instances (dgt_mqa90::mqa_logits_sm90), from ptxas -v."""
+    import re
+    found, current = {}, None
+    for line in reports.get('mqa_logits', '').splitlines():
+        entry = re.search(r"entry function '\w*mqa_logits_sm90"
+                          r"ILNS_4ElemE(\d)ELS1_(\d)ELi(\d+)E", line)
+        if entry:
+            current = tuple(int(x) for x in entry.groups())
+            found[current] = dict(registers=0, spill_stores=0, spill_loads=0)
+            continue
+        if "entry function" in line:
+            current = None
+        if current is None:
+            continue
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if spill:
+            found[current].update(spill_stores=int(spill.group(1)),
+                                  spill_loads=int(spill.group(2)))
+        used = re.search(r'Used (\d+) registers', line)
+        if used:
+            found[current]['registers'] = int(used.group(1))
+    return found
 
 
 def hopper_instances(reports):
@@ -443,12 +499,13 @@ def walk(params, tokens, cfg):
     reached by path)."""
     from deepgemm_tpu_torch.models.transformer import attention, moe_block, rms_norm
     from deepgemm_tpu_torch.parallel.moe import dispatch_indices, moe_capacity
+    from deepgemm_tpu_torch.utils.math import topk_stable
     from deepgemm_tpu_torch.testing import calc_diff
     topk, experts, last = cfg.topk, cfg.num_experts, len(params['layers']) - 1
     cap = moe_capacity(tokens.numel(), topk, experts, cfg.capacity_factor)
 
     def kept_experts(router):
-        idx = torch.topk(router, topk, dim=-1).indices
+        idx = topk_stable(router, topk)[1]
         kept = dispatch_indices(idx, experts, cap)[2].view(idx.shape)
         return idx, torch.zeros_like(router, dtype=torch.bool).scatter_(1, idx, kept)
 
@@ -467,14 +524,14 @@ def walk(params, tokens, cfg):
                 y[p] = moe_block(moe_in[p], layer, cfg)
         with path_context('plain'):
             entry = dict(moe_diff=calc_diff(y['kernel'], moe_block(moe_in['kernel'], layer, cfg)))
-        top_p = torch.topk(router['plain'], topk + 1, dim=-1)
-        margin = top_p.values[:, topk - 1] - top_p.values[:, topk]
+        top_p_values, top_p_indices = topk_stable(router['plain'], topk + 1)
+        margin = top_p_values[:, topk - 1] - top_p_values[:, topk]
         kept_p = kept_experts(router['plain'])[1]
         entry.update(median_margin=margin.median().item(),
                      plain_dropped=topk * tokens.numel() - int(kept_p.sum()))
         for p in reached:
             idx, kept = kept_experts(router[p])
-            missing = (top_p.indices[:, :topk, None] != idx[:, None, :]).all(-1).sum(-1)
+            missing = (top_p_indices[:, :topk, None] != idx[:, None, :]).all(-1).sum(-1)
             differs = (kept != kept_p).any(-1)
             entry[p] = dict(
                 choices=int(missing.sum()), tokens=int(differs.sum()),
@@ -1245,20 +1302,11 @@ def time_decode_kernels(rec_paged, engine, arch):
     return out
 
 
-def phase_prefill(seed, arch):
-    """The prefill path: indexer_sparse_attention on the last PREFILL_ROWS
-    query rows of one PREFILL_LEN-token prompt (counts at 0 just before,
-    read just after: MQA logits 1, attention 1), each call held to its plain
-    version; then the MQA logits kernel at the JAX bench's prefill shape
-    against its plain version, and both shapes timed; then the op with FP4
-    q and kv at the bench shape (its own path: the bf16 instance launches
-    once), against its plain version, the instance timed on the decoded
-    operands beside the e4m3 one."""
-    import deepgemm_tpu_torch as dgt
-    from deepgemm_tpu_torch.kernels import mqa_logits
-    from deepgemm_tpu_torch.kernels.common import plain_versions
-    from deepgemm_tpu_torch.testing.bench import bench_kernel
-    from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
+def prefill_inputs(seed):
+    """The prefill path's streams for the last PREFILL_ROWS query rows of
+    one PREFILL_LEN-token prompt: attention k, v [n, h, d] and q [rows, h,
+    d] bf16; the indexer's iq [rows, hi, di], ikv [n, di] bf16 and iw [rows,
+    hi]; ks, ke (causal)."""
     h, d, hi, di = (SERVE[k] for k in ('num_heads', 'head_dim', 'index_heads', 'index_dim'))
     g = torch.Generator(device='cuda').manual_seed(seed + 7)
     n, rows = PREFILL_LEN, PREFILL_ROWS
@@ -1270,6 +1318,74 @@ def phase_prefill(seed, arch):
     iw = torch.randn((rows, hi), generator=g, device='cuda') * hi ** -0.5
     ks = torch.zeros(rows, dtype=torch.int32, device='cuda')
     ke = torch.arange(n - rows + 1, n + 1, dtype=torch.int32, device='cuda')   # causal
+    return k, v, q, iq, ikv, iw, ks, ke
+
+
+def mqa_calls(seed):
+    """The MQA logits kernel's three timed calls, (q, kv, kv_sf, weights,
+    ks, ke) each: the prefill path's (the indexer's e4m3 cast of iq and
+    ikv), the JAX bench's prefill shape (e4m3), and that shape's operands
+    re-quantized to FP4 and decoded to bf16 (the bf16 instance, as the FP4
+    op launches it)."""
+    from deepgemm_tpu_torch.ops import attention as attn_ops
+    from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
+    _, _, _, iq, ikv, iw, ks, ke = prefill_inputs(seed)
+    ikv8, isf = per_custom_dims_cast_to_fp8(ikv, (0,), use_ue8m0=False)
+    q8, kv8, sf, w, bks, bke = bench_mqa_inputs(seed)
+    q4, kv4 = fp4_rows(q8.float()), fp4_rows(kv8.float() * sf[:, None])
+    return {'path': (cast_to_fp8(iq.float()), ikv8, isf, iw, ks, ke),
+            'bench': (q8, kv8, sf, w, bks, bke),
+            'bench_bf16': (attn_ops._decode_fp4_rows(*q4), attn_ops._decode_fp4_rows(*kv4),
+                           None, w, bks, bke)}
+
+
+def time_mqa(label, call, arch, time_plain=True):
+    """One MQA logits call timed: the kernel, its plain version (one launch),
+    torch.matmul bf16 q2 x kv^T, and the bound over the pairs inside a
+    window (e4m3 pairs at the fp8 rate, the bf16 instance at bf16's)."""
+    from deepgemm_tpu_torch.kernels import mqa_logits
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    q, kv, sf, w, lo, hi = call
+    (sq, h, d), skv = q.shape, kv.shape[0]
+    fn = lambda: mqa_logits.mqa_logits(q, kv, w, lo, hi, kv_sf=sf)
+    ms = bench_kernel(fn, iters=10)
+    plain_ms = None
+    if time_plain:
+        with plain_versions():
+            plain_ms = bench_kernel(fn, iters=1, warmup=1)
+    q16, kv16 = q.reshape(sq * h, d).bfloat16(), kv.bfloat16()
+    library_ms = bench_kernel(lambda: torch.matmul(q16, kv16.t()), iters=10)
+    del q16, kv16
+    pairs = int((hi - lo).clamp(min=0).sum())          # (row, column) pairs in a window
+    nbytes = (q.numel() * q.element_size() + kv.numel() * kv.element_size()
+              + (0 if sf is None else sf.numel() * 4) + w.numel() * 4 + 8 * sq + sq * skv * 4)
+    e4m3 = q.dtype == kv.dtype == torch.float8_e4m3fn
+    bound = arch.bound_ms(nbytes, 2 * pairs * h * d, 'fp8' if e4m3 else 'bf16')
+    log(f'phase 7 time MQA logits {label} [sq={sq} skv={skv} h={h} d={d}, {q.dtype} x '
+        f'{kv.dtype}, {pairs} window pairs]: kernel_ms={ms:.4f} plain_ms='
+        f'{"not timed" if plain_ms is None else f"{plain_ms:.4f}"} '
+        f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+        f'({bound[1]}) TFLOPS={2 * pairs * h * d / ms / 1e9:.1f}')
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+                bound_by=bound[1], shape=[sq, skv, h, d])
+
+
+def phase_prefill(seed, arch):
+    """The prefill path: indexer_sparse_attention on the last PREFILL_ROWS
+    query rows of one PREFILL_LEN-token prompt (counts at 0 just before,
+    read just after: MQA logits 1, attention 1), each call held to its plain
+    version, the MQA logits instance that launched named (its ptxas report:
+    no spill); then the MQA logits kernel at the JAX bench's prefill shape
+    against its plain version, and both shapes timed; then the op with FP4
+    q and kv at the bench shape (its own path: the bf16 instance launches
+    once), against its plain version, the instance timed on the decoded
+    operands beside the e4m3 one."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import mqa_logits
+    from deepgemm_tpu_torch.kernels.common import plain_versions
+    rows = PREFILL_ROWS
+    k, v, q, iq, ikv, iw, ks, ke = prefill_inputs(seed)
     records = []
     zero_indexer_counts()
     with serving_hooks(records, seed):
@@ -1278,7 +1394,10 @@ def phase_prefill(seed, arch):
     counts = indexer_counts()
     require(counts == dict(gather=0, paged=0, mqa=1, attn=1, fused=0),
             f'prefill launches {counts}')
-    require(tuple(out.shape) == (rows, h, d) and torch.isfinite(out.float()).all().item(),
+    launched = mqa_logits.last_instance
+    require(launched in MQA_INSTANCES or not MQA_INSTANCES,
+            f'prefill MQA logits launched {launched}, not one of phase 2\'s instances')
+    require(tuple(out.shape) == tuple(q.shape) and torch.isfinite(out.float()).all().item(),
             f'prefill output {tuple(out.shape)} not finite')
     by_kind = {r['kind']: r for r in records}
     rec = by_kind['mqa']
@@ -1290,63 +1409,42 @@ def phase_prefill(seed, arch):
     diff, err = compare(rec['out'][fin], want[fin])
     require(diff < TOL, f'prefill MQA logits: calc_diff {diff} against the plain version')
     check_attention(by_kind['attn'], 'prefill')
-    log(f'phase 7 prefill: indexer_sparse_attention on the last {rows} rows of a {n}-token '
-        f'prompt: launches={counts}; MQA logits calc_diff={diff:.3e} (limit {TOL}) '
-        f'max_abs_err={err:.4g}')
-    iq8 = cast_to_fp8(iq.float())
-    ikv8, isf = per_custom_dims_cast_to_fp8(ikv, (0,), use_ue8m0=False)
+    log(f'phase 7 prefill: indexer_sparse_attention on the last {rows} rows of a '
+        f'{PREFILL_LEN}-token prompt: launches={counts}; MQA logits instance '
+        f'{mqa_instance_name(launched)} (ptxas: {MQA_INSTANCES.get(launched, "no report")}); '
+        f'calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}')
+    del k, v, q, out, records, by_kind, rec, want, fin
+    calls = mqa_calls(seed)
+    bq, bkv, bsf, bw, bks, bke = calls['bench']
+    got = mqa_logits.mqa_logits(bq, bkv, bw, bks, bke, kv_sf=bsf)
+    with plain_versions():
+        want = mqa_logits.mqa_logits(bq, bkv, bw, bks, bke, kv_sf=bsf)
+    require(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+            'bench MQA logits: -inf at other places than the plain version')
+    fin = ~torch.isneginf(want)
+    bdiff, berr = compare(got[fin], want[fin])
+    require(bdiff < TOL, f'bench MQA logits: calc_diff {bdiff} against the plain version')
+    log(f'phase 7 bench MQA logits: calc_diff against plain {bdiff:.3e} (limit {TOL}) '
+        f'max_abs_err={berr:.4g}')
+    del got, want, fin
     entries = {}
-    for label, (qq, kv8, sf, w, lo, hi_) in (
-            ('path', (iq8, ikv8, isf, iw, ks, ke)),
-            ('bench', bench_mqa_inputs(seed))):
-        sq, skv = qq.shape[0], kv8.shape[0]
-        fn = lambda: mqa_logits.mqa_logits(qq, kv8, w, lo, hi_, kv_sf=sf)
-        if label == 'bench':
-            got = fn()
-            with plain_versions():
-                want = fn()
-            require(torch.equal(torch.isneginf(got), torch.isneginf(want)),
-                    'bench MQA logits: -inf at other places than the plain version')
-            fin = ~torch.isneginf(want)
-            bdiff, berr = compare(got[fin], want[fin])
-            require(bdiff < TOL, f'bench MQA logits: calc_diff {bdiff} against the plain version')
-            del got, want, fin
-        ms = bench_kernel(fn, iters=10)
-        with plain_versions():
-            plain_ms = bench_kernel(fn, iters=1, warmup=1)
-        q16 = qq.view(sq * hi, di).bfloat16()
-        kv16 = kv8.bfloat16()
-        library_ms = bench_kernel(lambda: torch.matmul(q16, kv16.t()), iters=10)
-        del q16, kv16
-        pairs = int((hi_ - lo).clamp(min=0).sum())         # (row, column) pairs in a window
-        nbytes = (qq.numel() + kv8.numel() + sf.numel() * 4 + w.numel() * 4 + 8 * sq
-                  + sq * skv * 4)
-        bound = arch.bound_ms(nbytes, 2 * pairs * hi * di, 'fp8')
-        entries[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound[0], bound_by=bound[1], shape=[sq, skv, hi, di],
-                              max_abs_err=err if label == 'path' else berr,
-                              check_calc_diff=diff if label == 'path' else bdiff)
-        log(f'phase 7 time MQA logits {label} [sq={sq} skv={skv} h={hi} d={di}, {pairs} '
-            f'window pairs]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
-            f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
-            f'({bound[1]}) TFLOPS={2 * pairs * hi * di / ms / 1e9:.1f}'
-            + (f'; calc_diff against plain {bdiff:.3e} (limit {TOL})' if label == 'bench' else ''))
-    entries['bench_fp4'] = check_fp4_prefill(seed, arch, entries['bench'])
+    for label, err_, diff_ in (('path', err, diff), ('bench', berr, bdiff)):
+        entries[label] = dict(time_mqa(label, calls[label], arch), max_abs_err=err_,
+                              check_calc_diff=diff_)
+    entries['path']['instance'] = mqa_instance_name(launched)
+    entries['bench_fp4'] = check_fp4_prefill(seed, arch, entries['bench'], calls['bench_bf16'])
     return entries, counts
 
 
-def check_fp4_prefill(seed, arch, e4m3):
+def check_fp4_prefill(seed, arch, e4m3, decoded):
     """fp8_fp4_mqa_logits with FP4 q and kv at the JAX bench's shape (the
     bench inputs re-quantized to FP4): launches, against the plain version,
-    the bf16 instance timed on the decoded operands."""
+    the bf16 instance timed on the decoded operands (``decoded``, the
+    bench_bf16 call of :func:`mqa_calls`)."""
     import deepgemm_tpu_torch as dgt
-    from deepgemm_tpu_torch.kernels import mqa_logits
     from deepgemm_tpu_torch.kernels.common import plain_versions
-    from deepgemm_tpu_torch.ops import attention as attn_ops
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     q8, kv8, sf, w, ks, ke = bench_mqa_inputs(seed)
-    sq, h, d = q8.shape
-    skv = kv8.shape[0]
     q4, kv4 = fp4_rows(q8.float()), fp4_rows(kv8.float() * sf[:, None])
     zero_indexer_counts()
     got = dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke)
@@ -1362,28 +1460,14 @@ def check_fp4_prefill(seed, arch, e4m3):
     diff, err = compare(got[fin], want[fin])
     require(diff < TOL, f'FP4 MQA logits: calc_diff {diff} against the plain version')
     del got, want, fin
-    qb = attn_ops._decode_fp4_rows(*q4)
-    kvb = attn_ops._decode_fp4_rows(*kv4)
-    fn = lambda: mqa_logits.mqa_logits(qb, kvb, w, ks, ke)
-    ms = bench_kernel(fn, iters=10)
+    timed = time_mqa('bench_bf16', decoded, arch)
     op_ms = bench_kernel(lambda: dgt.fp8_fp4_mqa_logits(q4, kv4, w, ks, ke), iters=5)
-    with plain_versions():
-        plain_ms = bench_kernel(fn, iters=1, warmup=1)
-    q16 = qb.view(sq * h, d)
-    library_ms = bench_kernel(lambda: torch.matmul(q16, kvb.t()), iters=10)
-    pairs = int((ke - ks).clamp(min=0).sum())
-    nbytes = qb.numel() * 2 + kvb.numel() * 2 + w.numel() * 4 + 8 * sq + sq * skv * 4
-    bound = arch.bound_ms(nbytes, 2 * pairs * h * d, 'bf16')
-    log(f'phase 7 FP4 MQA logits bench [sq={sq} skv={skv} h={h} d={d}, {pairs} window pairs; '
-        f'FP4 q and kv decoded to bf16: the bf16 instance]: launches={counts}; calc_diff='
-        f'{diff:.3e} (limit {TOL}) max_abs_err={err:.4g} against the plain version; '
-        f'kernel_ms={ms:.4f} (the op with its FP4 decode {op_ms:.4f}) plain_ms={plain_ms:.4f} '
-        f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
-        f'({bound[1]}) TFLOPS={2 * pairs * h * d / ms / 1e9:.1f}; the e4m3 instance, same '
-        f'run: {e4m3["ms"]:.4f}')
-    return dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound[0], bound_by=bound[1], max_abs_err=err, check_calc_diff=diff,
-                shape=[sq, skv, h, d], launches=counts['mqa'], e4m3_instance_ms=e4m3['ms'])
+    log(f'phase 7 FP4 MQA logits bench [FP4 q and kv decoded to bf16: the bf16 instance]: '
+        f'launches={counts}; calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g} against '
+        f'the plain version; kernel_ms={timed["ms"]:.4f} (the op with its FP4 decode '
+        f'{op_ms:.4f}); the e4m3 instance, same run: {e4m3["ms"]:.4f}')
+    return dict(timed, op_ms=op_ms, max_abs_err=err, check_calc_diff=diff,
+                launches=counts['mqa'], e4m3_instance_ms=e4m3['ms'])
 
 
 def bench_mqa_inputs(seed):
@@ -2546,6 +2630,9 @@ CONTIGUOUS_DESIGN = ('wgmma (e4m3 m64nNk32 with the f32 promotion, or bf16 m64nN
                      'TMA-fed 128-byte-swizzled stages over (row tile, column tile) items, the '
                      'group from tile_gid in device memory, B through a 3-D tensor map '
                      '(csrc/gemm_sm90.cuh)')
+MQA_DESIGN = ('wgmma (e4m3 m64n128k32, or bf16 m64n128k16) with kv rows on M and the query '
+              'heads on N, 128-row kv stages by TMA, two consumer warpgroups in turns, ReLU, '
+              'weights and the head sum in registers (csrc/mqa_sm90.cuh)')
 LAYOUTS = ('nn', 'tn', 'tt')
 PACKED_SHAPE = (4096, 4096, 7168)
 PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
@@ -3374,6 +3461,7 @@ def ep_walk(mesh, params, tokens, cfg_fused, cfg_xla):
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.models.transformer import attention, moe_block, rms_norm
     from deepgemm_tpu_torch.parallel.moe import dispatch_indices, moe_capacity
+    from deepgemm_tpu_torch.utils.math import topk_stable
     from deepgemm_tpu_torch.testing import calc_diff
     x = params['embed'][tokens]
     diffs, dropped = [], []
@@ -3382,7 +3470,7 @@ def ep_walk(mesh, params, tokens, cfg_fused, cfg_xla):
         h = x + attention(rms_norm(x, layer['ln1']), layer['wqkv'], layer['wo'], cfg_fused)
         moe_in = rms_norm(h, layer['ln2'])
         flat = moe_in.reshape(-1, moe_in.shape[-1])
-        idx = torch.topk(flat.float() @ layer['router'].t(), topk, dim=-1).indices
+        idx = topk_stable(flat.float() @ layer['router'].t(), topk)[1]
         per_rank = idx.shape[0] // mesh.size
         cap_mesh = moe_capacity(per_rank, topk, experts, cfg_fused.capacity_factor)
         cap_one = moe_capacity(idx.shape[0], topk, experts, cfg_fused.capacity_factor)
@@ -3591,9 +3679,11 @@ TRAIN_GEMMS = (
 
 def gemm_times(seed, arch):
     """--gemm-times: phase 3 and the training step's dense, contiguous and
-    k-grouped calls at full shapes, each timed (the kernel and a bf16
-    PyTorch call; no plain version), for comparing two trees' kernels in one
-    call."""
+    k-grouped calls at full shapes, then the MQA logits kernel's three
+    calls of phase 7 (the prefill path's, the bench shape's e4m3 and bf16
+    instances) and the two paged MQA entries at the decode shape, each
+    timed (the kernel and, but for the paged entries, a bf16 PyTorch call;
+    no plain version), for comparing two trees' kernels in one call."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     phase3 = phase_dense(gen, arch)
     results = {'dense': [], 'contiguous': [], 'k_grouped': []}
@@ -3604,8 +3694,42 @@ def gemm_times(seed, arch):
             rec['gran_n'] = gran_n
         results[kind].append(rec)
     train = time_train_kernels(results, gen, arch, time_plain=False)
+    torch.cuda.empty_cache()
+    mqa = {label: time_mqa(label, call, arch, time_plain=False)
+           for label, call in mqa_calls(seed).items()}
     return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
-                k_grouped=train['k_grouped'], relayout=train['relayout'])
+                k_grouped=train['k_grouped'], relayout=train['relayout'], mqa_logits=mqa,
+                paged_mqa=paged_times(seed, arch))
+
+
+def paged_times(seed, arch):
+    """--gemm-times: the paged MQA entries (#8 'gather', #9 'paged') at the
+    engine's decode shape on a seeded cache: 64 rows of next_n 1, 64 heads x
+    128, e4m3 pages of 64 tokens in a shuffled block table, contexts of
+    4096-8192 tokens (phase 7's step-1 shape, phase 7's data not needed)."""
+    from deepgemm_tpu_torch.kernels import paged_mqa
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import cast_to_fp8
+    b, h, d, bkv, max_len = SERVE['max_slots'], SERVE['index_heads'], SERVE['index_dim'], 64, 8192
+    g = torch.Generator(device='cuda').manual_seed(seed + 12)
+    mb = max_len // bkv
+    q = cast_to_fp8(torch.randn((b, 1, h, d), generator=g, device='cuda'))
+    kv = cast_to_fp8(torch.randn((b * mb, bkv, d), generator=g, device='cuda'))
+    sf = torch.rand((b * mb, bkv), generator=g, device='cuda') + 0.5
+    w = torch.randn((b, h), generator=g, device='cuda')
+    ctx = torch.randint(4096, max_len + 1, (b,), generator=g, device='cuda', dtype=torch.int32)
+    bt = torch.randperm(b * mb, generator=g, device='cuda').int().view(b, mb)
+    hi = paged_mqa.row_bounds(ctx, 1)
+    kv_lin, sf_lin = paged_mqa.linearise(kv, sf, bt)
+    out = {}
+    for name, fn in (('gather', lambda: paged_mqa.paged_mqa_logits_gather(
+                         q, kv_lin, sf_lin, w, hi, max_len)),
+                     ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
+                         q, kv, sf, w, hi, bt, max_len))):
+        out[name] = dict(ms=bench_kernel(fn, iters=20), shape=[b, 1, h, d, max_len])
+        log(f'time paged MQA {name} [B={b} next_n=1 h={h} d={d} max_len={max_len}]: '
+            f'kernel_ms={out[name]["ms"]:.4f}')
+    return out
 
 
 # --variants: copies of csrc/gemm_sm90.cuh with one part of the contiguous
@@ -3780,6 +3904,79 @@ def variant_times(seed, rounds=3):
     return results
 
 
+# --mqa-variants: copies of csrc/mqa_sm90.cuh with parts of the MQA logits
+# kernel removed (the output is then wrong: only the time is read), each edit
+# a (text, replacement) that must match the source.
+_MQA_HEAD_SUM = ('                            s0[h] = fmaf(fmaxf(a[0], 0.f), w0, s0[h]);\n'
+                 '                            s1[h] = fmaf(fmaxf(a[1], 0.f), w1, s1[h]);\n'
+                 '                            s2[h] = fmaf(fmaxf(a[2], 0.f), w0, s2[h]);\n'
+                 '                            s3[h] = fmaf(fmaxf(a[3], 0.f), w1, s3[h]);', '')
+_MQA_NO_MMA = ('sm90::wgmma_e4m3(acc[u], desc(a), desc(b), k);', ';')
+_MQA_NO_STORE = ('                if (c < p.out_cols)\n                    p.out[static_cast<int64_t>(g.row0 + rq)',
+                 '                if (c < 0)\n                    p.out[static_cast<int64_t>(g.row0 + rq)')
+_MQA_NO_LOADS = (('const uint32_t kv_bytes = n_kv_boxes * kRows * 128 + (p.has_sf ? (kRows + 4) * 4 : 0);',
+                  'const uint32_t kv_bytes = 0;'),
+                 ('sm90::tma_load_2d(kv_s', 'if (0) sm90::tma_load_2d(kv_s'),
+                 ('tma_load_1d(sf_s', 'if (0) tma_load_1d(sf_s'))
+MQA_VARIANTS = {
+    'no MMA': (_MQA_NO_MMA,),
+    'no head sum': (_MQA_HEAD_SUM,),
+    'MMA only': (_MQA_HEAD_SUM, _MQA_NO_STORE),
+    'skeleton': (_MQA_NO_MMA, _MQA_HEAD_SUM, _MQA_NO_STORE) + _MQA_NO_LOADS,
+}
+
+
+def mqa_variant_times(seed, arch, rounds=3):
+    """--mqa-variants: the MQA logits kernel's e4m3 calls of phase 7 (the
+    prefill path's and the bench shape's) through its own build and through
+    each MQA_VARIANTS build (compiled at once), all in turns for ``rounds``
+    rounds (ms, the mean of 10 L2-flushed launches each): what bounds it."""
+    import ctypes
+    import shutil
+    from deepgemm_tpu_torch.kernels import mqa_logits
+    from deepgemm_tpu_torch.runtime import build
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    jobs = {}
+    for name, edits in MQA_VARIANTS.items():
+        d = build.build_dir() / 'mqa_variants' / name.replace(' ', '_')
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = (d / 'mqa_sm90.cuh').read_text()
+        for old, new in edits:
+            require(old in text, f'MQA variant {name!r}: {old!r} is not in csrc/mqa_sm90.cuh')
+            text = text.replace(old, new)
+        (d / 'mqa_sm90.cuh').write_text(text)
+        jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(d / 'lib.so'),
+                                        str(d / 'mqa_logits.cu')], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), d / 'lib.so')
+    own = mqa_logits._entry()
+    entries = {'kernel': own}
+    for name, (proc, out) in jobs.items():
+        text, _ = proc.communicate()
+        require(proc.returncode == 0, f'MQA variant {name!r} does not build:\n{text[-3000:]}')
+        fn = ctypes.CDLL(str(out)).dgt_mqa_logits
+        fn.argtypes, fn.restype = own.argtypes, own.restype
+        entries[name] = fn
+    calls = mqa_calls(seed)
+    results = {}
+    try:
+        for label in ('path', 'bench'):
+            q, kv, sf, w, lo, hi = calls[label]
+            times = {}
+            for _ in range(rounds):
+                for name, fn in entries.items():
+                    mqa_logits._entry = lambda fn=fn: fn
+                    times.setdefault(name, []).append(
+                        bench_kernel(lambda: mqa_logits.mqa_logits(q, kv, w, lo, hi, kv_sf=sf)))
+            results[label] = times
+            log(f'mqa variants {label} [sq={q.shape[0]} skv={kv.shape[0]} h={q.shape[1]} '
+                f'd={q.shape[2]}]: ' + ' '.join(f'{name}={min(v):.4f}/{max(v):.4f}'
+                                                for name, v in times.items()))
+    finally:
+        mqa_logits._entry = lambda: own
+    return results
+
+
 def ep_times(seed):
     """--ep-times: phase 11's main path alone (:func:`ep_main_path`, then one
     batch under the profiler: wall time and the device's idle share), for
@@ -3799,15 +3996,18 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--gemm-times', action='store_true',
-                        help='only build and time phase 3 and the training step\'s dense, '
-                             'contiguous and k-grouped calls (no plain versions), then print '
-                             'them as JSON')
+                        help='only build and time phase 3, the training step\'s dense, '
+                             'contiguous and k-grouped calls and phase 7\'s MQA logits calls '
+                             '(no plain versions), then print them as JSON')
     parser.add_argument('--ep-times', action='store_true',
                         help='only build and run phase 11\'s main path (the 8-rank forward, '
                              'timed and profiled), then print its numbers as JSON')
     parser.add_argument('--variants', action='store_true',
                         help='only build and time the contiguous kernel against its variant '
                              'builds and ring caps (what bounds it), then print them as JSON')
+    parser.add_argument('--mqa-variants', action='store_true',
+                        help='only build and time the MQA logits kernel against its variant '
+                             'builds (what bounds it), then print them as JSON')
     parser.add_argument('--package-root', default=os.path.dirname(os.path.abspath(__file__)),
                         help='the directory that holds the deepgemm_tpu_torch to run (default: '
                              'the one beside this script)')
@@ -3839,6 +4039,10 @@ def main(argv=None) -> int:
     if args.ep_times:
         print(json.dumps({'ep_times': ep_times(args.seed),
                           'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.mqa_variants:
+        print(json.dumps({'mqa_variants': mqa_variant_times(args.seed, H100_SXM)}))
         print(card)
         return 0
     if args.variants:
@@ -3918,7 +4122,7 @@ def main(argv=None) -> int:
         indexer_kernel('mqa_logits', 'mqa_logits.cu', 'deepgemm_tpu/kernels/mqa_logits.py:133',
                        prefill_counts['mqa'], prefill['path']['max_abs_err'],
                        {k: v for k, v in prefill['path'].items() if k != 'max_abs_err'},
-                       bench_shape=prefill['bench']),
+                       bench_shape=prefill['bench'], design=MQA_DESIGN),
         indexer_kernel('paged_mqa_logits_gather', 'paged_mqa.cu',
                        'deepgemm_tpu/kernels/paged_mqa.py:166', served['counts']['gather'],
                        errors['paged'][1], timing['gather']),
@@ -3938,7 +4142,7 @@ def main(argv=None) -> int:
         indexer_kernel('mqa_logits_bf16', 'mqa_logits.cu', 'deepgemm_tpu/kernels/mqa_logits.py:133',
                        prefill['bench_fp4']['launches'], prefill['bench_fp4']['max_abs_err'],
                        {k: v for k, v in prefill['bench_fp4'].items()
-                        if k not in ('max_abs_err', 'launches')}),
+                        if k not in ('max_abs_err', 'launches')}, design=MQA_DESIGN),
         *(indexer_kernel(f'paged_mqa_logits_{entry}_bf16', 'paged_mqa.cu', replaces,
                          pallas['fp4_launches'][entry],
                          max(v[entry]['max_abs_err'] for v in pallas['fp4'].values()),

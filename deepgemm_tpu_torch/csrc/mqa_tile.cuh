@@ -1,13 +1,13 @@
-// Shared body of the indexer logits kernels (mqa_logits.cu, paged_mqa.cu):
+// Body of the paged indexer logits kernels (paged_mqa.cu; the prefill
+// logits, mqa_logits.cu, run on mqa_sm90.cuh):
 //
 //   logits[r, c] = sum_h w[r, h] * relu(q[r, h, :] . kv[row(c), :]) * sf[row(c)]
 //
 // for the output columns c in [lo[r], hi[r]) of each query row r, and the
 // fill (-inf, or 0 in the compressed layout) elsewhere.
 //
-// Replaces the bodies of deepgemm_tpu/kernels/mqa_logits.py:_build_mqa_logits
-// and deepgemm_tpu/kernels/paged_mqa.py:_build_paged_mqa and
-// _build_paged_mqa_zerocopy.
+// Replaces the bodies of deepgemm_tpu/kernels/paged_mqa.py:_build_paged_mqa
+// and _build_paged_mqa_zerocopy.
 //
 // Design (simple and right first):
 //   * Heads are folded into M, as in the TPU kernels. A block owns one tile of

@@ -9,14 +9,15 @@ is kv position ``ks[i] + c``, filled with 0 past ``ke[i] - ks[i]``.
 
 Replaces: deepgemm_tpu/kernels/mqa_logits.py:_build_mqa_logits
 (``pl.pallas_call`` at mqa_logits.py:133). Kernel: csrc/mqa_logits.cu on the
-body of csrc/mqa_tile.cuh (heads folded into M, mma.sync e4m3, the head sum
-in shared memory, tiles outside every row's window exit early). q and kv are
-e4m3 or bf16 each: a bf16 operand takes the bf16 instance (mma.sync bf16,
-an e4m3 operand widened exactly), which runs the FP4 indexer operands the op
-layer decodes into bf16, as JAX feeds them to its kernel
-(deepgemm_tpu/kernels/mqa_logits.py:106-109). Bound on the
-H100: the bench shape (2048 x 8192, 64 heads, d 128) is tensor-core bound,
-~1000 fp8 operations a byte. The compressed layout runs in the kernel when
+Hopper body of csrc/mqa_sm90.cuh (kv rows on wgmma's M, the query heads on
+N, fed by TMA into a ring of stages; the ReLU, the weights and the head sum
+in registers; tiles outside every row's window load nothing; a persistent
+grid). q and kv are e4m3 or bf16 each: e4m3 x e4m3 runs wgmma e4m3, any bf16
+operand wgmma bf16 with an e4m3 operand widened exactly, which runs the FP4
+indexer operands the op layer decodes into bf16, as JAX feeds them to its
+kernel (deepgemm_tpu/kernels/mqa_logits.py:106-109). Bound on the H100: the
+bench shape (2048 x 8192, 64 heads, d 128) is tensor-core bound, ~1000 fp8
+operations a byte. The compressed layout runs in the kernel when
 ``ks`` is constant over each tile of query rows (ks == 0 and context-parallel
 chunks); ragged ``ks`` takes one full-layout pass and a per-row gather, as in
 JAX (mqa_logits.py:183-202).
@@ -28,17 +29,19 @@ from typing import Optional
 import torch
 
 from ..runtime import build
+from ..runtime.config import get_num_sms
 from ..utils.math import ceil_div
 from .common import use_plain
 
 # Kernel launches since the count was last set to 0.
 launches = 0
+# The instance of the last launch: (q bf16, kv bf16, a query's columns), the
+# template arguments of csrc/mqa_sm90.cuh's kernel.
+last_instance = None
 
 NEG_INF = float('-inf')
-OPERAND_DTYPES = (torch.float8_e4m3fn, torch.bfloat16)   # the tile's instances
-# csrc/mqa_tile.cuh: q2 rows (query rows x heads) of one block, output columns
-# of a kv tile, the score tile's f32 pitch, kv tiles a block, shared memory
-MAX_ROWS, _BN, _S_PITCH, _TILES_PER_BLOCK, MAX_SMEM = 256, 64, 68, 4, 232448
+OPERAND_DTYPES = (torch.float8_e4m3fn, torch.bfloat16)   # the kernels' instances
+MAX_HEADS = 256         # csrc/mqa_sm90.cuh: a query's heads fill at most two n128 halves
 _PLAIN_CHUNK = 1 << 26  # f32 scores per step of the plain version
 
 
@@ -46,7 +49,7 @@ def _entry():
     fn = build.load('mqa_logits').dgt_mqa_logits
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,36 +60,24 @@ def is_bf16(t: torch.Tensor) -> int:
 
 
 def rows_per_tile(num_heads: int) -> int:
-    """Query rows of one block: as many as fit 128 q2 rows (at least one)."""
+    """Query rows of one tile, the compressed layout's unit (one kv base a
+    tile): as many as fit 128 q2 rows (at least one)."""
     return max(1, 128 // num_heads)
 
 
-def smem_bytes(rows: int, h: int, d: int, q_bytes: int, kv_bytes: int) -> int:
-    """Shared memory of one block of ``rows`` query rows (csrc/mqa_tile.cuh
-    smem_bytes): each operand is kept in its own type (1 byte e4m3, 2 bf16)."""
-    rp = ceil_div(rows * h, 16) * 16
-    return (rp * (d * q_bytes + 16) + 2 * _BN * (d * kv_bytes + 16) + rp * _S_PITCH * 4
-            + 2 * _BN * 4 + rows * h * 4 + 2 * rows * 4 + (_TILES_PER_BLOCK * _BN + 1) * 4)
+def query_columns(h: int) -> int:
+    """A query's wgmma columns in csrc/mqa_sm90.cuh: h rounded up to a power
+    of two, at least 8 (the kernel's kHp)."""
+    return max(8, 1 << (h - 1).bit_length())
 
 
-def fits_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> bool:
-    """Whether one block takes ``rows`` query rows of ``h`` heads at head_dim
-    ``d``: d a multiple of 32 up to 256, at most MAX_ROWS q2 rows, and the
-    shared memory of the operands' instance within the H100's 227 KB."""
-    size = lambda dt: 2 if dt == torch.bfloat16 else 1
-    return (d % 32 == 0 and 32 <= d <= 256 and 1 <= rows * h <= MAX_ROWS
-            and smem_bytes(rows, h, d, size(q_dtype), size(kv_dtype)) <= MAX_SMEM)
-
-
-def check_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype):
-    """Raise unless one block's tile of ``rows`` query rows is what
-    csrc/mqa_tile.cuh takes (:func:`fits_tile`); the paged MQA entries
-    share it."""
-    if not fits_tile(rows, h, d, q_dtype, kv_dtype):
-        raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256, up to '
-                         f'{MAX_ROWS} query rows x heads a block and {MAX_SMEM} bytes of '
-                         f'shared memory; got d={d}, {rows} rows x {h} heads, '
-                         f'{q_dtype} x {kv_dtype}')
+def check_shape(h: int, d: int):
+    """Raise unless csrc/mqa_sm90.cuh takes ``h`` heads of head_dim ``d``:
+    d a multiple of 32 up to 256, 1 to MAX_HEADS heads (every operand pair
+    fits the card's shared memory there)."""
+    if not (d % 32 == 0 and 32 <= d <= 256 and 1 <= h <= MAX_HEADS):
+        raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256 and 1 to '
+                         f'{MAX_HEADS} heads; got d={d}, h={h}')
 
 
 def check_dtypes(q: torch.Tensor, kv: torch.Tensor):
@@ -106,7 +97,7 @@ def check_operands(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.Tens
         raise ValueError(f'kv_sf: {kv_sf.dtype} {tuple(kv_sf.shape)}, expected f32 [{kv.shape[0]}]')
     if tuple(weights.shape) != (sq, h):
         raise ValueError(f'weights: shape {tuple(weights.shape)}, expected [{sq}, {h}]')
-    check_tile(rows_per_tile(h), h, d, q.dtype, kv.dtype)
+    check_shape(h, d)
 
 
 def mqa_logits_plain(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.Tensor],
@@ -151,12 +142,14 @@ def mqa_logits_kernel(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.T
         return mqa_logits_plain(q, kv, kv_sf, weights, lo, hi, kv_base, out_cols, fill)
     sq, h, d = q.shape
     bq = rows_per_tile(h)
-    q = q.contiguous()
-    kv = kv.contiguous()
+    # the tensor maps read from 16-byte aligned bases
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    q = aligned(q.contiguous())
+    kv = aligned(kv.contiguous())
     w = weights.float().contiguous()
     lo = lo.to(torch.int32).contiguous()
     hi = hi.to(torch.int32).contiguous()
-    sf = None if kv_sf is None else kv_sf.contiguous()
+    sf = None if kv_sf is None else aligned(kv_sf.contiguous())
     base = None if kv_base is None else kv_base.to(torch.int32).contiguous()
     if base is not None and base.numel() != ceil_div(sq, bq):
         raise ValueError(f'kv_base: {base.numel()} entries, expected one per {bq} query rows')
@@ -165,11 +158,12 @@ def mqa_logits_kernel(q: torch.Tensor, kv: torch.Tensor, kv_sf: Optional[torch.T
     lib = build.load('mqa_logits')
     code = _entry()(q.data_ptr(), w.data_ptr(), kv.data_ptr(), ptr(sf), lo.data_ptr(),
                     hi.data_ptr(), ptr(base), out.data_ptr(), sq, bq, h, d, kv.shape[0],
-                    out_cols, fill, is_bf16(q), is_bf16(kv),
+                    out_cols, fill, is_bf16(q), is_bf16(kv), get_num_sms(q.device),
                     torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'mqa_logits')
-    global launches
+    global launches, last_instance
     launches += 1
+    last_instance = (is_bf16(q), is_bf16(kv), query_columns(h))
     return out
 
 

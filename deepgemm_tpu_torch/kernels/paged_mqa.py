@@ -35,14 +35,18 @@ import ctypes
 import torch
 
 from ..runtime import build
+from ..utils.math import ceil_div
 from .common import select_rows, use_plain
-from .mqa_logits import check_dtypes, fits_tile, is_bf16
+from .mqa_logits import check_dtypes, is_bf16
 
 # Kernel launches since the counts were last set to 0, by entry.
 launches = {'gather': 0, 'paged': 0}
 
 NEG_INF = float('-inf')
 STRATEGIES = ('gather', 'paged')
+# csrc/mqa_tile.cuh: q2 rows (query rows x heads) of one block, output columns
+# of a kv tile, the score tile's f32 pitch, kv tiles a block, shared memory
+MAX_ROWS, _BN, _S_PITCH, _TILES_PER_BLOCK, MAX_SMEM = 256, 64, 68, 4, 232448
 
 
 def _entry(strategy: str):
@@ -69,10 +73,27 @@ def row_bounds(context_lens: torch.Tensor, next_n: int) -> torch.Tensor:
     return (ctx[:, None] - next_n + 1 + t[None, :]).reshape(-1).contiguous()
 
 
+def smem_bytes(rows: int, h: int, d: int, q_bytes: int, kv_bytes: int) -> int:
+    """Shared memory of one block of ``rows`` query rows (csrc/mqa_tile.cuh
+    smem_bytes): each operand is kept in its own type (1 byte e4m3, 2 bf16)."""
+    rp = ceil_div(rows * h, 16) * 16
+    return (rp * (d * q_bytes + 16) + 2 * _BN * (d * kv_bytes + 16) + rp * _S_PITCH * 4
+            + 2 * _BN * 4 + rows * h * 4 + 2 * rows * 4 + (_TILES_PER_BLOCK * _BN + 1) * 4)
+
+
+def fits_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> bool:
+    """Whether one block takes ``rows`` query rows of ``h`` heads at head_dim
+    ``d``: d a multiple of 32 up to 256, at most MAX_ROWS q2 rows, and the
+    shared memory of the operands' instance within the H100's 227 KB."""
+    size = lambda dt: 2 if dt == torch.bfloat16 else 1
+    return (d % 32 == 0 and 32 <= d <= 256 and 1 <= rows * h <= MAX_ROWS
+            and smem_bytes(rows, h, d, size(q_dtype), size(kv_dtype)) <= MAX_SMEM)
+
+
 def tile_rows(next_n: int, h: int, d: int, q_dtype: torch.dtype,
               kv_dtype: torch.dtype) -> int:
     """Query tokens of one kernel tile: the largest divisor of next_n whose
-    q2 rows fit one block (kernels.mqa_logits.fits_tile), so a batch row's
+    q2 rows fit one block (:func:`fits_tile`), so a batch row's
     tokens split into equal tiles and no row is padded. Raises if not even
     one token fits."""
     for rows in range(next_n, 0, -1):

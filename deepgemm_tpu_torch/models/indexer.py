@@ -32,20 +32,18 @@ import torch
 from .. import envs
 from ..kernels import sparse_attn
 from ..ops import attention as attn_ops
-from ..utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
+from ..utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8, topk_stable
 
 GATHER_MODES = ('flat', 'pallas')
 
 
 def _topk_indices(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-k positions [rows, k] int32, ordered by score, and their
-    validity (a row may have fewer than k in-range positions). A stable
-    descending sort breaks ties toward the lower position, as ``lax.top_k``
-    does (``torch.topk`` promises no tie rule, and exact ties are common: a
-    position whose heads all fall below zero scores 0), so it gives JAX's
-    set."""
-    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return idx[:, :k].to(torch.int32), torch.isfinite(vals[:, :k])
+    validity (a row may have fewer than k in-range positions); ties toward
+    the lower position, as ``lax.top_k`` (:func:`topk_stable`), so it gives
+    JAX's set."""
+    vals, idx = topk_stable(logits, k)
+    return idx.to(torch.int32), torch.isfinite(vals)
 
 
 def _index_q_fp8(index_q: torch.Tensor) -> torch.Tensor:

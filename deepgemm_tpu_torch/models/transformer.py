@@ -45,7 +45,7 @@ from ..parallel.dist import Mesh
 from ..parallel.mega import mega_moe_forward
 from ..parallel.moe import MoEConfig, ep_moe_forward
 from ..runtime.config import resolve_device
-from ..utils.math import _CHUNK_ELEMS, quantize_experts
+from ..utils.math import _CHUNK_ELEMS, quantize_experts, topk_stable
 from .convert import rank_experts, tree_leaves, tree_map
 
 # f32 elements of cast temporaries a rank holds at once (quantize_experts)
@@ -173,7 +173,8 @@ def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: ModelConfig,
     b, s, h = x.shape
     tokens = x.reshape(b * s, h)
     logits = tokens.float() @ layer['router'].t()
-    topk_w, topk_idx = torch.topk(logits, cfg.topk, dim=-1)
+    # JAX's tie rule (lax.top_k): equal logits route to the lower expert
+    topk_w, topk_idx = topk_stable(logits, cfg.topk)
     topk_w = torch.softmax(topk_w, dim=-1)
     moe_cfg = cfg.moe_cfg()
 

@@ -26,6 +26,17 @@ def align(x: int, y: int) -> int:
     return ceil_div(x, y) * y
 
 
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row of ``x`` (last dim) and their
+    positions, in ``jax.lax.top_k``'s order: descending, equal values
+    toward the lower position. ``torch.topk`` promises no tie rule, and
+    exact ties are common (a zero hidden row ties every router logit; an
+    indexer position whose heads all fall below zero scores 0); a stable
+    descending sort gives JAX's choice and order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def ceil_to_ue8m0(x: torch.Tensor) -> torch.Tensor:
     """Round |x| up to the next power of two: bump the biased exponent when
     any mantissa bit is set, clamp the exponent to [1, 254]."""

@@ -318,8 +318,8 @@ class StepDecisions:
             fn = getattr(autograd, name)
             monkeypatch.setattr(autograd, name, lambda x, *a, _fn=fn, _name=name, **kw:
                                 self._choose(_name, x, lambda: _fn(x, *a, **kw)))
-        topk, sgd = torch.topk, tt._sgd_
-        monkeypatch.setattr(torch, 'topk', lambda x, k, *a, **kw: self._route(x, k, topk, *a, **kw))
+        topk, sgd = tt.topk_stable, tt._sgd_
+        monkeypatch.setattr(tt, 'topk_stable', lambda x, k: self._route(x, k, topk))
         monkeypatch.setattr(tt, '_sgd_', lambda p, g, lr: sgd(p, self._grad(g), lr))
 
     def replay(self):
@@ -343,10 +343,8 @@ class StepDecisions:
         self.taken['recorded'] += 1
         return rec_out
 
-    def _route(self, x, k, topk, *a, **kw):
-        if x.dim() != 2 or x.shape[-1] != self.cfg.num_experts or k != self.cfg.topk:
-            return topk(x, k, *a, **kw)
-        idx = self._choose('topk', x, lambda: topk(x, k, *a, **kw))[1]
+    def _route(self, x, k, topk):
+        idx = self._choose('topk', x, lambda: topk(x, k))[1]
         return x.gather(-1, idx), idx
 
     def _grad(self, g):
@@ -510,6 +508,64 @@ def test_mqa_logits_kernel_matches_plain(gen, sq, skv, h, d, layout):
     else:
         assert calc_diff(got, want) < 1e-5
         assert not got[torch.arange(maxk, device='cuda')[None, :] >= (ke - ks)[:, None]].any()
+
+
+_ALL_PAIRS = [(torch.float8_e4m3fn, torch.float8_e4m3fn), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float8_e4m3fn), (torch.float8_e4m3fn, torch.bfloat16)]
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', _ALL_PAIRS)
+@pytest.mark.parametrize('h,d', [(h, d) for h in (8, 16, 32, 64) for d in (64, 128, 256)]
+                         + [(4, 32), (160, 64)])
+def test_mqa_logits_wgmma_kernel(gen, h, d, q_dtype, kv_dtype):
+    """The wgmma kernel (csrc/mqa_sm90.cuh) on 37 query rows (not whole
+    tiles) against 700 kv rows, ragged windows that leave the first and the
+    last two kv tiles outside every row (and one row with an empty window):
+    the full layout within 1e-5 of the plain version with -inf at the same
+    places; a second launch bitwise the first; each row alone bitwise its
+    row in the batch; the compressed layout on tile-constant ks within 1e-5
+    and bitwise the full layout's window. kv carries scales where it is
+    e4m3 (the bf16 kv of the FP4 path has none)."""
+    sq, skv = 37, 700
+    q, kv = _operand(gen, q_dtype, sq, h, d), _operand(gen, kv_dtype, skv, d)
+    sf = (torch.rand(skv, generator=gen, device='cuda') + 0.5
+          if kv_dtype == torch.float8_e4m3fn else None)
+    w = torch.randn(sq, h, generator=gen, device='cuda')
+    ks = torch.randint(70, 300, (sq,), generator=gen, device='cuda', dtype=torch.int32)
+    ke = ks + torch.randint(1, 250, (sq,), generator=gen, device='cuda', dtype=torch.int32)
+    ke[5] = ks[5]
+    before = mqa_logits.launches
+    got = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf)
+    again = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf)
+    with plain_versions():
+        want = mqa_logits.mqa_logits(q, kv, w, ks, ke, kv_sf=sf)
+    torch.cuda.synchronize()
+    assert mqa_logits.launches == before + 2
+    _same_logits(got, want)
+    assert torch.isneginf(got[:, :64]).all() and torch.isneginf(got[:, 576:]).all()
+    assert torch.isneginf(got[5]).all()
+    assert torch.equal(got, again)
+    for i in (0, 1, sq - 1):
+        alone = mqa_logits.mqa_logits(q[i:i + 1], kv, w[i:i + 1], ks[i:i + 1], ke[i:i + 1],
+                                      kv_sf=sf)
+        assert torch.equal(alone[0], got[i]), i
+    # the compressed layout in the kernel: ks constant over each tile of rows
+    bq = mqa_logits.rows_per_tile(h)
+    ks_t = ks[torch.arange(sq, device='cuda') // bq * bq]
+    ke_t = ks_t + (ke - ks)
+    maxk = int((ke_t - ks_t).max())
+    before = mqa_logits.launches
+    comp = mqa_logits.mqa_logits(q, kv, w, ks_t, ke_t, kv_sf=sf, max_seqlen_k=maxk)
+    full = mqa_logits.mqa_logits(q, kv, w, ks_t, ke_t, kv_sf=sf)
+    with plain_versions():
+        comp_plain = mqa_logits.mqa_logits(q, kv, w, ks_t, ke_t, kv_sf=sf, max_seqlen_k=maxk)
+    torch.cuda.synchronize()
+    assert mqa_logits.launches == before + 2
+    assert calc_diff(comp, comp_plain) < 1e-5
+    for i in range(sq):
+        n = int(ke_t[i] - ks_t[i])
+        assert torch.equal(comp[i, :n], full[i, int(ks_t[i]):int(ke_t[i])]), i
+        assert not comp[i, n:].any(), i
 
 
 @pytest.mark.parametrize('next_n,ctx_2d', [(1, False), (2, False), (2, True)])
