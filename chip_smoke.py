@@ -6,11 +6,14 @@
     python3 chip_smoke.py --ep-times [--package-root DIR]
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --mqa-variants
+    python3 chip_smoke.py --widen-variants
 
 The second form builds and times only phase 3, the training step's
-dense, contiguous and k-grouped calls, phase 7's three MQA logits calls and
-the paged MQA entries at the decode shape (no plain versions) of the
-deepgemm_tpu_torch under DIR, and prints them as one JSON line; the third runs only phase 11's
+dense, contiguous and k-grouped calls, phase 7's three MQA logits calls,
+the paged MQA entries at the decode shape and phase 10's dense forms on
+bf16 products ('dequant' at both recipes, FP4 B at gran 32; no plain
+versions) of the deepgemm_tpu_torch under DIR, and prints them as one JSON
+line; the third runs only phase 11's
 main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
 with the device's idle share). Run either for two trees in one call
 (parent, change, change, parent) to compare them. The fourth times the
@@ -20,16 +23,21 @@ transpose) and with its ring held at 3, 4 or as many stages as fit, all in
 turns in one process: what bounds it. The fifth does the same for the MQA
 logits kernel's e4m3 calls of phase 7 (without the wgmma, without the head
 sum, with neither the head sum nor the stores, and with only the pipeline's
-barriers and loop left).
+barriers and loop left). The sixth does the same for the dense forms on
+bf16 products ('dequant' at both recipes and the FP4 gran 32 kernel, at
+4096 x 4096 x 7168: without B's widening, without A's widening math,
+without the wgmma).
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
      and the ptxas report (registers, shared memory, spills) of the Hopper
      mainloop's instances (csrc/gemm_sm90.cuh: the dense, k-grouped and
-     contiguous kernels), each library's count and spills on a line, then
-     the MQA logits kernel's wgmma instances (csrc/mqa_sm90.cuh), each
-     named with its registers and spills (none may spill);
+     contiguous kernels), each library's count and spills on a line, the
+     dense forms on bf16 products (widen_kernel, dense_dequant), each named
+     with its registers and spills, then the MQA logits kernel's wgmma
+     instances (csrc/mqa_sm90.cuh), each named with its registers and
+     spills (none may spill);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -256,6 +264,12 @@ def phase_build():
                 f'{sorted({v["registers"] for v in mine})}, spill stores '
                 f'{sum(v["spill_stores"] for v in mine)} bytes, spill loads '
                 f'{sum(v["spill_loads"] for v in mine)} bytes')
+    widen = widen_instances(reports)
+    if widen:
+        log(f'phase 2 dense forms on bf16 products (csrc/gemm_sm90.cuh widen_kernel, '
+            f'dense_dequant): {len(widen)} instances: ' +
+            '; '.join(f'{name} registers {v["registers"]} spill stores {v["spill_stores"]} '
+                      f'loads {v["spill_loads"]}' for name, v in sorted(widen.items())))
     MQA_INSTANCES.update(mqa_instances(reports))
     if MQA_INSTANCES:
         log(f'phase 2 MQA logits (csrc/mqa_sm90.cuh, wgmma + TMA): {len(MQA_INSTANCES)} instances: '
@@ -305,6 +319,22 @@ def mqa_instances(reports):
     return found
 
 
+def widen_instances(reports):
+    """{instance: registers, spill bytes} of the dense forms on bf16 products
+    (dgt::sm90::widen_kernel in dense_dequant), from ptxas -v."""
+    import re
+    kinds = {'0': 'kE4m3', '1': 'kBf16'}
+    found = {}
+    for key, v in hopper_instances({'dense_dequant': reports.get('dense_dequant', '')}).items():
+        name = re.search(r'widen_kernelILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)LNS0_7OperandE(\d)'
+                         r'ELS\d_(\d)ELb(\d)E', key[1])
+        if name:
+            bm, bn, out, a, b, dequant = name.groups()
+            found[f'widen_kernel<{bm}, {bn}, {"bf16" if out != "f" else "f32"}, {kinds[a]}, '
+                  f'{kinds[b]}, {"dequant" if dequant == "1" else "promote"}>'] = v
+    return found
+
+
 def hopper_instances(reports):
     """{(library, kernel): registers, static smem, spill bytes} of the
     Hopper mainloop's instances (dgt::sm90::gemm_kernel), from ptxas -v."""
@@ -314,7 +344,8 @@ def hopper_instances(reports):
         for line in text.splitlines():
             entry = re.search(r"entry function '(\w+)'", line)
             if entry:
-                current = (lib, entry.group(1)) if 'sm9011gemm_kernel' in entry.group(1) else None
+                hopper = any(k in entry.group(1) for k in ('sm9011gemm_kernel', 'sm9012widen_kernel'))
+                current = (lib, entry.group(1)) if hopper else None
                 if current:
                     found[current] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
                 continue
@@ -2617,15 +2648,23 @@ def phase_entry_points(seed, gen, arch):
 # calls, at DeepSeek-V3 widths, each call its own path (its form's count 0
 # just before, read just after): the dense NN/TN/TT layouts at phase 3's
 # shapes, C accumulation, packed-UE8M0 scales ('dequant', and 'promote'
-# pinned), planar FP4 B decoded in the kernel at the expert L2 width (n 7168,
-# k 2048) for a decode batch, a small and a large prefill, FP4 at scale
-# granularity 32, the NN contiguous grouped GEMM on phase 9's layout, and the
-# flattened NT k-grouped GEMM at the training step's L2 wgrad shape.
+# pinned) at 4096 x 4096 x 7168 and phase 3's decode shape, planar FP4 B
+# decoded in the kernel at the expert L2 width (n 7168, k 2048) for a decode
+# batch, a small and a large prefill, FP4 at scale granularity 32 (the mixed
+# 'promote' form; with packed A scales the mixed 'dequant' form; two FP4
+# operands bf16 x bf16), the NN contiguous grouped GEMM on phase 9's layout,
+# and the flattened NT k-grouped GEMM at the training step's L2 wgrad shape.
+# The forms on bf16 products are bound at the bf16 rate (the fp8 rate's
+# figure beside it).
 # The two GEMM bodies the kernels JSON line names.
 HOPPER_DESIGN = ('wgmma e4m3 m64n128k32 from TMA-fed 128-byte-swizzled stages, warp-specialised '
                  'persistent grid, f32 promotion per 128-deep block, TMA-store epilogue '
                  '(csrc/gemm_sm90.cuh)')
-MMA_SYNC_DESIGN = 'mma.sync m16n8 from a 4-stage cp.async ring (csrc/gemm_mainloop.cuh)'
+WIDEN_DESIGN = ('wgmma bf16 m64nNk16 (N 128, or 64 where wider tiles would leave SMs idle) from '
+                'TMA-fed 128-byte-swizzled stages, warp-specialised '
+                'persistent grid: e4m3 A widened into the register operand, e4m3 B widened into '
+                'one of two bf16 tiles by the consumers a stage ahead, TMA-store epilogue '
+                '(csrc/gemm_sm90.cuh widen_kernel)')
 CONTIGUOUS_DESIGN = ('wgmma (e4m3 m64nNk32 with the f32 promotion, or bf16 m64nNk16) from '
                      'TMA-fed 128-byte-swizzled stages over (row tile, column tile) items, the '
                      'group from tile_gid in device memory, B through a 3-D tensor map '
@@ -2634,7 +2673,7 @@ MQA_DESIGN = ('wgmma (e4m3 m64n128k32, or bf16 m64n128k16) with kv rows on M and
               'heads on N, 128-row kv stages by TMA, two consumer warpgroups in turns, ReLU, '
               'weights and the head sum in registers (csrc/mqa_sm90.cuh)')
 LAYOUTS = ('nn', 'tn', 'tt')
-PACKED_SHAPE = (4096, 4096, 7168)
+PACKED_SHAPES = ((4096, 4096, 7168), (128, 4096, 7168))   # the second is phase 3's decode shape
 PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
 KG_GROUPS, KG_ROWS, KG_M, KG_N = 256, 128, 7168, 2048     # the L2 wgrad: dw2 [256, 7168, 2048]
 
@@ -2656,9 +2695,16 @@ def counted(call, form):
     return out
 
 
-def dense_bound(arch, m, n, k, *tensors, out_bytes=2):
+def dense_bound(arch, m, n, k, *tensors, out_bytes=2, rate='fp8'):
     from deepgemm_tpu_torch.testing import count_bytes
-    return arch.bound_ms(count_bytes(*tensors) + out_bytes * m * n, 2 * m * n * k, 'fp8')
+    return arch.bound_ms(count_bytes(*tensors) + out_bytes * m * n, 2 * m * n * k, rate)
+
+
+def bf16_bound(arch, m, n, k, *tensors):
+    """The forms on bf16 products: their bound at the bf16 rate, and the
+    same work at the fp8 rate beside it (the extra key bound_fp8_ms)."""
+    return (dense_bound(arch, m, n, k, *tensors, rate='bf16'),
+            dense_bound(arch, m, n, k, *tensors)[0])
 
 
 def phase_layouts(gen, arch):
@@ -2753,59 +2799,117 @@ def phase_c(gen, arch):
 
 
 def phase_packed(gen, arch):
-    """Packed-UE8M0 scales at 4096 x 4096 x 7168, recipes (1, 1, 128) and
-    (1, 128, 128): 'dequant' (the default) and 'promote' pinned, each one
-    launch of its form, against its plain version and each other; both
-    timed. Returns (entries, launches)."""
+    """Packed-UE8M0 scales at 4096 x 4096 x 7168 and at phase 3's decode
+    shape (128 x 4096 x 7168), recipes (1, 1, 128) and (1, 128, 128):
+    'dequant' (the default) and 'promote' pinned, each one launch of its
+    form, against its plain version and each other; both timed. Returns
+    (entries, launches)."""
     import deepgemm_tpu_torch as dgt
     from deepgemm_tpu_torch.kernels import dense
     from deepgemm_tpu_torch.ops import sf_layout
     from deepgemm_tpu_torch.runtime.config import runtime
-    m, n, k = PACKED_SHAPE
+    entries, launches = [], 0
+    for m, n, k in PACKED_SHAPES:
+        a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+        aq, sfa_p = dgt.per_token_cast_to_fp8(a, use_ue8m0=True, use_packed_ue8m0=True)
+        sfa = sf_layout.transform_sfa(sfa_p, m, k, 128)
+        for recipe in ((1, 1, 128), (1, 128, 128)):
+            if recipe[1] == 1:
+                bq, sfb_p = dgt.per_token_cast_to_fp8(b, use_ue8m0=True, use_packed_ue8m0=True)
+            else:
+                bq, sfb32 = dgt.per_block_cast_to_fp8(b, use_ue8m0=True)
+                sfb_p = sf_layout.get_mn_major_tma_aligned_packed_ue8m0_tensor(sfb32)
+            sfb = sf_layout.transform_sfb(sfb_p, n, k, recipe[1:])
+            call = lambda: dgt.fp8_gemm_nt((aq, sfa_p), (bq, sfb_p), recipe=recipe)
+            require(runtime().force_scale_strategy is None, 'the scale strategy is pinned')
+            d = counted(call, 'dequant_nt')
+            launches += 1
+            runtime().force_scale_strategy = 'promote'
+            try:
+                d_promote = counted(call, 'promote_nt')
+            finally:
+                runtime().force_scale_strategy = None
+            kw = dict(gran_n=recipe[1])
+            kernel = lambda: dense.dense_gemm(aq, bq, sfa, sfb, strategy='dequant', **kw)
+            plain = lambda: dense.dense_gemm_plain(aq, bq, sfa, sfb, strategy='dequant', **kw)
+            require(torch.equal(d, kernel()), f'packed {recipe}: the op is not the kernel call')
+            diff, err = compare(d, plain())
+            require(diff < TOL, f'packed {recipe} m={m}: dequant calc_diff {diff} against the '
+                    f'plain version')
+            vs_promote = compare(d, d_promote)[0]
+            require(vs_promote < TOL, f'packed {recipe} m={m}: dequant {vs_promote} from promote')
+            promote_plain = compare(d_promote, dense.dense_gemm_plain(aq, bq, sfa, sfb, **kw))[0]
+            require(promote_plain < TOL, f'packed {recipe} m={m}: promote {promote_plain} from '
+                    f'plain')
+            ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
+            promote_ms = bench_kernel_ms(lambda: dense.dense_gemm(aq, bq, sfa, sfb, **kw))
+            op_ms = bench_kernel_ms(call)
+            bound, bound_fp8 = bf16_bound(arch, m, n, k, aq, bq, sfa_p, sfb_p)
+            entries.append(dict(shape=[m, n, k], recipe=list(recipe), promote_ms=promote_ms,
+                                op_ms=op_ms, vs_promote_calc_diff=vs_promote,
+                                bound_fp8_ms=bound_fp8,
+                                **numbers(ms, plain_ms, library_ms, err, bound)))
+            log(f'phase 10 packed UE8M0 recipe={recipe} m={m} n={n} k={k}: dequant launches 1, '
+                f'promote (pinned) launches 1; calc_diff dequant vs plain {diff:.3e}, vs promote '
+                f'{vs_promote:.3e}, promote vs plain {promote_plain:.3e} (limit {TOL}) '
+                f'max_abs_err={err:.4g}; dequant_ms={ms:.4f} promote_ms={promote_ms:.4f} '
+                f'op_ms(dequant, with the unpack)={op_ms:.4f} plain_ms={plain_ms:.4f} '
+                f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} '
+                f'({bound[1]}, bf16 products; fp8 rate {bound_fp8:.4f}) '
+                f'TFLOPS={2 * m * n * k / ms / 1e9:.1f}')
+            del bq, sfb, d, d_promote
+        del a, b, aq, sfa
+        torch.cuda.empty_cache()
+    return entries, launches
+
+
+def phase_bf16_forms(gen, arch):
+    """The dense forms on bf16 products that no other phase launches, at
+    4096 x 4096 x 7168 through fp8_fp4_gemm_nt: an e4m3 A with packed UE8M0
+    scales beside a packed FP4 B at gran 32 ('dequant' on the folded B, the
+    mixed form), and two packed FP4 operands at gran 32 (both folded: bf16 x
+    bf16). Each one launch of its form, bitwise the kernel on the folded
+    operands, against its plain version, timed. Returns ({form: entry},
+    {form: launches})."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.ops import sf_layout
+    from deepgemm_tpu_torch.utils.math import decode_fp4_rows, per_token_cast_to_fp4
+    m, n, k = FP4_SHAPE
     a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
     aq, sfa_p = dgt.per_token_cast_to_fp8(a, use_ue8m0=True, use_packed_ue8m0=True)
     sfa = sf_layout.transform_sfa(sfa_p, m, k, 128)
-    entries, launches = [], 0
-    for recipe in ((1, 1, 128), (1, 128, 128)):
-        if recipe[1] == 1:
-            bq, sfb_p = dgt.per_token_cast_to_fp8(b, use_ue8m0=True, use_packed_ue8m0=True)
-        else:
-            bq, sfb32 = dgt.per_block_cast_to_fp8(b, use_ue8m0=True)
-            sfb_p = sf_layout.get_mn_major_tma_aligned_packed_ue8m0_tensor(sfb32)
-        sfb = sf_layout.transform_sfb(sfb_p, n, k, recipe[1:])
-        call = lambda: dgt.fp8_gemm_nt((aq, sfa_p), (bq, sfb_p), recipe=recipe)
-        require(runtime().force_scale_strategy is None, 'the scale strategy is pinned')
-        d = counted(call, 'dequant_nt')
-        launches += 1
-        runtime().force_scale_strategy = 'promote'
-        try:
-            d_promote = counted(call, 'promote_nt')
-        finally:
-            runtime().force_scale_strategy = None
-        kw = dict(gran_n=recipe[1])
-        kernel = lambda: dense.dense_gemm(aq, bq, sfa, sfb, strategy='dequant', **kw)
-        plain = lambda: dense.dense_gemm_plain(aq, bq, sfa, sfb, strategy='dequant', **kw)
+    a4 = per_token_cast_to_fp4(a, use_ue8m0=True, gran_k=32)
+    b4 = per_token_cast_to_fp4(b, use_ue8m0=True, gran_k=32)
+    fa, fb = decode_fp4_rows(a4[0], a4[1], 32), decode_fp4_rows(b4[0], b4[1], 32)
+    cases = {
+        'dequant_nt_mixed': (lambda: dgt.fp8_fp4_gemm_nt((aq, sfa_p), b4),
+                             (aq, fb, sfa, None), dict(strategy='dequant'), (aq, sfa_p, *b4)),
+        'bf16_nt': (lambda: dgt.fp8_fp4_gemm_nt(a4, b4), (fa, fb, None, None), {},
+                    (*a4, *b4)),
+    }
+    entries, launches = {}, {}
+    for form, (call, operands, kw, inputs) in cases.items():
+        d = counted(call, form)
+        launches[form] = 1
+        kernel = lambda: dense.dense_gemm(*operands, **kw)
+        plain = lambda: dense.dense_gemm_plain(*operands, **kw)
+        require(torch.equal(d, kernel()), f'{form}: the op is not the kernel call')
         diff, err = compare(d, plain())
-        require(diff < TOL, f'packed {recipe}: dequant calc_diff {diff} against the plain version')
-        vs_promote = compare(d, d_promote)[0]
-        require(vs_promote < TOL, f'packed {recipe}: dequant {vs_promote} from promote')
-        promote_plain = compare(d_promote, dense.dense_gemm_plain(aq, bq, sfa, sfb, **kw))[0]
-        require(promote_plain < TOL, f'packed {recipe}: promote {promote_plain} from plain')
+        require(diff < TOL, f'{form}: calc_diff {diff} against the plain version')
         ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
-        promote_ms = bench_kernel_ms(lambda: dense.dense_gemm(aq, bq, sfa, sfb, **kw))
         op_ms = bench_kernel_ms(call)
-        bound = dense_bound(arch, m, n, k, aq, bq, sfa_p, sfb_p)
-        entries.append(dict(shape=[m, n, k], recipe=list(recipe), promote_ms=promote_ms,
-                            op_ms=op_ms, vs_promote_calc_diff=vs_promote,
-                            **numbers(ms, plain_ms, library_ms, err, bound)))
-        log(f'phase 10 packed UE8M0 recipe={recipe} m={m} n={n} k={k}: dequant launches 1, '
-            f'promote (pinned) launches 1; calc_diff dequant vs plain {diff:.3e}, vs promote '
-            f'{vs_promote:.3e}, promote vs plain {promote_plain:.3e} (limit {TOL}) '
-            f'max_abs_err={err:.4g}; dequant_ms={ms:.4f} promote_ms={promote_ms:.4f} '
-            f'op_ms(dequant, with the unpack)={op_ms:.4f} plain_ms={plain_ms:.4f} '
-            f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})')
-        del bq, sfb, d, d_promote
-    del a, b, aq, sfa
+        bound, bound_fp8 = bf16_bound(arch, m, n, k, *inputs)
+        entries[form] = dict(shape=[m, n, k], op_ms=op_ms, bound_fp8_ms=bound_fp8,
+                             **numbers(ms, plain_ms, library_ms, err, bound))
+        log(f'phase 10 {form} (fp8_fp4_gemm_nt, FP4 at gran 32 folded) m={m} n={n} k={k}: '
+            f'launches 1; bitwise the kernel on the folded operands; calc_diff={diff:.3e} '
+            f'(limit {TOL}) max_abs_err={err:.4g}; kernel_ms={ms:.4f} op_ms(fold + kernel)='
+            f'{op_ms:.4f} plain_ms={plain_ms:.4f} library_ms(torch.matmul bf16)={library_ms:.4f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}, bf16 products; fp8 rate {bound_fp8:.4f}) '
+            f'TFLOPS={2 * m * n * k / ms / 1e9:.1f}')
+        del d
+    del a, b, aq, sfa, a4, b4, fa, fb
     torch.cuda.empty_cache()
     return entries, launches
 
@@ -2902,12 +3006,14 @@ def phase_fp4_gran32(gen, arch):
     require(diff < TOL, f'FP4 gran 32: calc_diff {diff} against the op\'s plain route')
     ms, plain_ms, library_ms = timed(kernel, plain, lambda: torch.matmul(a, b.t()))
     op_ms = bench_kernel_ms(call)
-    bound = dense_bound(arch, m, n, k, aq, sfa, *b4)
-    entry = dict(shape=[m, n, k], op_ms=op_ms, **numbers(ms, plain_ms, library_ms, err, bound))
+    bound, bound_fp8 = bf16_bound(arch, m, n, k, aq, sfa, *b4)
+    entry = dict(shape=[m, n, k], op_ms=op_ms, bound_fp8_ms=bound_fp8,
+                 **numbers(ms, plain_ms, library_ms, err, bound))
     log(f'phase 10 FP4 gran 32 m={m} n={n} k={k}: launches 1 (mixed e4m3 x bf16); calc_diff='
         f'{diff:.3e} against the op\'s plain route (limit {TOL}) max_abs_err={err:.4g}; '
         f'kernel_ms={ms:.4f} op_ms(fold + kernel)={op_ms:.4f} plain_ms={plain_ms:.4f} '
-        f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})')
+        f'library_ms(torch.matmul bf16)={library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}, '
+        f'bf16 products; fp8 rate {bound_fp8:.4f}) TFLOPS={2 * m * n * k / ms / 1e9:.1f}')
     del a, b, aq, sfa, b4, d, folded
     torch.cuda.empty_cache()
     return entry, 1
@@ -3086,10 +3192,11 @@ def phase_surface(seed, gen, arch):
     packed, packed_launches = phase_packed(gen, arch)
     planar, planar_launches = phase_planar(gen, arch)
     gran32, gran32_launches = phase_fp4_gran32(gen, arch)
+    bf16_forms, bf16_launches = phase_bf16_forms(gen, arch)
     nn, nn_launches = phase_contiguous_nn(seed, gen, arch)
     flat, flat_launches = phase_k_grouped_flat(gen, arch)
 
-    def row(name, source, replaces, launches, entries, design=MMA_SYNC_DESIGN):
+    def row(name, source, replaces, launches, entries, design=WIDEN_DESIGN):
         return dict(name=name, route='cuda', source=f'deepgemm_tpu_torch/csrc/{source}',
                     replaces=replaces, launches=launches, design=design, **summed(entries),
                     shapes=entries)
@@ -3105,6 +3212,12 @@ def phase_surface(seed, gen, arch):
             f'{HOPPER_DESIGN}; planar FP4 B decoded in shared memory'),
         row('dense_fp8_gemm_nt_fp4_gran32', 'dense_dequant.cu', dense_at, gran32_launches,
             [gran32]),
+        row('dense_fp8_gemm_nt_mixed_dequant', 'dense_dequant.cu', dense_at,
+            bf16_launches['dequant_nt_mixed'], [bf16_forms['dequant_nt_mixed']]),
+        row('dense_gemm_nt_bf16_folded', 'dense_dequant.cu', dense_at, bf16_launches['bf16_nt'],
+            [bf16_forms['bf16_nt']],
+            'wgmma bf16 m64n128k16 from TMA-fed 128-byte-swizzled stages, warp-specialised '
+            'persistent grid, TMA-store epilogue (csrc/gemm_sm90.cuh gemm_kernel, unscaled)'),
         *(row(f'contiguous_grouped_gemm_nn_{kind}', 'contiguous.cu',
               'deepgemm_tpu/kernels/grouped.py:240', nn_launches[kind], nn[kind],
               f'{CONTIGUOUS_DESIGN}; B MN-major: ' + (
@@ -3699,7 +3812,56 @@ def gemm_times(seed, arch):
            for label, call in mqa_calls(seed).items()}
     return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
                 k_grouped=train['k_grouped'], relayout=train['relayout'], mqa_logits=mqa,
-                paged_mqa=paged_times(seed, arch))
+                paged_mqa=paged_times(seed, arch), bf16_forms=bf16_form_times(seed))
+
+
+def bf16_form_times(seed):
+    """--gemm-times: the dense forms on bf16 products (phase 10's shapes):
+    'dequant' on packed UE8M0 scales, recipes (1, 1, 128) and (1, 128, 128),
+    at 4096 x 4096 x 7168 and 128 x 4096 x 7168, beside 'promote' on the same
+    operands; FP4 B at gran 32 (the mixed e4m3 x bf16 kernel on the folded B,
+    and the op with its fold); each beside torch.matmul bf16."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.ops import sf_layout
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import decode_fp4_rows, per_token_cast_to_fp4
+    gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+    out = {}
+    for m, n, k in PACKED_SHAPES:
+        a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+        aq, sfa_p = dgt.per_token_cast_to_fp8(a, use_ue8m0=True, use_packed_ue8m0=True)
+        sfa = sf_layout.transform_sfa(sfa_p, m, k, 128)
+        library_ms = bench_kernel(lambda: torch.matmul(a, b.t()), iters=20)
+        for gran_n in (1, 128):
+            cast = dgt.per_token_cast_to_fp8 if gran_n == 1 else dgt.per_block_cast_to_fp8
+            bq, sfb = cast(b, use_ue8m0=True)
+            kw = dict(gran_n=gran_n)
+            entry = dict(shape=[m, n, k], library_ms=library_ms,
+                         ms=bench_kernel(lambda: dense.dense_gemm(aq, bq, sfa, sfb,
+                                                                  strategy='dequant', **kw),
+                                         iters=20),
+                         promote_ms=bench_kernel(lambda: dense.dense_gemm(aq, bq, sfa, sfb, **kw),
+                                                 iters=20))
+            out[f'dequant (1, {gran_n}, 128) {m}x{n}x{k}'] = entry
+            log(f'time dequant recipe (1, {gran_n}, 128) m={m} n={n} k={k}: '
+                f'kernel_ms={entry["ms"]:.4f} promote_ms={entry["promote_ms"]:.4f} '
+                f'library_ms(torch.matmul bf16)={library_ms:.4f}')
+        del a, b, aq, sfa, bq, sfb
+    m, n, k = FP4_SHAPE
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=False)
+    b4 = per_token_cast_to_fp4(b, use_ue8m0=True, gran_k=32)
+    folded = decode_fp4_rows(b4[0], b4[1], 32)
+    entry = dict(shape=[m, n, k],
+                 ms=bench_kernel(lambda: dense.dense_gemm(aq, folded, sfa, None), iters=20),
+                 op_ms=bench_kernel(lambda: dgt.fp8_fp4_gemm_nt((aq, sfa), b4), iters=20),
+                 library_ms=bench_kernel(lambda: torch.matmul(a, b.t()), iters=20))
+    out[f'fp4 gran 32 {m}x{n}x{k}'] = entry
+    log(f'time FP4 gran 32 m={m} n={n} k={k}: kernel_ms={entry["ms"]:.4f} op_ms(fold + kernel)='
+        f'{entry["op_ms"]:.4f} library_ms(torch.matmul bf16)={entry["library_ms"]:.4f}')
+    torch.cuda.empty_cache()
+    return out
 
 
 def paged_times(seed, arch):
@@ -3926,37 +4088,46 @@ MQA_VARIANTS = {
 }
 
 
+def variant_entries(label, header, source, variants, symbol, own):
+    """{'kernel': own, name: C entry} for copies of csrc/ with each variant's
+    (text, replacement) edits to ``header``, ``source`` built from each copy
+    (all compiled at once, into the build directory's ``label``)."""
+    import ctypes
+    import shutil
+    from deepgemm_tpu_torch.runtime import build
+    jobs = {}
+    for name, edits in variants.items():
+        d = build.build_dir() / label / name.replace(' ', '_')
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = (d / header).read_text()
+        for old, new in edits:
+            require(old in text, f'{label} {name!r}: {old!r} is not in csrc/{header}')
+            text = text.replace(old, new)
+        (d / header).write_text(text)
+        jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(d / 'lib.so'),
+                                        str(d / source)], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), d / 'lib.so')
+    entries = {'kernel': own}
+    for name, (proc, out) in jobs.items():
+        text, _ = proc.communicate()
+        require(proc.returncode == 0, f'{label} {name!r} does not build:\n{text[-3000:]}')
+        fn = getattr(ctypes.CDLL(str(out)), symbol)
+        fn.argtypes, fn.restype = own.argtypes, own.restype
+        entries[name] = fn
+    return entries
+
+
 def mqa_variant_times(seed, arch, rounds=3):
     """--mqa-variants: the MQA logits kernel's e4m3 calls of phase 7 (the
     prefill path's and the bench shape's) through its own build and through
     each MQA_VARIANTS build (compiled at once), all in turns for ``rounds``
     rounds (ms, the mean of 10 L2-flushed launches each): what bounds it."""
-    import ctypes
-    import shutil
     from deepgemm_tpu_torch.kernels import mqa_logits
-    from deepgemm_tpu_torch.runtime import build
     from deepgemm_tpu_torch.testing.bench import bench_kernel
-    jobs = {}
-    for name, edits in MQA_VARIANTS.items():
-        d = build.build_dir() / 'mqa_variants' / name.replace(' ', '_')
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(build.CSRC, d)
-        text = (d / 'mqa_sm90.cuh').read_text()
-        for old, new in edits:
-            require(old in text, f'MQA variant {name!r}: {old!r} is not in csrc/mqa_sm90.cuh')
-            text = text.replace(old, new)
-        (d / 'mqa_sm90.cuh').write_text(text)
-        jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(d / 'lib.so'),
-                                        str(d / 'mqa_logits.cu')], stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True), d / 'lib.so')
     own = mqa_logits._entry()
-    entries = {'kernel': own}
-    for name, (proc, out) in jobs.items():
-        text, _ = proc.communicate()
-        require(proc.returncode == 0, f'MQA variant {name!r} does not build:\n{text[-3000:]}')
-        fn = ctypes.CDLL(str(out)).dgt_mqa_logits
-        fn.argtypes, fn.restype = own.argtypes, own.restype
-        entries[name] = fn
+    entries = variant_entries('mqa_variants', 'mqa_sm90.cuh', 'mqa_logits.cu', MQA_VARIANTS,
+                              'dgt_mqa_logits', own)
     calls = mqa_calls(seed)
     results = {}
     try:
@@ -3974,6 +4145,63 @@ def mqa_variant_times(seed, arch, rounds=3):
                                                 for name, v in times.items()))
     finally:
         mqa_logits._entry = lambda: own
+    return results
+
+
+# --widen-variants: copies of csrc/gemm_sm90.cuh with one part of widen_kernel
+# (the dense forms on bf16 products) removed; its output is then wrong, only
+# its time is read.
+_WIDEN_A = tuple((f'af[v][{e}] = mul_bf16x2(e4m3x2_bits({x}, {y}, sel), c1[{e & 1}]);',
+                  f'af[v][{e}] = {x};')
+                 for e, x, y in ((0, 'x.x', 'x.y'), (1, 'y.x', 'y.y'), (2, 'x.z', 'x.w'),
+                                 (3, 'y.z', 'y.w')))
+WIDEN_VARIANTS = {
+    'no B widening': (('            widen_b(s);\n', '\n'), ('                    widen_b(s1);\n', '\n')),
+    'no A widening': _WIDEN_A,
+    'no wgmma': (('wgmma_bf16_rs(d, af[v], db + (((v >> 2) * kBN * kBK + (v & 3) * 32) >> 4),\n'
+                  '                                  kDequant || v > 0);', 'fence_all(d);'),),
+}
+
+
+def widen_variant_times(seed, rounds=3):
+    """--widen-variants: 'dequant' at 4096 x 4096 x 7168 (recipes (1, 1, 128)
+    and (1, 128, 128), UE8M0 scales) and the FP4 gran 32 kernel (the mixed
+    e4m3 x bf16 'promote' form on the folded B) through the widening
+    kernel's own build and each WIDEN_VARIANTS build, all in turns for
+    ``rounds`` rounds (ms, the mean of 10 L2-flushed launches each): what
+    bounds it."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import decode_fp4_rows, per_token_cast_to_fp4
+    own = dense._bf16_mma_entry()
+    entries = variant_entries('widen_variants', 'gemm_sm90.cuh', 'dense_dequant.cu',
+                              WIDEN_VARIANTS, 'dgt_dense_gemm_bf16_mma', own)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 14)
+    m, n, k = FP4_SHAPE
+    a, b = randn_bf16((m, k), gen, 1.0), randn_bf16((n, k), gen, 1.0)
+    aq, sfa = dgt.per_token_cast_to_fp8(a, use_ue8m0=True)
+    b1, sb1 = dgt.per_token_cast_to_fp8(b, use_ue8m0=True)
+    b128, sb128 = dgt.per_block_cast_to_fp8(b, use_ue8m0=True)
+    folded = decode_fp4_rows(*per_token_cast_to_fp4(b, use_ue8m0=True, gran_k=32), 32)
+    calls = {'dequant (1, 1, 128)': lambda: dense.dense_gemm(aq, b1, sfa, sb1, gran_n=1,
+                                                             strategy='dequant'),
+             'dequant (1, 128, 128)': lambda: dense.dense_gemm(aq, b128, sfa, sb128,
+                                                               strategy='dequant'),
+             'fp4 gran 32': lambda: dense.dense_gemm(aq, folded, sfa, None)}
+    results = {}
+    try:
+        for label, call in calls.items():
+            times = {}
+            for _ in range(rounds):
+                for name, fn in entries.items():
+                    dense._bf16_mma_entry = lambda fn=fn: fn
+                    times.setdefault(name, []).append(bench_kernel(call))
+            results[label] = times
+            log(f'widen variants {label} [{m}x{n}x{k}]: ' +
+                ' '.join(f'{name}={min(v):.4f}/{max(v):.4f}' for name, v in times.items()))
+    finally:
+        dense._bf16_mma_entry = lambda: own
     return results
 
 
@@ -4008,6 +4236,9 @@ def main(argv=None) -> int:
     parser.add_argument('--mqa-variants', action='store_true',
                         help='only build and time the MQA logits kernel against its variant '
                              'builds (what bounds it), then print them as JSON')
+    parser.add_argument('--widen-variants', action='store_true',
+                        help='only build and time the dense forms on bf16 products against '
+                             'their variant builds (what bounds them), then print them as JSON')
     parser.add_argument('--package-root', default=os.path.dirname(os.path.abspath(__file__)),
                         help='the directory that holds the deepgemm_tpu_torch to run (default: '
                              'the one beside this script)')
@@ -4043,6 +4274,10 @@ def main(argv=None) -> int:
         return 0
     if args.mqa_variants:
         print(json.dumps({'mqa_variants': mqa_variant_times(args.seed, H100_SXM)}))
+        print(card)
+        return 0
+    if args.widen_variants:
+        print(json.dumps({'widen_variants': widen_variant_times(args.seed)}))
         print(card)
         return 0
     if args.variants:

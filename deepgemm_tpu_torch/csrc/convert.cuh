@@ -1,9 +1,9 @@
-// Register-level conversions of narrow operand types, shared by the GEMM
-// mainloop (dense.cu, dense_dequant.cu, contiguous.cu), the mega MoE block
-// (mega_local.cu) and the indexer tile (mqa_tile.cuh):
+// Register-level conversions of narrow operand types, shared by the Hopper
+// GEMM mainloop (gemm_sm90.cuh), the mega MoE block (mega_block.cuh) and the
+// indexer bodies (mqa_tile.cuh, mqa_sm90.cuh):
 //   * planar FP4 (e2m1) codes -> e4m3 bytes, exact (every e2m1 value is an
 //     e4m3 value), by one __byte_perm table lookup;
-//   * e4m3 pairs -> bf16x2, exact, for the bf16 MMA on an e4m3 operand;
+//   * e4m3 pairs -> bf16x2, exact, for a bf16 MMA on an e4m3 operand;
 //   * a bf16x2 product rounded once (the 'dequant' scale multiply).
 
 #pragma once

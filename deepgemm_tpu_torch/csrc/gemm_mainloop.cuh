@@ -1,50 +1,32 @@
-// Shared mainloop of the port's mma.sync GEMM kernels: the dense forms
-// that are not e4m3 x e4m3 'promote' (the 'dequant' strategy, the bf16
-// operands), masked grouped and the bf16 k-grouped kernel, and the block
-// body of the mega MoE kernels (mega_ep.cu). The dense e4m3 'promote' forms,
-// the FP8 k-grouped kernel and the contiguous grouped kernels run the Hopper
-// mainloop of gemm_sm90.cuh.
+// Shared mainloop of the port's mma.sync GEMM kernels: masked grouped, the
+// bf16 k-grouped kernel, and the block body of the mega MoE kernels
+// (mega_ep.cu). Every dense form, the FP8 k-grouped kernel and the
+// contiguous grouped kernels run the Hopper mainloop of gemm_sm90.cuh.
 //
-// Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
-// (_build_dense_gemm), kernels/grouped.py (_build_masked) and
-// kernels/k_grouped.py (_build_k_grouped), including the exact f32
-// promotion step of deepgemm_tpu/kernels/common.py:27-52:
-//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p,
-// and the 'dequant' step of deepgemm_tpu/kernels/dense.py:248-255:
-//     acc += (bf16(a) * bf16(sfa)) . (bf16(b) * bf16(sfb))^T   over the whole depth.
+// Replaces the Pallas mainloops of kernels/grouped.py (_build_masked) and
+// kernels/k_grouped.py (_build_k_grouped) of deepgemm_tpu, including the
+// exact f32 promotion step of deepgemm_tpu/kernels/common.py:27-52:
+//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p.
 //
 // d[m, n] = sum_k a[m, k] * b[n, k]   (+ c: the k-grouped kernel starts its
-// sum from c, as JAX's k-grouped kernel does; the dense kernel adds c once
-// to the finished sum, as JAX's dense kernel does)
+// sum from c, as JAX's k-grouped kernel does)
 //
 // Design (simple and right first; wgmma/TMA/warp specialisation come later):
 //   * One block computes a kBM x BN output tile of one problem; 8 warps in a
 //     2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made of
 //     mma.sync m16n8 tiles with f32 accumulation.
-//   * What an instance computes is its Form, fixed at compile time: each
-//     operand's element type (e4m3, or bf16), its major (k-major, or
-//     MN-major: A [K, M], B [K, N]) and the scale step (none, 'promote' or
-//     'dequant'). e4m3 x e4m3 under
-//     'promote' runs m16n8k32 e4m3; every other form runs m16n8k16 bf16, an
-//     e4m3 operand widened to bf16 as its fragment is loaded (exact), times
-//     its bf16 scale under 'dequant' (exact for power-of-two scales).
+//   * What an instance computes is its Form, fixed at compile time: the
+//     operands' element type (e4m3 with the 'promote' scale step, or bf16
+//     unscaled), both k-major. e4m3 runs m16n8k32 e4m3, bf16 m16n8k16 bf16.
 //   * A stage holds kKE elements of k for every row of A and B: 128 (one
-//     scale block) where an operand is e4m3, 64 for bf16 x bf16. kStages
-//     stages are kept in flight with cp.async (zero-filled past the row
-//     count and past the problem's depth), k-major rows padded by 16 bytes so
-//     the fragment loads hit 32 distinct banks.
-//   * An MN-major operand is loaded as it lies (kKE k-rows of the tile's m
-//     or n elements) and transposed in shared memory into one k-major stage
-//     buffer before the fragment loads: 4 x 4 byte blocks (e4m3) or 2 x 2
-//     element blocks (bf16) through __byte_perm. mma.sync takes e4m3 A and B
-//     k-contiguous only, and ldmatrix.trans moves 16-bit elements only. The
-//     fragments, their k order and the promotion are then the k-major
-//     form's, so every layout is bitwise the NT kernel on transposed copies.
+//     scale block) for e4m3, 64 for bf16. kStages stages are kept in flight
+//     with cp.async (zero-filled past the row count and past the problem's
+//     depth), k-major rows padded by 16 bytes so the fragment loads hit 32
+//     distinct banks.
 //   * 'promote': each stage's product goes to a fresh f32 partial that is
 //     scaled and added to the accumulator in the reference multiply order,
-//     with explicit _rn intrinsics so nothing is contracted into an FMA; a
-//     bf16 operand (a folded FP4 operand) has unit scales, whose multiply is
-//     skipped (x * 1 is x). SFB holds one f32 per gran_n rows of B (128: the
+//     with explicit _rn intrinsics so nothing is contracted into an FMA.
+//     SFB holds one f32 per gran_n rows of B (128: the
 //     128x128 block scales; 1: per channel), m-major as the casts make them
 //     (SFA [.., M, ksf], SFB [.., nsf, ksf]).
 //   * Which problem a block computes is the Layout's business, read on the
@@ -64,9 +46,8 @@
 // What bounds it on the H100: the model's grouped GEMMs stream each expert's
 // weights once at a few hundred operations per weight byte or fewer (bytes
 // bound, 3.35 TB/s); the k-grouped wgrad writes a [G, m, n] output at 256
-// operations per written element (bytes bound); a dense 4096^3 product is
-// tensor-core bound. mma.sync reaches a fraction of the wgmma peak; that is
-// later work.
+// operations per written element (bytes bound). mma.sync reaches a fraction
+// of the wgmma peak; that is later work.
 
 #pragma once
 
@@ -87,7 +68,7 @@ constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
 enum class Layout { kBatched, kKGrouped };
-enum class Scale { kNone, kPromote, kDequant };
+enum class Scale { kNone, kPromote };
 
 template <Layout kLayout>
 __host__ __device__ constexpr bool k_grouped() {
@@ -95,46 +76,34 @@ __host__ __device__ constexpr bool k_grouped() {
 }
 
 // What an instance computes. kEA / kEB: bytes per element of A and B (1:
-// e4m3; 2: bf16). kAMn / kBMn: the
-// operand is MN-major (A [K, M], B [K, N]). kC:
-// the dense kernel adds c in its epilogue; a compile-time choice, since a
-// runtime one cost the e4m3 forms without c ~5% on the H100.
-template <int kEA_, int kEB_, Scale kScale_, bool kAMn_ = false, bool kBMn_ = false,
-          bool kC_ = false>
+// e4m3; 2: bf16), one type for both.
+template <int kEA_, int kEB_, Scale kScale_>
 struct Form {
     static constexpr int kEA = kEA_;
     static constexpr int kEB = kEB_;
     static constexpr Scale kScale = kScale_;
-    static constexpr bool kAMn = kAMn_;
-    static constexpr bool kBMn = kBMn_;
-    static constexpr bool kC = kC_;             // the dense kernel's c, added to the finished sum
-    static constexpr bool kMmaE4m3 = kEA == 1 && kEB == 1 && kScale != Scale::kDequant;
-    static constexpr int kKE = kEA == 2 && kEB == 2 ? 64 : 128;    // k elements per stage
-    static constexpr bool kScaleA = kScale != Scale::kNone && kEA == 1;
-    static constexpr bool kScaleB = kScale != Scale::kNone && kEB == 1;
+    static constexpr bool kMmaE4m3 = kEA == 1;
+    static constexpr int kKE = kEA == 2 ? 64 : 128;                 // k elements per stage
+    static constexpr bool kScaleA = kScale != Scale::kNone;
+    static constexpr bool kScaleB = kScale != Scale::kNone;
     static constexpr int kPitchA = kKE * kEA + 16;                  // k-major row pitches
     static constexpr int kPitchB = kKE * kEB + 16;
-    static_assert((kEA == 1 || kEA == 2) && (kEB == 1 || kEB == 2), "e4m3 or bf16 operands");
-    static_assert((kScale == Scale::kNone) == (kEA == 2 && kEB == 2),
-                  "scales go with e4m3 operands; bf16 x bf16 is unscaled");
+    static_assert((kEA == 1 || kEA == 2) && kEA == kEB, "e4m3 or bf16 operands, one type");
+    static_assert((kScale == Scale::kNone) == (kEA == 2),
+                  "scales go with e4m3 operands; bf16 is unscaled");
 };
 
 using FormE4m3 = Form<1, 1, Scale::kPromote>;   // the promoted e4m3 NT form
 using FormBf16 = Form<2, 2, Scale::kNone>;      // the unscaled bf16 NT form
 
-// Shared memory of an instance: kStages stages of A and B (raw MN-major
-// k-rows, or padded k-major rows), then one k-major buffer per MN-major
-// operand, the transposed stage.
+// Shared memory of an instance: kStages stages of A and B, padded k-major
+// rows.
 template <class F, int BN, Layout kLayout>
 struct SmemPlan {
-    static constexpr int kRawPitchA = kBM * F::kEA + 16;
-    static constexpr int kRawPitchB = BN * F::kEB + 16;
-    static constexpr int kA = F::kAMn ? F::kKE * kRawPitchA : kBM * F::kPitchA;
-    static constexpr int kB = F::kBMn ? F::kKE * kRawPitchB : BN * F::kPitchB;
+    static constexpr int kA = kBM * F::kPitchA;
+    static constexpr int kB = BN * F::kPitchB;
     static constexpr int kStage = kA + kB;
-    static constexpr int kTA = F::kAMn ? kBM * F::kPitchA : 0;
-    static constexpr int kTB = F::kBMn ? BN * F::kPitchB : 0;
-    static constexpr int kBytes = kStages * kStage + kTA + kTB;
+    static constexpr int kBytes = kStages * kStage;
 };
 
 template <class F, int BN, Layout kLayout>
@@ -143,13 +112,11 @@ constexpr int smem_bytes() {
 }
 
 struct GemmArgs {
-    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk]); MN-major
-                             // [K, M]
-    const uint8_t* b;        // B: k-major [G, N, K]; MN-major [K, N]
+    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk])
+    const uint8_t* b;        // B: k-major [G, N, K]
     const float* sfa;        // f32 scales of A, or nullptr (unscaled)
     const float* sfb;        // f32 scales of B, or nullptr
-    const float* c;          // f32: k-grouped [G, M, N], the sum's start; kBatched [M, N],
-                             // added to the finished sum; or nullptr
+    const float* c;          // f32: k-grouped [G, M, N], the sum's start; or nullptr
     void* d;                 // OutT; [G, M, N]
     int M, N, K;             // K: the depth of every problem (not k-grouped)
     int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
@@ -228,79 +195,6 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
     }
 }
 
-// Elements e, e + 1 of a k-major shared-memory row as a bf16x2 fragment
-// register: a bf16 pair as it is, an e4m3 pair widened.
-template <int kE>
-__device__ __forceinline__ uint32_t bf16_frag(const uint8_t* row, int e) {
-    if constexpr (kE == 2) return ld_shared_u32(row + 2 * e);
-    else return e4m3x2_to_bf16x2(ld_shared_u16(row + e));
-}
-
-// An MN-major stage (kKE k-rows of D elements, pitch raw_pitch) into k-major
-// rows (D rows of kKE elements, pitch t_pitch): blocks of R k-rows by R
-// elements (R = 4 / kE, one 32-bit word of each row), shuffled by __byte_perm.
-template <int kE, int kKE, int D>
-__device__ __forceinline__ void transpose_stage(const uint8_t* raw, int raw_pitch, uint8_t* t,
-                                                int t_pitch, int tid) {
-    constexpr int R = 4 / kE;
-    constexpr int kBlocksD = D / R;
-    constexpr int kBlocks = (kKE / R) * kBlocksD;
-    #pragma unroll 2
-    for (int blk = tid; blk < kBlocks; blk += kThreads) {
-        const int bd = blk % kBlocksD, bk = blk / kBlocksD;
-        const uint8_t* src = raw + bk * R * raw_pitch + bd * 4;
-        uint8_t* dst = t + bd * R * t_pitch + bk * 4;
-        if constexpr (kE == 1) {
-            const uint32_t w0 = ld_shared_u32(src), w1 = ld_shared_u32(src + raw_pitch);
-            const uint32_t w2 = ld_shared_u32(src + 2 * raw_pitch);
-            const uint32_t w3 = ld_shared_u32(src + 3 * raw_pitch);
-            const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
-            const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
-            st_shared_u32(dst, __byte_perm(lo01, lo23, 0x5410));
-            st_shared_u32(dst + t_pitch, __byte_perm(lo01, lo23, 0x7632));
-            st_shared_u32(dst + 2 * t_pitch, __byte_perm(hi01, hi23, 0x5410));
-            st_shared_u32(dst + 3 * t_pitch, __byte_perm(hi01, hi23, 0x7632));
-        } else {
-            const uint32_t w0 = ld_shared_u32(src), w1 = ld_shared_u32(src + raw_pitch);
-            st_shared_u32(dst, __byte_perm(w0, w1, 0x5410));
-            st_shared_u32(dst + t_pitch, __byte_perm(w0, w1, 0x7632));
-        }
-    }
-}
-
-// Load D rows (k-major: rows x row_bytes from row0; MN-major: kKE k-rows x
-// D elements from column col0) of one operand's stage with cp.async.
-template <bool kMn, int kE, int kKE, int D>
-__device__ __forceinline__ void load_operand(uint8_t* s, const uint8_t* base, int64_t ld,
-                                             int row0, int rows, int64_t kcol0, int64_t k_bytes,
-                                             int64_t kt_elem0, int depth, int row_bytes,
-                                             int pitch, int tid) {
-    if constexpr (kMn) {
-        // kKE k-rows of D elements: k-row r is global row kt_elem0 + r, the
-        // tile's columns start at element row0; rows = the operand's M or N
-        constexpr int kCh = D * kE / 16;
-        constexpr int kRawPitch = D * kE + 16;
-        #pragma unroll 4
-        for (int c = tid; c < kKE * kCh; c += kThreads) {
-            const int r = c / kCh, ch = c % kCh;
-            const int64_t kr = kt_elem0 + r;
-            const int64_t col = static_cast<int64_t>(row0) * kE + ch * 16;
-            const bool valid = kr < depth && col < static_cast<int64_t>(rows) * kE;
-            const uint8_t* src = valid ? base + kr * ld + col : base;
-            cp_async16(smem_addr(s + r * kRawPitch + ch * 16), src, valid);
-        }
-    } else {
-        const int ch_per_row = row_bytes / 16;
-        for (int c = tid; c < D * ch_per_row; c += kThreads) {
-            const int r = c / ch_per_row, ch = c % ch_per_row;
-            const int64_t kb = kcol0 + ch * 16;
-            const bool valid = row0 + r < rows && kb < k_bytes;
-            const uint8_t* src = valid ? base + static_cast<int64_t>(row0 + r) * ld + kb : base;
-            cp_async16(smem_addr(s + r * pitch + ch * 16), src, valid);
-        }
-    }
-}
-
 // One block's output tile: column tile bx, row tile by, problem bz (the
 // kernel's blockIdx; a persistent kernel passes its own, mega_ep.cu).
 template <class F, int BN, Layout kLayout, class OutT>
@@ -315,10 +209,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     static_assert(!kKG || F::kScale == Scale::kNone,
                   "the FP8 k-grouped kernel runs the Hopper mainloop (gemm_sm90.cuh)");
     constexpr bool kPromote = F::kScale == Scale::kPromote;
-    constexpr bool kDequant = F::kScale == Scale::kDequant;
-    static_assert(!F::kAMn || kLayout == Layout::kBatched, "MN-major A: the dense kernel");
-    static_assert(!F::kC || kLayout == Layout::kBatched, "c in the epilogue: the dense kernel");
-    static_assert(!F::kBMn || kLayout == Layout::kBatched, "MN-major B: the dense kernel");
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int m0 = by * kBM;
@@ -353,11 +243,9 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         d_off = static_cast<int64_t>(g) * p.M * p.N;
     }
 
-    // Row strides (bytes) and the bytes of k each k-major row holds.
-    const int64_t lda = F::kAMn ? static_cast<int64_t>(p.M) * kEA : ld_k * kEA;
-    const int64_t ldb = F::kBMn ? static_cast<int64_t>(p.N) * kEB : ld_k * kEB;
+    // Row strides (bytes) and the bytes of k each row holds.
+    const int64_t lda = ld_k * kEA;
     const int64_t ka_bytes = static_cast<int64_t>(depth) * kEA;
-    const int64_t kb_bytes = static_cast<int64_t>(depth) * kEB;
     const int num_kt = static_cast<int>((ka_bytes + kKE * kEA - 1) / (kKE * kEA));
 
     const int tid = threadIdx.x;
@@ -366,31 +254,23 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     const int wn = (warp % 4) * kWN;
     const int gr = lane >> 2, tg = lane & 3;
 
-    // One stage: A's region, then B's. Two k-major operands of one element
-    // size load in one pass over the stage's rows (8 chunks of 16 bytes a
-    // row), which ran ~15% faster at 4096^3 than a pass per operand.
+    // One stage: A's region, then B's, loaded in one pass over the stage's
+    // rows (8 chunks of 16 bytes a row), which ran ~15% faster at 4096^3
+    // than a pass per operand.
     auto load_stage = [&](int slot, int kt) {
         uint8_t* s = smem + slot * Plan::kStage;
-        if constexpr (!F::kAMn && !F::kBMn && kEA == kEB) {
-            const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
-            #pragma unroll
-            for (int c = tid; c < (kBM + BN) * 8; c += kThreads) {
-                const int r = c >> 3, ch = c & 7;
-                const int64_t kb = kb0 + ch * 16;
-                const bool is_a = r < kBM;
-                const int grow = is_a ? m0 + r : n0 + (r - kBM);
-                const uint8_t* base = is_a ? a : b;
-                const bool valid = grow < (is_a ? p.M : p.N) && kb < ka_bytes;
-                const uint8_t* src = valid ? base + grow * lda + kb : base;
-                cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
-            }
-            return;
+        const int64_t kb0 = static_cast<int64_t>(kt) * kKBytes;
+        #pragma unroll
+        for (int c = tid; c < (kBM + BN) * 8; c += kThreads) {
+            const int r = c >> 3, ch = c & 7;
+            const int64_t kb = kb0 + ch * 16;
+            const bool is_a = r < kBM;
+            const int grow = is_a ? m0 + r : n0 + (r - kBM);
+            const uint8_t* base = is_a ? a : b;
+            const bool valid = grow < (is_a ? p.M : p.N) && kb < ka_bytes;
+            const uint8_t* src = valid ? base + grow * lda + kb : base;
+            cp_async16(smem_addr(s + r * kPitch + ch * 16), src, valid);
         }
-        const int64_t k_elem0 = static_cast<int64_t>(kt) * kKE;
-        load_operand<F::kAMn, kEA, kKE, kBM>(s, a, lda, m0, p.M, k_elem0 * kEA, ka_bytes,
-                                               k_elem0, depth, kKE * kEA, F::kPitchA, tid);
-        load_operand<F::kBMn, kEB, kKE, BN>(s + Plan::kA, b, ldb, n0, p.N, k_elem0 * kEB, kb_bytes,
-                                            k_elem0, depth, kKE * kEB, F::kPitchB, tid);
     };
 
     float acc[2][kNT][4];
@@ -418,8 +298,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         cp_async_commit();
     }
 
-    uint8_t* const ta = smem + kStages * Plan::kStage;     // transposed stages
-    uint8_t* const tb = ta + Plan::kTA;
     for (int kt = 0; kt < num_kt; ++kt) {
         cp_async_wait<kStages - 2>();
         __syncthreads();   // stage kt landed; every warp is done with kt - 1
@@ -431,15 +309,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         uint8_t* const stage = smem + (kt % kStages) * Plan::kStage;
         const uint8_t* sa = stage;
         const uint8_t* sb = stage + Plan::kA;
-        if constexpr (F::kAMn) {
-            transpose_stage<kEA, kKE, kBM>(stage, Plan::kRawPitchA, ta, F::kPitchA, tid);
-            sa = ta;
-        }
-        if constexpr (F::kBMn) {
-            transpose_stage<kEB, kKE, BN>(stage + Plan::kA, Plan::kRawPitchB, tb, F::kPitchB, tid);
-            sb = tb;
-        }
-        if constexpr (F::kAMn || F::kBMn) __syncthreads();   // the k-major stage is whole
 
         if constexpr (kPromote) {
             #pragma unroll
@@ -477,51 +346,23 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
                     }
             }
         } else {
-            // bf16 MMA: e4m3 operands widened (times their bf16 scale
-            // under 'dequant'), bf16 operands as they are
-            uint32_t sa_bf[2][2], sb_bf[kNT];
-            if constexpr (kDequant) {
-                #pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    #pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                        const int row = m0 + wm + i * 16 + gr + h * 8;
-                        sa_bf[i][h] = F::kScaleA && row < p.M
-                            ? bf16x2_splat(__ldg(sfa + sf_offset(row, kt, ksf)))
-                            : 0u;
-                    }
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                    const int col = n0 + wn + j * 8 + gr;
-                    sb_bf[j] = F::kScaleB && col < p.N
-                        ? bf16x2_splat(__ldg(sfb + sf_offset(col >> p.sfb_shift, kt, ksf)))
-                        : 0u;
-                }
-            }
+            // bf16 MMA
             #pragma unroll
             for (int kk = 0; kk < kKE; kk += 16) {
                 uint32_t af[2][4], bfr[kNT][2];
                 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
                     const uint8_t* ra = sa + (wm + i * 16 + gr) * F::kPitchA;
-                    af[i][0] = bf16_frag<kEA>(ra, kk + 2 * tg);
-                    af[i][1] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 2 * tg);
-                    af[i][2] = bf16_frag<kEA>(ra, kk + 8 + 2 * tg);
-                    af[i][3] = bf16_frag<kEA>(ra + 8 * F::kPitchA, kk + 8 + 2 * tg);
-                    if constexpr (kDequant && F::kScaleA) {
-                        #pragma unroll
-                        for (int r = 0; r < 4; ++r) af[i][r] = mul_bf16x2(af[i][r], sa_bf[i][r & 1]);
-                    }
+                    af[i][0] = ld_shared_u32(ra + 2 * (kk + 2 * tg));
+                    af[i][1] = ld_shared_u32(ra + 8 * F::kPitchA + 2 * (kk + 2 * tg));
+                    af[i][2] = ld_shared_u32(ra + 2 * (kk + 8 + 2 * tg));
+                    af[i][3] = ld_shared_u32(ra + 8 * F::kPitchA + 2 * (kk + 8 + 2 * tg));
                 }
                 #pragma unroll
                 for (int j = 0; j < kNT; ++j) {
                     const uint8_t* rb = sb + (wn + j * 8 + gr) * F::kPitchB;
-                    bfr[j][0] = bf16_frag<kEB>(rb, kk + 2 * tg);
-                    bfr[j][1] = bf16_frag<kEB>(rb, kk + 8 + 2 * tg);
-                    if constexpr (kDequant && F::kScaleB) {
-                        bfr[j][0] = mul_bf16x2(bfr[j][0], sb_bf[j]);
-                        bfr[j][1] = mul_bf16x2(bfr[j][1], sb_bf[j]);
-                    }
+                    bfr[j][0] = ld_shared_u32(rb + 2 * (kk + 2 * tg));
+                    bfr[j][1] = ld_shared_u32(rb + 2 * (kk + 8 + 2 * tg));
                 }
                 #pragma unroll
                 for (int i = 0; i < 2; ++i)
@@ -535,8 +376,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
 
         if constexpr (kPromote) {
             // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
-            // row or column past the edge reads its scale as zero; a bf16
-            // operand's unit scale is not multiplied
+            // row or column past the edge reads its scale as zero
             float sa_v[2][2], sb_v[kNT][2];
             #pragma unroll
             for (int i = 0; i < 2; ++i)
@@ -581,15 +421,8 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
             for (int j = 0; j < kNT; ++j) {
                 const int col = n0 + wn + j * 8 + tg * 2;
                 if (col >= p.N) continue;   // N is even: col + 1 < N too
-                float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
-                if constexpr (F::kC) {
-                    // the dense kernel's c: added once to the finished sum
-                    const float2 cv = __ldg(reinterpret_cast<const float2*>(
-                        p.c + static_cast<int64_t>(row) * p.N + col));
-                    x = __fadd_rn(x, cv.x);
-                    y = __fadd_rn(y, cv.y);
-                }
-                store_pair(d + static_cast<int64_t>(row) * p.N + col, x, y);
+                store_pair(d + static_cast<int64_t>(row) * p.N + col, acc[i][j][2 * h],
+                           acc[i][j][2 * h + 1]);
             }
         }
 }
@@ -630,26 +463,8 @@ inline cudaError_t launch_gemm_out(const GemmArgs& p, int grid_z, int block_n, i
                    : launch_gemm_bn<F, kLayout, __nv_bfloat16>(p, grid_z, block_n, stream);
 }
 
-// A dense instance, with c added in its epilogue where p.c is set.
-template <class F>
-struct WithC;
-template <int kEA, int kEB, Scale kScale, bool kAMn, bool kBMn, bool kC>
-struct WithC<Form<kEA, kEB, kScale, kAMn, kBMn, kC>> {
-    using type = Form<kEA, kEB, kScale, kAMn, kBMn, true>;
-};
-
-template <class F>
-inline cudaError_t launch_dense(const GemmArgs& p, int block_n, int out_f32,
-                                cudaStream_t stream) {
-    constexpr auto kB = Layout::kBatched;
-    return p.c != nullptr
-        ? launch_gemm_out<typename WithC<F>::type, kB>(p, 1, block_n, out_f32, stream)
-        : launch_gemm_out<F, kB>(p, 1, block_n, out_f32, stream);
-}
-
-// The arguments of A [.., m, k] and B [.., n, k] (either may be MN-major,
-// as the Form says) with the scales as the casts make them: SFA [.., m, ksf],
-// SFB [.., ceil(n / gran_n), ksf].
+// The arguments of A [.., m, k] and B [.., n, k] with the scales as the
+// casts make them: SFA [.., m, ksf], SFB [.., ceil(n / gran_n), ksf].
 inline GemmArgs nt_args(const void* a, const void* b, const void* sfa, const void* sfb,
                         void* d, int m, int n, int k, int sfb_shift) {
     GemmArgs p = {};

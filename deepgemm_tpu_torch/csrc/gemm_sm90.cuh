@@ -9,9 +9,12 @@
 // deepgemm_tpu/kernels/grouped.py (_build_contiguous, pl.pallas_call at
 // grouped.py:240; _build_contiguous_dual_b, at grouped.py:401) for bf16 and
 // e4m3 operands, with the f32 promotion of deepgemm_tpu/kernels/common.py:27-52:
-//     acc += p * (sfa[m] * sfb[n])   for each 128-deep k block's product p.
-// The dense 'dequant' forms and bf16 operands, the masked kernel and the bf16
-// k-grouped form stay on the mma.sync mainloop (gemm_mainloop.cuh).
+//     acc += p * (sfa[m] * sfb[n])   for each 128-deep k block's product p;
+// and, for the dense kernel's forms on bf16 products (dense_dequant.cu: the
+// 'dequant' strategy, dense.py:248-255, and the folded FP4 operands),
+// bf16 x bf16 as gemm_kernel's unscaled dense form and every form with an
+// e4m3 operand as widen_kernel. The masked kernel and the bf16 k-grouped
+// form stay on the mma.sync mainloop (gemm_mainloop.cuh).
 //
 // What bounds it on the H100: a large dense product is tensor-core bound (2
 // x 4096^3 operations on 32 MiB of fp8: ~2000 operations a byte, against the
@@ -21,7 +24,11 @@
 // bytes bound it, so its epilogue writes whole lines while the next work
 // item's loads are in flight. The contiguous grouped GEMM of a training step
 // (256 experts of 128 rows) does 256 operations a weight byte: the experts'
-// weights bound it, so each expert's weights stream from HBM once.
+// weights bound it, so each expert's weights stream from HBM once. The forms
+// on bf16 products run at the bf16 rate (half of e4m3's); widening e4m3 to
+// bf16 costs each 128 x 128 tile a stage as many shared-memory bytes as the
+// wgmma's own reads of B, so the widening, not the tensor cores, bounds
+// them (PERF.md, section 7).
 //
 // Design:
 //   * A persistent grid of at most one block an SM walks the work items
@@ -62,6 +69,15 @@
 //     so the swizzle carries over), fence the writes into the async proxy
 //     and meet at a barrier before the wgmma. With B's (1, 128) scales as
 //     per-column SFB this is bitwise the e4m3 kernel on the decoded codes.
+//   * The forms on bf16 products (widen_kernel; tiles of 128 x 128, 64 x
+//     128, or 64 x 64 where wider ones would leave SMs idle): 128 values of
+//     k a stage (one 128-byte box a row of e4m3, two of bf16); an e4m3 A
+//     widened exactly into wgmma's register operand (m64nNk16 with A from
+//     registers) by each consumer, an e4m3 B into one of two bf16 tiles by
+//     the consumers a stage ahead (each code's bits moved into a bf16, then
+//     one bf16x2 product by 2^120 times the scale, a second one where that
+//     would overflow: bf16(code * bf16(s)) rounded once, as JAX's 'dequant'
+//     rounds it).
 //   * MN-major B [G, k, n] (the contiguous NN form), loaded as it lies: bf16
 //     in [64 k x 64 n] boxes that wgmma reads through its transpose-B
 //     descriptor; e4m3 (wgmma takes 8-bit operands k-major only) in one
@@ -196,7 +212,7 @@ struct Plan {
     static_assert(kSub * (kScaled ? 2 : 1) * (kBN / 2) + 64 <= kConsumerRegs,
                   "the register sets of a consumer thread");
     static_assert(!kBMn || kKind == Kind::kContiguous, "MN-major B: the contiguous kernel");
-    static_assert(kScaled || is_contiguous<kKind>(), "bf16 operands: the contiguous kernels");
+    static_assert(kScaled || !is_k_grouped<kKind>(), "bf16 operands: dense or contiguous");
     static_assert(!kDual || (kBM == 256 && kBN == 64), "the dual-B item is 256 x 64");
     static_assert(kBForm != BForm::kPlanarFp4 || kKind == Kind::kDense, "planar FP4 B: dense");
 };
@@ -317,6 +333,17 @@ __device__ __forceinline__ void fence_operand(float& r) {
     asm volatile("" : "+f"(r) :: "memory");
 }
 
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_all(float (&r)[kN]) {
+    #pragma unroll
+    for (int i = 0; i < kN; ++i) fence_operand(r[i]);
+}
+
 #define DGT_D32 \
     "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
     "%8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -374,6 +401,26 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
                  : DGT_OUT32(d) : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
+// d[64 x N] (+)= a[64 x 16] . b[N x 16]^T, bf16; a from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), b k-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DGT_D64
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+                 : DGT_OUT64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DGT_D32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+                 : DGT_OUT32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 #undef DGT_D32
 #undef DGT_D64
 #undef DGT_OUT8
@@ -421,6 +468,81 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
         *reinterpret_cast<float2*>(dst) = make_float2(x, y);
     } else {
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+    }
+}
+
+// widen_kernel's epilogue of 64 rows of a tile (a consumer warpgroup's,
+// rows row0 on, columns n0 on): c added once to the finished sum, rounded to
+// OutT, staged in the warpgroup's swizzled tile and handed to TMA stores (or
+// stored by the warpgroup where map_d cannot hold the output), as
+// gemm_kernel's epilogue does (which keeps its own copy: the dense 'promote'
+// forms are held to their SASS). First the staging tile must be free: the
+// last TMA stores have read it, or this warpgroup's own stores are done. acc
+// is the m64nNk16 accumulator layout: rows rr and rr + 8, columns 8 j + q
+// and 8 j + q + 1.
+template <class OutT, int kBN>
+__device__ __forceinline__ void store_rows64(const float (&acc)[kBN / 2], const Args& p,
+                                             const CUtensorMap& map_d, uint8_t* stage_out,
+                                             int row0, int n0, int rr, int q, int tid, int wg) {
+    constexpr int kEpc = 16 / static_cast<int>(sizeof(OutT));     // outputs a 16-byte chunk
+    constexpr int kBoxCols = 128 / static_cast<int>(sizeof(OutT));
+    constexpr int kCpr = kBN / kEpc;                 // chunks a row
+    if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_barrier(2 + wg, 128);
+    #pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+        #pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int r = rr + 8 * hh, cl = 8 * j + q;
+            float x = acc[4 * j + 2 * hh], y = acc[4 * j + 2 * hh + 1];
+            if (p.c != nullptr) {
+                const int row = row0 + r, col = n0 + cl;
+                if (row < p.M && col < p.N) {
+                    const float2 cv = __ldg(reinterpret_cast<const float2*>(
+                        p.c + static_cast<int64_t>(row) * p.N + col));
+                    x = __fadd_rn(x, cv.x);
+                    y = __fadd_rn(y, cv.y);
+                }
+            }
+            const int byte = cl * static_cast<int>(sizeof(OutT));
+            store_pair(reinterpret_cast<OutT*>(stage_out + staging_offset(r, byte >> 4) +
+                                               (byte & 15)),
+                       x, y);
+        }
+    if (p.tma_store) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(2 + wg, 128);
+        if (tid == 0) {
+            #pragma unroll
+            for (int box = 0; box < kBN / kBoxCols; ++box)
+                tma_store_3d(&map_d, stage_out + box * 64 * 128, n0 + box * kBoxCols, row0, 0);
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+        return;
+    }
+    named_barrier(2 + wg, 128);
+    OutT* const dst = static_cast<OutT*>(p.d);
+    for (int i = tid; i < 64 * kCpr; i += 128) {
+        const int r = i / kCpr, ch = i % kCpr;
+        const int row = row0 + r, col = n0 + ch * kEpc;
+        if (row >= p.M || col >= p.N) continue;
+        const uint8_t* src = stage_out + staging_offset(r, ch);
+        OutT* out = dst + static_cast<int64_t>(row) * p.N + col;
+        if (col + kEpc <= p.N && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+            *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+        } else {
+            // a chunk off 16-byte alignment, or the ragged edge: pairs (N is even)
+            #pragma unroll
+            for (int e = 0; e < kEpc; e += 2) {
+                if (col + e >= p.N) break;
+                if constexpr (sizeof(OutT) == 2)
+                    *reinterpret_cast<uint32_t*>(out + e) =
+                        *reinterpret_cast<const uint32_t*>(src + 2 * e);
+                else
+                    *reinterpret_cast<uint2*>(out + e) =
+                        *reinterpret_cast<const uint2*>(src + 4 * e);
+            }
+        }
     }
 }
 
@@ -825,6 +947,352 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ---- the dense forms on bf16 products: e4m3 operands widened to bf16 ----
+
+// An operand of widen_kernel: e4m3 codes with f32 scales (widened to bf16
+// in the kernel) or bf16 values with none (a folded FP4 operand).
+enum class Operand { kE4m3, kBf16 };
+
+template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
+struct WidenPlan {
+    static constexpr bool kAE4m3 = kA == Operand::kE4m3;
+    static constexpr bool kBE4m3 = kB == Operand::kE4m3;
+    static constexpr int kWG = kBM / 64;                      // consumer warpgroups
+    static constexpr int kThreads = (kWG + 1) * 128;
+    // a stage is 128 values of k: a 128-byte box a row of e4m3, two of bf16
+    static constexpr int kABytes = (kAE4m3 ? 1 : 2) * kBM * kBK;
+    static constexpr int kBBytes = (kBE4m3 ? 1 : 2) * kBN * kBK;
+    static constexpr int kSfA = kAE4m3 ? kBM : 0;             // scales a stage
+    static constexpr int kSfB = kBE4m3 ? kBN : 0;
+    static constexpr int kStageBytes = kABytes + kBBytes + (kSfA + kSfB) * 4;
+    static constexpr int kWideTile = 2 * kBN * kBK;           // a widened bf16 B stage
+    static constexpr int kWidened = kBE4m3 ? 2 * kWideTile : 0;
+    static constexpr int kStagingWG = kBN * static_cast<int>(sizeof(OutT)) / 128 * 64 * 128;
+    static constexpr int kFixedBytes = 1024 + kWG * kStagingWG + kWidened;
+    static int smem_bytes(int stages) { return kFixedBytes + stages * (kStageBytes + 16); }
+    static_assert(kBN == 64 || kBN == 128, "tiles of 64 or 128 columns");
+    static_assert(kWG == 1 || kWG == 2, "64 or 128 rows");
+    static_assert(kAE4m3 || kBE4m3, "two bf16 operands: gemm_kernel's unscaled dense form");
+    static_assert(kDequant || !(kAE4m3 && kBE4m3), "e4m3 x e4m3 under 'promote': gemm_kernel");
+    // the accumulator, the partial under 'promote' and A's fragments of a
+    // stage, within the 168 registers a thread of a 384-thread block has
+    // (ptxas allots the consumers no more, setmaxnreg notwithstanding; the
+    // 128-row 'promote' instances spill a few)
+    static_assert((kDequant ? 1 : 2) * (kBN / 2) + 32 <= 168, "the registers of a consumer");
+};
+
+// An e4m3 code's bits moved into a bf16 (sign to bit 15, exponent and
+// mantissa to bits 4-10) are its value times 2^-120, zero and the subnormal
+// codes included (e4m3 and bf16 subnormals scale alike; the codes' NaN,
+// which the casts never write, becomes +-480).
+constexpr float kWidenUnit = 0x1p120f;
+
+// Two e4m3 codes, the bytes of the 8-byte {hi, lo} that selector sel picks
+// with their signs replicated, as bf16x2 bits (each the code times 2^-120).
+__device__ __forceinline__ uint32_t e4m3x2_bits(uint32_t lo, uint32_t hi, uint32_t sel) {
+    uint32_t v;
+    asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(v) : "r"(lo), "r"(hi), "r"(sel));
+    return (v << 4) & 0x87F087F0u;
+}
+
+// The selector of e4m3x2_bits for bytes i and i + 1 (0-6) of {hi, lo}.
+__host__ __device__ constexpr uint32_t pair_selector(int i) {
+    return i | (8 | i) << 4 | (i + 1) << 8 | (8 | (i + 1)) << 12;
+}
+
+// The bf16x2 multipliers c1, c2 that take codes' bits to bf16(code *
+// bf16(s)), as JAX's 'dequant' rounds them (dense.py:248-255): c1 = 2^120
+// bf16(s) and c2 = 1 where that is finite, else c1 = 2^120 and c2 =
+// bf16(s); either way the first product is exact and the last rounds once
+// to nearest even. Returns whether the second product (by c2) is needed.
+__device__ __forceinline__ bool widen_scale(float s, uint32_t& c1, uint32_t& c2) {
+    const float sb = __bfloat162float(__float2bfloat16_rn(s));
+    const bool small = fabsf(sb) < 256.f;
+    c1 = bf16x2_splat(small ? sb * kWidenUnit : kWidenUnit);
+    c2 = bf16x2_splat(small ? 1.f : sb);
+    return !small;
+}
+
+// An e4m3 B stage (kBN rows of 128 codes, 128-byte swizzled) widened into
+// the bf16 tile a k-major TMA load of bf16 B gives (two 128-byte swizzled
+// boxes of kBN rows, k 0-63 and 64-127), each row times its scale (kScaled:
+// sb, the stage's scales of B from column first's, one per 1 << shift rows)
+// or unscaled; half a row (64 codes, four 16-byte chunks: one scale) a
+// thread at a time.
+template <int kBN, bool kScaled>
+__device__ __forceinline__ void widen_b_stage(const uint8_t* raw, uint8_t* tile, const float* sb,
+                                              int n0, int shift, int first, int tid, int threads) {
+    const uint32_t unit = bf16x2_splat(kWidenUnit);
+    for (int u = tid; u < kBN * 2; u += threads) {
+        const int n = u >> 1, box = u & 1;
+        uint32_t c1 = unit, c2 = 0;
+        bool twice = false;
+        if constexpr (kScaled) twice = widen_scale(sb[((n0 + n) >> shift) - first], c1, c2);
+        const uint8_t* src = raw + n * 128;
+        uint8_t* dst = tile + box * kBN * 128 + n * 128;
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const uint4 w = *reinterpret_cast<const uint4*>(src + (((4 * box + j) ^ (n & 7)) << 4));
+            const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+            uint32_t o[8];
+            #pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                o[2 * i] = mul_bf16x2(e4m3x2_bits(in[i], 0, pair_selector(0)), c1);
+                o[2 * i + 1] = mul_bf16x2(e4m3x2_bits(in[i], 0, pair_selector(2)), c1);
+            }
+            if (twice) {
+                #pragma unroll
+                for (int i = 0; i < 8; ++i) o[i] = mul_bf16x2(o[i], c2);
+            }
+            // the chunk's 16 values are the box row's bf16 chunks 2 j and 2 j + 1
+            *reinterpret_cast<uint4*>(dst + (((2 * j) ^ (n & 7)) << 4)) =
+                make_uint4(o[0], o[1], o[2], o[3]);
+            *reinterpret_cast<uint4*>(dst + (((2 * j + 1) ^ (n & 7)) << 4)) =
+                make_uint4(o[4], o[5], o[6], o[7]);
+        }
+    }
+}
+
+// The dense kernel's forms on bf16 products (dense_dequant.cu): an e4m3
+// operand widened exactly to bf16 (times bf16 of its scale under
+// 'dequant'), a bf16 operand as it is, m64nNk16 wgmma into f32. A (64
+// rows a consumer warpgroup) is wgmma's register operand: each consumer
+// builds its fragments of a stage (widened from the e4m3 stage, or loaded
+// from the bf16 one). An e4m3 B is widened by the consumers, each its
+// share, a stage ahead into one of two bf16 tiles while the wgmma on the
+// other runs; they fence their writes into the async proxy and meet at a
+// barrier before the wgmma (the barrier also means that every wgmma of the
+// stage before, which read the other tile, has finished). A bf16 B is read
+// as TMA loads it. 'dequant' sums the whole depth in one f32 accumulator;
+// 'promote' (one e4m3 operand) sums each stage in a fresh partial and adds
+// it times the e4m3 side's scales with one FMA. The producer, the items and
+// the epilogue are gemm_kernel's dense ones.
+template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
+__global__ void __launch_bounds__((WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>::kThreads), 1)
+widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_d, const Args p) {
+    using P = WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>;
+    constexpr int kWG = P::kWG, kABytes = P::kABytes, kBBytes = P::kBBytes;
+    constexpr bool kAE4m3 = P::kAE4m3, kBE4m3 = P::kBE4m3;
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+
+    // carve: A and B stages, the staging tiles and the widened B tiles
+    // (1024-aligned for the swizzle), scales, barriers
+    const int S = p.num_stages;
+    uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    uint8_t* smem_a = base;
+    uint8_t* smem_b = smem_a + S * kABytes;
+    uint8_t* staging = smem_b + S * kBBytes;
+    uint8_t* widened = staging + kWG * P::kStagingWG;
+    float* sfa_s = reinterpret_cast<float*>(widened + P::kWidened);
+    float* sfb_s = sfa_s + S * P::kSfA;
+    uint64_t* full = reinterpret_cast<uint64_t*>(sfb_s + S * P::kSfB);
+    uint64_t* empty = full + S;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, kWG * 4);   // one arrival per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int tiles_m = (p.M + kBM - 1) / kBM;
+    const int tiles_n = (p.N + kBN - 1) / kBN;
+    const int num_items = tiles_m * tiles_n;
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+
+    if (wg == kWG) {
+        // ---- producer: one lane of the last warpgroup ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+        if (threadIdx.x % 128 != 0) return;
+        asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
+        asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+        int s = 0;
+        uint32_t phase = 0;
+        for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
+            const Item it = item_of<kBM, kBN, Kind::kDense>(p, nullptr, t, tiles_m, tiles_n);
+            const int sa_n = min(kBM, p.sfa_ld - it.m0);
+            const int sb_col = sfb_first(p, it.n0);
+            const int sb_n = min((((it.n0 + kBN - 1) >> p.sfb_shift) - sb_col + 4) & ~3,
+                                 p.sfb_ld - sb_col);
+            const uint32_t bytes = kABytes + kBBytes + (kAE4m3 ? 4 * sa_n : 0) +
+                                   (kBE4m3 ? 4 * sb_n : 0);
+            for (int kb = 0; kb < it.num_kb; ++kb) {
+                mbar_wait(empty + s, phase ^ 1);
+                mbar_arrive_expect_tx(full + s, bytes);
+                #pragma unroll
+                for (int box = 0; box < kABytes / (kBM * kBK); ++box)
+                    tma_load_2d(smem_a + s * kABytes + box * kBM * kBK, &map_a, full + s,
+                                (kb * kABytes / (kBM * kBK) + box) * kBK, it.m0);
+                #pragma unroll
+                for (int box = 0; box < kBBytes / (kBN * kBK); ++box)
+                    tma_load_2d(smem_b + s * kBBytes + box * kBN * kBK, &map_b, full + s,
+                                (kb * kBBytes / (kBN * kBK) + box) * kBK, it.n0);
+                if constexpr (kAE4m3)
+                    bulk_load(sfa_s + s * P::kSfA, p.sfa + static_cast<int64_t>(kb) * p.sfa_ld + it.m0,
+                              4 * sa_n, full + s);
+                if constexpr (kBE4m3)
+                    bulk_load(sfb_s + s * P::kSfB, p.sfb + static_cast<int64_t>(kb) * p.sfb_ld + sb_col,
+                              4 * sb_n, full + s);
+                if (++s == S) { s = 0; phase ^= 1; }
+            }
+        }
+        return;
+    }
+
+    // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128;
+    const int rr = (tid / 32) * 16 + lane / 4;       // its rows of the warpgroup's 64: rr, rr + 8
+    const int q = 2 * (lane % 4);                    // its columns: 8 j + q, 8 j + q + 1
+    const int ra = wg * 64 + rr;                     // its rows of A in a stage
+    const uint32_t sel = pair_selector(q);           // its codes of an 8-byte half chunk
+    uint8_t* const stage_out = staging + wg * P::kStagingWG;
+    constexpr int kJ = kBN / 8;
+
+    float acc[kBN / 2];
+    float part[kDequant ? 1 : kBN / 2];
+    int s = 0;
+    uint32_t phase = 0, rounds = 0;
+    for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
+        const Item it = item_of<kBM, kBN, Kind::kDense>(p, nullptr, t, tiles_m, tiles_n);
+        const int first = sfb_first(p, it.n0);
+        auto widen_b = [&](int st) {
+            widen_b_stage<kBN, kDequant>(smem_b + st * kBBytes, widened + (rounds & 1) * P::kWideTile,
+                                         sfb_s + st * P::kSfB, it.n0, p.sfb_shift, first,
+                                         threadIdx.x, kWG * 128);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        };
+        #pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+        if constexpr (kBE4m3) {
+            // the item's first B stage; each later one is widened while the
+            // wgmma of the one before runs
+            mbar_wait(full + s, phase);
+            widen_b(s);
+        }
+
+        for (int kb = 0; kb < it.num_kb; ++kb) {
+            mbar_wait(full + s, phase);
+            // A's fragments of the stage's eight k16 steps: rows ra and ra +
+            // 8, k 16 v + q, + 1 and 16 v + q + 8, + 9
+            const uint8_t* sa = smem_a + s * kABytes;
+            uint32_t af[8][4];
+            if constexpr (kAE4m3) {
+                uint32_t c1[2], c2[2];
+                bool twice = false;
+                if constexpr (kDequant) {
+                    twice = widen_scale(sfa_s[s * P::kSfA + ra], c1[0], c2[0]);
+                    twice |= widen_scale(sfa_s[s * P::kSfA + ra + 8], c1[1], c2[1]);
+                } else {
+                    c1[0] = c1[1] = bf16x2_splat(kWidenUnit);
+                }
+                const uint8_t* row = sa + ra * kBK;
+                #pragma unroll
+                for (int v = 0; v < 8; ++v) {
+                    const int off = (v ^ (ra & 7)) << 4;
+                    const uint4 x = *reinterpret_cast<const uint4*>(row + off);
+                    const uint4 y = *reinterpret_cast<const uint4*>(row + 8 * kBK + off);
+                    af[v][0] = mul_bf16x2(e4m3x2_bits(x.x, x.y, sel), c1[0]);
+                    af[v][1] = mul_bf16x2(e4m3x2_bits(y.x, y.y, sel), c1[1]);
+                    af[v][2] = mul_bf16x2(e4m3x2_bits(x.z, x.w, sel), c1[0]);
+                    af[v][3] = mul_bf16x2(e4m3x2_bits(y.z, y.w, sel), c1[1]);
+                }
+                if (twice) {
+                    // a scale of 2^8 or more (c2 is 1 on the other row)
+                    #pragma unroll
+                    for (int v = 0; v < 8; ++v)
+                        #pragma unroll
+                        for (int e = 0; e < 4; ++e) af[v][e] = mul_bf16x2(af[v][e], c2[e & 1]);
+                }
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 8; ++v)
+                    #pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        af[v][e] = *reinterpret_cast<const uint32_t*>(
+                            sa + (v >> 2) * kBM * kBK + (ra + 8 * (e & 1)) * kBK +
+                            (((2 * (v & 3) + (e >> 1)) ^ (ra & 7)) << 4) + 2 * q);
+            }
+            const uint8_t* b_tile = smem_b + s * kBBytes;
+            if constexpr (kBE4m3) {
+                // every consumer's share of this round's tile is written
+                named_barrier(1, kWG * 128);
+                b_tile = widened + (rounds & 1) * P::kWideTile;
+            }
+            ++rounds;
+
+            // step v reads box v / 4 of the B tile, +32 bytes a step inside it
+            auto mma = [&](float (&d)[kBN / 2]) {
+                fence_all(d);
+                asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+                const uint64_t db = smem_desc(b_tile);
+                #pragma unroll
+                for (int v = 0; v < 8; ++v)
+                    wgmma_bf16_rs(d, af[v], db + (((v >> 2) * kBN * kBK + (v & 3) * 32) >> 4),
+                                  kDequant || v > 0);
+                asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+                fence_all(d);
+            };
+            if constexpr (kDequant) mma(acc);
+            else mma(part);
+            if constexpr (kBE4m3) {
+                // the next stage into the other tile, under the wgmma
+                if (kb + 1 < it.num_kb) {
+                    const int s1 = s + 1 == S ? 0 : s + 1;
+                    mbar_wait(full + s1, s + 1 == S ? phase ^ 1 : phase);
+                    widen_b(s1);
+                }
+            }
+            wgmma_wait<0>();
+            // after the wait: no read of the sums moves above it, and A's
+            // registers, which the wgmma reads until it completes, stay
+            // untouched until here
+            if constexpr (kDequant) fence_all(acc);
+            else fence_all(part);
+            #pragma unroll
+            for (int v = 0; v < 8; ++v)
+                #pragma unroll
+                for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(af[v][e]) :: "memory");
+
+            if constexpr (!kDequant) {
+                if constexpr (kAE4m3) {
+                    // acc += p * sfa[row]
+                    const float s0 = sfa_s[s * P::kSfA + ra], s8 = sfa_s[s * P::kSfA + ra + 8];
+                    #pragma unroll
+                    for (int j = 0; j < kJ; ++j) {
+                        acc[4 * j] = fmaf(part[4 * j], s0, acc[4 * j]);
+                        acc[4 * j + 1] = fmaf(part[4 * j + 1], s0, acc[4 * j + 1]);
+                        acc[4 * j + 2] = fmaf(part[4 * j + 2], s8, acc[4 * j + 2]);
+                        acc[4 * j + 3] = fmaf(part[4 * j + 3], s8, acc[4 * j + 3]);
+                    }
+                } else {
+                    // acc += p * sfb[col]
+                    const float* sb = sfb_s + s * P::kSfB;
+                    #pragma unroll
+                    for (int j = 0; j < kJ; ++j) {
+                        const int col = it.n0 + 8 * j + q;
+                        const float b0 = sb[(col >> p.sfb_shift) - first];
+                        const float b1 = sb[((col + 1) >> p.sfb_shift) - first];
+                        acc[4 * j] = fmaf(part[4 * j], b0, acc[4 * j]);
+                        acc[4 * j + 1] = fmaf(part[4 * j + 1], b1, acc[4 * j + 1]);
+                        acc[4 * j + 2] = fmaf(part[4 * j + 2], b0, acc[4 * j + 2]);
+                        acc[4 * j + 3] = fmaf(part[4 * j + 3], b1, acc[4 * j + 3]);
+                    }
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + s);
+            if (++s == S) { s = 0; phase ^= 1; }
+        }
+        store_rows64<OutT, kBN>(acc, p, map_d, stage_out, it.m0 + wg * 64, it.n0, rr, q, tid, wg);
+    }
+    if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Scales k-first, as the producer copies them: sfa [m, ksf] -> sfa_k [ksf,
 // sfa_ld] and, for each of `groups` problems, sfb [nsf, ksf] -> sfb_k [ksf,
 // sfb_ld], zero in the pad columns; one thread an output element.
@@ -932,9 +1400,24 @@ inline bool make_out_map(CUtensorMap* map, void* d, uint64_t n, uint64_t m, uint
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// static: internal linkage, so each library keeps its own opt-in flags (a
+// The kernel's shared memory opted in to the block limit, once a device.
+// static: internal linkage, so each library keeps its own flags (a
 // function-local static of an inline template is one object across every
 // library the process loads that instantiates it).
+template <auto kKernel>
+static inline cudaError_t opt_in() {
+    static bool opted_in[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64 || !opted_in[dev]) {
+        err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+        if (err != cudaSuccess) return err;
+        if (dev < 64) opted_in[dev] = true;
+    }
+    return cudaSuccess;
+}
+
 template <int kBM, int kBN, class OutT, Kind kKind, BForm kBForm, bool kBMn = false>
 static inline cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                  const CUtensorMap& map_d, const Args& p, int num_sms,
@@ -942,17 +1425,9 @@ static inline cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& ma
     using P = Plan<kBM, kBN, OutT, kKind, kBForm, kBMn>;
     const int smem = P::smem_bytes(p.num_stages, is_k_grouped<kKind>() ? p.num_groups : 0);
     if (p.num_stages < 2 || smem > kSmemLimit) return cudaErrorInvalidValue;
-    auto kernel = gemm_kernel<kBM, kBN, OutT, kKind, kBForm, kBMn>;
-    // the instance's shared memory, opted in once a device
-    static bool opted_in[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    constexpr auto kernel = gemm_kernel<kBM, kBN, OutT, kKind, kBForm, kBMn>;
+    const cudaError_t err = opt_in<kernel>();
     if (err != cudaSuccess) return err;
-    if (dev >= 64 || !opted_in[dev]) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-        if (err != cudaSuccess) return err;
-        if (dev < 64) opted_in[dev] = true;
-    }
     const long long items = static_cast<long long>((p.M + kBM - 1) / kBM) *
                             ((p.N + kBN - 1) / kBN) * (is_contiguous<kKind>() ? 1 : p.num_groups);
     const int grid = static_cast<int>(items < num_sms ? items : num_sms);
@@ -978,6 +1453,47 @@ inline cudaError_t launch_any(const CUtensorMap& map_a, const CUtensorMap& map_b
             ? launch<64, kDenseBN, float, kKind, kBForm>(map_a, map_b, map_d, p, num_sms, stream)
             : launch<64, kDenseBN, __nv_bfloat16, kKind, kBForm>(map_a, map_b, map_d, p,
                                                                  num_sms, stream);
+    return cudaErrorInvalidValue;
+}
+
+// A widen_kernel instance: tiles of block_m x block_n (128 x 128, 64 x 128
+// or 64 x 64), the output type, the output's tensor map where its rows
+// allow one.
+template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
+static inline cudaError_t launch_widen(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                       const CUtensorMap& map_d, const Args& p, int num_sms,
+                                       cudaStream_t stream) {
+    using P = WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>;
+    const int smem = P::smem_bytes(p.num_stages);
+    if (p.num_stages < 2 || smem > kSmemLimit) return cudaErrorInvalidValue;
+    constexpr auto kernel = widen_kernel<kBM, kBN, OutT, kA, kB, kDequant>;
+    const cudaError_t err = opt_in<kernel>();
+    if (err != cudaSuccess) return err;
+    const long long items = static_cast<long long>((p.M + kBM - 1) / kBM) *
+                            ((p.N + kBN - 1) / kBN);
+    const int grid = static_cast<int>(items < num_sms ? items : num_sms);
+    if (grid == 0) return cudaSuccess;
+    kernel<<<grid, P::kThreads, smem, stream>>>(map_a, map_b, map_d, p);
+    return cudaGetLastError();
+}
+
+template <Operand kA, Operand kB, bool kDequant>
+inline cudaError_t launch_widen_any(const CUtensorMap& map_a, const CUtensorMap& map_b, Args p,
+                                    int block_m, int block_n, int out_f32, int num_sms,
+                                    cudaStream_t stream) {
+    CUtensorMap map_d = {};
+    p.tma_store = make_out_map(&map_d, p.d, p.N, p.M, 1, out_f32) ? 1 : 0;
+    using Bf16 = __nv_bfloat16;
+    auto go = [&](auto kernel_of) { return kernel_of(map_a, map_b, map_d, p, num_sms, stream); };
+    if (block_m == 128 && block_n == 128)
+        return out_f32 ? go(launch_widen<128, 128, float, kA, kB, kDequant>)
+                       : go(launch_widen<128, 128, Bf16, kA, kB, kDequant>);
+    if (block_m == 64 && block_n == 128)
+        return out_f32 ? go(launch_widen<64, 128, float, kA, kB, kDequant>)
+                       : go(launch_widen<64, 128, Bf16, kA, kB, kDequant>);
+    if (block_m == 64 && block_n == 64)
+        return out_f32 ? go(launch_widen<64, 64, float, kA, kB, kDequant>)
+                       : go(launch_widen<64, 64, Bf16, kA, kB, kDequant>);
     return cudaErrorInvalidValue;
 }
 

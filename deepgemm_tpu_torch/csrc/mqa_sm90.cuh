@@ -187,40 +187,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t lo) {
     return (static_cast<uint64_t>(0x40000040u) << 32) | lo;
 }
 
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
-}
-
-#define DGT_MQA_D64 \
-    "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
-    "%8, %9, %10, %11, %12, %13, %14, %15, " \
-    "%16, %17, %18, %19, %20, %21, %22, %23, " \
-    "%24, %25, %26, %27, %28, %29, %30, %31, " \
-    "%32, %33, %34, %35, %36, %37, %38, %39, " \
-    "%40, %41, %42, %43, %44, %45, %46, %47, " \
-    "%48, %49, %50, %51, %52, %53, %54, %55, " \
-    "%56, %57, %58, %59, %60, %61, %62, %63" \
-    "}"
-#define DGT_MQA_OUT8(d, o) \
-    "+f"(d[(o)]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]), \
-    "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
-
-// d[64 x 128] (+)= a[64 x 16] . b[128 x 16]^T, bf16; a from registers (the
-// m16n8k16 A fragment of each warp's 16 rows), b k-major in shared memory.
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DGT_MQA_D64
-                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-                 : DGT_MQA_OUT8(d, 0), DGT_MQA_OUT8(d, 8), DGT_MQA_OUT8(d, 16),
-                   DGT_MQA_OUT8(d, 24), DGT_MQA_OUT8(d, 32), DGT_MQA_OUT8(d, 40),
-                   DGT_MQA_OUT8(d, 48), DGT_MQA_OUT8(d, 56)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-#undef DGT_MQA_D64
-#undef DGT_MQA_OUT8
+using sm90::wgmma_bf16_rs;   // d[64 x 128] (+)= a (registers) . b (shared memory)^T, bf16
+using sm90::wgmma_wait;      // until at most kPending wgmma groups are in flight
 
 // kHp: a query's columns (h rounded up to a power of two, at least 8); N is
 // 128 (kHp <= 128) or two n128 halves (kHp 256: one query).

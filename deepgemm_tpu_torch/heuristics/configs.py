@@ -1,27 +1,25 @@
 """Tile choice for the port's GEMM kernels, in the role of
 deepgemm_tpu/heuristics/configs.py:get_gemm_config: :func:`get_sm90_config`
-for the Hopper mainloop (csrc/gemm_sm90.cuh: the dense e4m3 'promote' forms,
-the FP8 k-grouped kernel and every form of the contiguous grouped kernel),
+for the Hopper mainloop (csrc/gemm_sm90.cuh: every dense form, the FP8
+k-grouped kernel and every form of the contiguous grouped kernel),
 :func:`get_gemm_config` for the mma.sync mainloop (csrc/gemm_mainloop.cuh:
-the masked kernel, the dense 'dequant' and bf16-operand forms, the bf16
-k-grouped kernel).
+the masked kernel, the bf16 k-grouped kernel).
 
 The mma.sync mainloop:
 
 The kernel's block is 64 rows by ``block_n`` columns, 128 k elements a stage
-(64 for bf16 x bf16), 4 stages. Two widths are built: 128 (the default, half the shared
-memory traffic per output) and 64, taken when the 128-wide grid would leave
-SMs idle (fewer blocks than two waves of SMs can hold). Every layout uses
-the same rule on its own grid: the dense and masked kernels one problem per
-group, the k-grouped kernel one [m, n] output per group.
+(64 for bf16), 4 stages. Two widths are built: 128 (the default, half the
+shared memory traffic per output) and 64, taken when the 128-wide grid would
+leave SMs idle (fewer blocks than two waves of SMs can hold). Every layout
+uses the same rule on its own grid: the masked kernel one problem per group,
+the k-grouped kernel one [m, n] output per group.
 
 :func:`smem_bytes` is the shared memory of an instance as
-csrc/gemm_mainloop.cuh plans it (``SmemPlan``); the wrappers check it
-against a block's 227 KiB before they launch."""
+csrc/gemm_mainloop.cuh plans it (``SmemPlan``)."""
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 from ..utils.math import ceil_div
 from .arch import H100_SXM
@@ -32,25 +30,10 @@ STAGES = 4
 BLOCK_N_CHOICES = (128, 64)
 
 
-def smem_bytes(block_m: int, block_n: int, elem_a: int = 1, elem_b: int = 1,
-               a_mn: bool = False, b_mn: bool = False) -> int:
-    """Shared memory of one kernel instance: ``elem_a`` / ``elem_b`` bytes
-    per element (1 e4m3 or planar FP4, 2 bf16), ``a_mn`` / ``b_mn`` an
-    MN-major operand (its stages raw, plus one transposed k-major stage).
-    A stage holds 128 k elements, 64 for bf16 x bf16."""
-    ke = 64 if elem_a == 2 and elem_b == 2 else 128
-    pitch_a, pitch_b = ke * elem_a + 16, ke * elem_b + 16
-    stage_a = ke * (block_m * elem_a + 16) if a_mn else block_m * pitch_a
-    stage_b = ke * (block_n * elem_b + 16) if b_mn else block_n * pitch_b
-    return (STAGES * (stage_a + stage_b) + (block_m * pitch_a if a_mn else 0)
-            + (block_n * pitch_b if b_mn else 0))
-
-
-def check_smem(nbytes: int, what: str):
-    """Raise before a launch that a block's shared memory could not hold."""
-    if nbytes > H100_SXM.smem_per_block:
-        raise ValueError(f'{what}: {nbytes} bytes of shared memory, a block may use '
-                         f'{H100_SXM.smem_per_block}')
+def smem_bytes(block_m: int, block_n: int) -> int:
+    """Shared memory of one kernel instance: STAGES stages of 128-byte k
+    rows of A and B, each padded by 16 bytes."""
+    return STAGES * (block_m + block_n) * (BLOCK_K_BYTES + 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,11 +113,27 @@ def contiguous_block_m(mk_alignment: int) -> int:
     return 128 if mk_alignment % 128 == 0 else 64
 
 
+def widen_smem_bytes(block_m: int, num_stages: int, out_bytes: int, elem_a: int,
+                     elem_b: int, block_n: int = SM90_BLOCK_N) -> int:
+    """Shared memory of a widening instance of the Hopper mainloop (the
+    dense forms on bf16 products, csrc/gemm_sm90.cuh ``WidenPlan``), operands
+    of ``elem_a`` / ``elem_b`` bytes (1 e4m3, 2 bf16): 1024 bytes of slack,
+    the epilogue's staging tiles, two widened bf16 tiles of B where B is
+    e4m3, then per stage 128 values of k of A and B (one 128-byte box a row
+    for e4m3, two for bf16), the e4m3 sides' scales and two barriers."""
+    staging = block_m * block_n * out_bytes
+    widened = 2 * 2 * block_n * SM90_BLOCK_K if elem_b == 1 else 0
+    scales = (block_m if elem_a == 1 else 0) + (block_n if elem_b == 1 else 0)
+    stage = (elem_a * block_m + elem_b * block_n) * SM90_BLOCK_K + 4 * scales + 16
+    return 1024 + staging + widened + num_stages * stage
+
+
 @functools.lru_cache(maxsize=1024)
 def get_sm90_config(m: int, n: int, num_groups: int = 1, out_bytes: int = 2,
                     num_sms: int = H100_SXM.num_sms, k_grouped: bool = False,
                     contiguous: Optional[str] = None, elem: int = 1,
-                    mk_alignment: int = 128) -> Sm90Config:
+                    mk_alignment: int = 128,
+                    widen: Optional[Tuple[int, int]] = None) -> Sm90Config:
     """The Hopper mainloop's tile for ``num_groups`` problems of [m, n]
     (dense: 1; k-grouped: G, with its per-group table) with an output of
     ``out_bytes`` (2 bf16, 4 f32): 128 rows (two consumer warpgroups)
@@ -144,6 +143,10 @@ def get_sm90_config(m: int, n: int, num_groups: int = 1, out_bytes: int = 2,
     over the m rows of all ``num_groups`` groups, operands of ``elem`` bytes
     (1 e4m3, 2 bf16): :func:`contiguous_block_m` rows for the mk alignment
     ('dual': the 256 x 64 tile), one work item a tile whatever the group.
+    ``widen`` (elem_a, elem_b) is the dense widening kernel
+    (:func:`widen_smem_bytes`), whose 64-row tiles are 64 columns wide where
+    128-wide ones would leave SMs idle; ``elem`` 2 alone the dense bf16 x
+    bf16 form.
 
     As many stages as the shared memory left beside the fixed parts holds,
     at most SM90_MAX_STAGES (contiguous: CONTIGUOUS_MAX_STAGES); one block
@@ -159,10 +162,13 @@ def get_sm90_config(m: int, n: int, num_groups: int = 1, out_bytes: int = 2,
         1 if contiguous else num_groups)
     if contiguous is None:
         block_m = 64 if m <= 64 or items(128) < num_sms else 128
+    if widen and block_m == 64 and items(64) < num_sms:
+        block_n = 64
     table = num_groups if k_grouped else 0
-    smem = lambda stages: sm90_smem_bytes(block_m, stages, out_bytes, table, block_n, b_tiles,
-                                          scaled=elem == 1,
-                                          transposed_b=contiguous == 'nn' and elem == 1)
+    smem = lambda stages: (
+        widen_smem_bytes(block_m, stages, out_bytes, *widen, block_n) if widen else
+        sm90_smem_bytes(block_m, stages, out_bytes, table, block_n, b_tiles, scaled=elem == 1,
+                        transposed_b=contiguous == 'nn' and elem == 1))
     smem_limit = H100_SXM.smem_per_block
     stages = SM90_MAX_STAGES if contiguous is None else CONTIGUOUS_MAX_STAGES
     while stages > 2 and smem(stages) > smem_limit:

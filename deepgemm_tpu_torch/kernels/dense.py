@@ -15,20 +15,21 @@ at dense.py:291), with kernels/common.py:promote_block:
     granularity of 32 or 64, folded into bf16 by the op layer, as JAX folds
     it), or two of them;
   * a bf16 or an f32 output.
-Kernels: csrc/dense.cu (e4m3 under 'promote', planar FP4 B) on the Hopper
-mainloop of csrc/gemm_sm90.cuh (wgmma + TMA, warp-specialised, persistent),
-and csrc/dense_dequant.cu (the bf16 MMA: 'dequant', the bf16 operands) on the
-mma.sync mainloop of csrc/gemm_mainloop.cuh.
+Kernels, both on the Hopper mainloop of csrc/gemm_sm90.cuh (wgmma + TMA,
+warp-specialised, persistent): csrc/dense.cu (e4m3 under 'promote', planar
+FP4 B) and csrc/dense_dequant.cu (the forms on bf16 products: 'dequant', the
+bf16 operands).
 Bound on the H100: a 4096^3 product does 2*4096^3 operations on 32 MiB of
 fp8 input, ~2000 operations a byte, so the fp8 tensor-core rate bounds it
-(the bf16 MMA forms: the bf16 rate); at m = 128 the weights' bytes weigh as
-much. The e4m3 'promote' kernel streams 128-deep k blocks by TMA into
-wgmma, promotes each block's f32 partial with its scales in registers, and
-takes an MN-major operand as a k-major copy made here (wgmma reads e4m3
-k-major only), so every layout is bitwise the NT kernel on transposed
-copies, and the scales k-first (a row per block, copied in bulk a stage;
-the C entry lays them out in a pre-pass); the 'dequant' body transposes
-MN-major stages in shared memory.
+(the forms on bf16 products: the bf16 rate); at m = 128 the weights' bytes
+weigh as much. The kernels stream 128-deep k blocks by TMA into wgmma: the
+e4m3 'promote' kernel promotes each block's f32 partial with its scales in
+registers; the bf16-product kernel widens an e4m3 A into wgmma's register
+operand and an e4m3 B into a bf16 tile in shared memory, each times its
+scale under 'dequant'. An MN-major e4m3 operand is a k-major copy made here
+(wgmma reads e4m3 k-major only), so every layout is bitwise the NT kernel on
+transposed copies; the scales go k-first (a row per block, copied in bulk a
+stage; the C entries lay them out in a pre-pass).
 """
 
 import ctypes
@@ -36,8 +37,7 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import (BLOCK_M, check_smem, get_gemm_config, get_sm90_config,
-                                  smem_bytes)
+from ..heuristics.configs import get_sm90_config
 from ..runtime import build
 from ..runtime.config import get_num_sms
 from ..utils.math import _dequantize_from_fp4_e2m1, align, ceil_div, unpack_fp4_planar
@@ -65,7 +65,7 @@ def _fp8_entry():
 def _bf16_mma_entry():
     fn = build.load('dense_dequant').dgt_dense_gemm_bf16_mma
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -160,9 +160,8 @@ def dense_gemm(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor] = N
     scales (``sfa`` [m, ceil(k/128)], ``sfb`` [ceil(n/gran_n), ceil(k/128)])
     or bf16 with none (a folded FP4 operand: unit scales). ``strategy``
     'promote' or 'dequant' (see the module notes); two bf16 operands are
-    unscaled. ``c`` [m, n] f32 or None. An MN-major operand is e4m3 (or both
-    are, under 'dequant') and its rows are whole 16-byte chunks (m or
-    n % 16 == 0).
+    unscaled. ``c`` [m, n] f32 or None. An MN-major operand is e4m3 and its
+    rows are whole 16-byte chunks (m or n % 16 == 0).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -210,27 +209,27 @@ def dense_gemm(a: torch.Tensor, b: torch.Tensor, sfa: Optional[torch.Tensor] = N
     out_f32 = int(out_dtype == torch.float32)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     num_sms = get_num_sms(a.device)
+    a_k, b_k = _k_major_e4m3(a, a_mn), _k_major_e4m3(b, b_mn)
+    # the scales' k-first copies, which the entries write in a pre-pass
+    sfa_ld = 0 if sfa is None else align(m, 4)
+    sfb_ld = 0 if sfb is None else align(sfb.shape[0], 4)
+    scratch = torch.empty(ksf * (sfa_ld + sfb_ld), dtype=torch.float32, device=a.device)
+    ptrs = (a_k.data_ptr(), b_k.data_ptr(), None if sfa is None else sfa.data_ptr(),
+            None if sfb is None else sfb.data_ptr(), scratch.data_ptr(),
+            None if c is None else c.data_ptr(), d.data_ptr())
     if not (a_bf16 or b_bf16) and strategy == 'promote':
         lib = 'dense'
-        a_k, b_k = _k_major_e4m3(a, a_mn), _k_major_e4m3(b, b_mn)
-        # the scales' k-first copies, which the entry writes in a pre-pass
-        sfa_ld, sfb_ld = align(m, 4), align(sfb.shape[0], 4)
-        scratch = torch.empty(ksf * (sfa_ld + sfb_ld), dtype=torch.float32, device=a.device)
         cfg = get_sm90_config(m, n, 1, out_dtype.itemsize, num_sms=num_sms)
-        code = _fp8_entry()(a_k.data_ptr(), b_k.data_ptr(), sfa.data_ptr(), sfb.data_ptr(),
-                            scratch.data_ptr(), None if c is None else c.data_ptr(), d.data_ptr(),
-                            m, n, k, sfa_ld, sfb_ld, shift, cfg.block_m, cfg.num_stages,
+        code = _fp8_entry()(*ptrs, m, n, k, sfa_ld, sfb_ld, shift, cfg.block_m, cfg.num_stages,
                             cfg.num_sms, out_f32, int(fp4_b), stream)
     else:
         lib = 'dense_dequant'
-        cfg = get_gemm_config(m, n, 1, num_sms=num_sms)
-        check_smem(smem_bytes(BLOCK_M, cfg.block_n, elem_a, elem_b, a_mn, b_mn), 'dense_gemm')
-        ptrs = (a.data_ptr(), b.data_ptr(), None if sfa is None else sfa.data_ptr(),
-                None if sfb is None else sfb.data_ptr(), None if c is None else c.data_ptr(),
-                d.data_ptr())
-        code = _bf16_mma_entry()(*ptrs, m, n, k, shift, cfg.block_n, out_f32, int(a_mn),
-                                 int(b_mn), int(a_bf16), int(b_bf16),
-                                 int(strategy == 'dequant'), stream)
+        # two bf16 operands: the dense kernel's unscaled form; else widened
+        kind = dict(elem=2) if a_bf16 and b_bf16 else dict(widen=(elem_a, elem_b))
+        cfg = get_sm90_config(m, n, 1, out_dtype.itemsize, num_sms=num_sms, **kind)
+        code = _bf16_mma_entry()(*ptrs, m, n, k, sfa_ld, sfb_ld, shift, cfg.block_m,
+                                 cfg.block_n, cfg.num_stages, cfg.num_sms, out_f32, int(a_bf16),
+                                 int(b_bf16), int(strategy == 'dequant'), stream)
     build.check(build.load(lib), code, 'dense_gemm')
     global launches
     launches += 1

@@ -1238,16 +1238,89 @@ def test_c_accumulation_on_the_card(gen, recipe):
     assert calc_diff(d32, ref) < 1e-5
 
 
-def test_dequant_kernel_matches_plain_and_promote(gen):
+@pytest.mark.parametrize('gran_n', [128, 1])
+@pytest.mark.parametrize('m,n,k', [(128, 256, 1024), (48, 264, 1104)])
+def test_dequant_kernel_matches_plain_and_promote(gen, m, n, k, gran_n):
     """'dequant' on power-of-two scales: against its plain version, and
     within 1e-5 of 'promote' on the same operands (other sums, not bits)."""
-    m, n, k = 128, 256, 1024
-    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, po2=True)
-    d = dense.dense_gemm(aq, bq, sfa, sfb, strategy='dequant')
-    ref = dense.dense_gemm_plain(aq, bq, sfa, sfb, strategy='dequant')
-    promote = dense.dense_gemm(aq, bq, sfa, sfb)
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, gran_n=gran_n, po2=True)
+    d = dense.dense_gemm(aq, bq, sfa, sfb, gran_n=gran_n, strategy='dequant')
+    ref = dense.dense_gemm_plain(aq, bq, sfa, sfb, gran_n=gran_n, strategy='dequant')
+    promote = dense.dense_gemm(aq, bq, sfa, sfb, gran_n=gran_n)
     torch.cuda.synchronize()
     assert calc_diff(d, ref) < 1e-5 and calc_diff(d, promote) < 1e-5
+
+
+# UE8M0 exponents at bf16's limits: 2^-127 and 2^-126 (widened values
+# subnormal or flushed), 2^-100, 2^100 and 2^127 (products past f32's range,
+# widened values past bf16's)
+EXTREME_EXPONENTS = (-127, -126, -120, -100, -27, 0, 27, 100, 120, 127)
+
+
+def _extreme_case(seed, m, k, device):
+    """e4m3 codes [m, k] (every finite code; a third of them subnormal) with
+    one power-of-two scale a 128-deep block from EXTREME_EXPONENTS, numpy
+    seeded."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, 256, size=(m, k)).astype(np.uint8)
+    codes[rng.rand(m, k) < 1 / 3] &= 0x87                 # exponent field 0: subnormal or zero
+    codes[(codes & 0x7F) == 0x7F] = 0x38                  # no NaN codes
+    exps = rng.choice(EXTREME_EXPONENTS, size=(m, k // 128)).astype(np.float32)
+    x = torch.from_numpy(codes).view(torch.float8_e4m3fn).to(device)
+    return x, torch.from_numpy(np.exp2(exps)).to(device)
+
+
+def _identity_e4m3(n, device):
+    """The e4m3 identity [n, n] (code 0x38 is 1.0)."""
+    return torch.eye(n, device=device).to(torch.float8_e4m3fn)
+
+
+def _subnormal(x):
+    return (x != 0) & (x.abs() < 2.0 ** -126)
+
+
+def _checkered(rows, cols, device):
+    """Scales 2^100 and 2^-100 in turns along rows and columns."""
+    i = torch.arange(rows, device=device)[:, None] + torch.arange(cols, device=device)
+    return torch.where(i % 2 == 0, 2.0 ** 100, 2.0 ** -100)
+
+
+@pytest.mark.parametrize('form', ['e4m3', 'mixed'])
+@pytest.mark.parametrize('gran_n', [1, 128])
+@pytest.mark.parametrize('side', ['a', 'b'])
+def test_dequant_extreme_ue8m0_scales_on_the_card(gen, side, gran_n, form):
+    """'dequant' at UE8M0 exponents near bf16's limits and on subnormal e4m3
+    codes: one operand (``side``) random codes with extreme scales, the other
+    the identity (e4m3 with scales 2^100 and 2^-100, or bf16 times 2^100:
+    'mixed'), so each output is one product: bitwise the plain version
+    wherever that is not an f32 subnormal (NaN where it is NaN: an infinite
+    widened value times the identity's zeros); where it is, the kernel's the
+    same or a flushed zero (the tensor cores' f32 products)."""
+    m = n = k = 256
+    x, sx = _extreme_case(1 + (side == 'b'), m, k, 'cuda')
+    eye = _identity_e4m3(k, 'cuda')
+    s_eye = _checkered(k, k // 128, 'cuda')
+    if form == 'mixed':
+        eye, s_eye = eye.to(torch.bfloat16) * 2.0 ** 100, None
+    if side == 'a':
+        a, sfa, b, sfb = x, sx, eye, s_eye
+    else:
+        a, sfa, b, sfb = eye, s_eye, x, sx
+    if gran_n == 128 and sfb is not None:
+        # one scale a 128 x 128 block (x's: subnormal widened codes, products
+        # past f32's range, flushed products; one at 2^120 or 2^127 would
+        # turn every output it meets to NaN)
+        sfb = (torch.tensor([[2.0 ** -127, 2.0 ** 100], [2.0 ** 27, 2.0 ** -120]], device='cuda')
+               if side == 'b' else sfb[::128].contiguous())
+    kw = dict(gran_n=gran_n, out_dtype=torch.float32, strategy='dequant')
+    d = dense.dense_gemm(a, b, sfa, sfb, **kw)
+    ref = dense.dense_gemm_plain(a, b, sfa, sfb, **kw)
+    torch.cuda.synchronize()
+    sub = _subnormal(ref)
+    torch.testing.assert_close(d[~sub] + 0, ref[~sub] + 0, rtol=0, atol=0, equal_nan=True)
+    assert ((d[sub] == ref[sub]) | (d[sub] == 0)).all()
+    assert torch.isinf(ref).any() and (ref == 0).any() and (torch.isfinite(ref) & (ref != 0)).any()
 
 
 def test_planar_fp4_b_in_the_kernel_is_bitwise_the_decoded_e4m3(gen):
@@ -1275,22 +1348,39 @@ def test_planar_fp4_b_in_the_kernel_is_bitwise_the_decoded_e4m3(gen):
     assert all(torch.equal(r, d) for r in routes)
 
 
+@pytest.mark.parametrize('sms', [None, 1])
+@pytest.mark.parametrize('m,n,k,gran_n', [(64, 192, 512, 128), (40, 200, 336, 1),
+                                           (130, 264, 1040, 128)])
 @pytest.mark.parametrize('strategy', ['promote', 'dequant'])
-@pytest.mark.parametrize('bf16_side', ['a', 'b', 'both'])
-def test_mixed_forms_match_plain(gen, strategy, bf16_side):
-    """An e4m3 operand beside a bf16 one (a folded FP4 operand at scale
-    granularity 32 or 64), or two bf16 operands, against the plain version."""
-    m, n, k = 64, 192, 512
-    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, po2=True)
+@pytest.mark.parametrize('bf16_side', ['none', 'a', 'b', 'both'])
+def test_mixed_forms_match_plain(gen, monkeypatch, strategy, bf16_side, m, n, k, gran_n, sms):
+    """Every form on bf16 products (csrc/dense_dequant.cu): e4m3 x e4m3
+    'dequant' (beside the 'promote' kernel), an e4m3 operand beside a bf16
+    one (a folded FP4 operand at scale granularity 32 or 64) under either
+    strategy, and two bf16 operands; at ragged shapes (m < 64, n past a
+    whole tile, a k tail shorter than a block), B's scales per 128 rows or
+    per row, with and without c, in both outputs: against the plain version,
+    one launch of its form each, a second launch bitwise the first. At these
+    shapes the tile chooser takes 64 x 64 tiles; told of one SM (``sms``) it
+    takes 64 x 128 and 128 x 128 ones, which one block then walks."""
+    if sms is not None:
+        monkeypatch.setattr(dense, 'get_num_sms', lambda device: sms)
+    aq, bq, sfa, sfb = _dense_case(gen, m, n, k, gran_n=gran_n, po2=True)
     a, b = _randn(gen, m, k), _randn(gen, n, k)
+    c = torch.randn((m, n), generator=gen, device='cuda') * 8
     a_op, sfa_op = (a, None) if bf16_side in ('a', 'both') else (aq, sfa)
     b_op, sfb_op = (b, None) if bf16_side in ('b', 'both') else (bq, sfb)
     for out in (torch.bfloat16, torch.float32):
-        kw = dict(out_dtype=out, strategy=strategy)
-        d = dense.dense_gemm(a_op, b_op, sfa_op, sfb_op, **kw)
-        ref = dense.dense_gemm_plain(a_op, b_op, sfa_op, sfb_op, **kw)
-        torch.cuda.synchronize()
-        assert calc_diff(d, ref) < 1e-5, out
+        for c_op in (None, c):
+            kw = dict(c=c_op, gran_n=gran_n, out_dtype=out, strategy=strategy)
+            dense.form_launches.clear()
+            d = dense.dense_gemm(a_op, b_op, sfa_op, sfb_op, **kw)
+            assert dense.form_launches == {dense.form_of(a_op, b_op, strategy=strategy, c=c_op): 1}
+            again = dense.dense_gemm(a_op, b_op, sfa_op, sfb_op, **kw)
+            ref = dense.dense_gemm_plain(a_op, b_op, sfa_op, sfb_op, **kw)
+            torch.cuda.synchronize()
+            assert calc_diff(d, ref) < 1e-5, (out, c_op is None)
+            assert torch.equal(d, again), (out, c_op is None)
 
 
 @pytest.mark.parametrize('gran', [32, 64])

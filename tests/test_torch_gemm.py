@@ -143,3 +143,92 @@ def test_fp8_fp4_gemm_nt_refuses_what_jax_refuses_or_the_port_lacks():
         dg.fp8_fp4_gemm_tn(a32, b_q)
     with pytest.raises(AssertionError, match='k-major'):
         dgt.fp8_fp4_gemm_tn(a32_t, b_t)
+
+
+# UE8M0 exponent bytes at bf16's limits: 2^-127 (an f32 subnormal), 2^-126,
+# 2^-120, 2^-100, 1, 2^27, 2^100, 2^120, 2^127
+_EXTREME_UE8M0 = (0, 1, 7, 27, 127, 154, 227, 247, 254)
+
+
+def _extreme_a(m, k, seed):
+    """e4m3 codes [m, k] (every finite code, a third of them subnormal or
+    zero) with one UE8M0 exponent byte a 128-deep block, numpy seeded; the
+    two that overflow bf16 (2^120 and 2^127: infinite widened values, which
+    turn a row's other outputs to NaN) only in every eighth row."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, 256, size=(m, k)).astype(np.uint8)
+    codes[rng.rand(m, k) < 1 / 3] &= 0x87
+    codes[(codes & 0x7F) == 0x7F] = 0x38                  # no NaN codes
+    exps = rng.choice(_EXTREME_UE8M0[:-2], size=(m, k // 128))
+    exps[::8] = rng.choice(_EXTREME_UE8M0, size=(len(exps[::8]), k // 128))
+    return codes, exps.astype(np.uint8)
+
+
+def _checkered_exps(rows, cols):
+    """Exponent bytes of 2^100 and 2^-100 in turns along rows and columns."""
+    i = np.arange(rows)[:, None] + np.arange(cols)
+    return np.where(i % 2 == 0, 227, 27).astype(np.uint8)
+
+
+def _subnormal(x):
+    return (x != 0) & (x.abs() < 2.0 ** -126)
+
+
+@pytest.mark.parametrize('form', ['dequant_1x1', 'dequant_128x128', 'mixed_dequant',
+                                  'mixed_promote'])
+def test_dequant_and_mixed_routes_match_jax_at_extreme_exponents(form):
+    """The 'dequant' route (packed UE8M0 scales) and the mixed routes (a
+    packed FP4 B at gran 32, folded to bf16, beside e4m3 A under 'dequant'
+    or 'promote') at UE8M0 exponents near bf16's limits and on subnormal
+    e4m3 codes, against JAX's fp8_gemm_nt / fp8_fp4_gemm_nt (its Pallas
+    kernel in interpret mode). B is the identity times 2^100 and 2^-100, so
+    each output is one product of A's values. Tolerance: bitwise (NaN where
+    JAX is NaN) wherever no f32 subnormal meets the computation; where one
+    does (a widened value, a 2^-127 scale, or the product), XLA on the CPU
+    flushes it to zero, so JAX's output is zero there and the port's is not
+    required to be."""
+    m, n = 64, 512
+    k = n
+    codes, a_exp = _extreme_a(m, k, seed=21)
+    a_fp8 = codes.view(ml_dtypes.float8_e4m3fn)
+    sfa_f32 = np.ldexp(np.float32(1), a_exp.astype(np.int32) - 127).astype(np.float32)
+    a_packed = np.ascontiguousarray(a_exp).view('<i4')            # 4 blocks a word along k
+    f32 = dict(d=jnp.zeros((), jnp.float32))
+    if form.startswith('dequant'):
+        gran_n = 1 if form == 'dequant_1x1' else 128
+        b_fp8 = np.eye(n, k, dtype=np.float32).astype(ml_dtypes.float8_e4m3fn)
+        b_exp = _checkered_exps(-(-n // gran_n), k // 128)
+        b_sf = np.ascontiguousarray(b_exp).view('<i4')
+        recipe = (1, gran_n, 128)
+        a_q, b_q = (a_fp8, a_packed), (b_fp8, b_sf)
+        d_jax = dg.fp8_gemm_nt(tuple(map(jnp.asarray, a_q)), tuple(map(jnp.asarray, b_q)),
+                               recipe=recipe, **f32)
+        d_port = dgt.fp8_gemm_nt(tuple(tensor_from_numpy(v, 'cpu') for v in a_q),
+                                 tuple(tensor_from_numpy(v, 'cpu') for v in b_q),
+                                 d=torch.float32, recipe=recipe)
+    else:
+        eye = np.eye(n, k, dtype=np.float32) * np.ldexp(
+            np.float32(1), np.where(np.arange(n) % 2 == 0, 100, -100))[:, None]
+        b4 = dg.per_token_cast_to_fp4(jnp.asarray(eye.astype(ml_dtypes.bfloat16)),
+                                      use_ue8m0=True, gran_k=32)
+        a_q = (a_fp8, a_packed if form == 'mixed_dequant' else sfa_f32)
+        kw = dict(recipe_a=(1, 128), recipe_b=(1, 32))
+        d_jax = dg.fp8_fp4_gemm_nt(tuple(map(jnp.asarray, a_q)), b4, **kw, **f32)
+        d_port = dgt.fp8_fp4_gemm_nt(tuple(tensor_from_numpy(v, 'cpu') for v in a_q),
+                                     tuple(tensor_from_numpy(np.asarray(v), 'cpu') for v in b4),
+                                     d=torch.float32, **kw)
+    d_jax = torch.from_numpy(np.array(d_jax, np.float32))
+    assert d_port.dtype == torch.float32 and d_port.shape == d_jax.shape == (m, n)
+    # each output's own value of A, widened ('dequant') or not, and its scale
+    a_val = torch.from_numpy(codes.view(ml_dtypes.float8_e4m3fn).astype(np.float32))[:, :n]
+    sfa = torch.from_numpy(np.repeat(sfa_f32, 128, axis=1))[:, :n]
+    widened = (a_val.to(torch.bfloat16) * sfa.to(torch.bfloat16)).float()
+    flushed = _subnormal(d_port) | (_subnormal(widened) if 'dequant' in form else _subnormal(sfa))
+    nan = torch.isnan(d_port)
+    assert torch.isnan(d_jax[nan]).all()
+    same = ~flushed & ~nan
+    assert torch.equal(d_port[same] + 0, d_jax[same] + 0)       # +0: -0 and 0 alike
+    assert (d_jax[flushed & ~nan] == 0).all()
+    # the edges were reached: infinities, zeros and exact finite products
+    assert torch.isinf(d_port).any() and (d_port[same] == 0).any() and flushed.any()
+    assert (torch.isfinite(d_port[same]) & (d_port[same] != 0)).sum() > m * n // 8

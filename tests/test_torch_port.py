@@ -9,7 +9,8 @@ import pytest
 import torch
 
 import deepgemm_tpu_torch as dgt
-from deepgemm_tpu_torch.heuristics.configs import get_gemm_config, get_sm90_config, sm90_smem_bytes
+from deepgemm_tpu_torch.heuristics.configs import (get_gemm_config, get_sm90_config,
+                                                   sm90_smem_bytes, widen_smem_bytes)
 from deepgemm_tpu_torch.kernels import common
 from deepgemm_tpu_torch.models import convert, transformer
 from deepgemm_tpu_torch.runtime import build
@@ -191,6 +192,33 @@ def test_einsum_hc_public_names():
                  'get_arch_major', 'get_device_core_count', 'test_filter'):
         assert callable(getattr(dgt.testing, name)), name
     assert 'hc_prenorm' in build.SOURCES
+
+
+# The dense forms on bf16 products (the widening kernel): (m, n, output
+# bytes, operand bytes a and b, rows, columns, stages). 128 x 128 tiles where
+# they fill the SMs; 64 rows, and then 64 columns, where they would not.
+_WIDEN_CASES = [
+    (4096, 4096, 2, 1, 1, 128, 128, 3),     # phase 10: 'dequant' at 4096 x 4096 x 7168
+    (4096, 4096, 4, 1, 1, 128, 128, 2),     # the same into f32 (two widened B tiles, f32 staging)
+    (4096, 4096, 2, 1, 2, 128, 128, 3),     # phase 10: FP4 at gran 32 (e4m3 x bf16)
+    (4096, 4096, 2, 2, 1, 128, 128, 2),     # bf16 x e4m3
+    (128, 4096, 2, 1, 1, 64, 64, 8),        # phase 10: 'dequant' at the decode shape
+    (256, 7168, 2, 1, 2, 64, 128, 5),       # 64-row tiles fill the SMs at 128 columns
+]
+
+
+@pytest.mark.parametrize('m,n,out_bytes,elem_a,elem_b,block_m,block_n,stages', _WIDEN_CASES)
+def test_widen_tile_chooser(m, n, out_bytes, elem_a, elem_b, block_m, block_n, stages):
+    """The widening kernel's tile and ring: as many stages as a block's
+    shared memory holds beside the staging tiles and the widened B tiles, at
+    most 8, and a persistent grid of at most one block an SM."""
+    cfg = get_sm90_config(m, n, 1, out_bytes, num_sms=132, widen=(elem_a, elem_b))
+    assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (block_m, block_n, stages)
+    smem = lambda st: widen_smem_bytes(block_m, st, out_bytes, elem_a, elem_b, block_n)
+    assert cfg.smem_bytes == smem(stages) <= 232448
+    if stages < 8:
+        assert smem(stages + 1) > 232448
+    assert cfg.num_sms == min(-(-m // block_m) * -(-n // block_n), 132)
 
 
 # What the port does not have of the JAX package's public names: the legacy
