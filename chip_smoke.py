@@ -7,15 +7,18 @@
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --mqa-variants
     python3 chip_smoke.py --widen-variants
+    python3 chip_smoke.py --masked-variants
 
 The second form builds and times only phase 3, the training step's
 dense, contiguous and k-grouped calls, phase 7's three MQA logits calls,
-the paged MQA entries at the decode shape and phase 10's dense forms on
-bf16 products ('dequant' at both recipes, FP4 B at gran 32; no plain
+the paged MQA entries at the decode shape, phase 10's dense forms on
+bf16 products ('dequant' at both recipes, FP4 B at gran 32) and planar FP4
+B at m 4096, and the masked kernel's calls (phase 4's decode L1 and L2,
+fp8 and bf16; phase 9's fp8_einsum and its f32 instance; no plain
 versions) of the deepgemm_tpu_torch under DIR, and prints them as one JSON
 line; the third runs only phase 11's
 main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
-with the device's idle share). Run either for two trees in one call
+with the device's idle share) and #12 alone at V3's L1. Run either for two trees in one call
 (parent, change, change, parent) to compare them. The fourth times the
 contiguous grouped kernel against copies of itself built with a part
 removed (the A loads, the B loads, the MMA, the stores, the NN form's
@@ -26,22 +29,26 @@ sum, with neither the head sum nor the stores, and with only the pipeline's
 barriers and loop left). The sixth does the same for the dense forms on
 bf16 products ('dequant' at both recipes and the FP4 gran 32 kernel, at
 4096 x 4096 x 7168: without B's widening, without A's widening math,
-without the wgmma).
+without the wgmma). The seventh does the same for the masked kernel's
+decode calls and fp8_einsum's call and for the fused dispatch + L1 at
+phase 11's shape (at each ring cap, and without the wgmma).
 
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
      and the ptxas report (registers, shared memory, spills) of the Hopper
-     mainloop's instances (csrc/gemm_sm90.cuh: the dense, k-grouped and
-     contiguous kernels), each library's count and spills on a line, the
-     dense forms on bf16 products (widen_kernel, dense_dequant), each named
-     with its registers and spills, then the MQA logits kernel's wgmma
+     mainloop's instances (csrc/gemm_sm90.cuh: the dense, k-grouped,
+     contiguous and masked kernels and the fused dispatch + L1), each
+     library's count and spills on a line, the dense forms on bf16 products
+     (widen_kernel, dense_dequant) and the masked and dispatch instances
+     (the same body, widen_body), each named with its registers and spills,
+     then the MQA logits kernel's wgmma
      instances (csrc/mqa_sm90.cuh), each named with its registers and
      spills (none may spill);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
-  4. the masked grouped kernel, bf16 and fp8, against its plain version at
+  4. the masked grouped kernel (the Hopper mainloop), bf16 and fp8, against its plain version at
      the model's expert-GEMM shapes (G=256, max_m=40: 4096x7168 and
      7168x2048), with full and with seeded random masked_m (valid rows);
   5. the serving path: the MoE transformer forward at DeepSeek-V3 widths
@@ -270,6 +277,12 @@ def phase_build():
             f'dense_dequant): {len(widen)} instances: ' +
             '; '.join(f'{name} registers {v["registers"]} spill stores {v["spill_stores"]} '
                       f'loads {v["spill_loads"]}' for name, v in sorted(widen.items())))
+    masked = masked_instances(reports)
+    if masked:
+        log(f'phase 2 masked kernel and fused dispatch + L1 (csrc/gemm_sm90.cuh widen_body, '
+            f'masked and mega_ep): {len(masked)} instances: ' +
+            '; '.join(f'{name} registers {v["registers"]} spill stores {v["spill_stores"]} '
+                      f'loads {v["spill_loads"]}' for name, v in sorted(masked.items())))
     MQA_INSTANCES.update(mqa_instances(reports))
     if MQA_INSTANCES:
         log(f'phase 2 MQA logits (csrc/mqa_sm90.cuh, wgmma + TMA): {len(MQA_INSTANCES)} instances: '
@@ -335,16 +348,39 @@ def widen_instances(reports):
     return found
 
 
+def masked_instances(reports):
+    """{instance: registers, spill bytes} of the masked kernel
+    (dgt::sm90::masked_kernel in masked) and the fused dispatch + L1
+    (dgt::ep::dispatch_gemm_kernel in mega_ep), from ptxas -v."""
+    import re
+    kinds = {'0': 'kE4m3', '1': 'kBf16'}
+    found = {}
+    for key, v in hopper_instances({lib: reports.get(lib, '')
+                                    for lib in ('masked', 'mega_ep')}).items():
+        masked = re.search(r'masked_kernelILi(\d+)E(13__nv_bfloat16|f)LN\w*?7OperandE(\d)E', key[1])
+        dispatch = re.search(r'dispatch_gemm_kernelILi(\d+)ELN\w*?7OperandE(\d)E', key[1])
+        if masked:
+            bm, out, kind = masked.groups()
+            found[f'masked_kernel<{bm}, {"f32" if out == "f" else "bf16"}, {kinds[kind]}>'] = v
+        elif dispatch:
+            bm, kind = dispatch.groups()
+            found[f'dispatch_gemm_kernel<{bm}, {kinds[kind]}>'] = v
+    return found
+
+
 def hopper_instances(reports):
     """{(library, kernel): registers, static smem, spill bytes} of the
-    Hopper mainloop's instances (dgt::sm90::gemm_kernel), from ptxas -v."""
+    Hopper mainloop's instances (dgt::sm90::gemm_kernel, widen_kernel and
+    masked_kernel, dgt::ep::dispatch_gemm_kernel), from ptxas -v."""
     import re
     found, current = {}, None
     for lib, text in reports.items():
         for line in text.splitlines():
             entry = re.search(r"entry function '(\w+)'", line)
             if entry:
-                hopper = any(k in entry.group(1) for k in ('sm9011gemm_kernel', 'sm9012widen_kernel'))
+                hopper = any(k in entry.group(1) for k in (
+                    'sm9011gemm_kernel', 'sm9012widen_kernel', 'sm9013masked_kernel',
+                    'ep20dispatch_gemm_kernel'))
                 current = (lib, entry.group(1)) if hopper else None
                 if current:
                     found[current] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
@@ -2669,6 +2705,16 @@ CONTIGUOUS_DESIGN = ('wgmma (e4m3 m64nNk32 with the f32 promotion, or bf16 m64nN
                      'TMA-fed 128-byte-swizzled stages over (row tile, column tile) items, the '
                      'group from tile_gid in device memory, B through a 3-D tensor map '
                      '(csrc/gemm_sm90.cuh)')
+MASKED_DESIGN = ('wgmma m64n128k16 on bf16 products (e4m3 widened exactly to bf16, A into the '
+                 'register operand, B into one of two bf16 tiles a stage ahead; each 128-deep '
+                 'block promoted as (p * sfb) * sfa) from TMA-fed 128-byte-swizzled stages (a '
+                 'ring of up to 3) over (group, row tile, column tile) items, an item at or past '
+                 'masked_m skipped before any load, 64-row tiles where max_m <= 64, else 128 '
+                 '(csrc/gemm_sm90.cuh widen_body)')
+DISPATCH_DESIGN = ('one-sided pushes into an expert-major receive region, then widen_body\'s '
+                   'masked items over each expert\'s D x cap received rows as one group (row '
+                   'tiles across slabs), (expert, column tile, row tile) items, the producer '
+                   'lane waiting for the slabs an item reads (csrc/mega_ep.cu)')
 MQA_DESIGN = ('wgmma (e4m3 m64n128k32, or bf16 m64n128k16) with kv rows on M and the query '
               'heads on N, 128-row kv stages by TMA, two consumer warpgroups in turns, ReLU, '
               'weights and the head sum in registers (csrc/mqa_sm90.cuh)')
@@ -3286,6 +3332,29 @@ def mesh_bench(mesh, fn, args, iters=5, warmup=1):
     return total / iters
 
 
+def kernel_device_ms(mesh, fn, args, name):
+    """One call of ``fn`` on every rank under torch.profiler: the device
+    time of each rank's kernel whose name holds ``name`` (a rank's includes
+    its wait for its peers, so the least is the call's), and the device time
+    of everything else the call ran, summed over the ranks. Returns (least,
+    most, other) in ms, or None without device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    mesh.map(lambda *a: fn(*a) is None, *args)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mesh.map(lambda *a: fn(*a) is None, *args)
+        torch.cuda.synchronize()
+    mine, other = [], 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if name in e.name:
+                mine.append(e.time_range.elapsed_us() / 1e3)
+            else:
+                other += e.time_range.elapsed_us() / 1e3
+    return (min(mine), max(mine), other) if mine else None
+
+
 def profile_mesh(fn, label, what):
     """One call of ``fn`` under torch.profiler, the ranks' streams running at
     once: wall time, the union of the device's busy intervals (kernels,
@@ -3381,6 +3450,56 @@ def ep_a2a(gen, arch):
     return result
 
 
+def dispatch_operands(w, gen):
+    """#12's operands at V3's L1 on the EP ranks (phase 11's shapes) for the
+    weights ``w`` [EP E_local, N, H]: (the call, a rank's send tokens,
+    ((kind, per-rank arguments), ...) for fp8 (e4m3 with per-token scales)
+    and bf16)."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    e_local, cap, hidden = EP_EXPERTS, EP_CAP, V3['hidden']
+    send = randn_bf16((EP, EP, e_local, cap, hidden), gen, 1.0)
+    sq, ssf = per_token_cast_to_fp8(send.view(-1, hidden), use_ue8m0=False)
+    sq, ssf = sq.view(send.shape), ssf.view(*send.shape[:-1], -1)
+    wq, wsf = quantize_experts(w)
+    cut = lambda t: [t[r * e_local:(r + 1) * e_local] for r in range(EP)]
+    call = lambda s, ssf_, ww, wwsf: fused_moe.fused_dispatch_gemm(s, ww, send_sf=ssf_, w_sf=wwsf)
+    return call, send[0], (('fp8', (list(sq), list(ssf), cut(wq), cut(wsf))),
+                           ('bf16', (list(send), [None] * EP, cut(w), [None] * EP)))
+
+
+def masked_operands(gen):
+    """The masked kernel's decode calls (phase 4's shapes, every row live):
+    for each of MASKED_SHAPES (label, [G, max_m, n, k], a, b, masked_m,
+    ((kind, operands, keywords), ...) for fp8 and bf16), made as it is
+    taken."""
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    for label, g, max_m, n, k in MASKED_SHAPES:
+        a = randn_bf16((g, max_m, k), gen, 1.0)
+        b = randn_bf16((g, n, k), gen, k ** -0.5)
+        full = torch.full((g,), max_m, dtype=torch.int32, device='cuda')
+        aq, asf = per_token_cast_to_fp8(a.view(-1, k), use_ue8m0=False)
+        aq, asf = aq.view(g, max_m, k), asf.view(g, max_m, -1)
+        bq, bsf = quantize_experts(b)
+        yield label, [g, max_m, n, k], a, b, full, (('fp8', (aq, bq), dict(sfa=asf, sfb=bsf)),
+                                                   ('bf16', (a, b), {}))
+        del a, b, aq, asf, bq, bsf
+        torch.cuda.empty_cache()
+
+
+def einsum_operands(gen):
+    """fp8_einsum bhr,hdr->bhd's call (phase 9's shapes): (x, w, the masked
+    kernel's a, b, masked_m and keywords)."""
+    from deepgemm_tpu_torch.utils.math import per_block_cast_to_fp8
+    tokens, h, r, dv = MLA_TOKENS, MLA_HEADS, MLA_RANK, MLA_DIM
+    x = randn_bf16((tokens, h, r), gen, 1.0)
+    w = randn_bf16((h, dv, r), gen, r ** -0.5)
+    x_q, w_q = cast_heads(x), per_block_cast_to_fp8(w, use_ue8m0=False)
+    a_t, sfa_t = (t.transpose(0, 1).contiguous() for t in x_q)
+    full = torch.full((h,), tokens, dtype=torch.int32, device='cuda')
+    return x, w, (a_t, w_q[0], full), dict(sfa=sfa_t, sfb=w_q[1])
+
+
 def ep_dispatch(mesh, w, gen, arch):
     """#12 at V3's L1 (N 4096, H 7168; 8 ranks of 32 experts, cap 40), e4m3
     with per-token scales and bf16: recv bitwise the all-to-all, out bitwise
@@ -3390,20 +3509,11 @@ def ep_dispatch(mesh, w, gen, arch):
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.parallel import dist
     from deepgemm_tpu_torch.testing import count_bytes
-    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
     e_local, cap, hidden = EP_EXPERTS, EP_CAP, V3['hidden']
     n = w.shape[1]
-    send = randn_bf16((EP, EP, e_local, cap, hidden), gen, 1.0)
-    sq, ssf = per_token_cast_to_fp8(send.view(-1, hidden), use_ue8m0=False)
-    sq, ssf = sq.view(send.shape), ssf.view(*send.shape[:-1], -1)
-    wq, wsf = quantize_experts(w)
-    cut = lambda t: [t[r * e_local:(r + 1) * e_local] for r in range(EP)]
+    call, send, cases = dispatch_operands(w, gen)
     out, launches = {}, {}
-    for kind, args in (('fp8', (list(sq), list(ssf), cut(wq), cut(wsf))),
-                       ('bf16', (list(send), [None] * EP, cut(w), [None] * EP))):
-        call = lambda s, ssf_, ww, wwsf: fused_moe.fused_dispatch_gemm(s, ww, send_sf=ssf_,
-                                                                       w_sf=wwsf)
-
+    for kind, args in cases:
         def checked(s, ssf_, ww, wwsf):
             got, recv = call(s, ssf_, ww, wwsf)
             want = dist.all_to_all(s, 'ep')
@@ -3433,25 +3543,27 @@ def ep_dispatch(mesh, w, gen, arch):
         require(max(diffs) < TOL, f'#12 {kind}: calc_diff {max(diffs)} against the plain version')
         del outs, plain
         ms = mesh_bench(mesh, call, args, iters=3)
+        device = kernel_device_ms(mesh, call, args, 'dispatch_gemm_kernel')
         with plain_versions(), plain_chunks(1 << 29):
             plain_ms = mesh_bench(mesh, call, args, iters=1, warmup=0)
         rows = EP * EP * e_local * cap
         # inputs read once; out [E, D, cap, N] bf16 and recv written once, a rank
         num_bytes = (count_bytes(*[t for a in args for t in a if t is not None])
                      + EP * (e_local * EP * cap * n * 2
-                             + send[0].numel() * args[0][0].element_size()))
+                             + send.numel() * args[0][0].element_size()))
         bound = arch.bound_ms(num_bytes, 2 * rows * n * hidden, kind)
         out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=max(errs),
                          bound_ms=bound[0], bound_by=bound[1], check_calc_diff=max(diffs),
-                         shape=[EP, e_local, cap, n, hidden])
+                         shape=[EP, e_local, cap, n, hidden], device_ms=device)
         log(f'phase 11 dispatch_gemm {kind} [8 ranks, E_local {e_local}, cap {cap}, N {n}, H '
             f'{hidden}]: recv bitwise the all-to-all, out bitwise the masked kernel on recv on '
             f'every rank, calc_diff={max(diffs):.3e} (limit {TOL}) max_abs_err={max(errs):.4g} '
             f'against the plain version; launches {launches[kind]} (one a rank); '
-            f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call '
+            f'kernel_ms={ms:.4f} (device ms under the profiler, least / most rank / other ops '
+            f'summed: {device}) plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call '
             f'moves and multiplies) '
             f'bound_ms={bound[0]:.4f} ({bound[1]}) TFLOPS={2 * rows * n * hidden / ms / 1e9:.1f}')
-    del send, sq, ssf, wq, wsf
+    del send, cases
     torch.cuda.empty_cache()
     return out, launches
 
@@ -3763,7 +3875,8 @@ def phase_ep(seed, arch):
             a2a, path="the 8-rank forward under mega_comm='pallas'"),
         row('dispatch_gemm_fp8', 'mega_ep.cu', 'deepgemm_tpu/kernels/fused_moe.py:185',
             dispatch_launches['fp8'], dispatch['fp8'], path='its own entry point',
-            bf16=dict(dispatch['bf16'], launches=dispatch_launches['bf16'])),
+            bf16=dict(dispatch['bf16'], launches=dispatch_launches['bf16']),
+            design=DISPATCH_DESIGN),
         row('mega_ep_moe', 'mega_ep.cu', 'deepgemm_tpu/kernels/fused_moe.py:1198',
             fwd['launches']['mega_ep'], mega, path="the 8-rank forward, mega_comm='fused'",
             forward=dict(tokens_per_s=fwd['tokens_per_s'], peak_gb=fwd['peak_gb'],
@@ -3812,7 +3925,57 @@ def gemm_times(seed, arch):
            for label, call in mqa_calls(seed).items()}
     return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
                 k_grouped=train['k_grouped'], relayout=train['relayout'], mqa_logits=mqa,
-                paged_mqa=paged_times(seed, arch), bf16_forms=bf16_form_times(seed))
+                paged_mqa=paged_times(seed, arch), bf16_forms=bf16_form_times(seed),
+                masked=masked_times(seed))
+
+
+def masked_times(seed):
+    """--gemm-times: the masked kernel's calls, each timed: the decode's L1
+    and L2 (phase 4's shapes, every row live) in fp8 and bf16 beside
+    torch.bmm bf16, fp8_einsum bhr,hdr->bhd's call and its f32 instance
+    (phase 9) beside torch.einsum bf16; then phase 10's planar FP4 B in the
+    dense kernel at m 4096 beside the e4m3 kernel on its decoded codes."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import dense, grouped
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp4, repack_fp4_to_planar
+    gen = torch.Generator(device='cuda').manual_seed(seed + 17)
+    out = {}
+    for label, shape, a, b, full, calls in masked_operands(gen):
+        g, max_m, n, k = shape
+        library_ms = bench_kernel(lambda: torch.bmm(a, b.transpose(1, 2)), iters=5)
+        for kind, ops, kw in calls:
+            ms = bench_kernel(lambda: grouped.masked_gemm(*ops, full, **kw), iters=5)
+            out[f'{kind} {label}'] = dict(shape=shape, ms=ms, library_ms=library_ms)
+            log(f'time masked {kind} {label} G={g} max_m={max_m} n={n} k={k}: kernel_ms={ms:.4f} '
+                f'library_ms(torch.bmm bf16)={library_ms:.4f}')
+        del a, b, calls
+    x, w, ops, kw = einsum_operands(gen)
+    library_ms = bench_kernel(lambda: torch.einsum('bhr,hdr->bhd', x, w), iters=20)
+    h, tokens, r = ops[0].shape
+    for label, dtype in (('fp8_einsum', torch.bfloat16), ('fp8_bmm f32', torch.float32)):
+        ms = bench_kernel(lambda: grouped.masked_gemm(*ops, **kw, out_dtype=dtype), iters=20)
+        out[label] = dict(shape=[h, tokens, w.shape[1], r], ms=ms, library_ms=library_ms)
+        log(f'time masked {label} G={h} max_m={tokens} n={w.shape[1]} k={r}: '
+            f'kernel_ms={ms:.4f} library_ms(torch.einsum bf16)={library_ms:.4f}')
+    del x, w, ops, kw
+    n, k, m = PLANAR_N, PLANAR_K, PLANAR_MS[-1]
+    b = randn_bf16((n, k), gen, 1.0)
+    b4, sf4 = per_token_cast_to_fp4(b, use_ue8m0=True)
+    planar = repack_fp4_to_planar(b4)
+    codes = dense._decode_planar(planar)
+    aq, sfa = dgt.per_token_cast_to_fp8(randn_bf16((m, k), gen, 1.0), use_ue8m0=False)
+    entry = dict(shape=[m, n, k],
+                 ms=bench_kernel(lambda: dense.dense_gemm(aq, planar, sfa, sf4, gran_n=1,
+                                                          fp4_b=True), iters=20),
+                 e4m3_kernel_ms=bench_kernel(lambda: dense.dense_gemm(aq, codes, sfa, sf4,
+                                                                      gran_n=1), iters=20))
+    out[f'planar fp4 b m={m}'] = entry
+    log(f'time planar FP4 B in the kernel m={m} n={n} k={k}: kernel_ms={entry["ms"]:.4f} '
+        f'(e4m3 kernel on the codes {entry["e4m3_kernel_ms"]:.4f})')
+    del b, b4, sf4, planar, codes, aq, sfa
+    torch.cuda.empty_cache()
+    return out
 
 
 def bf16_form_times(seed):
@@ -4006,6 +4169,7 @@ def variant_times(seed, rounds=3):
     build at the default cap, all in turns for ``rounds`` rounds (ms, the
     mean of 10 L2-flushed launches each); then one launch of the timeline
     build (the ring's waits)."""
+    import functools
     from deepgemm_tpu_torch.heuristics import configs
     from deepgemm_tpu_torch.kernels import grouped
     from deepgemm_tpu_torch.testing.bench import bench_kernel
@@ -4018,14 +4182,7 @@ def variant_times(seed, rounds=3):
 
     def use(entry, cap):
         grouped._contiguous_entry = (lambda: entry) if entry is not None else own_entry
-
-        def chooser(*args, **kw):
-            configs.CONTIGUOUS_MAX_STAGES = cap
-            try:
-                return configs.get_sm90_config.__wrapped__(*args, **kw)
-            finally:
-                configs.CONTIGUOUS_MAX_STAGES = default_cap
-        grouped.get_sm90_config = chooser
+        grouped.get_sm90_config = functools.partial(configs.get_sm90_config, max_stages=cap)
 
     configurations = [(f'stages<={cap}', None, cap) for cap in VARIANT_STAGES]
     configurations += [(name, entry, default_cap) for name, entry in entries.items()]
@@ -4158,8 +4315,7 @@ _WIDEN_A = tuple((f'af[v][{e}] = mul_bf16x2(e4m3x2_bits({x}, {y}, sel), c1[{e & 
 WIDEN_VARIANTS = {
     'no B widening': (('            widen_b(s);\n', '\n'), ('                    widen_b(s1);\n', '\n')),
     'no A widening': _WIDEN_A,
-    'no wgmma': (('wgmma_bf16_rs(d, af[v], db + (((v >> 2) * kBN * kBK + (v & 3) * 32) >> 4),\n'
-                  '                                  kDequant || v > 0);', 'fence_all(d);'),),
+    'no wgmma': (('wgmma_bf16_rs(d, af[v], db_v, kOneSum || v > 0);', 'fence_all(d);'),),
 }
 
 
@@ -4205,6 +4361,88 @@ def widen_variant_times(seed, rounds=3):
     return results
 
 
+MASKED_VARIANT_STAGES = (2, 3, 4, 8)
+# The masked body without its wgmma (csrc/gemm_sm90.cuh widen_body, which
+# the dense forms on bf16 products share): the loads, the widening, the
+# promotion and the stores alone.
+MASKED_NO_MMA = WIDEN_VARIANTS['no wgmma'] + (
+    ('wgmma_bf16<0>(d, smem_desc(a_box) + (v & 3) * 2, db_v, 1);', 'fence_all(d);'),)
+
+
+def masked_variant_times(seed, rounds=2):
+    """--masked-variants: the masked kernel's decode calls (phase 4's L1 and
+    L2, fp8 and bf16; ms, L2-flushed) and fp8_einsum's call, then #12 at
+    V3's L1 on 8 ranks (fp8 and bf16; the kernel's device ms, least over
+    the ranks), each at every ring cap of MASKED_VARIANT_STAGES and as a
+    build without the wgmma at the default cap, all in turns for
+    ``rounds`` rounds: what bounds them and the ring they want."""
+    import functools
+    import types
+    from deepgemm_tpu_torch.heuristics import configs
+    from deepgemm_tpu_torch.kernels import fused_moe, grouped
+    from deepgemm_tpu_torch.parallel import dist
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    own_entry, own_ep_lib = grouped._entry, fused_moe._ep_lib
+    own_choosers = grouped.get_sm90_config, fused_moe.get_sm90_config
+    no_mma = {'no wgmma': MASKED_NO_MMA}
+    masked = variant_entries('masked_variants', 'gemm_sm90.cuh', 'masked.cu', no_mma,
+                             'dgt_masked_gemm_nt', own_entry())['no wgmma']
+    ep_lib = own_ep_lib()
+    dispatch = variant_entries('masked_variants_ep', 'gemm_sm90.cuh', 'mega_ep.cu', no_mma,
+                               'dgt_dispatch_gemm', ep_lib.dgt_dispatch_gemm)['no wgmma']
+    ep_variant = types.SimpleNamespace(dgt_dispatch_gemm=dispatch,
+                                       dgt_error_string=ep_lib.dgt_error_string)
+
+    def use(cap, variant=False):
+        grouped.get_sm90_config = fused_moe.get_sm90_config = functools.partial(
+            configs.get_sm90_config, max_stages=cap)
+        grouped._entry = (lambda: masked) if variant else own_entry
+        fused_moe._ep_lib = (lambda: ep_variant) if variant else own_ep_lib
+
+    configurations = [(f'stages<={cap}', cap, False) for cap in MASKED_VARIANT_STAGES]
+    configurations.append(('no wgmma', configs.MASKED_MAX_STAGES, True))
+    gen = torch.Generator(device='cuda').manual_seed(seed + 23)
+    times = {}
+
+    def note(key, ms):
+        times.setdefault(key, []).append(ms)
+        log(f'masked variants {key}: {ms:.4f}')
+
+    try:
+        for label, _, _, _, full, calls in masked_operands(gen):
+            for _ in range(rounds):
+                for name, cap, variant in configurations:
+                    use(cap, variant)
+                    for kind, ops, kw in calls:
+                        note(f'{kind} {label} {name}', bench_kernel(
+                            lambda: grouped.masked_gemm(*ops, full, **kw), iters=5))
+            del calls
+        _, _, ops, kw = einsum_operands(gen)
+        for _ in range(rounds):
+            for name, cap, variant in configurations:
+                use(cap, variant)
+                note(f'fp8_einsum {name}', bench_kernel(lambda: grouped.masked_gemm(*ops, **kw),
+                                                        iters=20))
+        del ops, kw
+        torch.cuda.empty_cache()
+        hidden, n = V3['hidden'], V3['moe_intermediate'] * 2
+        mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
+        w = randn_bf16((EP * EP_EXPERTS, n, hidden), gen, hidden ** -0.5)
+        call, _, cases = dispatch_operands(w, gen)
+        for _ in range(rounds):
+            for name, cap, variant in configurations:
+                use(cap, variant)
+                for kind, args in cases:
+                    device = kernel_device_ms(mesh, call, args, 'dispatch_gemm_kernel')
+                    note(f'dispatch_gemm {kind} {name} (device)', device[0])
+        del w, cases
+        torch.cuda.empty_cache()
+    finally:
+        grouped.get_sm90_config, fused_moe.get_sm90_config = own_choosers
+        grouped._entry, fused_moe._ep_lib = own_entry, own_ep_lib
+    return {key: dict(min=min(v), max=max(v)) for key, v in times.items()}
+
+
 def ep_times(seed):
     """--ep-times: phase 11's main path alone (:func:`ep_main_path`, then one
     batch under the profiler: wall time and the device's idle share), for
@@ -4217,7 +4455,30 @@ def ep_times(seed):
     del logits
     prof = profile_mesh(lambda: forward(sharded, batches[0], cfg_fused, mesh),
                         'forward over 8 ranks, mega fused', f'one {EP_BATCH_SHAPE} batch')
-    return dict(numbers, profile=prof)
+    del sharded, batches
+    torch.cuda.empty_cache()
+    dispatch = dispatch_times(mesh, params['layers'][0]['w1'], seed)
+    return dict(numbers, profile=prof, dispatch_gemm=dispatch)
+
+
+def dispatch_times(mesh, w, seed):
+    """--ep-times: #12 alone at V3's L1 on the 8 ranks (phase 11's shapes),
+    fp8 and bf16, each timed (no checks, no plain version)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed + 19)
+    e_local, cap, hidden = EP_EXPERTS, EP_CAP, V3['hidden']
+    call, send, cases = dispatch_operands(w, gen)
+    out = {}
+    for kind, args in cases:
+        ms = mesh_bench(mesh, call, args, iters=5)
+        device = kernel_device_ms(mesh, call, args, 'dispatch_gemm_kernel')
+        out[kind] = dict(ms=ms, device_ms=device, shape=[EP, e_local, cap, w.shape[1], hidden])
+        log(f'time dispatch_gemm {kind} [8 ranks, E_local {e_local}, cap {cap}, N {w.shape[1]}, '
+            f'H {hidden}]: kernel_ms={ms:.4f} (the call, event-bracketed); under the profiler '
+            f'the kernel\'s device ms over the ranks, least / most / the call\'s other device ops '
+            f'summed: {device}')
+    del send, cases
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -4236,6 +4497,10 @@ def main(argv=None) -> int:
     parser.add_argument('--mqa-variants', action='store_true',
                         help='only build and time the MQA logits kernel against its variant '
                              'builds (what bounds it), then print them as JSON')
+    parser.add_argument('--masked-variants', action='store_true',
+                        help='only build and time the masked kernel and the fused dispatch + L1 '
+                             'at each ring cap and without their wgmma (what bounds them), then '
+                             'print them as JSON')
     parser.add_argument('--widen-variants', action='store_true',
                         help='only build and time the dense forms on bf16 products against '
                              'their variant builds (what bounds them), then print them as JSON')
@@ -4274,6 +4539,10 @@ def main(argv=None) -> int:
         return 0
     if args.mqa_variants:
         print(json.dumps({'mqa_variants': mqa_variant_times(args.seed, H100_SXM)}))
+        print(card)
+        return 0
+    if args.masked_variants:
+        print(json.dumps({'masked_variants': masked_variant_times(args.seed)}))
         print(card)
         return 0
     if args.widen_variants:
@@ -4329,7 +4598,8 @@ def main(argv=None) -> int:
                train_counts['dense'], train['dense'], design=HOPPER_DESIGN,
                phase3_shapes=dense_entries),
         *(kernel(f'masked_grouped_gemm_{kind}', 'masked.cu',
-                 'deepgemm_tpu/kernels/grouped.py:576', counts[kind], masked[kind])
+                 'deepgemm_tpu/kernels/grouped.py:576', counts[kind], masked[kind],
+                 design=MASKED_DESIGN)
           for kind in ('bf16', 'fp8')),
         kernel('contiguous_grouped_gemm_fp8', 'contiguous.cu',
                'deepgemm_tpu/kernels/grouped.py:240', train_counts['contiguous'],

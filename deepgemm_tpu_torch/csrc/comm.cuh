@@ -81,8 +81,10 @@ __device__ __forceinline__ unsigned long long ld_acquire(const unsigned long lon
     return v;
 }
 
-// One thread: spin until this rank's slot [kind][src] holds at least target.
-__device__ __noinline__ void wait_at_least(const Peers& c, int kind, int src,
+// One thread: spin until this rank's slot [kind][src] holds at least target
+// (inline, for a caller whose registers setmaxnreg has cut: the dispatch
+// kernel's producer lane; others call wait_at_least).
+__device__ __forceinline__ void spin_until(const Peers& c, int kind, int src,
                                            unsigned long long target) {
     const unsigned long long* p = c.slot(c.rank, kind, src);
     unsigned long long v = ld_acquire(p);
@@ -106,6 +108,11 @@ __device__ __noinline__ void wait_at_least(const Peers& c, int kind, int src,
         }
         __nanosleep(64);
     }
+}
+
+__device__ __noinline__ void wait_at_least(const Peers& c, int kind, int src,
+                                           unsigned long long target) {
+    spin_until(c, kind, src, target);
 }
 
 // Every block: no store of this call reaches a peer before that peer has

@@ -1,53 +1,32 @@
-// Shared mainloop of the port's mma.sync GEMM kernels: masked grouped, the
-// bf16 k-grouped kernel, and the block body of the mega MoE kernels
-// (mega_ep.cu). Every dense form, the FP8 k-grouped kernel and the
-// contiguous grouped kernels run the Hopper mainloop of gemm_sm90.cuh.
+// Shared mainloop of the port's mma.sync GEMM kernels: the bf16 k-grouped
+// kernel, and the helpers (cp.async, fragment loads, mma.sync) of the mega
+// MoE block (mega_block.cuh), the paged MQA tile (mqa_tile.cuh) and the HC
+// prenorm kernel (hc_prenorm.cu). Every dense form, the FP8 k-grouped
+// kernel, the contiguous and masked grouped kernels and the fused dispatch
+// + L1 run the Hopper mainloop of gemm_sm90.cuh.
 //
-// Replaces the Pallas mainloops of kernels/grouped.py (_build_masked) and
-// kernels/k_grouped.py (_build_k_grouped) of deepgemm_tpu, including the
-// exact f32 promotion step of deepgemm_tpu/kernels/common.py:27-52:
-//     acc += (p * sfb[n]) * sfa[m]   for each 128-deep k block p.
+// Replaces the Pallas mainloop of kernels/k_grouped.py (_build_k_grouped)
+// of deepgemm_tpu for bf16 operands:
+//     d[g] = c[g] + sum over group g's k of a[m, k] * b[n, k]
+// (the sum starts from c, as JAX's k-grouped kernel starts it).
 //
-// d[m, n] = sum_k a[m, k] * b[n, k]   (+ c: the k-grouped kernel starts its
-// sum from c, as JAX's k-grouped kernel does)
+// Design (simple and right first):
+//   * One block computes a kBM x BN output tile of one group (grid z); 8
+//     warps in a 2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made
+//     of mma.sync m16n8k16 bf16 tiles with f32 accumulation.
+//   * A stage holds 64 bf16 elements of k for every row of A and B. kStages
+//     stages are kept in flight with cp.async (zero-filled past the row
+//     count and past the group's depth), k-major rows padded by 16 bytes so
+//     the fragment loads hit 32 distinct banks.
+//   * Group g's depth is k_size[g] columns of A and B from column
+//     k_start[g] (16-element aligned), read on the device only (no call
+//     syncs the host, every launch is graph safe); an empty group writes c
+//     (or zero).
+//   * Output bf16 or f32 (OutT).
 //
-// Design (simple and right first; wgmma/TMA/warp specialisation come later):
-//   * One block computes a kBM x BN output tile of one problem; 8 warps in a
-//     2 (m) x 4 (n) layout, each warp a 32 x (BN/4) sub-tile made of
-//     mma.sync m16n8 tiles with f32 accumulation.
-//   * What an instance computes is its Form, fixed at compile time: the
-//     operands' element type (e4m3 with the 'promote' scale step, or bf16
-//     unscaled), both k-major. e4m3 runs m16n8k32 e4m3, bf16 m16n8k16 bf16.
-//   * A stage holds kKE elements of k for every row of A and B: 128 (one
-//     scale block) for e4m3, 64 for bf16. kStages stages are kept in flight
-//     with cp.async (zero-filled past the row count and past the problem's
-//     depth), k-major rows padded by 16 bytes so the fragment loads hit 32
-//     distinct banks.
-//   * 'promote': each stage's product goes to a fresh f32 partial that is
-//     scaled and added to the accumulator in the reference multiply order,
-//     with explicit _rn intrinsics so nothing is contracted into an FMA.
-//     SFB holds one f32 per gran_n rows of B (128: the
-//     128x128 block scales; 1: per channel), m-major as the casts make them
-//     (SFA [.., M, ksf], SFB [.., nsf, ksf]).
-//   * Which problem a block computes is the Layout's business, read on the
-//     device only (no call syncs the host, every launch is graph safe):
-//       kBatched    grid z = group; a, b, d advance by a group stride. With
-//                   masked_m the block returns at once when its first row is
-//                   at or past masked_m[g]; rows past it inside a live tile
-//                   are unspecified, as in the masked contract.
-//       kKGrouped   (bf16) grid z = group; the group's depth is k_size[g]
-//                   columns of A and B from column k_start[g] (16-element
-//                   aligned); an empty group writes c (or zero).
-//   * Output bf16 or f32 (OutT). What only one layout needs (c, a row
-//     stride apart from the depth) is decided at
-//     compile time, so the other layouts carry no branch or runtime stride
-//     for it.
-//
-// What bounds it on the H100: the model's grouped GEMMs stream each expert's
-// weights once at a few hundred operations per weight byte or fewer (bytes
-// bound, 3.35 TB/s); the k-grouped wgrad writes a [G, m, n] output at 256
-// operations per written element (bytes bound). mma.sync reaches a fraction
-// of the wgmma peak; that is later work.
+// What bounds it on the H100: the k-grouped wgrad writes a [G, m, n] output
+// at 256 operations per written element (bytes bound). mma.sync reaches a
+// fraction of the wgmma peak.
 
 #pragma once
 
@@ -67,70 +46,31 @@ constexpr int kPitch = kKBytes + 16;    // padded shared-memory row pitch
 constexpr int kStages = 4;
 constexpr int kThreads = 256;
 
-enum class Layout { kBatched, kKGrouped };
-enum class Scale { kNone, kPromote };
-
-template <Layout kLayout>
-__host__ __device__ constexpr bool k_grouped() {
-    return kLayout == Layout::kKGrouped;
-}
-
-// What an instance computes. kEA / kEB: bytes per element of A and B (1:
-// e4m3; 2: bf16), one type for both.
-template <int kEA_, int kEB_, Scale kScale_>
-struct Form {
-    static constexpr int kEA = kEA_;
-    static constexpr int kEB = kEB_;
-    static constexpr Scale kScale = kScale_;
-    static constexpr bool kMmaE4m3 = kEA == 1;
-    static constexpr int kKE = kEA == 2 ? 64 : 128;                 // k elements per stage
-    static constexpr bool kScaleA = kScale != Scale::kNone;
-    static constexpr bool kScaleB = kScale != Scale::kNone;
-    static constexpr int kPitchA = kKE * kEA + 16;                  // k-major row pitches
-    static constexpr int kPitchB = kKE * kEB + 16;
-    static_assert((kEA == 1 || kEA == 2) && kEA == kEB, "e4m3 or bf16 operands, one type");
-    static_assert((kScale == Scale::kNone) == (kEA == 2),
-                  "scales go with e4m3 operands; bf16 is unscaled");
-};
-
-using FormE4m3 = Form<1, 1, Scale::kPromote>;   // the promoted e4m3 NT form
-using FormBf16 = Form<2, 2, Scale::kNone>;      // the unscaled bf16 NT form
-
 // Shared memory of an instance: kStages stages of A and B, padded k-major
-// rows.
-template <class F, int BN, Layout kLayout>
+// rows of 64 bf16 elements.
+template <int BN>
 struct SmemPlan {
-    static constexpr int kA = kBM * F::kPitchA;
-    static constexpr int kB = BN * F::kPitchB;
+    static constexpr int kA = kBM * kPitch;
+    static constexpr int kB = BN * kPitch;
     static constexpr int kStage = kA + kB;
     static constexpr int kBytes = kStages * kStage;
 };
 
-template <class F, int BN, Layout kLayout>
+template <int BN>
 constexpr int smem_bytes() {
-    return SmemPlan<F, BN, kLayout>::kBytes;
+    return SmemPlan<BN>::kBytes;
 }
 
 struct GemmArgs {
-    const uint8_t* a;        // A: k-major [G, M, K] or [M, K] (k-grouped [M, ldk])
-    const uint8_t* b;        // B: k-major [G, N, K]
-    const float* sfa;        // f32 scales of A, or nullptr (unscaled)
-    const float* sfb;        // f32 scales of B, or nullptr
-    const float* c;          // f32: k-grouped [G, M, N], the sum's start; or nullptr
+    const uint8_t* a;        // A: k-major [M, ldk]
+    const uint8_t* b;        // B: k-major [N, ldk]
+    const float* c;          // f32 [G, M, N], the sum's start; or nullptr
     void* d;                 // OutT; [G, M, N]
-    int M, N, K;             // K: the depth of every problem (not k-grouped)
-    int sfb_shift;           // log2(gran_n): rows of B per scale (128 -> 7, 1 -> 0)
-    int64_t ldk;             // kKGrouped: row stride of A and of B, elements
-    const int* masked_m;     // kBatched: [G] live rows, or nullptr (all rows live)
-    const int* k_start;      // k-grouped: [G] first column of the group
-    const int* k_size;       // k-grouped: [G] depth of the group
+    int M, N;
+    int64_t ldk;             // row stride of A and of B, elements
+    const int* k_start;      // [G] first column of the group
+    const int* k_size;       // [G] depth of the group
 };
-
-// Offset of the scale of (row r, k block kb) within one problem's scales:
-// m-major [rows, ksf].
-__device__ __forceinline__ int64_t sf_offset(int r, int kb, int ksf) {
-    return static_cast<int64_t>(r) * ksf + kb;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -153,10 +93,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ uint32_t ld_shared_u32(const uint8_t* p) {
     return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void st_shared_u32(uint8_t* p, uint32_t v) {
-    *reinterpret_cast<uint32_t*>(p) = v;
 }
 
 // Both instructions take the same fragment bytes: per thread (group g = lane/4,
@@ -195,58 +131,32 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
     }
 }
 
-// One block's output tile: column tile bx, row tile by, problem bz (the
-// kernel's blockIdx; a persistent kernel passes its own, mega_ep.cu).
-template <class F, int BN, Layout kLayout, class OutT>
+// One block's output tile: column tile bx, row tile by, group bz.
+template <int BN, class OutT>
 __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const int by,
                                           const int bz) {
     static_assert(BN % 32 == 0, "each warp owns BN/4 columns in n8 tiles");
-    using Plan = SmemPlan<F, BN, kLayout>;
+    using Plan = SmemPlan<BN>;
     constexpr int kWN = BN / 4;          // warp tile width
     constexpr int kNT = kWN / 8;         // n8 tiles per warp
-    constexpr int kEA = F::kEA, kEB = F::kEB, kKE = F::kKE;
-    constexpr bool kKG = k_grouped<kLayout>();
-    static_assert(!kKG || F::kScale == Scale::kNone,
-                  "the FP8 k-grouped kernel runs the Hopper mainloop (gemm_sm90.cuh)");
-    constexpr bool kPromote = F::kScale == Scale::kPromote;
+    constexpr int kE = 2, kKE = 64;      // bytes a bf16 element, k elements a stage
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int m0 = by * kBM;
     const int n0 = bx * BN;
 
-    // The block's problem: operands, depth, scales and output.
-    const uint8_t* a = p.a;
-    const uint8_t* b = p.b;
-    const float* sfa = p.sfa;
-    const float* sfb = p.sfb;
-    int depth = p.K;
-    int64_t d_off = 0;                   // elements of d (and c) before this problem
-    int64_t ld_k = p.K;                  // row stride of a k-major operand, elements
-    const int ksf = (p.K + 127) / 128;   // m-major scales: k blocks per row
-    const int nsf = ((p.N - 1) >> p.sfb_shift) + 1;
-    const int kb_row = p.K * kEB;        // bytes of one row of B
-    if constexpr (kLayout == Layout::kBatched) {
-        const int g = bz;
-        if (p.masked_m != nullptr && m0 >= p.masked_m[g]) return;
-        a += static_cast<int64_t>(g) * p.M * p.K * kEA;
-        b += static_cast<int64_t>(g) * p.N * kb_row;
-        if constexpr (F::kScaleA) sfa += static_cast<int64_t>(g) * p.M * ksf;
-        if constexpr (F::kScaleB) sfb += static_cast<int64_t>(g) * nsf * ksf;
-        d_off = static_cast<int64_t>(g) * p.M * p.N;
-    } else {
-        const int g = bz;
-        const int64_t k0 = p.k_start[g];
-        depth = p.k_size[g];
-        a += k0 * kEA;
-        b += k0 * kEB;
-        ld_k = p.ldk;
-        d_off = static_cast<int64_t>(g) * p.M * p.N;
-    }
+    // The block's group: its columns of A and B, its depth and its output.
+    const int g = bz;
+    const int64_t k0 = p.k_start[g];
+    const int depth = p.k_size[g];
+    const uint8_t* a = p.a + k0 * kE;
+    const uint8_t* b = p.b + k0 * kE;
+    const int64_t d_off = static_cast<int64_t>(g) * p.M * p.N;   // elements of d (and c) before it
 
     // Row strides (bytes) and the bytes of k each row holds.
-    const int64_t lda = ld_k * kEA;
-    const int64_t ka_bytes = static_cast<int64_t>(depth) * kEA;
-    const int num_kt = static_cast<int>((ka_bytes + kKE * kEA - 1) / (kKE * kEA));
+    const int64_t lda = p.ldk * kE;
+    const int64_t ka_bytes = static_cast<int64_t>(depth) * kE;
+    const int num_kt = static_cast<int>((ka_bytes + kKE * kE - 1) / (kKE * kE));
 
     const int tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
@@ -274,7 +184,6 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
     };
 
     float acc[2][kNT][4];
-    float part[2][kNT][4];
     // C fragment: v = 0,1 -> row gr, cols 2tg, 2tg+1; v = 2,3 -> row gr + 8.
     #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -283,7 +192,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
             #pragma unroll
             for (int v = 0; v < 4; ++v) {
                 float init = 0.f;
-                if (kKG && p.c != nullptr) {
+                if (p.c != nullptr) {
                     const int row = m0 + wm + i * 16 + gr + (v >> 1) * 8;
                     const int col = n0 + wn + j * 8 + tg * 2 + (v & 1);
                     if (row < p.M && col < p.N)
@@ -310,102 +219,27 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         const uint8_t* sa = stage;
         const uint8_t* sb = stage + Plan::kA;
 
-        if constexpr (kPromote) {
+        #pragma unroll
+        for (int kk = 0; kk < kKE; kk += 16) {
+            uint32_t af[2][4], bfr[kNT][2];
             #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j)
-                    #pragma unroll
-                    for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
-        }
-
-        if constexpr (F::kMmaE4m3) {
-            #pragma unroll
-            for (int kk = 0; kk < kKBytes; kk += 32) {
-                uint32_t af[2][4], bfr[kNT][2];
-                #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const uint8_t* pa = sa + (wm + i * 16 + gr) * F::kPitchA + kk + tg * 4;
-                    af[i][0] = ld_shared_u32(pa);
-                    af[i][1] = ld_shared_u32(pa + 8 * F::kPitchA);
-                    af[i][2] = ld_shared_u32(pa + 16);
-                    af[i][3] = ld_shared_u32(pa + 8 * F::kPitchA + 16);
-                }
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                    const uint8_t* pb = sb + (wn + j * 8 + gr) * F::kPitchB + kk + tg * 4;
-                    bfr[j][0] = ld_shared_u32(pb);
-                    bfr[j][1] = ld_shared_u32(pb + 16);
-                }
-                #pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    #pragma unroll
-                    for (int j = 0; j < kNT; ++j) {
-                        if constexpr (kPromote) MmaE4m3::mma(part[i][j], af[i], bfr[j]);
-                        else MmaE4m3::mma(acc[i][j], af[i], bfr[j]);
-                    }
+            for (int i = 0; i < 2; ++i) {
+                const uint8_t* ra = sa + (wm + i * 16 + gr) * kPitch;
+                af[i][0] = ld_shared_u32(ra + 2 * (kk + 2 * tg));
+                af[i][1] = ld_shared_u32(ra + 8 * kPitch + 2 * (kk + 2 * tg));
+                af[i][2] = ld_shared_u32(ra + 2 * (kk + 8 + 2 * tg));
+                af[i][3] = ld_shared_u32(ra + 8 * kPitch + 2 * (kk + 8 + 2 * tg));
             }
-        } else {
-            // bf16 MMA
             #pragma unroll
-            for (int kk = 0; kk < kKE; kk += 16) {
-                uint32_t af[2][4], bfr[kNT][2];
-                #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const uint8_t* ra = sa + (wm + i * 16 + gr) * F::kPitchA;
-                    af[i][0] = ld_shared_u32(ra + 2 * (kk + 2 * tg));
-                    af[i][1] = ld_shared_u32(ra + 8 * F::kPitchA + 2 * (kk + 2 * tg));
-                    af[i][2] = ld_shared_u32(ra + 2 * (kk + 8 + 2 * tg));
-                    af[i][3] = ld_shared_u32(ra + 8 * F::kPitchA + 2 * (kk + 8 + 2 * tg));
-                }
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                    const uint8_t* rb = sb + (wn + j * 8 + gr) * F::kPitchB;
-                    bfr[j][0] = ld_shared_u32(rb + 2 * (kk + 2 * tg));
-                    bfr[j][1] = ld_shared_u32(rb + 2 * (kk + 8 + 2 * tg));
-                }
-                #pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    #pragma unroll
-                    for (int j = 0; j < kNT; ++j) {
-                        if constexpr (kPromote) MmaBf16::mma(part[i][j], af[i], bfr[j]);
-                        else MmaBf16::mma(acc[i][j], af[i], bfr[j]);
-                    }
+            for (int j = 0; j < kNT; ++j) {
+                const uint8_t* rb = sb + (wn + j * 8 + gr) * kPitch;
+                bfr[j][0] = ld_shared_u32(rb + 2 * (kk + 2 * tg));
+                bfr[j][1] = ld_shared_u32(rb + 2 * (kk + 8 + 2 * tg));
             }
-        }
-
-        if constexpr (kPromote) {
-            // stage kt is scale block kt: acc += (p * sfb[n]) * sfa[m]; a
-            // row or column past the edge reads its scale as zero
-            float sa_v[2][2], sb_v[kNT][2];
             #pragma unroll
             for (int i = 0; i < 2; ++i)
                 #pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int row = m0 + wm + i * 16 + gr + h * 8;
-                    sa_v[i][h] = F::kScaleA && row < p.M
-                        ? __ldg(sfa + sf_offset(row, kt, ksf)) : 0.f;
-                }
-            #pragma unroll
-            for (int j = 0; j < kNT; ++j)
-                #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + wn + j * 8 + tg * 2 + e;
-                    sb_v[j][e] = F::kScaleB && col < p.N
-                        ? __ldg(sfb + sf_offset(col >> p.sfb_shift, kt, ksf))
-                        : 0.f;
-                }
-            #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                #pragma unroll
-                for (int j = 0; j < kNT; ++j)
-                    #pragma unroll
-                    for (int v = 0; v < 4; ++v) {
-                        float t = part[i][j][v];
-                        if constexpr (F::kScaleB) t = __fmul_rn(t, sb_v[j][v & 1]);
-                        if constexpr (F::kScaleA) t = __fmul_rn(t, sa_v[i][v >> 1]);
-                        acc[i][j][v] = __fadd_rn(acc[i][j][v], t);
-                    }
+                for (int j = 0; j < kNT; ++j) MmaBf16::mma(acc[i][j], af[i], bfr[j]);
         }
     }
     cp_async_wait<0>();
@@ -427,16 +261,16 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, const int bx, const
         }
 }
 
-template <class F, int BN, Layout kLayout, class OutT>
+template <int BN, class OutT>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const GemmArgs p) {
-    gemm_tile<F, BN, kLayout, OutT>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+    gemm_tile<BN, OutT>(p, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-template <class F, int BN, Layout kLayout, class OutT>
+template <int BN, class OutT>
 inline cudaError_t launch_gemm(const GemmArgs& p, int grid_z, cudaStream_t stream) {
-    auto kernel = gemm_kernel<F, BN, kLayout, OutT>;
-    constexpr int smem = smem_bytes<F, BN, kLayout>();
+    auto kernel = gemm_kernel<BN, OutT>;
+    constexpr int smem = smem_bytes<BN>();
     static_assert(smem <= 232448, "an H100 block may use 227 KiB of shared memory");
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -447,37 +281,12 @@ inline cudaError_t launch_gemm(const GemmArgs& p, int grid_z, cudaStream_t strea
 }
 
 // block_n is 128 or 64 (the tile chooser's two widths).
-template <class F, Layout kLayout, class OutT>
+template <class OutT>
 inline cudaError_t launch_gemm_bn(const GemmArgs& p, int grid_z, int block_n,
                                   cudaStream_t stream) {
-    if (block_n == 128) return launch_gemm<F, 128, kLayout, OutT>(p, grid_z, stream);
-    if (block_n == 64) return launch_gemm<F, 64, kLayout, OutT>(p, grid_z, stream);
+    if (block_n == 128) return launch_gemm<128, OutT>(p, grid_z, stream);
+    if (block_n == 64) return launch_gemm<64, OutT>(p, grid_z, stream);
     return cudaErrorInvalidValue;
-}
-
-// An instance with a bf16 or an f32 output.
-template <class F, Layout kLayout>
-inline cudaError_t launch_gemm_out(const GemmArgs& p, int grid_z, int block_n, int out_f32,
-                                   cudaStream_t stream) {
-    return out_f32 ? launch_gemm_bn<F, kLayout, float>(p, grid_z, block_n, stream)
-                   : launch_gemm_bn<F, kLayout, __nv_bfloat16>(p, grid_z, block_n, stream);
-}
-
-// The arguments of A [.., m, k] and B [.., n, k] with the scales as the
-// casts make them: SFA [.., m, ksf], SFB [.., ceil(n / gran_n), ksf].
-inline GemmArgs nt_args(const void* a, const void* b, const void* sfa, const void* sfb,
-                        void* d, int m, int n, int k, int sfb_shift) {
-    GemmArgs p = {};
-    p.a = static_cast<const uint8_t*>(a);
-    p.b = static_cast<const uint8_t*>(b);
-    p.sfa = static_cast<const float*>(sfa);
-    p.sfb = static_cast<const float*>(sfb);
-    p.d = d;
-    p.M = m;
-    p.N = n;
-    p.K = k;
-    p.sfb_shift = sfb_shift;
-    return p;
 }
 
 }  // namespace dgt

@@ -1,6 +1,7 @@
 // The Hopper mainloop of the dense FP8 GEMM, the k-grouped FP8 weight
-// gradient and the contiguous m-grouped GEMM: wgmma from shared memory fed
-// by TMA, warp-specialised and persistent.
+// gradient, the contiguous and the masked m-grouped GEMMs and the fused
+// dispatch + L1: wgmma from shared memory fed by TMA, warp-specialised and
+// persistent.
 //
 // Replaces the Pallas mainloops of deepgemm_tpu/kernels/dense.py
 // (_build_dense_gemm, pl.pallas_call at dense.py:291) for e4m3 operands
@@ -13,8 +14,12 @@
 // and, for the dense kernel's forms on bf16 products (dense_dequant.cu: the
 // 'dequant' strategy, dense.py:248-255, and the folded FP4 operands),
 // bf16 x bf16 as gemm_kernel's unscaled dense form and every form with an
-// e4m3 operand as widen_kernel. The masked kernel and the bf16 k-grouped
-// form stay on the mma.sync mainloop (gemm_mainloop.cuh).
+// e4m3 operand as widen_kernel; and of deepgemm_tpu/kernels/grouped.py
+// (_build_masked, pl.pallas_call at grouped.py:576) and fused_moe.py (the
+// fused dispatch + L1's _kernel, pl.pallas_call at fused_moe.py:185) on
+// widen_kernel's body (widen_body) as masked items, on bf16 products as the
+// mma.sync kernel they replace computed them. The bf16 k-grouped form stays
+// on the mma.sync mainloop (gemm_mainloop.cuh).
 //
 // What bounds it on the H100: a large dense product is tensor-core bound (2
 // x 4096^3 operations on 32 MiB of fp8: ~2000 operations a byte, against the
@@ -28,7 +33,11 @@
 // on bf16 products run at the bf16 rate (half of e4m3's); widening e4m3 to
 // bf16 costs each 128 x 128 tile a stage as many shared-memory bytes as the
 // wgmma's own reads of B, so the widening, not the tensor cores, bounds
-// them (PERF.md, section 7).
+// them (PERF.md, section 7). The masked decode calls (40 rows of each of
+// 256 experts) do ~80 operations a weight byte: the weights bound them
+// (chip_smoke.py --masked-variants times them without their wgmma), and
+// their ring is held at 3 stages: deeper rings gained an earlier design of
+// them at most ~5% and ran the fused dispatch + L1 in bf16 up to ~2x slower.
 //
 // Design:
 //   * A persistent grid of at most one block an SM walks the work items
@@ -113,6 +122,19 @@
 //     row is not whole 16-byte chunks (a tensor map's stride cannot be), the
 //     warpgroup stores the tile itself: 16-byte chunks, pairs at the ragged
 //     edge.
+//   * Masked (widen_body's Items kMasked and kByWeight): (group, row tile,
+//     column tile) items over 3-D maps [G, M, K] of A and [G, N, K] of B, an
+//     item at or past masked_m[g] (device memory) skipped by the producer
+//     and the consumers alike, 64-row tiles where a group's rows fit (one
+//     consumer warpgroup), else 128; two e4m3 operands widened to bf16, each
+//     128-deep block's exact products summed in f32 and promoted as (p *
+//     sfb) * sfa, which is the mma.sync kernel's and the plain version's
+//     arithmetic (e4m3 wgmma sums its products at reduced precision: it left
+//     the model's forward ~1e-3 from the plain one, its e4m3 casts flipping);
+//     two bf16 operands in one f32 sum. The fused dispatch + L1 walks (group,
+//     column tile, row tile) and waits on its producer lane for the slabs an
+//     item's rows read. Each row's sum is the same in every tile, so the two
+//     are bitwise equal.
 //   * k-grouped: group g's depth is k_size[g] (device memory: no call syncs
 //     the host), its scale rows start at sf_start[g] (scales k-first [nsf,
 //     m] and [nsf, n]), an empty group writes c (or zero). The TN form reads
@@ -471,19 +493,20 @@ __device__ __forceinline__ void store_pair(OutT* dst, float x, float y) {
     }
 }
 
-// widen_kernel's epilogue of 64 rows of a tile (a consumer warpgroup's,
-// rows row0 on, columns n0 on): c added once to the finished sum, rounded to
-// OutT, staged in the warpgroup's swizzled tile and handed to TMA stores (or
-// stored by the warpgroup where map_d cannot hold the output), as
-// gemm_kernel's epilogue does (which keeps its own copy: the dense 'promote'
-// forms are held to their SASS). First the staging tile must be free: the
-// last TMA stores have read it, or this warpgroup's own stores are done. acc
-// is the m64nNk16 accumulator layout: rows rr and rr + 8, columns 8 j + q
-// and 8 j + q + 1.
+// widen_body's epilogue of 64 rows of a tile (a consumer warpgroup's, rows
+// row0 on of group g, columns n0 on; c [M, N], the dense forms only): c
+// added once to the finished sum, rounded to OutT, staged in the
+// warpgroup's swizzled tile and handed to TMA stores (or stored by the
+// warpgroup where map_d cannot hold the output), as gemm_kernel's epilogue
+// does (which keeps its own copy: the dense 'promote' forms are held to
+// their SASS). First the staging tile must be free: the last TMA stores have
+// read it, or this warpgroup's own stores are done. acc is the m64nNk16
+// accumulator layout: rows rr and rr + 8, columns 8 j + q and 8 j + q + 1.
 template <class OutT, int kBN>
 __device__ __forceinline__ void store_rows64(const float (&acc)[kBN / 2], const Args& p,
                                              const CUtensorMap& map_d, uint8_t* stage_out,
-                                             int row0, int n0, int rr, int q, int tid, int wg) {
+                                             int row0, int n0, int rr, int q, int tid, int wg,
+                                             int g = 0) {
     constexpr int kEpc = 16 / static_cast<int>(sizeof(OutT));     // outputs a 16-byte chunk
     constexpr int kBoxCols = 128 / static_cast<int>(sizeof(OutT));
     constexpr int kCpr = kBN / kEpc;                 // chunks a row
@@ -515,13 +538,13 @@ __device__ __forceinline__ void store_rows64(const float (&acc)[kBN / 2], const 
         if (tid == 0) {
             #pragma unroll
             for (int box = 0; box < kBN / kBoxCols; ++box)
-                tma_store_3d(&map_d, stage_out + box * 64 * 128, n0 + box * kBoxCols, row0, 0);
+                tma_store_3d(&map_d, stage_out + box * 64 * 128, n0 + box * kBoxCols, row0, g);
             asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
         return;
     }
     named_barrier(2 + wg, 128);
-    OutT* const dst = static_cast<OutT*>(p.d);
+    OutT* const dst = static_cast<OutT*>(p.d) + static_cast<int64_t>(g) * p.M * p.N;
     for (int i = tid; i < 64 * kCpr; i += 128) {
         const int r = i / kCpr, ch = i % kCpr;
         const int row = row0 + r, col = n0 + ch * kEpc;
@@ -957,11 +980,21 @@ template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
 struct WidenPlan {
     static constexpr bool kAE4m3 = kA == Operand::kE4m3;
     static constexpr bool kBE4m3 = kB == Operand::kE4m3;
+    // one f32 sum over the whole depth ('dequant', or two bf16 operands),
+    // else a fresh partial a stage, promoted by the e4m3 sides' scales
+    static constexpr bool kOneSum = kDequant || (!kAE4m3 && !kBE4m3);
     static constexpr int kWG = kBM / 64;                      // consumer warpgroups
     static constexpr int kThreads = (kWG + 1) * 128;
-    // a stage is 128 values of k: a 128-byte box a row of e4m3, two of bf16
-    static constexpr int kABytes = (kAE4m3 ? 1 : 2) * kBM * kBK;
-    static constexpr int kBBytes = (kBE4m3 ? 1 : 2) * kBN * kBK;
+    // two bf16 operands (the masked kernel's bf16 form): A read by the wgmma
+    // from shared memory, as B is, and a stage 128 bytes of k (64 values),
+    // as in gemm_kernel (a stage of 128 values put twice the bytes in
+    // flight, and ran the fused dispatch + L1 at 8 ranks of one card ~2x
+    // slower); else a stage is 128 values of k: a 128-byte box a row of
+    // e4m3, two of bf16
+    static constexpr bool kSharedA = !kAE4m3 && !kBE4m3;
+    static constexpr int kSteps = kSharedA ? 4 : 8;           // k16 steps a stage
+    static constexpr int kABytes = (kAE4m3 || kSharedA ? 1 : 2) * kBM * kBK;
+    static constexpr int kBBytes = (kBE4m3 || kSharedA ? 1 : 2) * kBN * kBK;
     static constexpr int kSfA = kAE4m3 ? kBM : 0;             // scales a stage
     static constexpr int kSfB = kBE4m3 ? kBN : 0;
     static constexpr int kStageBytes = kABytes + kBBytes + (kSfA + kSfB) * 4;
@@ -972,13 +1005,11 @@ struct WidenPlan {
     static int smem_bytes(int stages) { return kFixedBytes + stages * (kStageBytes + 16); }
     static_assert(kBN == 64 || kBN == 128, "tiles of 64 or 128 columns");
     static_assert(kWG == 1 || kWG == 2, "64 or 128 rows");
-    static_assert(kAE4m3 || kBE4m3, "two bf16 operands: gemm_kernel's unscaled dense form");
-    static_assert(kDequant || !(kAE4m3 && kBE4m3), "e4m3 x e4m3 under 'promote': gemm_kernel");
     // the accumulator, the partial under 'promote' and A's fragments of a
     // stage, within the 168 registers a thread of a 384-thread block has
     // (ptxas allots the consumers no more, setmaxnreg notwithstanding; the
     // 128-row 'promote' instances spill a few)
-    static_assert((kDequant ? 1 : 2) * (kBN / 2) + 32 <= 168, "the registers of a consumer");
+    static_assert((kOneSum ? 1 : 2) * (kBN / 2) + 32 <= 168, "the registers of a consumer");
 };
 
 // An e4m3 code's bits moved into a bf16 (sign to bit 15, exponent and
@@ -1053,27 +1084,87 @@ __device__ __forceinline__ void widen_b_stage(const uint8_t* raw, uint8_t* tile,
     }
 }
 
-// The dense kernel's forms on bf16 products (dense_dequant.cu): an e4m3
-// operand widened exactly to bf16 (times bf16 of its scale under
-// 'dequant'), a bf16 operand as it is, m64nNk16 wgmma into f32. A (64
-// rows a consumer warpgroup) is wgmma's register operand: each consumer
-// builds its fragments of a stage (widened from the e4m3 stage, or loaded
-// from the bf16 one). An e4m3 B is widened by the consumers, each its
-// share, a stage ahead into one of two bf16 tiles while the wgmma on the
-// other runs; they fence their writes into the async proxy and meet at a
-// barrier before the wgmma (the barrier also means that every wgmma of the
-// stage before, which read the other tile, has finished). A bf16 B is read
-// as TMA loads it. 'dequant' sums the whole depth in one f32 accumulator;
-// 'promote' (one e4m3 operand) sums each stage in a fresh partial and adds
-// it times the e4m3 side's scales with one FMA. The producer, the items and
-// the epilogue are gemm_kernel's dense ones.
-template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
-__global__ void __launch_bounds__((WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>::kThreads), 1)
-widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-             const __grid_constant__ CUtensorMap map_d, const Args p) {
+// The work items of widen_body: the dense kernel's (item_of's bands), the
+// masked kernel's (group, row tile, column tile: the column tiles of a row
+// tile on neighbouring blocks, so its A rows are read from L2) or the fused
+// dispatch + L1's (group, column tile, row tile: the row tiles of a weight
+// tile on neighbouring blocks, so each weight tile is read from HBM once).
+enum class Items { kDense, kMasked, kByWeight };
+
+// The masked kernel's arguments: a [G, M, K], b [G, N, K], the k-first
+// scales (sfa [G, ksf, sfa_ld], sfb [G, ksf, sfb_ld] at sfb_group_stride),
+// d [G, M, N]; masked_m [G] the live rows of each group, or nullptr (every
+// row live).
+struct MaskedArgs {
+    Args p;
+    const int* masked_m;
+};
+
+// Masked work item t of Items kMasked or kByWeight, the groups one after
+// another.
+template <int kBM, int kBN, Items kItems>
+__device__ __forceinline__ Item masked_item(const Args& p, int t, int tiles_m, int tiles_n) {
+    constexpr bool kByWeight = kItems == Items::kByWeight;
+    const int per_group = tiles_m * tiles_n;
+    Item it;
+    it.g = t / per_group;
+    const int r = t - it.g * per_group;
+    const int inner = kByWeight ? tiles_m : tiles_n;
+    const int outer = r / inner;
+    it.m0 = (kByWeight ? r - outer * inner : outer) * kBM;
+    it.n0 = (kByWeight ? outer : r - outer * inner) * kBN;
+    it.num_kb = p.num_kb;
+    return it;
+}
+
+// widen_body's wait_rows where A's rows are in place: nothing to wait for.
+struct NoRows {
+    __device__ __forceinline__ void operator()(int, int) const {}
+};
+
+// The body of the kernels on bf16 products: the dense kernel's forms on
+// bf16 products (widen_kernel, dense_dequant.cu), the masked kernel
+// (masked_kernel, masked.cu) and the GEMM of the fused dispatch + L1
+// (mega_ep.cu). An e4m3 operand is widened exactly to bf16 (times bf16 of
+// its scale under 'dequant'), a bf16 operand taken as it is, m64nNk16 wgmma
+// into f32. A (64 rows a consumer warpgroup) is wgmma's register operand:
+// each consumer builds its fragments of a stage (widened from the e4m3
+// stage, or loaded from the bf16 one); with two bf16 operands (the masked
+// forms) the wgmma reads A from shared memory, as B. An e4m3 B is widened
+// by the consumers, each its share, a stage ahead into one of two bf16
+// tiles while the wgmma on the other runs; they fence their writes into
+// the async proxy and meet at a barrier before the wgmma (the barrier also
+// means that every wgmma of the stage before, which read the other tile,
+// has finished). A bf16 B is read as TMA loads it. 'dequant' and two bf16 operands sum the
+// whole depth in one f32 accumulator; 'promote' sums each 128-deep stage in
+// a fresh partial (exact products, f32 sums, as mma.sync's) and adds it
+// times the e4m3 sides' scales: with one FMA for one e4m3 operand, and for
+// two as the plain version orders it, (p * sfb) * sfa, each step rounded.
+//
+// Items kDense: gemm_kernel's dense producer, items and epilogue. Items
+// kMasked and kByWeight: d[g, :masked_m[g]] = a[g] . b[g]^T over G groups;
+// A and B through 3-D tensor maps [G, M, K] and [G, N, K], so a tile past M
+// reads zeros and no row of the next group; an item whose first row is at
+// or past masked_m[g] is skipped, before any load, by the producer and the
+// consumers alike; wait_rows(m0, rows), on the producer lane before an
+// item's first load, waits until the item's rows of A have landed (the
+// dispatch's slabs). Each row's sum is computed alike in every tile and item
+// order (the wgmma rows are independent, the promotion is per element), so
+// its bits depend on neither the tile's rows nor the items: the dispatch's
+// GEMM is bitwise the masked kernel on the received rows.
+template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant, Items kItems,
+          class WaitRows>
+__device__ __forceinline__ void widen_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                           const CUtensorMap& map_d, const Args& p,
+                                           const int* masked_m, WaitRows& wait_rows) {
     using P = WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>;
     constexpr int kWG = P::kWG, kABytes = P::kABytes, kBBytes = P::kBBytes;
-    constexpr bool kAE4m3 = P::kAE4m3, kBE4m3 = P::kBE4m3;
+    constexpr bool kAE4m3 = P::kAE4m3, kBE4m3 = P::kBE4m3, kOneSum = P::kOneSum;
+    constexpr bool kMasked = kItems != Items::kDense, kSharedA = P::kSharedA;
+    static_assert(kMasked || kAE4m3 || kBE4m3, "two bf16 operands: gemm_kernel's dense form");
+    static_assert(kMasked || kDequant || !(kAE4m3 && kBE4m3),
+                  "dense e4m3 x e4m3 under 'promote': gemm_kernel");
+    static_assert(!kMasked || (kA == kB && !kDequant), "masked: bf16 or e4m3 'promote'");
     extern __shared__ __align__(1024) uint8_t smem_raw[];
 
     // carve: A and B stages, the staging tiles and the widened B tiles
@@ -1100,9 +1191,16 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
 
     const int tiles_m = (p.M + kBM - 1) / kBM;
     const int tiles_n = (p.N + kBN - 1) / kBN;
-    const int num_items = tiles_m * tiles_n;
+    const int num_items = tiles_m * tiles_n * (kMasked ? p.num_groups : 1);
     const int wg = threadIdx.x / 128;
     const int lane = threadIdx.x % 32;
+    auto item = [&](int t) {
+        if constexpr (kMasked) return masked_item<kBM, kBN, kItems>(p, t, tiles_m, tiles_n);
+        else return item_of<kBM, kBN, Kind::kDense>(p, nullptr, t, tiles_m, tiles_n);
+    };
+    auto live = [&](const Item& it) {
+        return !kMasked || masked_m == nullptr || it.m0 < __ldg(masked_m + it.g);
+    };
 
     if (wg == kWG) {
         // ---- producer: one lane of the last warpgroup ----
@@ -1113,29 +1211,39 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
         int s = 0;
         uint32_t phase = 0;
         for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
-            const Item it = item_of<kBM, kBN, Kind::kDense>(p, nullptr, t, tiles_m, tiles_n);
+            const Item it = item(t);
+            if (!live(it)) continue;
+            if constexpr (kMasked) wait_rows(it.m0, min(kBM, p.M - it.m0));
             const int sa_n = min(kBM, p.sfa_ld - it.m0);
             const int sb_col = sfb_first(p, it.n0);
             const int sb_n = min((((it.n0 + kBN - 1) >> p.sfb_shift) - sb_col + 4) & ~3,
                                  p.sfb_ld - sb_col);
             const uint32_t bytes = kABytes + kBBytes + (kAE4m3 ? 4 * sa_n : 0) +
                                    (kBE4m3 ? 4 * sb_n : 0);
+            // the group's scale rows (masked: G problems of num_kb rows each)
+            const float* sfa_g =
+                p.sfa + (kMasked ? static_cast<int64_t>(it.g) * p.num_kb * p.sfa_ld : 0);
+            const float* sfb_g = p.sfb + (kMasked ? it.g * p.sfb_group_stride : 0);
+            auto load = [&](void* dst, const CUtensorMap* map, int col, int row) {
+                if constexpr (kMasked) tma_load_3d(dst, map, full + s, col, row, it.g);
+                else tma_load_2d(dst, map, full + s, col, row);
+            };
             for (int kb = 0; kb < it.num_kb; ++kb) {
                 mbar_wait(empty + s, phase ^ 1);
                 mbar_arrive_expect_tx(full + s, bytes);
                 #pragma unroll
                 for (int box = 0; box < kABytes / (kBM * kBK); ++box)
-                    tma_load_2d(smem_a + s * kABytes + box * kBM * kBK, &map_a, full + s,
-                                (kb * kABytes / (kBM * kBK) + box) * kBK, it.m0);
+                    load(smem_a + s * kABytes + box * kBM * kBK, &map_a,
+                         (kb * kABytes / (kBM * kBK) + box) * kBK, it.m0);
                 #pragma unroll
                 for (int box = 0; box < kBBytes / (kBN * kBK); ++box)
-                    tma_load_2d(smem_b + s * kBBytes + box * kBN * kBK, &map_b, full + s,
-                                (kb * kBBytes / (kBN * kBK) + box) * kBK, it.n0);
+                    load(smem_b + s * kBBytes + box * kBN * kBK, &map_b,
+                         (kb * kBBytes / (kBN * kBK) + box) * kBK, it.n0);
                 if constexpr (kAE4m3)
-                    bulk_load(sfa_s + s * P::kSfA, p.sfa + static_cast<int64_t>(kb) * p.sfa_ld + it.m0,
+                    bulk_load(sfa_s + s * P::kSfA, sfa_g + static_cast<int64_t>(kb) * p.sfa_ld + it.m0,
                               4 * sa_n, full + s);
                 if constexpr (kBE4m3)
-                    bulk_load(sfb_s + s * P::kSfB, p.sfb + static_cast<int64_t>(kb) * p.sfb_ld + sb_col,
+                    bulk_load(sfb_s + s * P::kSfB, sfb_g + static_cast<int64_t>(kb) * p.sfb_ld + sb_col,
                               4 * sb_n, full + s);
                 if (++s == S) { s = 0; phase ^= 1; }
             }
@@ -1154,11 +1262,12 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
     constexpr int kJ = kBN / 8;
 
     float acc[kBN / 2];
-    float part[kDequant ? 1 : kBN / 2];
+    float part[kOneSum ? 1 : kBN / 2];
     int s = 0;
     uint32_t phase = 0, rounds = 0;
     for (int t = blockIdx.x; t < num_items; t += gridDim.x) {
-        const Item it = item_of<kBM, kBN, Kind::kDense>(p, nullptr, t, tiles_m, tiles_n);
+        const Item it = item(t);
+        if (!live(it)) continue;
         const int first = sfb_first(p, it.n0);
         auto widen_b = [&](int st) {
             widen_b_stage<kBN, kDequant>(smem_b + st * kBBytes, widened + (rounds & 1) * P::kWideTile,
@@ -1208,7 +1317,7 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
                         #pragma unroll
                         for (int e = 0; e < 4; ++e) af[v][e] = mul_bf16x2(af[v][e], c2[e & 1]);
                 }
-            } else {
+            } else if constexpr (!kSharedA) {
                 #pragma unroll
                 for (int v = 0; v < 8; ++v)
                     #pragma unroll
@@ -1225,19 +1334,26 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
             }
             ++rounds;
 
-            // step v reads box v / 4 of the B tile, +32 bytes a step inside it
+            // step v reads box v / 4 of the B tile (and of a shared A),
+            // +32 bytes a step inside it
             auto mma = [&](float (&d)[kBN / 2]) {
                 fence_all(d);
                 asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
                 const uint64_t db = smem_desc(b_tile);
                 #pragma unroll
-                for (int v = 0; v < 8; ++v)
-                    wgmma_bf16_rs(d, af[v], db + (((v >> 2) * kBN * kBK + (v & 3) * 32) >> 4),
-                                  kDequant || v > 0);
+                for (int v = 0; v < P::kSteps; ++v) {
+                    const uint64_t db_v = db + (((v >> 2) * kBN * kBK + (v & 3) * 32) >> 4);
+                    if constexpr (kSharedA) {
+                        const uint8_t* a_box = sa + (v >> 2) * kBM * kBK + wg * 64 * kBK;
+                        wgmma_bf16<0>(d, smem_desc(a_box) + (v & 3) * 2, db_v, 1);
+                    } else {
+                        wgmma_bf16_rs(d, af[v], db_v, kOneSum || v > 0);
+                    }
+                }
                 asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
                 fence_all(d);
             };
-            if constexpr (kDequant) mma(acc);
+            if constexpr (kOneSum) mma(acc);
             else mma(part);
             if constexpr (kBE4m3) {
                 // the next stage into the other tile, under the wgmma
@@ -1251,15 +1367,34 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
             // after the wait: no read of the sums moves above it, and A's
             // registers, which the wgmma reads until it completes, stay
             // untouched until here
-            if constexpr (kDequant) fence_all(acc);
+            if constexpr (kOneSum) fence_all(acc);
             else fence_all(part);
-            #pragma unroll
-            for (int v = 0; v < 8; ++v)
+            if constexpr (!kSharedA) {
                 #pragma unroll
-                for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(af[v][e]) :: "memory");
+                for (int v = 0; v < 8; ++v)
+                    #pragma unroll
+                    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(af[v][e]) :: "memory");
+            }
 
-            if constexpr (!kDequant) {
-                if constexpr (kAE4m3) {
+            if constexpr (!kOneSum) {
+                if constexpr (kAE4m3 && kBE4m3) {
+                    // acc += (p * sfb[col]) * sfa[row]
+                    const float s0 = sfa_s[s * P::kSfA + ra], s8 = sfa_s[s * P::kSfA + ra + 8];
+                    const float* sb = sfb_s + s * P::kSfB;
+                    #pragma unroll
+                    for (int j = 0; j < kJ; ++j) {
+                        const int col = it.n0 + 8 * j + q;
+                        const float b0 = sb[(col >> p.sfb_shift) - first];
+                        const float b1 = sb[((col + 1) >> p.sfb_shift) - first];
+                        acc[4 * j] = __fadd_rn(acc[4 * j], __fmul_rn(__fmul_rn(part[4 * j], b0), s0));
+                        acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1],
+                                                   __fmul_rn(__fmul_rn(part[4 * j + 1], b1), s0));
+                        acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2],
+                                                   __fmul_rn(__fmul_rn(part[4 * j + 2], b0), s8));
+                        acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3],
+                                                   __fmul_rn(__fmul_rn(part[4 * j + 3], b1), s8));
+                    }
+                } else if constexpr (kAE4m3) {
                     // acc += p * sfa[row]
                     const float s0 = sfa_s[s * P::kSfA + ra], s8 = sfa_s[s * P::kSfA + ra + 8];
                     #pragma unroll
@@ -1288,9 +1423,38 @@ widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
             if (lane == 0) mbar_arrive(empty + s);
             if (++s == S) { s = 0; phase ^= 1; }
         }
-        store_rows64<OutT, kBN>(acc, p, map_d, stage_out, it.m0 + wg * 64, it.n0, rr, q, tid, wg);
+        store_rows64<OutT, kBN>(acc, p, map_d, stage_out, it.m0 + wg * 64, it.n0, rr, q, tid, wg,
+                                kMasked ? it.g : 0);
     }
     if (p.tma_store && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+
+
+// The dense kernel's forms on bf16 products (dense_dequant.cu): widen_body
+// on the dense items, no operand two bf16 and no e4m3 x e4m3 under 'promote'
+// (gemm_kernel's forms).
+template <int kBM, int kBN, class OutT, Operand kA, Operand kB, bool kDequant>
+__global__ void __launch_bounds__((WidenPlan<kBM, kBN, OutT, kA, kB, kDequant>::kThreads), 1)
+widen_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_d, const Args p) {
+    NoRows no_rows;
+    widen_body<kBM, kBN, OutT, kA, kB, kDequant, Items::kDense>(map_a, map_b, map_d, p, nullptr,
+                                                                no_rows);
+}
+
+// The masked kernel (masked.cu): widen_body on the masked items, its rows
+// in place; two e4m3 operands (promoted) or two bf16.
+template <int kBM, class OutT, Operand kAB>
+using MaskedPlan = WidenPlan<kBM, kDenseBN, OutT, kAB, kAB, false>;
+
+template <int kBM, class OutT, Operand kAB>
+__global__ void __launch_bounds__((MaskedPlan<kBM, OutT, kAB>::kThreads), 1)
+masked_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              const __grid_constant__ CUtensorMap map_d, const MaskedArgs a) {
+    NoRows in_place;
+    widen_body<kBM, kDenseBN, OutT, kAB, kAB, false, Items::kMasked>(map_a, map_b, map_d, a.p,
+                                                                     a.masked_m, in_place);
 }
 
 // Scales k-first, as the producer copies them: sfa [m, ksf] -> sfa_k [ksf,
@@ -1495,6 +1659,26 @@ inline cudaError_t launch_widen_any(const CUtensorMap& map_a, const CUtensorMap&
         return out_f32 ? go(launch_widen<64, 64, float, kA, kB, kDequant>)
                        : go(launch_widen<64, 64, Bf16, kA, kB, kDequant>);
     return cudaErrorInvalidValue;
+}
+
+// A masked_kernel instance of block_m rows (64 or 128), the operands' type
+// and the output type: persistent, one block an SM, at most one per item.
+template <int kBM, class OutT, Operand kAB>
+static inline cudaError_t launch_masked(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                        const CUtensorMap& map_d, const MaskedArgs& a,
+                                        int num_sms, cudaStream_t stream) {
+    using P = MaskedPlan<kBM, OutT, kAB>;
+    const int smem = P::smem_bytes(a.p.num_stages);
+    if (a.p.num_stages < 2 || smem > kSmemLimit) return cudaErrorInvalidValue;
+    constexpr auto kernel = masked_kernel<kBM, OutT, kAB>;
+    const cudaError_t err = opt_in<kernel>();
+    if (err != cudaSuccess) return err;
+    const long long items = static_cast<long long>((a.p.M + kBM - 1) / kBM) *
+                            ((a.p.N + kDenseBN - 1) / kDenseBN) * a.p.num_groups;
+    const int grid = static_cast<int>(items < num_sms ? items : num_sms);
+    if (grid == 0) return cudaSuccess;
+    kernel<<<grid, P::kThreads, smem, stream>>>(map_a, map_b, map_d, a);
+    return cudaGetLastError();
 }
 
 }  // namespace sm90

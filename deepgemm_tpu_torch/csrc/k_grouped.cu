@@ -135,7 +135,9 @@ extern "C" int dgt_k_grouped_bf16_gemm(const void* a, const void* b, const void*
     p.ldk = ldk;
     p.k_start = static_cast<const int*>(k_start);
     p.k_size = static_cast<const int*>(k_size);
-    const cudaError_t err = dgt::launch_gemm_out<dgt::FormBf16, dgt::Layout::kKGrouped>(
-        p, num_groups, block_n, out_f32, static_cast<cudaStream_t>(stream));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        out_f32 ? dgt::launch_gemm_bn<float>(p, num_groups, block_n, s)
+                : dgt::launch_gemm_bn<__nv_bfloat16>(p, num_groups, block_n, s);
     return static_cast<int>(err);
 }

@@ -19,20 +19,37 @@
 // The protocol (entry barrier, epoch signals, bounded spins, sys-scope
 // fences) is comm.cuh's. Every block first stores its 1/G share of each
 // slab (and its scales) into slot [my] of the slab's rank (its own slot
-// first), then fences and signals one arrival at every rank. Items are
-// walked in processing-step order, step s being the slab from rank
-// (my - s) mod D, so the first items compute on this rank's own tokens
-// while the peers' slabs are in flight, and an item waits only for the
-// slabs it reads (a pool waits for its P slabs). Slabs lie 128-byte aligned
-// in the receive region, so no cache line holds bytes of two slabs.
+// first), then fences and signals one arrival at every rank.
 //
-// Bits: the dispatch + L1 tiles are the masked kernel's mainloop
-// (gemm_mainloop.cuh, gemm_tile; 64 x 128 tiles), so ``out`` is bitwise the
-// masked kernel on ``recv``. The mega items run mega_block.cuh, the body of
-// the one-rank kernel (mega_local.cu), on rows gathered from the pool's
-// slabs; a row's result depends on that row alone, so every slab's rows
-// come out bitwise the one-rank kernel on the same rows, at every pool
-// size, and force_general at D = 1 is bitwise the one-rank kernel.
+// Dispatch + L1 runs the masked kernel's body (gemm_sm90.cuh widen_body:
+// TMA-fed stages, one producer lane, consumer warpgroups on wgmma over bf16
+// products) with every row live. Its receive region is expert-major, tokens [E, D, cap, H]
+// and their scales k-first [E, H/128, sfa_ld] (sfa_ld: D x cap rounded up
+// to 4; the wrapper lays each slab's scales out k-first before the push),
+// so a sender's rows of expert e land as one block of cap rows at row
+// my x cap, and expert e's D x cap received rows are one group of a 3-D
+// tensor map: a row tile spans slabs, each expert's weights are read once
+// per 64 or 128 received rows, and a stage is one TMA load of A, one of B
+// and a bulk copy of each side's scales, as in the masked kernel. (Boxes
+// of 8 rows through a 4-D map over slab-major slabs ran e4m3 slower than
+// bf16 on the H100, with half its bytes: one producer lane issuing 16 A
+// boxes and 16 scale copies a stage set the pace.) The items run (expert, column tile, row
+// tile), the row tiles of a weight tile on neighbouring blocks, so the
+// weight tile is read from L2 after the first. Only the producer lane waits
+// for slabs: before an item's first load, for each slab its rows cover not
+// seen yet, then a fence.proxy.async (the peers' generic stores, the TMA's
+// async reads). Bits: each row's sum is computed as the masked kernel
+// computes it, so ``out`` is bitwise the masked kernel on ``recv``.
+//
+// The mega items run mega_block.cuh, the body of the one-rank kernel
+// (mega_local.cu), on rows gathered from the pool's slabs (slab-major, each
+// 128-byte aligned, so no cache line holds bytes of two slabs), walked in
+// processing-step order (step s: the slab from rank (my - s) mod D, so the
+// first items compute on this rank's own tokens while the peers' slabs are
+// in flight; a pool waits for its P slabs); a row's result depends on that
+// row alone, so every slab's rows come out bitwise the one-rank kernel on
+// the same rows, at every pool size, and force_general at D = 1 is bitwise
+// the one-rank kernel.
 //
 // Co-residency: a rank's blocks spin on its peers' blocks, so every rank's
 // grid must be on the card at once. G is the card's SMs shared out between
@@ -41,12 +58,13 @@
 // SM. The spin timeout turns any mistake here into an error.
 //
 // What bounds it on the H100: dispatch + L1 streams each local expert's
-// weights once per 64-row tile of a slab (D x ceil(cap/64) times) and
-// moves the slabs (bytes); the mega items stream an expert's weights once
-// per 48-row item (bytes), as the one-rank kernel does per expert. Both
-// run mma.sync (wgmma is the next step).
+// weights from HBM once (bytes; its wgmma rows are the received rows
+// rounded up to the tile); the mega items stream an expert's weights once
+// per 48-row item (bytes) on mma.sync, as the one-rank kernel does per
+// expert.
 
 #include "comm.cuh"
+#include "gemm_sm90.cuh"
 #include "mega_block.cuh"
 
 namespace dgt {
@@ -66,55 +84,88 @@ __device__ __forceinline__ void push_slabs(const Peers& c, const uint8_t* send, 
     }
 }
 
+// This block's share of `rows` rows of `row_bytes` bytes from src (rows
+// src_ld bytes apart) to dst (rows dst_ld bytes apart), in 16-byte words
+// where every address and stride allows, else 4-byte words, else bytes
+// (the words of one copy fewer than 2^32).
+__device__ __forceinline__ void copy_rows(uint8_t* dst, int64_t dst_ld, const uint8_t* src,
+                                          int64_t src_ld, int rows, int64_t row_bytes) {
+    const uintptr_t align = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)
+                          | static_cast<uintptr_t>(dst_ld) | static_cast<uintptr_t>(src_ld)
+                          | static_cast<uintptr_t>(row_bytes);
+    auto run = [&](auto word) {
+        using T = decltype(word);
+        const uint32_t per_row = static_cast<uint32_t>(row_bytes / sizeof(T));
+        const uint32_t n = static_cast<uint32_t>(rows) * per_row;
+        const uint32_t per = (n + gridDim.x - 1) / gridDim.x;
+        const uint32_t lo = per * blockIdx.x, hi = lo + per < n ? lo + per : n;
+        for (uint32_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+            const uint32_t r = i / per_row, w = i - r * per_row;
+            reinterpret_cast<T*>(dst + r * dst_ld)[w] =
+                reinterpret_cast<const T*>(src + r * src_ld)[w];
+        }
+    };
+    if ((align & 15) == 0) run(uint4{});
+    else if ((align & 3) == 0) run(0u);
+    else run(static_cast<unsigned char>(0));
+}
+
 struct DispatchArgs {
+    sm90::Args p;            // the GEMM over the received rows (gemm_sm90.cuh)
     const uint8_t* send;     // [D, E, cap, H] e4m3 or bf16
-    const float* send_sf;    // [D, E, cap, H/128] f32, or null (bf16)
-    const uint8_t* w;        // [E, N, H]
-    const float* w_sf;       // [E, N/128, H/128] f32, or null
-    __nv_bfloat16* out;      // [E, D, cap, N]
-    int experts, cap, n, hidden;
-    int64_t x_slab, x_stride, sf_slab, sf_stride, sf_region;   // bytes
+    const uint8_t* send_sf;  // [D, E, H/128, cap] f32 k-first, or null (bf16)
+    int experts, cap, ksf;
+    int64_t row_bytes, sf_region;   // bytes
     Peers c;
 };
 
-template <class F>
-__global__ void __launch_bounds__(kThreads) dispatch_gemm_kernel(const DispatchArgs a) {
-    const Peers& c = a.c;
-    const int D = c.size;
-    comm::entry_barrier(c);
-    push_slabs(c, a.send, a.x_slab, a.x_stride, 0);
-    if (a.send_sf != nullptr)
-        push_slabs(c, reinterpret_cast<const uint8_t*>(a.send_sf), a.sf_slab, a.sf_stride,
-                   a.sf_region);
-    comm::signal_all(c, comm::kArrive);
-
-    const int mt = (a.cap + kBM - 1) / kBM, nt = (a.n + 127) / 128;
-    const int per_step = a.experts * mt * nt;
-    const int ksf = a.hidden / 128;
-    const uint8_t* recv = c.data(c.rank);
-    int landed = 0;
-    for (int item = blockIdx.x; item < D * per_step; item += gridDim.x) {
-        const int s = item / per_step, rest = item % per_step;
-        const int e = rest / (mt * nt), m_t = rest / nt % mt, n_t = rest % nt;
-        for (; landed <= s; ++landed) comm::wait_from(c, comm::kArrive, (c.rank - landed + D) % D);
-        const int src = (c.rank - s + D) % D;
-        const int64_t row0 = static_cast<int64_t>(e) * a.cap;
-        GemmArgs q = {};
-        q.a = recv + src * a.x_stride + row0 * a.hidden * F::kEA;
-        q.b = a.w + static_cast<int64_t>(e) * a.n * a.hidden * F::kEB;
-        q.d = a.out + (static_cast<int64_t>(e) * D + src) * a.cap * a.n;
-        q.M = a.cap;
-        q.N = a.n;
-        q.K = a.hidden;
-        q.sfb_shift = 7;
-        if (a.send_sf != nullptr) {
-            q.sfa = reinterpret_cast<const float*>(recv + a.sf_region + src * a.sf_stride)
-                  + row0 * ksf;
-            q.sfb = a.w_sf + static_cast<int64_t>(e) * (a.n / 128) * ksf;
+// The producer lane's wait for the slabs an item's rows read (rows m0 on of
+// an expert's D x cap: slab r / cap holds row r): rank src's blocks have
+// all signalled their stores of this call. The stores were generic, the
+// loads that read them are TMA's (the async proxy): a proxy fence between.
+struct SlabWait {
+    const Peers& c;
+    int cap;
+    unsigned long long landed;   // a bit a slab
+    __device__ __forceinline__ void operator()(int m0, int rows) {
+        for (int src = m0 / cap; src <= (m0 + rows - 1) / cap; ++src) {
+            if ((landed >> src) & 1ull) continue;
+            comm::spin_until(c, comm::kArrive, src, c.epoch * gridDim.x);
+            asm volatile("fence.proxy.async.global;\n" ::: "memory");
+            landed |= 1ull << src;
         }
-        __syncthreads();     // the previous tile's stages are read
-        gemm_tile<F, 128, Layout::kBatched, __nv_bfloat16>(q, n_t, m_t, 0);
     }
+};
+
+template <int kBM, sm90::Operand kAB>
+using DispatchPlan = sm90::MaskedPlan<kBM, __nv_bfloat16, kAB>;
+
+template <int kBM, sm90::Operand kAB>
+__global__ void __launch_bounds__((DispatchPlan<kBM, kAB>::kThreads), 1)
+dispatch_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_d, const DispatchArgs a) {
+    const Peers& c = a.c;
+    const int D = c.size, E = a.experts, cap = a.cap;
+    // every thread pushes, before the producer warpgroup gives up its
+    // registers: slab dst's expert e to rows [my cap, my cap + cap) of
+    // expert e at rank dst, its scales to the same columns of each k row
+    comm::entry_barrier(c);
+    for (int p = 0; p < D; ++p) {
+        const int dst = (c.rank + p) % D;
+        const int64_t slab_bytes = static_cast<int64_t>(cap) * a.row_bytes;
+        copy_rows(c.data(dst) + c.rank * slab_bytes, D * slab_bytes, a.send + dst * E * slab_bytes,
+                  slab_bytes, E, slab_bytes);
+        if (a.send_sf != nullptr)
+            copy_rows(c.data(dst) + a.sf_region + c.rank * cap * 4, a.p.sfa_ld * 4,
+                      a.send_sf + static_cast<int64_t>(dst) * E * a.ksf * cap * 4, cap * 4,
+                      E * a.ksf, cap * 4);
+    }
+    comm::signal_all(c, comm::kArrive);
+    SlabWait wait{c, cap, 0ull};
+    using sm90::Items;
+    sm90::widen_body<kBM, sm90::kDenseBN, __nv_bfloat16, kAB, kAB, false, Items::kByWeight>(
+        map_a, map_b, map_d, a.p, nullptr, wait);
 }
 
 struct MegaArgs {
@@ -212,20 +263,37 @@ __global__ void __launch_bounds__(kThreads) mega_ep_kernel(const MegaArgs a) {
     for (int p = 0; p < D; ++p) comm::wait_from(c, comm::kCombine, (c.rank - p + D) % D);
 }
 
-// Launch one block per share of the card; refuse a grid that cannot be
-// resident at one block an SM.
-template <class Kernel, class A>
-cudaError_t launch_persistent(Kernel kernel, const A& a, int smem, int blocks,
-                              cudaStream_t stream) {
+// Launch one block of `threads` per share of the card; refuse a grid that
+// cannot be resident at one block an SM.
+template <class Kernel, class... A>
+cudaError_t launch_persistent(Kernel kernel, int threads, int smem, int blocks,
+                              cudaStream_t stream, const A&... args) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
     if (err != cudaSuccess) return err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    kernel<<<blocks, kThreads, smem, stream>>>(a);
+    kernel<<<blocks, threads, smem, stream>>>(args...);
     return cudaGetLastError();
+}
+
+// A dispatch_gemm_kernel instance of block_m rows (64 or 128).
+template <sm90::Operand kAB>
+cudaError_t launch_dispatch(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                            const CUtensorMap& map_d, const DispatchArgs& a, int block_m,
+                            int blocks, cudaStream_t stream) {
+    auto go = [&](auto kernel, auto plan) {
+        using P = decltype(plan);
+        const int smem = P::smem_bytes(a.p.num_stages);
+        if (a.p.num_stages < 2 || smem > sm90::kSmemLimit) return cudaErrorInvalidValue;
+        return launch_persistent(kernel, P::kThreads, smem, blocks, stream, map_a, map_b, map_d,
+                                 a);
+    };
+    if (block_m == 128) return go(dispatch_gemm_kernel<128, kAB>, DispatchPlan<128, kAB>{});
+    if (block_m == 64) return go(dispatch_gemm_kernel<64, kAB>, DispatchPlan<64, kAB>{});
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace ep
@@ -241,43 +309,65 @@ dgt::comm::Peers peers(const void* table, int rank, int size, unsigned long long
 
 }  // namespace
 
-// Fused dispatch + L1. send [D, E, cap, H] (e4m3 with send_sf [D, E, cap,
-// H/128] f32 and w_sf [E, N/128, H/128] f32, or bf16 with both null), w
-// [E, N, H], out [E, D, cap, N] bf16; the symmetric buffer (table) holds
-// D slots of x_stride bytes, then at sf_region D slots of sf_stride bytes.
-// Returns the launch's cudaError_t.
+// Fused dispatch + L1. send [D, E, cap, H] (e4m3 with send_sf [D, E, H/128,
+// cap] f32 k-first, w_sf [E, N/128, H/128] f32 and scratch E (H/128) sfb_ld
+// f32 for its k-first copy, sfb_ld = N/128 rounded up to 4; or bf16 with
+// those null), w [E, N, H], out [E, D, cap, N] bf16. The symmetric buffer
+// (table; this rank's own at recv) holds the tokens [E, D, cap, H] and, at
+// sf_region, their scales [E, H/128, sfa_ld] f32 (sfa_ld: D cap rounded up
+// to 4). block_m (64 or 128) and num_stages from
+// heuristics/configs.py:get_sm90_config. Returns the cudaError_t of the
+// launches.
 extern "C" int dgt_dispatch_gemm(const void* send, const void* send_sf, const void* w,
-                                 const void* w_sf, void* out, int experts, int cap, int n,
-                                 int hidden, long long x_stride, long long sf_stride,
-                                 long long sf_region, const void* table, int rank, int size,
-                                 unsigned long long epoch, int blocks, long long timeout_ns,
-                                 void* diag, void* stream) {
+                                 const void* w_sf, void* scratch, void* out, const void* recv,
+                                 int experts, int cap, int n, int hidden, int sfa_ld, int sfb_ld,
+                                 long long sf_region, int block_m, int num_stages,
+                                 const void* table, int rank, int size, unsigned long long epoch,
+                                 int blocks, long long timeout_ns, void* diag, void* stream) {
+    using namespace dgt::sm90;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool fp8 = send_sf != nullptr;
+    const int ksf = hidden / 128;
+    const uint64_t row_bytes = static_cast<uint64_t>(hidden) * (fp8 ? 1 : 2);
+    const int rows = size * cap;               // an expert's received rows
     dgt::ep::DispatchArgs a = {};
     a.send = static_cast<const uint8_t*>(send);
-    a.send_sf = static_cast<const float*>(send_sf);
-    a.w = static_cast<const uint8_t*>(w);
-    a.w_sf = static_cast<const float*>(w_sf);
-    a.out = static_cast<__nv_bfloat16*>(out);
+    a.send_sf = static_cast<const uint8_t*>(send_sf);
     a.experts = experts;
     a.cap = cap;
-    a.n = n;
-    a.hidden = hidden;
-    const bool fp8 = send_sf != nullptr;
-    a.x_slab = static_cast<int64_t>(experts) * cap * hidden * (fp8 ? 1 : 2);
-    a.x_stride = x_stride;
-    a.sf_slab = static_cast<int64_t>(experts) * cap * (hidden / 128) * 4;
-    a.sf_stride = sf_stride;
+    a.ksf = ksf;
+    a.row_bytes = static_cast<int64_t>(row_bytes);
     a.sf_region = sf_region;
     a.c = peers(table, rank, size, epoch, timeout_ns, diag);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    using dgt::Layout;
-    if (fp8)
-        return static_cast<int>(dgt::ep::launch_persistent(
-            dgt::ep::dispatch_gemm_kernel<dgt::FormE4m3>, a,
-            dgt::smem_bytes<dgt::FormE4m3, 128, Layout::kBatched>(), blocks, s));
-    return static_cast<int>(dgt::ep::launch_persistent(
-        dgt::ep::dispatch_gemm_kernel<dgt::FormBf16>, a,
-        dgt::smem_bytes<dgt::FormBf16, 128, Layout::kBatched>(), blocks, s));
+    Args& p = a.p;
+    if (fp8) {
+        const cudaError_t err = launch_k_first(nullptr, w_sf, scratch, 0, n / 128, ksf, 0, sfb_ld,
+                                               experts, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        p.sfa = reinterpret_cast<const float*>(static_cast<const uint8_t*>(recv) + sf_region);
+        p.sfb = static_cast<const float*>(scratch);
+        p.sfb_ld = sfb_ld;
+        p.sfb_group_stride = static_cast<int64_t>(ksf) * sfb_ld;
+    }
+    p.sfa_ld = sfa_ld;
+    p.d = out;
+    p.M = rows;
+    p.N = n;
+    p.num_kb = static_cast<int>(row_bytes / kBK);   // a stage: 128 values of e4m3, 64 of bf16
+    p.sfb_shift = 7;
+    p.num_groups = experts;
+    p.num_stages = num_stages;
+    CUtensorMap map_a, map_b, map_d = {};
+    if (!make_map_3d(&map_a, recv, row_bytes, rows, row_bytes, experts, block_m) ||
+        !make_map_3d(&map_b, w, row_bytes, n, row_bytes, experts, kDenseBN) ||
+        !make_out_map(&map_d, out, n, rows, experts, 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    p.tma_store = 1;
+    using dgt::ep::launch_dispatch;
+    const cudaError_t err =
+        fp8 ? launch_dispatch<Operand::kE4m3>(map_a, map_b, map_d, a, block_m, blocks, s)
+            : launch_dispatch<Operand::kBf16>(map_a, map_b, map_d, a, block_m, blocks, s);
+    return static_cast<int>(err);
 }
 
 // The general mega MoE. send [D, E, cap, H] (e4m3 with send_sf, or bf16),
@@ -323,16 +413,18 @@ extern "C" int dgt_mega_ep(const void* send, const void* send_sf, const void* rw
     if (pool < 1 || size % pool != 0) return static_cast<int>(cudaErrorInvalidValue);
     const int smem = dgt::mega::smem_bytes(inter) + dgt::ep::kTableBytes;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    using dgt::kThreads;
     using dgt::ep::launch_persistent;
     using dgt::ep::mega_ep_kernel;
     cudaError_t err = cudaErrorInvalidValue;
+    auto go = [&](auto kernel) {
+        return launch_persistent(kernel, kThreads, smem, blocks, s, a);
+    };
     if (weight_kind == 0 && !act_fp8)
-        err = launch_persistent(mega_ep_kernel<W::kBf16, false>, a, smem, blocks, s);
+        err = go(mega_ep_kernel<W::kBf16, false>);
     else if (weight_kind == 1)
-        err = act_fp8 ? launch_persistent(mega_ep_kernel<W::kE4m3, true>, a, smem, blocks, s)
-                      : launch_persistent(mega_ep_kernel<W::kE4m3, false>, a, smem, blocks, s);
+        err = act_fp8 ? go(mega_ep_kernel<W::kE4m3, true>) : go(mega_ep_kernel<W::kE4m3, false>);
     else if (weight_kind == 2)
-        err = act_fp8 ? launch_persistent(mega_ep_kernel<W::kFp4, true>, a, smem, blocks, s)
-                      : launch_persistent(mega_ep_kernel<W::kFp4, false>, a, smem, blocks, s);
+        err = act_fp8 ? go(mega_ep_kernel<W::kFp4, true>) : go(mega_ep_kernel<W::kFp4, false>);
     return static_cast<int>(err);
 }

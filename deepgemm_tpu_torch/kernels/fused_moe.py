@@ -25,8 +25,11 @@ Over a mesh of D ranks (parallel/dist.py), inside ``Mesh.map``:
   combine buffer. Its plain version is the mesh's host all-to-all around
   the one-rank block's plain version.
 - ``fused_dispatch_gemm`` replaces ``_kernel`` (``pl.pallas_call`` at
-  fused_moe.py:185): the dispatch's one-sided pushes and the masked
-  kernel's mainloop on each slab as it lands.
+  fused_moe.py:185): the dispatch's one-sided pushes into an expert-major
+  receive region, then the masked kernel's Hopper body (csrc/gemm_sm90.cuh
+  ``widen_body``) over each local expert's D x cap received rows as one
+  group, its row tiles spanning slabs, each item waiting only for the slabs
+  it reads; bitwise the masked kernel on ``recv``.
 """
 
 import ctypes
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 
 from .. import envs
 from ..heuristics.arch import H100_SXM
+from ..heuristics.configs import get_sm90_config
 from ..parallel import dist
 from ..runtime import build
 from ..utils.math import (_dequantize_from_fp4_e2m1, align, per_token_cast_to_fp8,
@@ -381,7 +385,8 @@ def _ep_lib():
                                          ctypes.c_void_p, ctypes.c_void_p])
         lib.dgt_mega_ep.restype = ctypes.c_int
         lib.dgt_dispatch_gemm.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 2
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
         lib.dgt_dispatch_gemm.restype = ctypes.c_int
@@ -482,13 +487,12 @@ def mega_ep(send_x: torch.Tensor, send_sf: Optional[torch.Tensor], rw_steps: tor
                       device=send_x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _ep_lib()
-    from ..parallel.collectives import comm_args
-    code = lib.dgt_mega_ep(send_x.data_ptr(), ptr(send_sf), rw_steps.data_ptr(), w1.data_ptr(),
-                           ptr(w1_sf), w2.data_ptr(), ptr(w2_sf), act.data_ptr(), e_local, cap,
-                           hidden, inter, pool, 2 if w_fp4 else int(scaled), int(act_fp8),
-                           int(silu_tanh), float(clamp), x_stride, sf_stride, sf_region,
-                           y_region, *comm_args(buf))
-    build.check(lib, code, 'mega_ep')
+    from ..parallel.collectives import launch_spinning
+    launch_spinning(lib, 'mega_ep', buf, lambda *comm: lib.dgt_mega_ep(
+        send_x.data_ptr(), ptr(send_sf), rw_steps.data_ptr(), w1.data_ptr(), ptr(w1_sf),
+        w2.data_ptr(), ptr(w2_sf), act.data_ptr(), e_local, cap, hidden, inter, pool,
+        2 if w_fp4 else int(scaled), int(act_fp8), int(silu_tanh), float(clamp), x_stride,
+        sf_stride, sf_region, y_region, *comm))
     count_launch(ep_launches, instance_name(scaled, w_fp4, act_fp8))
     # the combine region outlives the call: the next call may store into it
     # once this rank has entered that call
@@ -579,8 +583,9 @@ def fused_dispatch_gemm(send_x: torch.Tensor, w: torch.Tensor, axis_name: str = 
     ``send_sf`` [D, E, cap, >= H/128] f32 (pushed beside the tokens) and
     ``w_sf`` [E, N/128, H/128] f32. Returns (out [E, D, cap, N] bf16 in
     source-rank order, out[e, src] = recv[src, e] . w[e]^T; recv [D, E,
-    cap, H], the tokens received). ``block_n`` and ``collective_id`` are JAX's tiling and barrier
-    names; the kernel's tile is 128 wide and its buffer the mesh's
+    cap, H], the tokens received). ``block_n`` and ``collective_id`` are
+    JAX's tiling and barrier names; the kernel's tile is 128 wide (64 or
+    128 rows, :func:`get_sm90_config`) and its buffer the mesh's
     'dispatch'."""
     del block_n, collective_id
     d_dim, e_local, cap, hidden = send_x.shape
@@ -611,19 +616,32 @@ def fused_dispatch_gemm(send_x: torch.Tensor, w: torch.Tensor, axis_name: str = 
         raise ValueError('w_sf goes with e4m3 operands only')
     if min(e_local, cap) == 0:
         raise ValueError(f'the kernel takes non-empty shapes; got E={e_local}, cap={cap}')
-    x_stride, sf_stride, sf_region, end = _slab_layout(d_dim, e_local, cap, hidden,
-                                                       send_x.element_size(), scaled)
-    buf = dist.symmetric('dispatch', end)
+    # the receive region, expert-major: tokens [E, D, cap, H], then their
+    # scales k-first [E, H/128, D cap rounded up to 4] (each sender's slab
+    # laid out k-first here, [E, H/128, cap], for the push); an expert's D
+    # cap received rows are one group of the kernel's A
+    rows, ksf, xb = d_dim * cap, hidden // GRAN_K, send_x.element_size()
+    sfa_ld, sfb_ld = align(rows, 4), align(n // 128, 4)
+    x_bytes = e_local * rows * hidden * xb
+    if e_local * cap * hidden * xb >= 1 << 32:
+        raise ValueError(f'a slab of {e_local * cap * hidden * xb} bytes: the push copies under '
+                         f'2^32 bytes a slab')
+    sf_region = align(x_bytes, 128)
+    buf = dist.symmetric('dispatch', sf_region + (e_local * ksf * sfa_ld * 4 if scaled else 0))
+    send_sf_k = scratch = None
+    if scaled:
+        send_sf_k = send_sf.transpose(2, 3).contiguous()
+        scratch = torch.empty(e_local * ksf * sfb_ld, dtype=torch.float32, device=send_x.device)
+    cfg = get_sm90_config(rows, n, e_local, masked=True, elem=xb)
     out = torch.empty((e_local, d_dim, cap, n), dtype=torch.bfloat16, device=send_x.device)
+    recv = torch.empty_like(send_x)
     lib = _ep_lib()
-    from ..parallel.collectives import comm_args
-    code = lib.dgt_dispatch_gemm(send_x.data_ptr(), send_sf.data_ptr() if scaled else None,
-                                 w.data_ptr(), w_sf.data_ptr() if scaled else None,
-                                 out.data_ptr(), e_local, cap, n, hidden, x_stride, sf_stride,
-                                 sf_region, *comm_args(buf))
-    build.check(lib, code, 'dispatch_gemm')
+    from ..parallel.collectives import launch_spinning
+    ptr = lambda t: None if t is None else t.data_ptr()
+    launch_spinning(lib, 'dispatch_gemm', buf, lambda *comm: lib.dgt_dispatch_gemm(
+        send_x.data_ptr(), ptr(send_sf_k), w.data_ptr(), ptr(w_sf), ptr(scratch), out.data_ptr(),
+        buf.data.data_ptr(), e_local, cap, n, hidden, sfa_ld, sfb_ld, sf_region, cfg.block_m,
+        cfg.num_stages, *comm))
     count_launch(dispatch_launches, 'fp8' if scaled else 'bf16')
-    slab = e_local * cap * hidden * send_x.element_size()
-    recv = buf.data[:d_dim * x_stride].view(d_dim, x_stride)[:, :slab].view(x_type) \
-        .reshape(d_dim, e_local, cap, hidden).clone()
+    recv.copy_(buf.data[:x_bytes].view(x_type).view(e_local, d_dim, cap, hidden).transpose(0, 1))
     return out, recv

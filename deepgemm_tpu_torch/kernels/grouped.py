@@ -3,15 +3,21 @@ the CUDA kernels, their plain PyTorch versions and their launch counts.
 
 Masked (decode). Replaces: deepgemm_tpu/kernels/grouped.py:_build_masked
 (``pl.pallas_call`` at grouped.py:576).
-Kernel: csrc/masked.cu on the mainloop of csrc/gemm_mainloop.cuh, one
-instantiation for bf16 and one for e4m3 with the f32 promotion.
+Kernel: csrc/masked.cu on the Hopper mainloop of csrc/gemm_sm90.cuh (wgmma
++ TMA, warp-specialised, persistent; ``widen_body``, the body of the dense
+forms on bf16 products): bf16, and e4m3 with the f32 promotion (B scaled
+per 128 rows or per row; bf16 or f32 out), its codes widened exactly to
+bf16 so that each 128-deep block's products are summed in f32 as the plain
+version sums them (e4m3 wgmma sums at reduced precision).
 Bound on the H100: the model's expert GEMMs have max_m = 40 rows per expert
 against 4096 x 7168 (or 7168 x 2048) weights, ~80 operations per weight
 byte, so streaming every expert's weights once from HBM bounds them. The
-grid has one block per (n-tile, m-tile, expert): 8192 blocks at the L1
-shape, enough to keep every SM's 4-stage cp.async ring full of weight
-bytes; m-tiles at or past ``masked_m[g]`` exit before loading anything.
-``masked_m`` is read on the device only, so no call syncs the host.
+items are (group, row tile, column tile), 64-row tiles where max_m <= 64
+(decode), else 128 (the einsum's 4096 rows a head), the column tiles of a
+row tile on neighbouring SMs so its A rows come from L2; an item at or past
+``masked_m[g]`` is skipped before any load. ``masked_m`` is read on the
+device only, so no call syncs the host. The fused dispatch + L1
+(kernels/fused_moe.py) runs the same body and is bitwise this kernel.
 
 Contiguous (prefill and training). Replaces:
 deepgemm_tpu/kernels/grouped.py:_build_contiguous (``pl.pallas_call`` at
@@ -50,8 +56,7 @@ from typing import Optional
 
 import torch
 
-from ..heuristics.configs import (BLOCK_M, DUAL_BLOCK_M, contiguous_block_m, get_gemm_config,
-                                  get_sm90_config)
+from ..heuristics.configs import BLOCK_M, DUAL_BLOCK_M, contiguous_block_m, get_sm90_config
 from ..runtime import build
 from ..runtime.config import get_mk_alignment_for_contiguous_layout, get_num_sms
 from ..utils.math import align, ceil_div
@@ -82,7 +87,7 @@ _PLAIN_CHUNK_BYTES = 1 << 31
 def _entry():
     fn = build.load('masked').dgt_masked_gemm_nt
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -164,15 +169,23 @@ def masked_gemm(a: torch.Tensor, b: torch.Tensor, masked_m: torch.Tensor,
     if min(num_groups, max_m, n, k) == 0 or k % 16 or n % 2:
         raise ValueError(f'the kernel takes non-empty shapes, k % 16 == 0 and '
                          f'even n; got G={num_groups}, max_m={max_m}, n={n}, k={k}')
-    cfg = get_gemm_config(max_m, n, num_groups, num_sms=get_num_sms(a.device))
-    d = torch.empty((num_groups, max_m, n), dtype=out_dtype, device=a.device)
     out_f32 = out_dtype == torch.float32
+    cfg = get_sm90_config(max_m, n, num_groups, 4 if out_f32 else 2,
+                          num_sms=get_num_sms(a.device), masked=True, elem=a.element_size())
+    ksf = ceil_div(k, 128)
+    sfa_ld, sfb_ld = align(max_m, 4), align(ceil_div(n, gran_n), 4)
+    # the scales' k-first copies, which the entry writes in a pre-pass
+    scratch = (torch.empty(num_groups * ksf * (sfa_ld + sfb_ld), dtype=torch.float32,
+                           device=a.device) if is_fp8 else None)
+    d = torch.empty((num_groups, max_m, n), dtype=out_dtype, device=a.device)
     fn = _entry()
     code = fn(a.data_ptr(), b.data_ptr(),
               sfa.data_ptr() if is_fp8 else None,
               sfb.data_ptr() if is_fp8 else None,
+              None if scratch is None else scratch.data_ptr(),
               masked_m.data_ptr(), d.data_ptr(),
-              num_groups, max_m, n, k, int(is_fp8), shift, cfg.block_n, int(out_f32),
+              num_groups, max_m, n, k, sfa_ld, sfb_ld, int(is_fp8), shift, int(out_f32),
+              cfg.block_m, cfg.num_stages, cfg.num_sms,
               torch.cuda.current_stream(a.device).cuda_stream)
     build.check(build.load('masked'), code, 'masked_gemm')
     count_launch(launches, 'fp8_f32' if out_f32 else 'fp8' if is_fp8 else 'bf16')

@@ -77,6 +77,19 @@ def comm_args(buf: 'dist.SymmetricBuffer'):
             int(mesh.timeout * 1e9), diag, torch.cuda.current_stream().cuda_stream)
 
 
+def launch_spinning(lib, what: str, buf: 'dist.SymmetricBuffer', launch) -> None:
+    """Launch a persistent kernel that spins on its peers through ``buf``:
+    ``launch(*comm_args(buf))`` calls the library and returns its code. The
+    caller has allocated everything the call needs, its outputs included;
+    every rank meets the others at a host barrier before its launch and
+    again after it, so that no rank's thread is held back from its launch
+    (an allocation can wait on the device) while its peers' kernels spin."""
+    dist.barrier(f'{what}: allocated')
+    code = launch(*comm_args(buf))
+    dist.barrier(f'{what}: launched')
+    build.check(lib, code, what)
+
+
 def comm_diagnostic(mesh: 'dist.Mesh'):
     """The ranks whose kernel timed out waiting on a peer, from the pinned
     diagnostic words the spin writes before it traps: [(rank, kind, src,
@@ -118,8 +131,8 @@ def pallas_all_to_all(x: torch.Tensor, axis_name: str = 'ep',
     buf = dist.symmetric('a2a', d_dim * chunk)
     global launches
     lib = _lib()
-    code = lib.dgt_a2a(x.data_ptr(), out.data_ptr(), chunk, *comm_args(buf))
-    build.check(lib, code, 'a2a')
+    launch_spinning(lib, 'a2a', buf, lambda *comm: lib.dgt_a2a(x.data_ptr(), out.data_ptr(),
+                                                              chunk, *comm))
     with COUNT_LOCK:
         launches += 1
     return out

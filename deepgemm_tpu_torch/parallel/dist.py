@@ -278,6 +278,13 @@ def in_mesh() -> bool:
     return getattr(_ctx, 'mesh', None) is not None
 
 
+def barrier(what: str) -> None:
+    """Every rank reaches this point before any goes on (host threads only;
+    no stream waits): the meetings of collectives.launch_spinning."""
+    mesh, rank = current()
+    _ctx.group.wait(rank, what)
+
+
 def axis_index(axis_name: str) -> int:
     mesh, rank = current()
     return mesh.coords(rank)[axis_name]

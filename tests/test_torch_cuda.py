@@ -76,6 +76,86 @@ def test_masked_kernel_matches_plain(gen, fp8):
     assert calc_diff(d[rows], ref[rows]) < 1e-5
 
 
+def _masked_case(gen, g, max_m, n, k, fp8, gran_n=128):
+    """Seeded operands of the masked kernel: bf16, or e4m3 with per-token A
+    scales and B scaled per 128 x 128 block (gran_n 128) or per row (1)."""
+    a, b = _randn(gen, g, max_m, k), _randn(gen, g, n, k)
+    if not fp8:
+        return a, b, {}
+    aq, sfa = per_token_cast_to_fp8(a.view(-1, k), use_ue8m0=False)
+    cast = per_block_cast_to_fp8 if gran_n == 128 else per_token_cast_to_fp8
+    bq = [cast(b[i], use_ue8m0=False) for i in range(g)]
+    return (aq.view(g, max_m, k), torch.stack([q for q, _ in bq]),
+            dict(sfa=sfa.view(g, max_m, -1), sfb=torch.stack([sf for _, sf in bq]),
+                 gran_n=gran_n))
+
+
+@pytest.mark.parametrize('max_m,n,k,form', [
+    (17, 256, 320, 'fp8'),         # 64-row tiles past max_m; a k tail (the last block half full)
+    (40, 200, 512, 'fp8'),         # n not a multiple of 128: the last column tile clipped
+    (40, 202, 256, 'fp8'),         # n not a multiple of 8: rows not whole 16-byte chunks
+    (200, 256, 320, 'fp8'),        # 128-row tiles, the last one past max_m
+    (40, 136, 320, 'fp8_rows'),    # B scaled per row (fp8_bmm under recipe (1, 1, 128))
+    (200, 200, 512, 'fp8_rows'),
+    (40, 256, 320, 'fp8_f32'),     # the f32 instance
+    (200, 202, 256, 'fp8_f32'),
+    (17, 200, 320, 'bf16'),
+    (200, 202, 336, 'bf16'),
+])
+def test_masked_kernel_edges(gen, max_m, n, k, form):
+    """The masked kernel against its plain version on the live rows, with
+    masked_m holding 0, a partial count and max_m (full)."""
+    g = 3
+    a, b, kw = _masked_case(gen, g, max_m, n, k, form != 'bf16',
+                            gran_n=1 if form == 'fp8_rows' else 128)
+    if form == 'fp8_f32':
+        kw['out_dtype'] = torch.float32
+    masked_m = torch.tensor([0, max_m // 2 + 1, max_m], dtype=torch.int32, device='cuda')
+    key = {'fp8_f32': 'fp8_f32', 'bf16': 'bf16'}.get(form, 'fp8')
+    before = grouped.launches[key]
+    d = grouped.masked_gemm(a, b, masked_m, **kw)
+    ref = grouped.masked_gemm_plain(a, b, masked_m, **kw)
+    torch.cuda.synchronize()
+    assert grouped.launches[key] == before + 1
+    assert d.dtype == (torch.float32 if form == 'fp8_f32' else torch.bfloat16)
+    rows = torch.arange(max_m, device='cuda')[None, :] < masked_m[:, None]
+    assert calc_diff(d[rows], ref[rows]) < 1e-5
+
+
+@pytest.mark.parametrize('form', ['bf16', 'fp8', 'fp8_rows', 'fp8_f32'])
+def test_masked_launches_repeat_bitwise(gen, form):
+    """Five launches on the same inputs give the same bits, every row live:
+    a hazard between the wgmma and its registers or stages would show as a
+    rare difference."""
+    a, b, kw = _masked_case(gen, 4, 200, 264, 576, form != 'bf16',
+                            gran_n=1 if form == 'fp8_rows' else 128)
+    if form == 'fp8_f32':
+        kw['out_dtype'] = torch.float32
+    full = torch.full((4,), 200, dtype=torch.int32, device='cuda')
+    outs = [grouped.masked_gemm(a, b, full, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], d) for d in outs[1:])
+
+
+@pytest.mark.parametrize('form', ['bf16', 'fp8', 'fp8_rows'])
+def test_masked_64_row_tiles_are_bitwise_the_128_row_tiles(gen, form):
+    """max_m 64 runs 64-row tiles, max_m 96 128-row ones: the same 64 rows
+    (the rest zero) give the same bits in both."""
+    a, b, kw = _masked_case(gen, 3, 64, 200, 320, form != 'bf16',
+                            gran_n=1 if form == 'fp8_rows' else 128)
+    pad = lambda t: torch.cat([t, torch.zeros_like(t[:, :32])], dim=1)
+    a96 = pad(a.view(torch.uint8)).view(a.dtype) if form != 'bf16' else pad(a)
+    kw96 = dict(kw, sfa=pad(kw['sfa'])) if form != 'bf16' else kw
+    m64 = torch.full((3,), 64, dtype=torch.int32, device='cuda')
+    d64 = grouped.masked_gemm(a, b, m64, **kw)
+    d96 = grouped.masked_gemm(a96, b, m64, **kw96)
+    torch.cuda.synchronize()
+    from deepgemm_tpu_torch.heuristics.configs import get_sm90_config
+    assert get_sm90_config(64, 200, 3, masked=True, elem=a.element_size()).block_m == 64
+    assert get_sm90_config(96, 200, 3, masked=True, elem=a.element_size()).block_m == 128
+    assert torch.equal(d64, d96[:, :64])
+
+
 def test_dense_kernel_f32_output(gen):
     """The wgrad's shape class: per-channel B scales, f32 out; the bf16
     output is the same sum rounded once."""
@@ -1600,14 +1680,17 @@ def test_a2a_kernel_is_bitwise_the_all_to_all(gen, d, placement):
 
 
 @pytest.mark.parametrize('placement', ['one card', 'cards'])
-@pytest.mark.parametrize('d,fp8', [(1, True), (2, True), (4, True), (4, False)])
-def test_dispatch_gemm_kernel_is_bitwise_the_masked_kernel(gen, d, fp8, placement):
+@pytest.mark.parametrize('d,fp8,cap', [(1, True, 40), (2, True, 40), (4, True, 40),
+                                       (4, False, 40), (2, True, 18), (2, False, 18)])
+def test_dispatch_gemm_kernel_is_bitwise_the_masked_kernel(gen, d, fp8, cap, placement):
     """#12: recv bitwise the all-to-all; out bitwise the masked kernel on
-    recv, and within 1e-5 of the plain version."""
+    recv, and within 1e-5 of the plain version. Its row tiles span slabs;
+    at cap 18 a slab's rows are not whole 8-row atoms and its k-first scale
+    columns not whole 16-byte chunks."""
     from deepgemm_tpu_torch.kernels import fused_moe
     from deepgemm_tpu_torch.parallel import dist
     mesh = _ep_mesh(placement, d)
-    e_local, cap, n, h = 2, 40, 256, 256
+    e_local, n, h = 2, 256, 256
     x = _randn(gen, d, d, e_local, cap, h)
     w = _randn(gen, d, e_local, n, h) * 0.05
     if fp8:
@@ -1779,9 +1862,31 @@ mesh = dist.make_mesh([('ep', 2)], ['cuda:0'] * 2, timeout=1.0)
 x = torch.zeros(2, 64, device='cuda')
 mesh.map(lambda v: collectives.pallas_all_to_all(v, 'ep'), [x, x])
 torch.cuda.synchronize()
-# rank 1 never enters the second call: rank 0's entry barrier must trap
-mesh.map(lambda v: collectives.pallas_all_to_all(v, 'ep') if dist.axis_index('ep') == 0
-         else v, [x, x])
+# rank 1 never enters the second call: the wrapper's host meeting before
+# its launch (collectives.launch_spinning) times out on rank 0, which
+# launches nothing
+try:
+    mesh.map(lambda v: collectives.pallas_all_to_all(v, 'ep') if dist.axis_index('ep') == 0
+             else v, [x, x])
+    print('host: no error')
+except TimeoutError as exc:
+    print('host:', str(exc).splitlines()[0])
+
+
+def alone(v):
+    """Rank 0's kernel launched past the host meeting, rank 1's never."""
+    if dist.axis_index('ep') != 0:
+        return v
+    out = torch.empty_like(v)
+    buf = dist.symmetric('a2a', v.numel() * v.element_size())
+    lib = collectives._lib()
+    lib.dgt_a2a(v.data_ptr(), out.data_ptr(), v[0].numel() * v.element_size(),
+                *collectives.comm_args(buf))
+    return out
+
+
+# so rank 0's entry barrier must trap
+mesh.map(alone, [x, x])
 try:
     torch.cuda.synchronize()
     print('no error')
@@ -1792,10 +1897,11 @@ print('diagnostic:', collectives.comm_diagnostic(mesh))
 
 
 def test_a_missing_peer_traps_instead_of_hanging(gen):
-    """A rank whose peer never enters the call: its kernel's spin gives up
-    after the mesh's timeout (1 s here), writes its diagnostic words and
-    traps; the host sees a CUDA error, not a hang. In a child process, since
-    a trap ends the CUDA context."""
+    """A rank whose peer never enters the call: through the wrapper, its
+    host meeting before the launch times out and raises, with no launch;
+    past it, its kernel's spin gives up after the mesh's timeout (1 s here),
+    writes its diagnostic words and traps; the host sees a CUDA error, not a
+    hang. In a child process, since a trap ends the CUDA context."""
     import os
     import pathlib
     import subprocess
@@ -1805,5 +1911,6 @@ def test_a_missing_peer_traps_instead_of_hanging(gen):
     proc = subprocess.run([sys.executable, '-c', _TRAP_SCRIPT], capture_output=True, text=True,
                           timeout=240, env=env, cwd=root)
     out = proc.stdout
+    assert 'host: rank 0: waited more than 1.0 s' in out, (out, proc.stderr[-2000:])
     assert 'error:' in out, (out, proc.stderr[-2000:])
     assert "diagnostic: [(0, 'barrier', 1" in out, out

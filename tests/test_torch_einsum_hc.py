@@ -121,6 +121,22 @@ def test_fp8_bmm_matches_jax(with_c):
     assert calc_diff(out, out_jax) < 1e-5
 
 
+def test_fp8_bmm_per_channel_recipe_matches_jax():
+    """Recipe (1, 1, 128): B scaled per row (the masked kernel's gran_n 1
+    form), at a k tail and n 136, beside JAX's."""
+    rng = np.random.RandomState(6)
+    batch, m, n, k = 2, 40, 136, 320
+    a, b = _bf16(rng, batch, m, k), _bf16(rng, batch, n, k)
+    cast = lambda x: dg.per_token_cast_to_fp8(jnp.asarray(x), use_ue8m0=False)
+    av, asf = (np.stack([np.asarray(cast(a[i])[j]) for i in range(batch)]) for j in (0, 1))
+    bv, bsf = (np.stack([np.asarray(cast(b[i])[j]) for i in range(batch)]) for j in (0, 1))
+    out_jax = dg.fp8_bmm(jnp.asarray(av), jnp.asarray(asf), jnp.asarray(bv), jnp.asarray(bsf),
+                         recipe=(1, 1, 128))
+    out = dgt.fp8_bmm(_t(av), _t(asf), _t(bv), _t(bsf), recipe=(1, 1, 128))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == out_jax.shape
+    assert calc_diff(out, out_jax) < 1e-5
+
+
 def test_fp8_bmm_f32_out_and_packed_scales_match_jax():
     """An f32 ``d`` with ``c`` (the masked kernel's f32 instance), and A's
     scales as packed UE8M0 int32, which both ops unpack."""

@@ -63,6 +63,33 @@ def test_masked_fp8_matches_jax():
     assert calc_diff(_valid_rows(d_port), _valid_rows(ref)) < 1e-3
 
 
+@pytest.mark.parametrize('fp8', [False, True])
+def test_masked_at_17_rows_and_a_k_tail_matches_jax(fp8):
+    """max_m 17 (not a multiple of 4: the kernel's k-first scale rows pad it
+    to 20) and k 320 (the last 128-deep block half full), n 136 (not a
+    multiple of 128), masked_m holding 0, a partial count and max_m."""
+    rng = np.random.RandomState(7)
+    g, max_m, n, k = 3, 17, 136, 320
+    masked_m = np.array([0, 9, 17], np.int32)
+    a = jnp.asarray(rng.randn(g, max_m, k).astype(ml_dtypes.bfloat16))
+    b = jnp.asarray(rng.randn(g, n, k).astype(ml_dtypes.bfloat16))
+    if fp8:
+        aq, asf = dg.per_token_cast_to_fp8(a.reshape(-1, k), use_ue8m0=False)
+        aq, asf = aq.reshape(g, max_m, k), asf.reshape(g, max_m, -1)
+        bq, bsf = jax.vmap(lambda w: dg.per_block_cast_to_fp8(w, use_ue8m0=False))(b)
+        d_jax = dg.m_grouped_fp8_gemm_nt_masked((aq, asf), (bq, bsf),
+                                                masked_m=jnp.asarray(masked_m))
+        d_port = dgt.m_grouped_fp8_gemm_nt_masked((_t(aq), _t(asf)), (_t(bq), _t(bsf)),
+                                                  masked_m=_t(masked_m))
+    else:
+        d_jax = dg.m_grouped_bf16_gemm_nt_masked(a, b, masked_m=jnp.asarray(masked_m))
+        d_port = dgt.m_grouped_bf16_gemm_nt_masked(_t(a), _t(b), masked_m=_t(masked_m))
+    assert tuple(d_port.shape) == (g, max_m, n)
+    rows = lambda d: np.concatenate([np.asarray(d, np.float32)[i, :masked_m[i]]
+                                     for i in range(g)])
+    assert calc_diff(rows(d_port.float().numpy()), rows(d_jax)) < 1e-5
+
+
 def test_grouped_sfb_layout_is_the_block_scales():
     sfb = torch.arange(G * 2 * 3, dtype=torch.float32).reshape(G, 3, 2).transpose(1, 2)
     out = transform_sfb(sfb, 200, 300, (128, 128), num_groups=G)

@@ -289,8 +289,19 @@ def test_fused_dispatch_gemm_matches_jax(d, fp8):
     """#12's plain version: recv bitwise JAX's all-to-all of the slots, out
     against JAX's all-to-all plus its XLA expert GEMM (the f32 product of
     the dequantized tokens and weights)."""
+    _dispatch_case(d, fp8, cap=16)
+
+
+@pytest.mark.parametrize('fp8', [False, True])
+def test_fused_dispatch_gemm_at_cap_18_matches_jax(fp8):
+    """The same at cap 18, not a multiple of 8: a slab's rows are not whole
+    8-row atoms in the kernel's row tiles."""
+    _dispatch_case(2, fp8, cap=18)
+
+
+def _dispatch_case(d, fp8, cap):
     rng = np.random.RandomState(10 + d)
-    e_local, cap, n = 2, 16, 256
+    e_local, n = 2, 256
     xm = jnp.asarray(rng.randn(d * d * e_local * cap, HIDDEN), jnp.bfloat16)
     w = jnp.asarray(rng.randn(d * e_local, n, HIDDEN) * 0.05, jnp.bfloat16)
     if fp8:

@@ -65,8 +65,8 @@ def test_kernel_libraries_are_keyed_by_source_hash(tmp_path, monkeypatch):
 @pytest.mark.parametrize('m,n,groups,block_n', [
     (4096, 4096, 1, 128),      # 2048 blocks at 128 wide
     (128, 4096, 1, 64),        # 64 blocks at 128 wide: too few for 132 SMs
-    (40, 4096, 256, 128),      # the masked L1 shape
-    (40, 7168, 256, 128),      # the masked L2 shape
+    (40, 4096, 256, 128),      # 256 groups of 40 rows
+    (40, 7168, 256, 128),
     (32768, 4096, 1, 128),     # a tall dense problem
     (256, 7168, 1, 64),        # 4 x 56 blocks at 128 wide: too few
     (4096, 7168, 256, 128),    # the k-grouped L1 wgrad of the training step
@@ -137,6 +137,46 @@ def test_sm90_tile_chooser(m, n, groups, out_bytes, block_m, stages, form, elem,
         assert smem(stages + 1) > 232448
     tiles = -(-m // block_m) * -(-n // block_n) * (1 if form else groups)
     assert cfg.num_sms == min(tiles, 132)
+
+
+# The masked kernel's items at the chip run's shapes: (max_m, n, groups,
+# output bytes, operand bytes, rows, stages that fit). 64-row tiles (one
+# consumer warpgroup) where a group's rows fit, else 128; the ring is held
+# at MASKED_MAX_STAGES (3) where a block holds it (a 128-row tile with e4m3
+# operands widened to bf16 and an f32 output holds 2).
+_MASKED_CASES = [
+    (40, 4096, 256, 2, 1, 64, 5),       # phase 4: the decode's L1, fp8
+    (40, 7168, 256, 2, 2, 64, 8),       # phase 4: L2, bf16
+    (4096, 128, 128, 2, 1, 128, 3),     # phase 9: fp8_einsum bhr,hdr->bhd
+    (4096, 128, 128, 4, 1, 128, 2),     # phase 9: fp8_bmm with c, the f32 instance
+    (320, 4096, 32, 2, 1, 128, 3),      # phase 11: #12 at 8 ranks of cap 40, fp8
+    (320, 4096, 32, 2, 2, 128, 6),      # phase 11: #12, bf16
+    (36, 256, 4, 2, 1, 64, 5),          # #12 at 2 ranks of cap 18
+    (17, 256, 3, 2, 1, 64, 5),
+    (64, 200, 3, 2, 1, 64, 5),
+    (65, 200, 3, 2, 1, 128, 3),
+    (200, 202, 3, 4, 1, 128, 2),
+]
+
+
+@pytest.mark.parametrize('m,n,groups,out_bytes,elem,block_m,fit', _MASKED_CASES)
+def test_masked_tile_chooser(m, n, groups, out_bytes, elem, block_m, fit):
+    """The masked kernel's tile and ring (heuristics/configs.py, masked):
+    64 rows at max_m <= 64, 128 above, MASKED_MAX_STAGES stages where a
+    block's shared memory holds them (``fit``: as many as it holds), a grid
+    of at most one block an SM; its plan is the widening kernel's
+    (widen_smem_bytes), both operands of ``elem`` bytes."""
+    from deepgemm_tpu_torch.heuristics.configs import MASKED_MAX_STAGES, widen_smem_bytes
+    cfg = get_sm90_config(m, n, groups, out_bytes, num_sms=132, masked=True, elem=elem)
+    stages = min(MASKED_MAX_STAGES, fit)
+    assert (cfg.block_m, cfg.block_n, cfg.num_stages) == (block_m, 128, stages)
+    smem = lambda st: widen_smem_bytes(block_m, st, out_bytes, elem, elem)
+    assert cfg.smem_bytes == smem(stages) <= smem(fit) <= 232448
+    if fit < 8:
+        assert smem(fit + 1) > 232448
+    assert cfg.num_sms == min(-(-m // block_m) * -(-n // 128) * groups, 132)
+    assert get_sm90_config(m, n, groups, out_bytes, num_sms=132, masked=True, elem=elem,
+                           max_stages=fit).num_stages == fit
 
 
 def test_plain_versions_switch_is_explicit_and_scoped():
