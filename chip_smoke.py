@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --gemm-times [--package-root DIR]
+    python3 chip_smoke.py --mqa-times [--package-root DIR]
     python3 chip_smoke.py --ep-times [--package-root DIR]
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --mqa-variants
@@ -10,13 +11,20 @@
     python3 chip_smoke.py --masked-variants
 
 The second form builds and times only phase 3, the training step's
-dense, contiguous and k-grouped calls, phase 7's three MQA logits calls,
-the paged MQA entries at the decode shape, phase 10's dense forms on
+dense, contiguous and k-grouped calls, the MQA logits kernel's calls
+(phase 7's three and the bench shape's register-A instance), the paged MQA
+entries at the decode shape (the e4m3 instance and the three bf16
+instances of the FP4 pairs: each call as testing/bench.py times it, its
+device time with the host work hidden, its host time and the part of that
+outside the C entry), phase 10's dense forms on
 bf16 products ('dequant' at both recipes, FP4 B at gran 32) and planar FP4
 B at m 4096, and the masked kernel's calls (phase 4's decode L1 and L2,
 fp8 and bf16; phase 9's fp8_einsum and its f32 instance; no plain
 versions) of the deepgemm_tpu_torch under DIR, and prints them as one JSON
-line; the third runs only phase 11's
+line; --mqa-times only its MQA logits and paged MQA calls. The timing
+helpers are testing/bench.py's of that package: to time a tree that lacks
+bench_kernel's hide_host, copy this tree's testing/bench.py into it. The
+third runs only phase 11's
 main path (the 8-rank forward: launches, tokens/s, peak memory, a profile
 with the device's idle share) and #12 alone at V3's L1. Run either for two trees in one call
 (parent, change, change, parent) to compare them. The fourth times the
@@ -26,7 +34,11 @@ transpose) and with its ring held at 3, 4 or as many stages as fit, all in
 turns in one process: what bounds it. The fifth does the same for the MQA
 logits kernel's e4m3 calls of phase 7 (without the wgmma, without the head
 sum, with neither the head sum nor the stores, and with only the pipeline's
-barriers and loop left). The sixth does the same for the dense forms on
+barriers and loop left), then for the paged gather entry's decode call (its
+device time with the host's work hidden: on e4m3 wgmma in place of the
+exact widened products, the same parts removed, the pipeline with its
+loads alone, and the run chooser aiming at 2, 8 and 16 items an SM in
+place of 4). The sixth does the same for the dense forms on
 bf16 products ('dequant' at both recipes and the FP4 gran 32 kernel, at
 4096 x 4096 x 7168: without B's widening, without A's widening math,
 without the wgmma). The seventh does the same for the masked kernel's
@@ -43,8 +55,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      (widen_kernel, dense_dequant) and the masked and dispatch instances
      (the same body, widen_body), each named with its registers and spills,
      then the MQA logits kernel's wgmma
-     instances (csrc/mqa_sm90.cuh), each named with its registers and
-     spills (none may spill);
+     instances (csrc/mqa_sm90.cuh: the prefill entry's, Source::kLinear,
+     and the paged entries', Source::kPaged), each named with its
+     registers and spills (none may spill);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -81,11 +94,13 @@ Phases, one line each (a failure in any phase exits non-zero):
      tokens), attention streams of 128 heads x 128 bf16; 64 prompts of
      4096-7936 tokens prefilled, 8 decode steps, one request finished and a
      new one (6000 tokens) admitted before step 4: launches per step (paged
-     MQA 1, attention 1, MQA logits 0), step 1's paged MQA call and 8 rows of
+     MQA 1, attention 1, MQA logits 0; the paged MQA instance that launched
+     named beside its ptxas report), step 1's paged MQA call and 8 rows of
      its attention against their plain versions, the zero-copy entry on step
      1's cache (its own path) bitwise equal to the gather entry, the compute
      step twice bitwise equal, the same script through the plain versions
-     (outputs compared where the top-k selections agree), two requests alone
+     (outputs compared where the top-k selections agree; how many (request,
+     step) selections differ printed), two requests alone
      in a fresh engine bitwise equal (batch invariance); step times,
      tokens/s, peak memory, a profile of one step, each kernel timed at its
      full shape; then the same script under DGT_SPARSE_GATHER=pallas in a
@@ -283,35 +298,42 @@ def phase_build():
             f'masked and mega_ep): {len(masked)} instances: ' +
             '; '.join(f'{name} registers {v["registers"]} spill stores {v["spill_stores"]} '
                       f'loads {v["spill_loads"]}' for name, v in sorted(masked.items())))
-    MQA_INSTANCES.update(mqa_instances(reports))
-    if MQA_INSTANCES:
-        log(f'phase 2 MQA logits (csrc/mqa_sm90.cuh, wgmma + TMA): {len(MQA_INSTANCES)} instances: '
-            + '; '.join(f'{mqa_instance_name(key)} registers {v["registers"]} spill stores '
-                        f'{v["spill_stores"]} loads {v["spill_loads"]}'
-                        for key, v in sorted(MQA_INSTANCES.items())))
-        spilled = [mqa_instance_name(k) for k, v in MQA_INSTANCES.items()
+    for lib, found, source in (('mqa_logits', MQA_INSTANCES, 'kLinear'),
+                               ('paged_mqa', PAGED_INSTANCES, 'kPaged')):
+        found.update(mqa_instances(reports, lib))
+        if not found:
+            continue
+        log(f'phase 2 {lib} (csrc/mqa_sm90.cuh, wgmma + TMA, Source::{source}): {len(found)} '
+            f'instances: ' + '; '.join(f'{mqa_instance_name(key, source)} registers '
+                                       f'{v["registers"]} spill stores {v["spill_stores"]} loads '
+                                       f'{v["spill_loads"]}' for key, v in sorted(found.items())))
+        spilled = [mqa_instance_name(k, source) for k, v in found.items()
                    if v['spill_stores'] or v['spill_loads']]
-        require(not spilled, f'MQA logits instances spill: {spilled}')
+        require(not spilled, f'{lib} instances spill: {spilled}')
 
 
 # (q bf16, kv bf16, a query's columns) -> registers and spill bytes of the
-# MQA logits kernel's instances, from phase 2's ptxas report
+# MQA logits kernel's instances, from phase 2's ptxas report: the prefill
+# entry's (mqa_logits, Source::kLinear) and the paged entries'
+# (paged_mqa, Source::kPaged)
 MQA_INSTANCES = {}
+PAGED_INSTANCES = {}
 
 
-def mqa_instance_name(key):
+def mqa_instance_name(key, source='kLinear'):
     """The template instance, as csrc/mqa_sm90.cuh spells its arguments."""
     q_bf16, kv_bf16, columns = key
     elem = lambda bf16: 'kBf16' if bf16 else 'kE4m3'
-    return f'mqa_logits_sm90<{elem(q_bf16)}, {elem(kv_bf16)}, {columns}>'
+    return f'mqa_logits_sm90<{elem(q_bf16)}, {elem(kv_bf16)}, {columns}, Source::{source}>'
 
 
-def mqa_instances(reports):
+def mqa_instances(reports, lib='mqa_logits'):
     """{(q bf16, kv bf16, a query's columns): registers, spill bytes} of the MQA
-    logits kernel's instances (dgt_mqa90::mqa_logits_sm90), from ptxas -v."""
+    logits kernel's instances (dgt_mqa90::mqa_logits_sm90) in library ``lib``,
+    from ptxas -v."""
     import re
     found, current = {}, None
-    for line in reports.get('mqa_logits', '').splitlines():
+    for line in reports.get(lib, '').splitlines():
         entry = re.search(r"entry function '\w*mqa_logits_sm90"
                           r"ILNS_4ElemE(\d)ELS1_(\d)ELi(\d+)E", line)
         if entry:
@@ -1297,7 +1319,7 @@ def time_decode_kernels(rec_paged, engine, arch):
     from deepgemm_tpu_torch.kernels import paged_mqa, sparse_attn
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.models import indexer
-    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.testing.bench import bench_host, bench_kernel
     q, kv, sf, w, ctx, bt, max_len = rec_paged['args']
     b, nn, h, d = q.shape
     hi = paged_mqa.row_bounds(ctx, nn)
@@ -1314,15 +1336,18 @@ def time_decode_kernels(rec_paged, engine, arch):
                          q, kv_lin, sf_lin, w, hi, max_len)),
                      ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
                          q, kv, sf, w, hi, bt, max_len))):
-        ms = bench_kernel(fn, iters=20)
+        ms, device, host = (bench_kernel(fn, iters=20), bench_kernel(fn, iters=20, hide_host=True),
+                            bench_host(fn))
         with plain_versions():
             plain_ms = bench_kernel(fn, iters=2, warmup=1)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
-                         bound_by=bound[1], shape=[b, nn, h, d, max_len], cache_rows=need)
+                         bound_by=bound[1], shape=[b, nn, h, d, max_len], cache_rows=need,
+                         device_ms=device, host_ms=host)
         log(f'phase 7 time paged MQA {name} [B={b} next_n={nn} h={h} d={d} max_len={max_len}, '
-            f'{need} cache rows]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
-            f'library_ms(torch.bmm bf16 q x kv_lin^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
-            f'({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}'
+            f'{need} cache rows]: kernel_ms={ms:.4f} (the call, event-bracketed; on the device '
+            f'with the host work hidden {device:.4f}, the host work {host:.4f}) '
+            f'plain_ms={plain_ms:.4f} library_ms(torch.bmm bf16 q x kv_lin^T)={library_ms:.4f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / device / 1e6:.1f} on the device'
             + (f' (the linearising gather before it: {gather_ms:.4f} ms)'
                if name == 'gather' else ' (its plain version linearises the pages first)'))
     del q16, kv16, kv_lin, sf_lin
@@ -1389,11 +1414,12 @@ def prefill_inputs(seed):
 
 
 def mqa_calls(seed):
-    """The MQA logits kernel's three timed calls, (q, kv, kv_sf, weights,
-    ks, ke) each: the prefill path's (the indexer's e4m3 cast of iq and
-    ikv), the JAX bench's prefill shape (e4m3), and that shape's operands
-    re-quantized to FP4 and decoded to bf16 (the bf16 instance, as the FP4
-    op launches it)."""
+    """The MQA logits kernel's timed calls, (q, kv, kv_sf, weights, ks, ke)
+    each: the prefill path's (the indexer's e4m3 cast of iq and ikv), the
+    JAX bench's prefill shape (e4m3), that shape's operands re-quantized to
+    FP4 and decoded to bf16 (the bf16 instance, as the FP4 op launches it),
+    and its FP4 q decoded to bf16 with the e4m3 kv (the register-A
+    instance: kv widened in registers)."""
     from deepgemm_tpu_torch.ops import attention as attn_ops
     from deepgemm_tpu_torch.utils.math import cast_to_fp8, per_custom_dims_cast_to_fp8
     _, _, _, iq, ikv, iw, ks, ke = prefill_inputs(seed)
@@ -1403,7 +1429,8 @@ def mqa_calls(seed):
     return {'path': (cast_to_fp8(iq.float()), ikv8, isf, iw, ks, ke),
             'bench': (q8, kv8, sf, w, bks, bke),
             'bench_bf16': (attn_ops._decode_fp4_rows(*q4), attn_ops._decode_fp4_rows(*kv4),
-                           None, w, bks, bke)}
+                           None, w, bks, bke),
+            'bench_bf16_q': (attn_ops._decode_fp4_rows(*q4), kv8, sf, w, bks, bke)}
 
 
 def time_mqa(label, call, arch, time_plain=True):
@@ -1416,7 +1443,7 @@ def time_mqa(label, call, arch, time_plain=True):
     q, kv, sf, w, lo, hi = call
     (sq, h, d), skv = q.shape, kv.shape[0]
     fn = lambda: mqa_logits.mqa_logits(q, kv, w, lo, hi, kv_sf=sf)
-    ms = bench_kernel(fn, iters=10)
+    ms, device_ms = bench_kernel(fn, iters=10), bench_kernel(fn, iters=10, hide_host=True)
     plain_ms = None
     if time_plain:
         with plain_versions():
@@ -1430,12 +1457,13 @@ def time_mqa(label, call, arch, time_plain=True):
     e4m3 = q.dtype == kv.dtype == torch.float8_e4m3fn
     bound = arch.bound_ms(nbytes, 2 * pairs * h * d, 'fp8' if e4m3 else 'bf16')
     log(f'phase 7 time MQA logits {label} [sq={sq} skv={skv} h={h} d={d}, {q.dtype} x '
-        f'{kv.dtype}, {pairs} window pairs]: kernel_ms={ms:.4f} plain_ms='
+        f'{kv.dtype}, {pairs} window pairs]: kernel_ms={ms:.4f} (device_ms={device_ms:.4f}, '
+        f'host work hidden) plain_ms='
         f'{"not timed" if plain_ms is None else f"{plain_ms:.4f}"} '
         f'library_ms(torch.matmul bf16 q2 x kv^T)={library_ms:.4f} bound_ms={bound[0]:.4f} '
         f'({bound[1]}) TFLOPS={2 * pairs * h * d / ms / 1e9:.1f}')
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
-                bound_by=bound[1], shape=[sq, skv, h, d])
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound[0], bound_by=bound[1], shape=[sq, skv, h, d])
 
 
 def phase_prefill(seed, arch):
@@ -1568,6 +1596,7 @@ def indexer_counts():
 def phase_serve(seed, arch):
     """The decode path at full width; see the module docstring. Returns the
     kernel entries' numbers and counts."""
+    from deepgemm_tpu_torch.kernels import paged_mqa
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.models.indexer import indexer_sparse_decode
     torch.cuda.empty_cache()
@@ -1582,9 +1611,14 @@ def phase_serve(seed, arch):
     zero_indexer_counts()
     engine, outs, slots, seconds, active, prefill_s = serve(seed, requests, hooks)
     counts = indexer_counts()
+    launched = getattr(paged_mqa, 'last_instance', None)     # (a tree before it: None)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = dict(gather=SERVE_STEPS, paged=0, mqa=0, attn=SERVE_STEPS, fused=0)
     require(counts == want, f'decode launches {counts}, expected {want}')
+    require(launched in PAGED_INSTANCES or not PAGED_INSTANCES,
+            f'the decode\'s paged MQA launched {launched}, not one of phase 2\'s instances')
+    instance = (f'{mqa_instance_name(launched, "kPaged")} (ptxas: '
+                f'{PAGED_INSTANCES.get(launched, "no report")})' if launched else 'not named')
     for key, out in outs.items():
         require(tuple(out.shape) == (SERVE['num_heads'], SERVE['head_dim'])
                 and torch.isfinite(out.float()).all().item(), f'output {key} not finite')
@@ -1601,7 +1635,8 @@ def phase_serve(seed, arch):
         f'tokens (prefill {prefill_s:.2f} s in all), {SERVE_STEPS} steps, request '
         f'{LATE["finishes"]} finished and request {LATE["request"]} ({LATE["prompt"]} tokens) '
         f'admitted before step {LATE["step"]}: launches={counts} (per step paged MQA 1, '
-        f'attention 1, gather-fused attention 0, MQA logits 0); seconds per step '
+        f'attention 1, gather-fused attention 0, MQA logits 0); paged MQA instance {instance}; '
+        f'seconds per step '
         f'{[round(s, 5) for s in seconds]} '
         f'(step 1 with the recording of its kernel calls); tokens/s={tokens_per_s:.1f} '
         f'(active slots / step time, steps 2-{SERVE_STEPS}); peak_mem={peak_gb:.2f} GB; '
@@ -1659,7 +1694,8 @@ def phase_serve(seed, arch):
     free_diff = compare(torch.stack(agree_k), torch.stack(agree_p))[0]
     require(free_diff < TOL, f'decode outputs over agreeing selections: calc_diff {free_diff}')
     log(f'phase 7 kernels vs plain, free-running: {differ} of {len(outs)} (request, step) '
-        f'selections differ; over the {len(agree_k)} that agree, calc_diff={free_diff:.3e} '
+        f'top-{SERVE["topk"]} selections differ from the plain path\'s; over the '
+        f'{len(agree_k)} that agree, calc_diff={free_diff:.3e} '
         f'(limit {TOL}); the plain path steps took '
         f'{[round(s, 4) for s in plain_seconds]} s')
 
@@ -1674,7 +1710,8 @@ def phase_serve(seed, arch):
         f'{SERVE["max_slots"]}-slot engine (slots {solo_slots[SERVE_STEPS]} instead of '
         f'{ {r: slots[SERVE_STEPS][r] for r in INVARIANCE_REQUESTS} }): {len(solo)} outputs, '
         f'bitwise equal')
-    return dict(timing=timing, counts=counts, zc_launches=zc_launches,
+    return dict(timing=timing, counts=counts, zc_launches=zc_launches, instance=instance,
+                selections_differ=[differ, len(outs)],
                 errors=dict(paged=paged_errors, zero_copy=zc_errors, attn=attn_errors),
                 tokens_per_s=tokens_per_s, peak_gb=peak_gb, outs=outs, slots=slots,
                 seconds=seconds, profile=flat_profile)
@@ -1826,14 +1863,14 @@ def check_fp4_paged(rec, arch, e4m3_timing):
                               q_k, kv_lin, sf_lin, w, hi, max_len)),
                          ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
                               q_k, kv_k, sf_k, w, hi, bt32, max_len))):
-            ms = bench_kernel(fn, iters=20)
+            ms, device = bench_kernel(fn, iters=20), bench_kernel(fn, iters=20, hide_host=True)
             with plain_versions():
                 plain_ms = bench_kernel(fn, iters=2, warmup=1)
             kv_bytes = kv_k.element_size()
             nbytes = (need * (d * kv_bytes + 4) + q_k.numel() * q_k.element_size()
                       + w.numel() * 4 + hi.numel() * 4 + b * nn * max_len * 4)
             bound = arch.bound_ms(nbytes, 2 * need * nn * h * d, 'bf16')
-            entry[name] = dict(ms=ms, plain_ms=plain_ms,
+            entry[name] = dict(ms=ms, device_ms=device, plain_ms=plain_ms,
                                library_ms=e4m3_timing[name]['library_ms'], bound_ms=bound[0],
                                bound_by=bound[1], max_abs_err=err, check_calc_diff=diff,
                                q=str(q_k.dtype), kv=str(kv_k.dtype),
@@ -1860,7 +1897,7 @@ def check_varlen_and_metadata(rec, engine, seed):
     they stand for; t_max x 64 heads above one block's 256 q2 rows. Then the
     schedule metadata for the step's context lengths, printed and checked."""
     import deepgemm_tpu_torch as dgt
-    from deepgemm_tpu_torch.kernels import paged_mqa
+    from deepgemm_tpu_torch.kernels import mqa_logits
     kv, sf, max_len = rec['args'][1], rec['args'][2], rec['args'][6]
     h, d = rec['args'][0].shape[2:]
     slots, bkv = SERVE['max_slots'], SERVE['block_kv']
@@ -1892,11 +1929,11 @@ def check_varlen_and_metadata(rec, engine, seed):
     require(torch.equal(host, padded[idx * t_max + pos]),
             'varlen: differs from the padded 2-D call')
     require(torch.isfinite(host[host != float('-inf')]).all().item(), 'varlen: not finite')
-    tile = paged_mqa.tile_rows(t_max, h, d, q.dtype, kv.dtype)
+    per_group = max(1, 128 // mqa_logits.query_columns(h))
     log(f'phase 7 varlen: {slots} sequences of {counts.tolist()} tokens ({rows} rows, t_max '
-        f'{t_max}: {t_max * h} q2 rows a sequence, kernel tiles of {tile} tokens): host form '
-        f'and device form bitwise equal, both bitwise equal to the padded [{slots}, {t_max}] '
-        f'2-D call')
+        f'{t_max}: a sequence\'s tokens one query tile, in groups of {per_group} queries): host '
+        f'form and device form bitwise equal, both bitwise equal to the padded [{slots}, '
+        f'{t_max}] 2-D call')
     num_sms = dgt.get_num_sms()
     meta = dgt.get_paged_mqa_logits_metadata(ctx_now, bkv, num_sms)
     segments = int(((ctx_now.long() + bkv - 1) // bkv).sum())
@@ -2718,6 +2755,11 @@ DISPATCH_DESIGN = ('one-sided pushes into an expert-major receive region, then w
 MQA_DESIGN = ('wgmma (e4m3 m64n128k32, or bf16 m64n128k16) with kv rows on M and the query '
               'heads on N, 128-row kv stages by TMA, two consumer warpgroups in turns, ReLU, '
               'weights and the head sum in registers (csrc/mqa_sm90.cuh)')
+PAGED_DESIGN = ('csrc/mqa_sm90.cuh\'s body, #7\'s (Source::kPaged: e4m3 widened exactly to '
+                'bf16): a batch row\'s tokens one query tile, items of every num_runs-th stage '
+                'of a group, producer warps readying items (the block table turned into each '
+                'stage\'s page pieces; q, widened by cp.async chunks) and issuing a TMA box a '
+                'piece')
 LAYOUTS = ('nn', 'tn', 'tt')
 PACKED_SHAPES = ((4096, 4096, 7168), (128, 4096, 7168))   # the second is phase 3's decode shape
 PLANAR_N, PLANAR_K, PLANAR_MS = 7168, 2048, (16, 128, 4096)
@@ -3906,8 +3948,8 @@ TRAIN_GEMMS = (
 def gemm_times(seed, arch):
     """--gemm-times: phase 3 and the training step's dense, contiguous and
     k-grouped calls at full shapes, then the MQA logits kernel's three
-    calls of phase 7 (the prefill path's, the bench shape's e4m3 and bf16
-    instances) and the two paged MQA entries at the decode shape, each
+    calls of phase 7 (the prefill path's, the bench shape's e4m3, bf16 and
+    register-A instances) and the two paged MQA entries at the decode shape, each
     timed (the kernel and, but for the paged entries, a bf16 PyTorch call;
     no plain version), for comparing two trees' kernels in one call."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
@@ -3921,12 +3963,19 @@ def gemm_times(seed, arch):
         results[kind].append(rec)
     train = time_train_kernels(results, gen, arch, time_plain=False)
     torch.cuda.empty_cache()
+    return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
+                k_grouped=train['k_grouped'], relayout=train['relayout'],
+                **mqa_times(seed, arch), bf16_forms=bf16_form_times(seed),
+                masked=masked_times(seed))
+
+
+def mqa_times(seed, arch):
+    """--mqa-times (and part of --gemm-times): the MQA logits kernel's calls
+    of :func:`mqa_calls` and the paged entries at the decode shape
+    (:func:`paged_times`), each timed (no plain version)."""
     mqa = {label: time_mqa(label, call, arch, time_plain=False)
            for label, call in mqa_calls(seed).items()}
-    return dict(phase3=phase3, dense=train['dense'], contiguous=train['contiguous'],
-                k_grouped=train['k_grouped'], relayout=train['relayout'], mqa_logits=mqa,
-                paged_mqa=paged_times(seed, arch), bf16_forms=bf16_form_times(seed),
-                masked=masked_times(seed))
+    return dict(mqa_logits=mqa, paged_mqa=paged_times(seed, arch))
 
 
 def masked_times(seed):
@@ -4027,33 +4076,81 @@ def bf16_form_times(seed):
     return out
 
 
-def paged_times(seed, arch):
-    """--gemm-times: the paged MQA entries (#8 'gather', #9 'paged') at the
-    engine's decode shape on a seeded cache: 64 rows of next_n 1, 64 heads x
-    128, e4m3 pages of 64 tokens in a shuffled block table, contexts of
-    4096-8192 tokens (phase 7's step-1 shape, phase 7's data not needed)."""
+def decode_inputs(seed, q_dtype=torch.float8_e4m3fn, kv_dtype=torch.float8_e4m3fn):
+    """The paged MQA entries' operands at the engine's decode shape on a
+    seeded cache: 64 rows of next_n 1, 64 heads x 128, pages of 64 tokens in
+    a shuffled block table, contexts of 4096-8192 tokens (phase 7's step-1
+    shape; phase 7's data not needed). q and the cache e4m3 or bf16 (the
+    bf16 instances' operands: the decoded FP4 values' types)."""
     from deepgemm_tpu_torch.kernels import paged_mqa
-    from deepgemm_tpu_torch.testing.bench import bench_kernel
     from deepgemm_tpu_torch.utils.math import cast_to_fp8
     b, h, d, bkv, max_len = SERVE['max_slots'], SERVE['index_heads'], SERVE['index_dim'], 64, 8192
     g = torch.Generator(device='cuda').manual_seed(seed + 12)
     mb = max_len // bkv
-    q = cast_to_fp8(torch.randn((b, 1, h, d), generator=g, device='cuda'))
-    kv = cast_to_fp8(torch.randn((b * mb, bkv, d), generator=g, device='cuda'))
+    cast = lambda x, dt: cast_to_fp8(x) if dt == torch.float8_e4m3fn else x.to(dt)
+    q = cast(torch.randn((b, 1, h, d), generator=g, device='cuda'), q_dtype)
+    kv = cast(torch.randn((b * mb, bkv, d), generator=g, device='cuda'), kv_dtype)
     sf = torch.rand((b * mb, bkv), generator=g, device='cuda') + 0.5
     w = torch.randn((b, h), generator=g, device='cuda')
     ctx = torch.randint(4096, max_len + 1, (b,), generator=g, device='cuda', dtype=torch.int32)
     bt = torch.randperm(b * mb, generator=g, device='cuda').int().view(b, mb)
     hi = paged_mqa.row_bounds(ctx, 1)
     kv_lin, sf_lin = paged_mqa.linearise(kv, sf, bt)
+    return dict(q=q, kv=kv, sf=sf, w=w, hi=hi, bt=bt, kv_lin=kv_lin, sf_lin=sf_lin,
+                max_len=max_len, shape=[b, 1, h, d, max_len])
+
+
+PAGED_PAIRS = {'e4m3': (torch.float8_e4m3fn, torch.float8_e4m3fn),
+               'fp4_q_fp4_cache': (torch.bfloat16, torch.bfloat16),
+               'fp4_q_e4m3_cache': (torch.bfloat16, torch.float8_e4m3fn),
+               'e4m3_q_fp4_cache': (torch.float8_e4m3fn, torch.bfloat16)}
+
+
+def paged_times(seed, arch):
+    """--gemm-times: the paged MQA entries (#8 'gather', #9 'paged') at the
+    engine's decode shape (:func:`decode_inputs`), the e4m3 instance and the
+    three bf16 instances the FP4 pairs run: each call as testing/bench.py
+    times it (ms), its device work with the host work hidden (device_ms),
+    its host work (host_ms) and the part of that outside the C entry
+    (python_host_ms: the same calls with the entry a no-op); torch.bmm bf16
+    q x kv_lin^T beside them."""
+    from deepgemm_tpu_torch.kernels import paged_mqa
+    from deepgemm_tpu_torch.testing.bench import bench_host, bench_kernel
+    own_entry = paged_mqa._entry
+
+    def no_op(strategy):
+        return own_entry(strategy)[0], lambda *args: 0
+
     out = {}
-    for name, fn in (('gather', lambda: paged_mqa.paged_mqa_logits_gather(
-                         q, kv_lin, sf_lin, w, hi, max_len)),
-                     ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
-                         q, kv, sf, w, hi, bt, max_len))):
-        out[name] = dict(ms=bench_kernel(fn, iters=20), shape=[b, 1, h, d, max_len])
-        log(f'time paged MQA {name} [B={b} next_n=1 h={h} d={d} max_len={max_len}]: '
-            f'kernel_ms={out[name]["ms"]:.4f}')
+    for pair, (q_dtype, kv_dtype) in PAGED_PAIRS.items():
+        x = decode_inputs(seed, q_dtype, kv_dtype)
+        for name, fn in (('gather', lambda: paged_mqa.paged_mqa_logits_gather(
+                             x['q'], x['kv_lin'], x['sf_lin'], x['w'], x['hi'], x['max_len'])),
+                         ('paged', lambda: paged_mqa.paged_mqa_logits_paged(
+                             x['q'], x['kv'], x['sf'], x['w'], x['hi'], x['bt'], x['max_len']))):
+            key = name if pair == 'e4m3' else f'{name}_{pair}'
+            rec = dict(ms=bench_kernel(fn, iters=20),
+                       device_ms=bench_kernel(fn, iters=20, hide_host=True),
+                       host_ms=bench_host(fn), shape=x['shape'], q=str(q_dtype),
+                       kv=str(kv_dtype))
+            paged_mqa._entry = no_op
+            try:
+                rec['python_host_ms'] = bench_host(fn)
+            finally:
+                paged_mqa._entry = own_entry
+            out[key] = rec
+            log(f'time paged MQA {key} [B, next_n, h, d, max_len = {x["shape"]}; q {q_dtype}, '
+                f'cache {kv_dtype}]: kernel_ms={rec["ms"]:.4f} (the call, event-bracketed) '
+                f'device_ms={rec["device_ms"]:.4f} (host work hidden) '
+                f'host_ms={rec["host_ms"]:.4f} (of which outside the C entry '
+                f'{rec["python_host_ms"]:.4f})')
+        if pair == 'e4m3':
+            b, _, h, d, _ = x['shape']
+            q16, kv16 = x['q'].view(b, h, d).bfloat16(), x['kv_lin'].bfloat16()
+            out['library_ms'] = bench_kernel(lambda: torch.bmm(q16, kv16.transpose(1, 2)),
+                                             iters=10)
+            del q16, kv16
+        del x
     return out
 
 
@@ -4233,7 +4330,8 @@ _MQA_HEAD_SUM = ('                            s0[h] = fmaf(fmaxf(a[0], 0.f), w0,
 _MQA_NO_MMA = ('sm90::wgmma_e4m3(acc[u], desc(a), desc(b), k);', ';')
 _MQA_NO_STORE = ('                if (c < p.out_cols)\n                    p.out[static_cast<int64_t>(g.row0 + rq)',
                  '                if (c < 0)\n                    p.out[static_cast<int64_t>(g.row0 + rq)')
-_MQA_NO_LOADS = (('const uint32_t kv_bytes = n_kv_boxes * kRows * 128 + (p.has_sf ? (kRows + 4) * 4 : 0);',
+_MQA_NO_LOADS = (('const uint32_t kv_bytes =\n'
+                  '                    n_kv_boxes * kRows * 128 + (sf_tma ? (p.sf_box << ksh) * 4 : 0);',
                   'const uint32_t kv_bytes = 0;'),
                  ('sm90::tma_load_2d(kv_s', 'if (0) sm90::tma_load_2d(kv_s'),
                  ('tma_load_1d(sf_s', 'if (0) tma_load_1d(sf_s'))
@@ -4242,6 +4340,22 @@ MQA_VARIANTS = {
     'no head sum': (_MQA_HEAD_SUM,),
     'MMA only': (_MQA_HEAD_SUM, _MQA_NO_STORE),
     'skeleton': (_MQA_NO_MMA, _MQA_HEAD_SUM, _MQA_NO_STORE) + _MQA_NO_LOADS,
+}
+# the paged entries' decode call: on e4m3 wgmma (not widened to bf16), the
+# same parts removed, then the pipeline alone with the loads (no wgmma, head
+# sum or stores), then the run chooser aiming at other item counts an SM
+_ITEMS = 'constexpr int kPagedItemsPerSm = 4;'
+_EXACT = '__host__ __device__ constexpr bool exact_e4m3(Source s) { return s == Source::kPaged; }'
+_MQA_NO_RS = ('if (k < steps) wgmma_bf16_rs(acc[u], a[v], db + ob, k);', ';')
+PAGED_VARIANTS = {
+    'e4m3 wgmma': ((_EXACT, _EXACT.replace('s == Source::kPaged', 'false')),),
+    'no MMA': (_MQA_NO_MMA, _MQA_NO_RS),
+    'no head sum': (_MQA_HEAD_SUM,),
+    'pipeline only': (_MQA_NO_MMA, _MQA_NO_RS, _MQA_HEAD_SUM, _MQA_NO_STORE),
+    'skeleton': (_MQA_NO_MMA, _MQA_NO_RS, _MQA_HEAD_SUM, _MQA_NO_STORE) + _MQA_NO_LOADS,
+    'items 2 an SM': ((_ITEMS, _ITEMS.replace('4;', '2;')),),
+    'items 8 an SM': ((_ITEMS, _ITEMS.replace('4;', '8;')),),
+    'items 16 an SM': ((_ITEMS, _ITEMS.replace('4;', '16;')),),
 }
 
 
@@ -4278,13 +4392,20 @@ def variant_entries(label, header, source, variants, symbol, own):
 def mqa_variant_times(seed, arch, rounds=3):
     """--mqa-variants: the MQA logits kernel's e4m3 calls of phase 7 (the
     prefill path's and the bench shape's) through its own build and through
-    each MQA_VARIANTS build (compiled at once), all in turns for ``rounds``
-    rounds (ms, the mean of 10 L2-flushed launches each): what bounds it."""
-    from deepgemm_tpu_torch.kernels import mqa_logits
+    each MQA_VARIANTS build, then the paged gather entry's decode call
+    (:func:`decode_inputs`, e4m3) through its own build and each
+    PAGED_VARIANTS build (all compiled at once), each in turns for
+    ``rounds`` rounds (ms, the mean of 10 L2-flushed launches each; the
+    decode's on the device with the host's work hidden, bench_kernel's
+    hide_host): what bounds them."""
+    from deepgemm_tpu_torch.kernels import mqa_logits, paged_mqa
     from deepgemm_tpu_torch.testing.bench import bench_kernel
     own = mqa_logits._entry()
+    own_lib, own_paged = paged_mqa._entry('gather')
     entries = variant_entries('mqa_variants', 'mqa_sm90.cuh', 'mqa_logits.cu', MQA_VARIANTS,
                               'dgt_mqa_logits', own)
+    paged_entries = variant_entries('paged_variants', 'mqa_sm90.cuh', 'paged_mqa.cu',
+                                    PAGED_VARIANTS, 'dgt_paged_mqa_logits_gather', own_paged)
     calls = mqa_calls(seed)
     results = {}
     try:
@@ -4302,6 +4423,21 @@ def mqa_variant_times(seed, arch, rounds=3):
                                                 for name, v in times.items()))
     finally:
         mqa_logits._entry = lambda: own
+    x = decode_inputs(seed)
+    times, own_entry = {}, paged_mqa._entry
+    try:
+        for _ in range(rounds):
+            for name, fn in paged_entries.items():
+                paged_mqa._entry = lambda strategy, fn=fn: (own_lib, fn)
+                times.setdefault(name, []).append(bench_kernel(
+                    lambda: paged_mqa.paged_mqa_logits_gather(x['q'], x['kv_lin'], x['sf_lin'],
+                                                              x['w'], x['hi'], x['max_len']),
+                    iters=10, hide_host=True))
+    finally:
+        paged_mqa._entry = own_entry
+    results['decode'] = times
+    log(f'mqa variants decode (paged gather entry) [B, next_n, h, d, max_len = {x["shape"]}]: '
+        + ' '.join(f'{name}={min(v):.4f}/{max(v):.4f}' for name, v in times.items()))
     return results
 
 
@@ -4488,6 +4624,9 @@ def main(argv=None) -> int:
                         help='only build and time phase 3, the training step\'s dense, '
                              'contiguous and k-grouped calls and phase 7\'s MQA logits calls '
                              '(no plain versions), then print them as JSON')
+    parser.add_argument('--mqa-times', action='store_true',
+                        help='only build and time the MQA logits calls and the paged MQA '
+                             'entries of --gemm-times, then print them as JSON')
     parser.add_argument('--ep-times', action='store_true',
                         help='only build and run phase 11\'s main path (the 8-rank forward, '
                              'timed and profiled), then print its numbers as JSON')
@@ -4529,6 +4668,11 @@ def main(argv=None) -> int:
     phase_build()
     if args.gemm_times:
         print(json.dumps({'gemm_times': gemm_times(args.seed, H100_SXM),
+                          'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.mqa_times:
+        print(json.dumps({'mqa_times': mqa_times(args.seed, H100_SXM),
                           'package': os.path.abspath(args.package_root)}, default=str))
         print(card)
         return 0
@@ -4630,10 +4774,12 @@ def main(argv=None) -> int:
                        bench_shape=prefill['bench'], design=MQA_DESIGN),
         indexer_kernel('paged_mqa_logits_gather', 'paged_mqa.cu',
                        'deepgemm_tpu/kernels/paged_mqa.py:166', served['counts']['gather'],
-                       errors['paged'][1], timing['gather']),
+                       errors['paged'][1], timing['gather'], design=PAGED_DESIGN,
+                       instance=served['instance'],
+                       selections_differ=served['selections_differ']),
         indexer_kernel('paged_mqa_logits_paged', 'paged_mqa.cu',
                        'deepgemm_tpu/kernels/paged_mqa.py:382', served['zc_launches'],
-                       errors['zero_copy'][1], timing['paged']),
+                       errors['zero_copy'][1], timing['paged'], design=PAGED_DESIGN),
         indexer_kernel('sparse_attention', 'sparse_attn.cu',
                        'deepgemm_tpu/kernels/sparse_attn.py:104', served['counts']['attn'],
                        errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn']),

@@ -1,9 +1,9 @@
 // Shared mainloop of the port's mma.sync GEMM kernels: the bf16 k-grouped
 // kernel, and the helpers (cp.async, fragment loads, mma.sync) of the mega
-// MoE block (mega_block.cuh), the paged MQA tile (mqa_tile.cuh) and the HC
-// prenorm kernel (hc_prenorm.cu). Every dense form, the FP8 k-grouped
-// kernel, the contiguous and masked grouped kernels and the fused dispatch
-// + L1 run the Hopper mainloop of gemm_sm90.cuh.
+// MoE block (mega_block.cuh) and the HC prenorm kernel (hc_prenorm.cu).
+// Every dense form, the FP8 k-grouped kernel, the contiguous and masked
+// grouped kernels and the fused dispatch + L1 run the Hopper mainloop of
+// gemm_sm90.cuh; the indexer logits (prefill and paged) run mqa_sm90.cuh.
 //
 // Replaces the Pallas mainloop of kernels/k_grouped.py (_build_k_grouped)
 // of deepgemm_tpu for bf16 operands:

@@ -24,10 +24,15 @@ extern "C" int dgt_mqa_logits(const void* q, const void* w, const void* kv, cons
         rows_per_tile * h > 256 || sq < 1 || skv < 1 || out_cols < 1 || num_sms < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int q_bytes = q_bf16 ? 2 : 1, kv_bytes = kv_bf16 ? 2 : 1;
-    const bool widen = !q_bf16 && kv_bf16;
+    const bool widen = widen_q(!q_bf16, !kv_bf16, Source::kLinear);
     Args p = {};
-    // fewer query rows an item where the staged tiles leave too few stages
     Shape sh = shape_of(h, rows_per_tile, 0);
+    // one piece a stage: its rows in one box from row kv_base[tile] + c0,
+    // its scales in a box of rows + 4 from the 16-byte boundary at or before
+    p.tma = p.sf_tma = 1;
+    p.piece_shift = sh.rows == 128 ? 7 : 6;
+    p.sf_box = sh.rows + 4;
+    // fewer query rows an item where the staged tiles leave too few stages
     for (;;) {
         fit(sh.nb, d, q_bytes, kv_bytes, widen, sh.qg, &p.num_stages, &p.q_bufs);
         if (p.num_stages > 0 || sh.qg == 1) break;
@@ -38,7 +43,7 @@ extern "C" int dgt_mqa_logits(const void* q, const void* w, const void* kv, cons
     if (!make_map_q(&map_q, q, static_cast<uint64_t>(d) * q_bytes, h, sq, sh.hp, sh.qg) ||
         !dgt::sm90::make_map(&map_kv, kv, static_cast<uint64_t>(d) * kv_bytes, skv,
                              static_cast<uint64_t>(d) * kv_bytes, sh.rows) ||
-        (sf != nullptr && !make_map_sf(&map_sf, sf, skv, sh.rows)))
+        (sf != nullptr && !make_map_sf(&map_sf, sf, skv, p.sf_box)))
         return static_cast<int>(cudaErrorInvalidValue);
     p.w = static_cast<const float*>(w);
     p.lo = static_cast<const int*>(lo);
@@ -57,24 +62,28 @@ extern "C" int dgt_mqa_logits(const void* q, const void* w, const void* kv, cons
     p.groups_per_tile = sh.groups_per_tile;
     p.num_groups = (sq + rows_per_tile - 1) / rows_per_tile * sh.groups_per_tile;
     p.out_cols = out_cols;
-    // runs of kv stages long enough for ~2 items an SM (the q rows load once
-    // an item; 4 and 8 items an SM ran the prefill path's call slower on the
-    // H100), the groups of a run neighbours in the item order
+    // a query tile's one page from row kv_base[tile] (0 without kv_base), as
+    // long as any column
+    p.kv = static_cast<const uint8_t*>(kv);
+    p.sf = static_cast<const float*>(sf);
+    p.mb = 1;
+    p.block_kv = INT_MAX;
+    p.cache_rows = skv;
+    // runs of neighbouring kv stages long enough for ~2 items an SM (the q
+    // rows load once an item; 4 and 8 items an SM ran the prefill path's
+    // call slower on the H100), the groups of a run neighbours in the item
+    // order; at most kMaxPieces stages a run (its pieces' rows in shared
+    // memory)
     const int kv_stages = (out_cols + sh.rows - 1) / sh.rows;
     const long long pairs = static_cast<long long>(p.num_groups) * kv_stages;
-    const long long want = (pairs + 2LL * num_sms - 1) / (2LL * num_sms);
-    p.run = static_cast<int>(want < 1 ? 1 : (want > kv_stages ? kv_stages : want));
+    long long run = (pairs + 2LL * num_sms - 1) / (2LL * num_sms);
+    if (run > kv_stages) run = kv_stages;
+    if (run > kMaxPieces) run = kMaxPieces;
+    p.run = static_cast<int>(run < 1 ? 1 : run);
     p.num_runs = (kv_stages + p.run - 1) / p.run;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (!q_bf16 && !kv_bf16)
-        return static_cast<int>(
-            launch_hp<Elem::kE4m3, Elem::kE4m3>(map_q, map_kv, map_sf, p, num_sms, s));
-    if (q_bf16 && kv_bf16)
-        return static_cast<int>(
-            launch_hp<Elem::kBf16, Elem::kBf16>(map_q, map_kv, map_sf, p, num_sms, s));
-    if (q_bf16)
-        return static_cast<int>(
-            launch_hp<Elem::kBf16, Elem::kE4m3>(map_q, map_kv, map_sf, p, num_sms, s));
-    return static_cast<int>(
-        launch_hp<Elem::kE4m3, Elem::kBf16>(map_q, map_kv, map_sf, p, num_sms, s));
+    p.item_first = p.run;
+    p.stage_step = 1;
+    return static_cast<int>(launch_typed<Source::kLinear>(map_q, map_kv, map_sf, p, q_bf16,
+                                                          kv_bf16, num_sms,
+                                                          static_cast<cudaStream_t>(stream)));
 }

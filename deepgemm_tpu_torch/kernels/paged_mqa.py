@@ -17,13 +17,18 @@ Replaces:
   * the 'paged' (zero-copy) strategy, _build_paged_mqa_zerocopy
     (``pl.pallas_call`` at paged_mqa.py:382): the kernel reads the pages and
     their scales in place through the clamped block table.
-Kernel: csrc/paged_mqa.cu (both entries) on the body of csrc/mqa_tile.cuh;
-the two give the same bits. q and the cache are e4m3 or bf16 each (the bf16
-instances run the decoded FP4 operands). A batch row's next_n tokens run as
-one query tile, or, where its q2 rows (next_n x heads) do not fit one block,
-as several tiles of :func:`tile_rows` tokens that read the same pages, so
-any next_n runs, as in JAX. Bound on the H100: the cache bytes each row's
-context needs (bytes bound). Not ported: the TPU kernel's DMA knobs
+Kernel: csrc/paged_mqa.cu (both entries) on the Hopper body of
+csrc/mqa_sm90.cuh, #7's (kv rows on wgmma's M, the query heads on N, the
+ReLU, the weights and the head sum in registers), with its paged source: the
+producer turns the block table into the cache rows of each stage's pages
+and loads them by TMA (the gather entry's linearised cache is one page a
+batch row). The two give the same bits. q and the cache are e4m3 or bf16
+each (the bf16 instances run the decoded FP4 operands); e4m3 x e4m3 runs
+widened exactly to bf16, so its sums are f32 sums of exact products, as the
+plain version's are, and the decode's top-k selects what it selects. A batch row's
+next_n tokens are one query tile, run as groups of queries that read the
+same pages, so any next_n runs, as in JAX. Bound on the H100: the cache
+bytes each row's context needs (bytes bound). Not ported: the TPU kernel's DMA knobs
 (``DGT_ZC_SLOTS``, ``DGT_ZC_COALESCE`` and the page adjacency levels,
 paged_mqa.py:415-482) and the JAX op's ``tile_kv`` chooser
 (ops/attention.py:203-220): they tune the TPU's DMA engines and change
@@ -35,18 +40,18 @@ import ctypes
 import torch
 
 from ..runtime import build
-from ..utils.math import ceil_div
+from ..runtime.config import get_num_sms
 from .common import select_rows, use_plain
-from .mqa_logits import check_dtypes, is_bf16
+from .mqa_logits import check_dtypes, check_shape, is_bf16, query_columns
 
 # Kernel launches since the counts were last set to 0, by entry.
 launches = {'gather': 0, 'paged': 0}
+# The instance of the last launch: (q bf16, kv bf16, a query's columns), the
+# template arguments of csrc/mqa_sm90.cuh's kernel beside Source::kPaged.
+last_instance = None
 
 NEG_INF = float('-inf')
 STRATEGIES = ('gather', 'paged')
-# csrc/mqa_tile.cuh: q2 rows (query rows x heads) of one block, output columns
-# of a kv tile, the score tile's f32 pitch, kv tiles a block, shared memory
-MAX_ROWS, _BN, _S_PITCH, _TILES_PER_BLOCK, MAX_SMEM = 256, 64, 68, 4, 232448
 
 
 def _entry(strategy: str):
@@ -56,7 +61,7 @@ def _entry(strategy: str):
         argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     else:
         fn = lib.dgt_paged_mqa_logits_paged
-        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -73,46 +78,28 @@ def row_bounds(context_lens: torch.Tensor, next_n: int) -> torch.Tensor:
     return (ctx[:, None] - next_n + 1 + t[None, :]).reshape(-1).contiguous()
 
 
-def smem_bytes(rows: int, h: int, d: int, q_bytes: int, kv_bytes: int) -> int:
-    """Shared memory of one block of ``rows`` query rows (csrc/mqa_tile.cuh
-    smem_bytes): each operand is kept in its own type (1 byte e4m3, 2 bf16)."""
-    rp = ceil_div(rows * h, 16) * 16
-    return (rp * (d * q_bytes + 16) + 2 * _BN * (d * kv_bytes + 16) + rp * _S_PITCH * 4
-            + 2 * _BN * 4 + rows * h * 4 + 2 * rows * 4 + (_TILES_PER_BLOCK * _BN + 1) * 4)
-
-
-def fits_tile(rows: int, h: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> bool:
-    """Whether one block takes ``rows`` query rows of ``h`` heads at head_dim
-    ``d``: d a multiple of 32 up to 256, at most MAX_ROWS q2 rows, and the
-    shared memory of the operands' instance within the H100's 227 KB."""
-    size = lambda dt: 2 if dt == torch.bfloat16 else 1
-    return (d % 32 == 0 and 32 <= d <= 256 and 1 <= rows * h <= MAX_ROWS
-            and smem_bytes(rows, h, d, size(q_dtype), size(kv_dtype)) <= MAX_SMEM)
-
-
-def tile_rows(next_n: int, h: int, d: int, q_dtype: torch.dtype,
-              kv_dtype: torch.dtype) -> int:
-    """Query tokens of one kernel tile: the largest divisor of next_n whose
-    q2 rows fit one block (:func:`fits_tile`), so a batch row's
-    tokens split into equal tiles and no row is padded. Raises if not even
-    one token fits."""
-    for rows in range(next_n, 0, -1):
-        if next_n % rows == 0 and fits_tile(rows, h, d, q_dtype, kv_dtype):
-            return rows
-    raise ValueError(f'the kernel takes head_dim a multiple of 32 up to 256 and one query '
-                     f'token of {h} heads in a block; got d={d}, {q_dtype} x {kv_dtype}')
-
-
-def _check(q: torch.Tensor, weights: torch.Tensor, kv: torch.Tensor) -> int:
-    """Raise unless the operands are what the kernel takes; returns
-    :func:`tile_rows`."""
+def _check(q: torch.Tensor, weights: torch.Tensor, kv: torch.Tensor):
+    """Raise unless the operands are what the kernel takes (on any device)."""
     b, nn, h, d = q.shape
     check_dtypes(q, kv)
     if kv.shape[-1] != d:
         raise ValueError(f'cache head_dim {kv.shape[-1]} != q head_dim {d}')
     if tuple(weights.shape) != (b * nn, h):
         raise ValueError(f'weights: shape {tuple(weights.shape)}, expected [{b * nn}, {h}]')
-    return tile_rows(nn, h, d, q.dtype, kv.dtype)
+    check_shape(h, d)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous from a 16-byte aligned base (the tensor maps read
+    from one)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launched(strategy: str, q: torch.Tensor, kv: torch.Tensor):
+    global last_instance
+    launches[strategy] += 1
+    last_instance = (is_bf16(q), is_bf16(kv), query_columns(q.shape[2]))
 
 
 def linearise(kv_cache: torch.Tensor, kv_sf: torch.Tensor, block_table: torch.Tensor):
@@ -155,20 +142,21 @@ def paged_mqa_logits_gather(q: torch.Tensor, kv_lin: torch.Tensor, sf_lin: torch
     q [B, nn, h, d] e4m3 or bf16, weights [B * nn, h] f32, hi [B * nn] int32
     (see :func:`row_bounds`). CPU tensors take the plain version, CUDA
     tensors launch the kernel or raise."""
-    rows = _check(q, weights, kv_lin)
+    _check(q, weights, kv_lin)
     if use_plain(q, kv_lin, sf_lin, weights, hi):
         return paged_mqa_logits_plain(q, kv_lin, sf_lin, weights, hi, max_model_len)
     b, nn, h, d = q.shape
-    q, kv_lin, sf_lin = q.contiguous(), kv_lin.contiguous(), sf_lin.float().contiguous()
+    q, kv_lin, sf_lin = _aligned(q), _aligned(kv_lin), _aligned(sf_lin.float())
     w, hi = weights.float().contiguous(), hi.to(torch.int32).contiguous()
-    lo = torch.zeros_like(hi)
     out = torch.empty((b * nn, max_model_len), dtype=torch.float32, device=q.device)
     lib, fn = _entry('gather')
-    code = fn(q.data_ptr(), w.data_ptr(), kv_lin.data_ptr(), sf_lin.data_ptr(), lo.data_ptr(),
-              hi.data_ptr(), out.data_ptr(), b, nn, rows, h, d, kv_lin.shape[1], max_model_len,
-              is_bf16(q), is_bf16(kv_lin), torch.cuda.current_stream(q.device).cuda_stream)
+    # lo null: every row's window starts at column 0
+    code = fn(q.data_ptr(), w.data_ptr(), kv_lin.data_ptr(), sf_lin.data_ptr(), None,
+              hi.data_ptr(), out.data_ptr(), b, nn, h, d, kv_lin.shape[1], max_model_len,
+              is_bf16(q), is_bf16(kv_lin), get_num_sms(q.device),
+              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'paged_mqa_logits_gather')
-    launches['gather'] += 1
+    _launched('gather', q, kv_lin)
     return out
 
 
@@ -180,24 +168,23 @@ def paged_mqa_logits_paged(q: torch.Tensor, kv_cache: torch.Tensor, kv_sf: torch
     block_table [B, mb] (clamped to valid pages here). CPU tensors take the
     plain version (on the linearised cache: the same function), CUDA tensors
     launch the kernel or raise."""
-    rows = _check(q, weights, kv_cache)
+    _check(q, weights, kv_cache)
     nb, bkv, d = kv_cache.shape
     bt = block_table.to(torch.int32).clamp(0, nb - 1).contiguous()
     if use_plain(q, kv_cache, kv_sf, weights, hi, bt):
         kv_lin, sf_lin = linearise(kv_cache, kv_sf, bt)
         return paged_mqa_logits_plain(q, kv_lin, sf_lin, weights, hi, max_model_len)
     b, nn, h, _ = q.shape
-    q, kv_cache, kv_sf = q.contiguous(), kv_cache.contiguous(), kv_sf.float().contiguous()
+    q, kv_cache, kv_sf = _aligned(q), _aligned(kv_cache), _aligned(kv_sf.float())
     w, hi = weights.float().contiguous(), hi.to(torch.int32).contiguous()
-    lo = torch.zeros_like(hi)
     out = torch.empty((b * nn, max_model_len), dtype=torch.float32, device=q.device)
     lib, fn = _entry('paged')
     code = fn(q.data_ptr(), w.data_ptr(), kv_cache.data_ptr(), kv_sf.data_ptr(), bt.data_ptr(),
-              lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, nn, rows, h, d, bt.shape[1], bkv,
-              max_model_len, is_bf16(q), is_bf16(kv_cache),
+              None, hi.data_ptr(), out.data_ptr(), b, nn, h, d, nb, bt.shape[1], bkv,
+              max_model_len, is_bf16(q), is_bf16(kv_cache), get_num_sms(q.device),
               torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, 'paged_mqa_logits_paged')
-    launches['paged'] += 1
+    _launched('paged', q, kv_cache)
     return out
 
 

@@ -784,11 +784,11 @@ def test_paged_mqa_bf16_instances_match_plain_and_each_other(gen, q_dtype, kv_dt
 
 @pytest.mark.parametrize('next_n,ctx_2d', [(6, False), (6, True), (5, False)])
 def test_paged_mqa_any_next_n(gen, next_n, ctx_2d):
-    """next_n x heads above one block's 256 q2 rows: a batch row's tokens
-    run as several tiles over the same pages (3 + 3 of 6, five of one of
-    5), against the plain version, the strategies bitwise equal."""
+    """next_n x heads above N's 128 columns: a batch row's tokens run as
+    several query groups over the same pages (3 groups of 2 of 6, 2 + 2 + 1
+    of 5), against the plain version, the strategies bitwise equal."""
     b, h, d, bkv, mb, nb = 3, 64, 128, 64, 4, 16
-    assert paged_mqa.tile_rows(next_n, h, d, torch.float8_e4m3fn, torch.float8_e4m3fn) < next_n
+    assert next_n * mqa_logits.query_columns(h) > 128
     q = _fp8(gen, b, next_n, h, d)
     w = torch.rand(b * next_n, h, generator=gen, device='cuda')
     kv, sf = _fp8(gen, nb, bkv, d), torch.rand(nb, bkv, generator=gen, device='cuda')
@@ -803,6 +803,87 @@ def test_paged_mqa_any_next_n(gen, next_n, ctx_2d):
     torch.cuda.synchronize()
     _same_logits(got['gather'], want)
     assert torch.equal(got['paged'], got['gather'])
+
+
+def _paged_case(gen, q_dtype, kv_dtype, b=5, nn=2, h=64, d=128, bkv=64, mb=6):
+    """Seeded operands of the paged entries: a shuffled block table over more
+    pages than it names, ragged contexts below the cache, a free slot (row
+    1: context 0), and row 0's context past the cache (mb * block_kv) in a
+    window 40 columns wider."""
+    nb = b * mb + 3
+    q = _operand(gen, q_dtype, b, nn, h, d)
+    w = torch.randn(b * nn, h, generator=gen, device='cuda')
+    kv = _operand(gen, kv_dtype, nb, bkv, d)
+    sf = torch.rand(nb, bkv, generator=gen, device='cuda') + 0.5
+    bt = torch.randperm(nb, generator=gen, device='cuda')[:b * mb].view(b, mb).int()
+    max_len = bkv * mb + 40
+    ctx = torch.randint(nn + 1, bkv * mb, (b,), generator=gen, device='cuda', dtype=torch.int32)
+    ctx[0], ctx[1] = max_len, 0
+    return (q, kv, sf, w, ctx, bt, max_len)
+
+
+def _check_paged(args, cache_cols):
+    """Both entries against the plain version, bitwise each other and
+    themselves on a second call; the last batch row alone bitwise its rows
+    in the batch; row 0's columns past the cache (cache_cols on) exactly
+    zero, as zero rows give."""
+    q, kv, sf, w, ctx, bt, max_len = args
+    b, nn = q.shape[:2]
+    before = dict(paged_mqa.launches)
+    got = {s: paged_mqa.paged_mqa_logits(*args, strategy=s) for s in paged_mqa.STRATEGIES}
+    again = {s: paged_mqa.paged_mqa_logits(*args, strategy=s) for s in paged_mqa.STRATEGIES}
+    i = b - 1
+    alone = {s: paged_mqa.paged_mqa_logits(q[i:], kv, sf, w[i * nn:], ctx[i:], bt[i:], max_len,
+                                           strategy=s) for s in paged_mqa.STRATEGIES}
+    with plain_versions():
+        want = paged_mqa.paged_mqa_logits(*args)
+    torch.cuda.synchronize()
+    assert paged_mqa.launches == {s: before[s] + 3 for s in before}
+    assert paged_mqa.last_instance == (int(q.dtype == torch.bfloat16),
+                                       int(kv.dtype == torch.bfloat16),
+                                       mqa_logits.query_columns(q.shape[2]))
+    _same_logits(got['gather'], want)
+    for s in paged_mqa.STRATEGIES:
+        assert torch.equal(got[s], got['gather']), s
+        assert torch.equal(again[s], got[s]), s
+        assert torch.equal(alone[s], got[s][i * nn:]), s
+    hi = paged_mqa.row_bounds(ctx, nn)
+    past = got['gather'][0, cache_cols:int(hi[0])]
+    assert past.numel() > 0 and not past.any()
+    assert torch.isneginf(got['gather'][nn:2 * nn]).all()          # the free slot
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', [_ALL_PAIRS[0], _ALL_PAIRS[1]])
+@pytest.mark.parametrize('bkv', [16, 48, 128, 20])
+def test_paged_mqa_block_kv(gen, bkv, q_dtype, kv_dtype):
+    """Pages of 16, 48 and 128 tokens (TMA boxes of 16, 16 and 128 rows)
+    and of 20 (not whole 8-row swizzle atoms: the zero-copy entry's
+    producer warp copies the rows, while the gather entry's linearised
+    cache, 120 rows a batch row, still takes boxes of 8): both entries
+    against the plain version and bitwise each other, run to run, and
+    batch row by batch row; columns past the cache read zero rows."""
+    mb = 6
+    _check_paged(_paged_case(gen, q_dtype, kv_dtype, bkv=bkv, mb=mb), bkv * mb)
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', _ALL_PAIRS)
+@pytest.mark.parametrize('h', [8, 128, 256])
+def test_paged_mqa_heads(gen, h, q_dtype, kv_dtype):
+    """8 heads (16 queries a group: the two tokens of a row in one), 128
+    (one query's N) and 256 (two n128 halves, 64-row stages) through both
+    entries, as test_paged_mqa_block_kv checks them."""
+    bkv, mb = 64, 6
+    _check_paged(_paged_case(gen, q_dtype, kv_dtype, h=h, bkv=bkv, mb=mb), bkv * mb)
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype', _ALL_PAIRS)
+def test_paged_mqa_widest_operands(gen, q_dtype, kv_dtype):
+    """256 heads of head_dim 256, the widest shape the entries take (a bf16
+    q tile of 128 KiB: one q buffer and two stages), through both entries,
+    as test_paged_mqa_block_kv checks them."""
+    bkv, mb = 64, 4
+    _check_paged(_paged_case(gen, q_dtype, kv_dtype, b=3, h=256, d=256, bkv=bkv, mb=mb),
+                 bkv * mb)
 
 
 def test_fp4_operands_and_varlen_on_the_card(gen):
@@ -832,7 +913,7 @@ def test_fp4_operands_and_varlen_on_the_card(gen):
     assert paged_mqa.launches['gather'] == before['gather'] + 1
     _same_logits(got, want)
 
-    # varlen: 4 sequences with 1-6 tokens each (6 x 64 heads: two tiles a row)
+    # varlen: 4 sequences with 1-6 tokens each (6 x 64 heads: three query groups a row)
     counts = torch.tensor([6, 1, 3, 2])
     idx = torch.repeat_interleave(torch.arange(4), counts).cuda()
     rows = idx.numel()
