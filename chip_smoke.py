@@ -4,11 +4,13 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --gemm-times [--package-root DIR]
     python3 chip_smoke.py --mqa-times [--package-root DIR]
+    python3 chip_smoke.py --attn-times [--package-root DIR]
     python3 chip_smoke.py --ep-times [--package-root DIR]
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --mqa-variants
     python3 chip_smoke.py --widen-variants
     python3 chip_smoke.py --masked-variants
+    python3 chip_smoke.py --attn-variants [--package-root DIR]
 
 The second form builds and times only phase 3, the training step's
 dense, contiguous and k-grouped calls, the MQA logits kernel's calls
@@ -45,6 +47,21 @@ without the wgmma). The seventh does the same for the masked kernel's
 decode calls and fp8_einsum's call and for the fused dispatch + L1 at
 phase 11's shape (at each ring cap, and without the wgmma).
 
+--attn-times times only the sparse attention entries (#10 gathered, #11
+gather-fused) at phase 7's decode shape on a seeded cache (64 rows, each
+selecting 2048 of its 4096-7936 tokens in a random order) and #10 at the
+prefill path's, each as the call (ms), on the device with the host work
+hidden (device_ms) and its host work (host_ms), SDPA over the gathered
+rows beside them, and what tells #10's time from #11's (#11 on #10's
+gathered copy, #10 before and after the other timings, #10 timed as the
+call over 5 launches), as one JSON line; run it for two trees in one call
+as --mqa-times. --attn-variants times both entries through copies of the
+package's csrc/sparse_attn.cu built with a part removed (the loads, the
+score math, the softmax and P.V math; on the warp body of commit 1e3756b
+its loads or its math), with the ring at 2 and 4 stages, 8 positions a
+stage and 16 consumer warps, the copies hinted to leave L2 first, and the
+blocks in group-major order, each of those bitwise the kernel.
+
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
@@ -57,7 +74,10 @@ Phases, one line each (a failure in any phase exits non-zero):
      then the MQA logits kernel's wgmma
      instances (csrc/mqa_sm90.cuh: the prefill entry's, Source::kLinear,
      and the paged entries', Source::kPaged), each named with its
-     registers and spills (none may spill);
+     registers and spills (none may spill), then the sparse attention's
+     ring body (csrc/sparse_attn.cu: d 64/128/256, gathered and paged),
+     each named with its registers, static shared memory and spills (none
+     may spill);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -103,7 +123,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      step) selections differ printed), two requests alone
      in a fresh engine bitwise equal (batch invariance); step times,
      tokens/s, peak memory, a profile of one step, each kernel timed at its
-     full shape; then the same script under DGT_SPARSE_GATHER=pallas in a
+     full shape (the attention entries as the call, on the device with the
+     host work hidden, and their host work); then the same script under
+     DGT_SPARSE_GATHER=pallas in a
      fresh engine: launches per step gather-fused attention 1, attention 0,
      paged MQA 1, MQA logits 0, every output bitwise equal to the flat
      run's, step times, tokens/s and peak memory beside the flat run's, the
@@ -310,6 +332,43 @@ def phase_build():
         spilled = [mqa_instance_name(k, source) for k, v in found.items()
                    if v['spill_stores'] or v['spill_loads']]
         require(not spilled, f'{lib} instances spill: {spilled}')
+    attn = attn_instances(reports)
+    if attn:
+        log(f'phase 2 sparse attention (csrc/sparse_attn.cu, the ring body; its ring is dynamic '
+            f'shared memory): {len(attn)} instances: ' +
+            '; '.join(f'{name} registers {v["registers"]} static smem {v["smem"]} bytes spill '
+                      f'stores {v["spill_stores"]} loads {v["spill_loads"]}'
+                      for name, v in sorted(attn.items())))
+        spilled = [name for name, v in attn.items() if v['spill_stores'] or v['spill_loads']]
+        require(not spilled, f'sparse attention instances spill: {spilled}')
+
+
+def attn_instances(reports):
+    """{instance: registers, static shared memory, spill bytes} of the sparse
+    attention's ring body (dgt_attn::sparse_attn_ring<d, paged>), from ptxas -v."""
+    import re
+    found, current = {}, None
+    for line in reports.get('sparse_attn', '').splitlines():
+        entry = re.search(r"entry function '\w*sparse_attn_ringILi(\d+)ELb(\d)E", line)
+        if entry:
+            d, paged = entry.groups()
+            current = f'sparse_attn_ring<{d}, {"paged" if paged == "1" else "gathered"}>'
+            found[current] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
+            continue
+        if 'entry function' in line:
+            current = None
+        if current is None:
+            continue
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if spill:
+            found[current].update(spill_stores=int(spill.group(1)),
+                                  spill_loads=int(spill.group(2)))
+        used = re.search(r'Used (\d+) registers', line)
+        if used:
+            found[current]['registers'] = int(used.group(1))
+            smem = re.search(r'(\d+) bytes smem', line)
+            found[current]['smem'] = int(smem.group(1)) if smem else 0
+    return found
 
 
 # (q bf16, kv bf16, a query's columns) -> registers and spill bytes of the
@@ -1315,7 +1374,6 @@ def time_decode_kernels(rec_paged, engine, arch):
     paged MQA entries) and on the engine's current state (the attention over
     all 64 slots' selected rows): kernel, plain version, library yardstick,
     bound. Returns {name: numbers}."""
-    import torch.nn.functional as F
     from deepgemm_tpu_torch.kernels import paged_mqa, sparse_attn
     from deepgemm_tpu_torch.kernels.common import plain_versions
     from deepgemm_tpu_torch.models import indexer
@@ -1371,26 +1429,26 @@ def time_decode_kernels(rec_paged, engine, arch):
     gather_attn_ms = bench_kernel(flat_gather, iters=3)
     k_sel, v_sel = (x.view(rows, t, h_a, d_a) for x in flat_gather())
     scale = d_a ** -0.5
-    ms = bench_kernel(lambda: sparse_attn.gathered_attention(qd, k_sel, v_sel, valid, scale),
-                      iters=5)
+    timed = attn_timed(lambda: sparse_attn.gathered_attention(qd, k_sel, v_sel, valid, scale))
     sub = slice(0, ATTN_CHECK_ROWS)
     plain_ms = bench_kernel(lambda: sparse_attn.gathered_attention_plain(
         qd[sub], k_sel[sub], v_sel[sub], valid[sub], scale), iters=2, warmup=1)
-    mask = valid[:, None, None, :]
-    library_ms = bench_kernel(lambda: F.scaled_dot_product_attention(
-        qd[:, :, None, :], k_sel.transpose(1, 2), v_sel.transpose(1, 2), attn_mask=mask,
-        scale=scale), iters=3)
+    sdpa = sdpa_call(qd, k_sel, v_sel, valid, scale)
+    library_ms = bench_kernel(sdpa, iters=3)
+    library_device_ms = bench_kernel(sdpa, iters=3, hide_host=True)
+    bound = attn_bound(arch, qd, valid)
     n_valid = int(valid.sum())
-    nbytes = 2 * n_valid * h_a * d_a * 2 + 2 * qd.numel() * 2 + valid.numel()
-    bound = arch.bound_ms(nbytes, 4 * n_valid * h_a * d_a, 'bf16')
-    out['attn'] = dict(ms=ms, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS,
-                       library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
-                       shape=[rows, t, h_a, d_a], flat_gather_ms=gather_attn_ms)
+    out['attn'] = dict(timed, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS,
+                       library_ms=library_ms, library_device_ms=library_device_ms,
+                       bound_ms=bound[0], bound_by=bound[1], shape=[rows, t, h_a, d_a],
+                       flat_gather_ms=gather_attn_ms)
     log(f'phase 7 time attention [{rows} rows, topk {t}, h {h_a}, d {d_a}; {n_valid} valid]: '
-        f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) '
-        f'library_ms(F.scaled_dot_product_attention over the gathered rows)={library_ms:.4f} '
-        f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}; the flat token '
-        f'gather before it {gather_attn_ms:.4f} ms')
+        f'kernel_ms={timed["ms"]:.4f} (the call; on the device with the host work hidden '
+        f'{timed["device_ms"]:.4f}, the host work {timed["host_ms"]:.4f}) plain_ms='
+        f'{plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) library_ms(F.scaled_dot_product_attention '
+        f'over the gathered rows)={library_ms:.4f} (on the device {library_device_ms:.4f}) '
+        f'bound_ms={bound[0]:.4f} ({bound[1]}), {100 * bound[0] / timed["device_ms"]:.1f}% '
+        f'of it on the device; the flat token gather before it {gather_attn_ms:.4f} ms')
     return out
 
 
@@ -1762,7 +1820,8 @@ def check_fused(rec, arch, seed):
     require(torch.equal(got, sparse_attn.gathered_attention(q, k_sel, v_sel, valid, scale)),
             'gather-fused attention differs from index_select + the gathered kernel')
     del k_sel, v_sel
-    ms = bench_kernel(fused, iters=10)
+    timed = attn_timed(fused)
+    ms = timed['ms']
     flat_ms = bench_kernel(lambda: sparse_attn.gathered_attention(q, *gather(), valid, scale),
                            iters=3)
     plain_ms = bench_kernel(lambda: sparse_attn.sparse_attention_paged_plain(
@@ -1776,17 +1835,19 @@ def check_fused(rec, arch, seed):
                                               scale=scale)
     library_ms = bench_kernel(library, iters=3)
     n_valid = int(valid.sum())
-    nbytes = 2 * n_valid * h * d * 2 + 2 * q.numel() * 2 + valid.numel() + tok.numel() * 4
-    bound = arch.bound_ms(nbytes, 4 * n_valid * h * d, 'bf16')
+    bound = attn_bound(arch, q, valid, tok)
     log(f'phase 7 gather-fused attention [{rows} rows, topk {t}, h {h}, d {d}; {n_valid} '
         f'valid; the cache {n} rows]: against the plain version on {ATTN_CHECK_ROWS} seeded '
         f'rows {sub.tolist()} calc_diff={diff:.3e} (limit {TOL}) max_abs_err={err:.4g}; '
         f'bitwise equal to index_select + the gathered kernel on all {rows} rows; '
-        f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) '
+        f'kernel_ms={ms:.4f} (on the device with the host work hidden '
+        f'{timed["device_ms"]:.4f}, the host work {timed["host_ms"]:.4f}) plain_ms='
+        f'{plain_ms:.4f} (on {ATTN_CHECK_ROWS} rows) '
         f'flat_path_ms(2 index_select + gathered kernel)={flat_ms:.4f} '
         f'library_ms(2 index_select + F.scaled_dot_product_attention, two calls)='
-        f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={nbytes / ms / 1e6:.1f}')
-    return dict(ms=ms, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS, library_ms=library_ms,
+        f'{library_ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]}), '
+        f'{100 * bound[0] / timed["device_ms"]:.1f}% of it on the device')
+    return dict(timed, plain_ms=plain_ms, plain_rows=ATTN_CHECK_ROWS, library_ms=library_ms,
                 library='2 index_select + F.scaled_dot_product_attention (two calls)',
                 flat_path_ms=flat_ms, bound_ms=bound[0], bound_by=bound[1],
                 max_abs_err=err, check_calc_diff=diff, shape=[rows, t, h, d],
@@ -2755,6 +2816,12 @@ DISPATCH_DESIGN = ('one-sided pushes into an expert-major receive region, then w
 MQA_DESIGN = ('wgmma (e4m3 m64n128k32, or bf16 m64n128k16) with kv rows on M and the query '
               'heads on N, 128-row kv stages by TMA, two consumer warpgroups in turns, ReLU, '
               'weights and the head sum in registers (csrc/mqa_sm90.cuh)')
+ATTN_DESIGN = ('one ring body for both entries: a block per (row, head group), a producer warp '
+               'copying each valid position\'s k and v runs (4 KB each) into a 3-stage '
+               'shared-memory ring (96 KB, two blocks an SM) by 1-D bulk async copies, 8 '
+               'consumer warps reading 16 bytes a '
+               'lane, d / 8 lanes a (head, t) row, an online softmax a chunk of 4 positions '
+               '(csrc/sparse_attn.cu)')
 PAGED_DESIGN = ('csrc/mqa_sm90.cuh\'s body, #7\'s (Source::kPaged: e4m3 widened exactly to '
                 'bf16): a batch row\'s tokens one query tile, items of every num_runs-th stage '
                 'of a group, producer warps readying items (the block table turned into each '
@@ -4154,6 +4221,271 @@ def paged_times(seed, arch):
     return out
 
 
+# --attn-times and --attn-variants: the sparse attention entries (#10
+# gathered, #11 gather-fused) at phase 7's decode shape on a seeded cache
+# (the engine's shapes and access pattern without the engine), and #10 at
+# the prefill path's shape.
+ATTN_CTX = 8192         # cache rows a decode row owns; its prompt is 4096-7936 of them
+ATTN_ITERS = 10         # launches a timing, both entries alike
+
+
+def attn_inputs(seed):
+    """#10's and #11's operands at phase 7's decode shape: flat cache views
+    k_rows/v_rows [64 * ATTN_CTX, 128, 128] bf16 (seeded N(0, 1)), row r
+    owning rows [r * ATTN_CTX, (r + 1) * ATTN_CTX) and selecting 2048 of its
+    first prompt_lengths(seed)[r] in a seeded random order (the indexer's
+    top-k comes in score order, not position order), all valid; q [64, 128,
+    128]; the flat gather's copies k_sel/v_sel [64, 2048, 128, 128]."""
+    rows, t, h, d = SERVE['max_slots'], SERVE['topk'], SERVE['num_heads'], SERVE['head_dim']
+    g = torch.Generator(device='cuda').manual_seed(seed + 23)
+    k_rows = torch.empty((rows * ATTN_CTX, h, d), dtype=torch.bfloat16, device='cuda')
+    v_rows = torch.empty_like(k_rows)
+    for x in (k_rows, v_rows):
+        for part in x.split(ATTN_CTX):
+            part.copy_(torch.randn(part.shape, generator=g, device='cuda'))
+    q = torch.randn((rows, h, d), generator=g, device='cuda').bfloat16()
+    lengths = prompt_lengths(seed)
+    gc = torch.Generator().manual_seed(seed + 29)
+    tok = torch.stack([torch.randperm(lengths[r], generator=gc)[:t] + r * ATTN_CTX
+                       for r in range(rows)]).int().cuda()
+    valid = torch.ones((rows, t), dtype=torch.bool, device='cuda')
+    flat = tok.long().view(-1)
+    k_sel = k_rows.index_select(0, flat).view(rows, t, h, d)
+    v_sel = v_rows.index_select(0, flat).view(rows, t, h, d)
+    return dict(q=q, k_rows=k_rows, v_rows=v_rows, tok=tok, valid=valid, k_sel=k_sel,
+                v_sel=v_sel, scale=d ** -0.5, shape=[rows, t, h, d])
+
+
+def attn_calls(x):
+    """(#10, #11) over :func:`attn_inputs`' operands, as the decode calls them."""
+    from deepgemm_tpu_torch.kernels import sparse_attn
+    return (lambda: sparse_attn.gathered_attention(x['q'], x['k_sel'], x['v_sel'], x['valid'],
+                                                   x['scale']),
+            lambda: sparse_attn.sparse_attention_paged(x['q'], x['k_rows'], x['v_rows'],
+                                                       x['tok'], x['valid'], x['scale']))
+
+
+def attn_bound(arch, q, valid, tok=None):
+    """The bytes bound of one call: every valid selected k and v row read
+    once, q read, the output written, the valid flags (and tok) read."""
+    rows, h, d = q.shape
+    n_valid = int(valid.sum())
+    nbytes = (2 * n_valid * h * d * 2 + 2 * q.numel() * 2 + valid.numel()
+              + (0 if tok is None else tok.numel() * 4))
+    return arch.bound_ms(nbytes, 4 * n_valid * h * d, 'bf16')
+
+
+def attn_timed(fn):
+    """A call as testing/bench.py times it (ms), on the device with the host
+    work hidden (device_ms), and its host work (host_ms)."""
+    from deepgemm_tpu_torch.testing.bench import bench_host, bench_kernel
+    return dict(ms=bench_kernel(fn, iters=ATTN_ITERS),
+                device_ms=bench_kernel(fn, iters=ATTN_ITERS, hide_host=True),
+                host_ms=bench_host(fn, calls=20, batches=3))
+
+
+def sdpa_call(q, k_sel, v_sel, valid, scale):
+    """F.scaled_dot_product_attention over the gathered rows: the
+    yardstick, never called by the port."""
+    import torch.nn.functional as F
+    mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None, :], k_sel.transpose(1, 2),
+                                                  v_sel.transpose(1, 2), attn_mask=mask,
+                                                  scale=scale)
+
+
+def attn_times(seed, arch):
+    """--attn-times: #10 and #11 at phase 7's decode shape (:func:`attn_inputs`)
+    and #10 at the prefill path's (the last 64 rows of an 8192-token prompt,
+    its selection from the indexer as phase 7 runs it), each as
+    :func:`attn_timed` times it, SDPA over the same gathered rows beside
+    them, the bytes bound; then what tells #10's and #11's times apart, all
+    on the device with the host hidden: #10 right after its gather and
+    again after the other timings, #11 on the gathered copy itself (tok the
+    identity: #10's addresses through #11's code) and #10 timed as phase 7
+    timed it at commit 1e3756b (the call, 5 launches). No plain versions."""
+    import deepgemm_tpu_torch as dgt
+    from deepgemm_tpu_torch.kernels import sparse_attn
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    x = attn_inputs(seed)
+    gathered, paged = attn_calls(x)
+    rows, t, h, d = x['shape']
+    out = dict(shape=x['shape'], gathered_fresh_device_ms=bench_kernel(
+        gathered, iters=ATTN_ITERS, hide_host=True))
+    ident = torch.arange(rows * t, device='cuda', dtype=torch.int32).view(rows, t)
+    on_gathered = lambda: sparse_attn.sparse_attention_paged(
+        x['q'], x['k_sel'].view(-1, h, d), x['v_sel'].view(-1, h, d), ident, x['valid'],
+        x['scale'])
+    out['gathered'] = dict(attn_timed(gathered), bound=attn_bound(arch, x['q'], x['valid']))
+    out['paged'] = dict(attn_timed(paged), bound=attn_bound(arch, x['q'], x['valid'], x['tok']))
+    out['sdpa'] = attn_timed(sdpa_call(x['q'], x['k_sel'], x['v_sel'], x['valid'], x['scale']))
+    out['paged_on_gathered_copy_device_ms'] = bench_kernel(on_gathered, iters=ATTN_ITERS,
+                                                           hide_host=True)
+    out['gathered_later_device_ms'] = bench_kernel(gathered, iters=ATTN_ITERS, hide_host=True)
+    out['gathered_phase7_ms'] = bench_kernel(gathered, iters=5)
+    out['paged_bitwise_gathered'] = torch.equal(paged(), gathered())
+    out['paged_on_gathered_copy_bitwise'] = torch.equal(on_gathered(), gathered())
+    log(f'attn times decode [rows, topk, h, d = {x["shape"]}], ms / device_ms / host_ms: '
+        f'#10 {out["gathered"]["ms"]:.4f} / {out["gathered"]["device_ms"]:.4f} / '
+        f'{out["gathered"]["host_ms"]:.4f}, #11 {out["paged"]["ms"]:.4f} / '
+        f'{out["paged"]["device_ms"]:.4f} / {out["paged"]["host_ms"]:.4f}, SDPA '
+        f'{out["sdpa"]["ms"]:.4f} / {out["sdpa"]["device_ms"]:.4f} / '
+        f'{out["sdpa"]["host_ms"]:.4f}; bound {out["gathered"]["bound"][0]:.4f} '
+        f'({out["gathered"]["bound"][1]}); #10 device_ms right after its gather '
+        f'{out["gathered_fresh_device_ms"]:.4f}, later {out["gathered_later_device_ms"]:.4f}, '
+        f'as phase 7 timed it {out["gathered_phase7_ms"]:.4f}; #11 on the gathered copy '
+        f'{out["paged_on_gathered_copy_device_ms"]:.4f}; #11 bitwise #10 '
+        f'{out["paged_bitwise_gathered"]}, on the copy {out["paged_on_gathered_copy_bitwise"]}')
+    del x, gathered, paged, on_gathered, ident
+    torch.cuda.empty_cache()
+
+    # the prefill path's call: the arguments indexer_sparse_attention gives #10
+    k, v, q, iq, ikv, iw, ks, ke = prefill_inputs(seed)
+    captured, own = {}, sparse_attn.gathered_attention
+
+    def capture(*args):
+        captured['args'] = args
+        return own(*args)
+    sparse_attn.gathered_attention = capture
+    try:
+        dgt.indexer_sparse_attention(q, k, v, iq, ikv, iw, ks, ke, SERVE['topk'])
+    finally:
+        sparse_attn.gathered_attention = own
+    args = captured['args']
+    out['prefill'] = dict(attn_timed(lambda: sparse_attn.gathered_attention(*args)),
+                          sdpa=attn_timed(sdpa_call(*args)), bound=attn_bound(arch, args[0],
+                                                                              args[3]),
+                          shape=[args[1].shape[0], *args[1].shape[1:]])
+    p = out['prefill']
+    log(f'attn times prefill [rows, topk, h, d = {p["shape"]}], ms / device_ms / host_ms: #10 '
+        f'{p["ms"]:.4f} / {p["device_ms"]:.4f} / {p["host_ms"]:.4f}, SDPA {p["sdpa"]["ms"]:.4f} '
+        f'/ {p["sdpa"]["device_ms"]:.4f} / {p["sdpa"]["host_ms"]:.4f}; bound '
+        f'{p["bound"][0]:.4f} ({p["bound"][1]})')
+    return out
+
+
+# --attn-variants: copies of csrc/sparse_attn.cu with one part of the ring
+# body removed (its output is then wrong: only its time is read), or with the
+# ring's shape, the copies' L2 policy or the blocks' order changed (the same
+# bits: the chunks are fixed by t alone).
+_ATTN_STAGES = 'constexpr int kStages = 3;'
+_ATTN_NO_LOADS = (('sm90::bulk_load(dst, k + src, copy_bytes, full + s);', ''),
+                  ('sm90::bulk_load(dst + kTileBytes, v + src, copy_bytes, full + s);', ''),
+                  ('__popc(bits) * 2 * copy_bytes', '0u'))
+_ATTN_HINTED = '''__device__ __forceinline__ void bulk_load_first(void* dst, const void* src, uint32_t bytes,
+                                                uint64_t* bar) {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n" : "=l"(policy));
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+                 "[%0], [%1], %2, [%3], %4;\\n"
+                 :: "r"(sm90::smem_u32(dst)), "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar)),
+                    "l"(policy) : "memory");
+}
+
+// kD: the head dim'''
+ATTN_VARIANTS = {
+    'no loads': _ATTN_NO_LOADS,
+    'no score math': (('const float dot = score<kLanes>(qf, kr[c]);', 'const float dot = qf[c];'),),
+    'no softmax-PV math': (('fold_chunk(sc, chunk_bits, tile + kTileBytes, m, den, acc);',
+                            'for (int c = 0; c < kChunk; ++c) den = __fadd_rn(den, sc[c]);'),),
+    'stages 2': ((_ATTN_STAGES, 'constexpr int kStages = 2;'),),
+    'stages 4': ((_ATTN_STAGES, 'constexpr int kStages = 4;'),),
+    '8 positions a stage': (('constexpr int kStagePositions = 4;',
+                             'constexpr int kStagePositions = 8;'),),
+    '16 consumer warps': (('constexpr int kConsumerWarps = 8;',
+                           'constexpr int kConsumerWarps = 16;'),),
+    'L2 evict-first copies': (('// kD: the head dim', _ATTN_HINTED),
+                              ('sm90::bulk_load(dst, k + src,', 'bulk_load_first(dst, k + src,'),
+                              ('sm90::bulk_load(dst + kTileBytes, v + src,',
+                               'bulk_load_first(dst + kTileBytes, v + src,')),
+    # the blocks of one head group of every row resident together, not a row's groups
+    'blocks group-major': (('    const int64_t row = blockIdx.x / groups;\n'
+                            '    const int head0 = (blockIdx.x % groups) * kHeads;',
+                            '    const int64_t row = blockIdx.x % (gridDim.x / groups);\n'
+                            '    const int head0 = (blockIdx.x / (gridDim.x / groups)) * kHeads;'),),
+}
+# the variants whose output must be the kernel's bits
+ATTN_SAME_BITS = ('stages 2', 'stages 4', '8 positions a stage', '16 consumer warps',
+                  'L2 evict-first copies', 'blocks group-major')
+# the warp body that csrc/sparse_attn.cu held before the ring (commit
+# 1e3756b), for --attn-variants --package-root on a tree of it: without its
+# loads (q's bits in their place), or without its math (the dot products,
+# their shuffles and the P.V FMAs; the loaded words folded into a register)
+_FOLD_BITS = """template <class T>
+__device__ __forceinline__ float fold_bits(const T& raw) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+    uint32_t x = 0;
+    for (int i = 0; i < int(sizeof(T) / 4); ++i) x ^= w[i];
+    return __uint_as_float(x & 0x3fffffffu);
+}
+
+"""
+WARP_BODY_VARIANTS = {
+    'no loads': (('                kraw[c] = load_raw<kVec>(k + off);\n'
+                  '                vraw[c] = load_raw<kVec>(v + off);',
+                  '                kraw[c] = vraw[c] = load_raw<kVec>(q + (row * h + head) * kD'
+                  ' + lane * kVec);'),),
+    'no math': (('// kPaged: K and V rows come', _FOLD_BITS + '// kPaged: K and V rows come'),
+                ('                unpack<kVec>(kraw[c], kf);\n                #pragma unroll\n'
+                 '                for (int i = 0; i < kVec; ++i) part = __fmaf_rn(qf[i], kf[i], '
+                 'part);', '                part = fold_bits(kraw[c]);'),
+                ('                part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, '
+                 'off));', '                ;'),
+                ('            unpack<kVec>(vraw[c], vf);\n            #pragma unroll\n'
+                 '            for (int i = 0; i < kVec; ++i) acc[i] = __fmaf_rn(pc, vf[i], '
+                 'acc[i]);', '            acc[0] = __fadd_rn(acc[0], fold_bits(vraw[c]));')),
+}
+
+
+def attn_variant_times(seed, rounds=3):
+    """--attn-variants: #10 and #11 at phase 7's decode shape
+    (:func:`attn_inputs`) through the package's own build and each variant
+    build of its csrc/sparse_attn.cu (ATTN_VARIANTS for the ring body,
+    WARP_BODY_VARIANTS for the warp body before it; all compiled at once),
+    in turns for ``rounds`` rounds, each the mean of 5 L2-flushed launches
+    on the device with the host's work hidden: what bounds the body, and the
+    ring's depth and width. The variants of ATTN_SAME_BITS are held bitwise
+    to the kernel."""
+    from deepgemm_tpu_torch.kernels import sparse_attn
+    from deepgemm_tpu_torch.runtime import build
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    ring = 'kStages' in (build.CSRC / 'sparse_attn.cu').read_text()
+    variants = ATTN_VARIANTS if ring else WARP_BODY_VARIANTS
+    own_lib, own = sparse_attn._entry()
+    own_paged = sparse_attn._entry(paged=True)[1]
+    entries = {'kernel': (own, own_paged)}
+    for name, lib in variant_libs('attn_variants', 'sparse_attn.cu', 'sparse_attn.cu',
+                                  variants).items():
+        fns = (lib.dgt_sparse_attention, lib.dgt_sparse_attention_paged)
+        for fn, mine in zip(fns, (own, own_paged)):
+            fn.argtypes, fn.restype = mine.argtypes, mine.restype
+        entries[name] = fns
+    x = attn_inputs(seed)
+    calls = dict(zip(('gathered', 'paged'), attn_calls(x)))
+    want = {label: call() for label, call in calls.items()}
+    times, bitwise = {label: {} for label in calls}, {}
+    own_entry = sparse_attn._entry
+    try:
+        for r in range(rounds):
+            for name, (fn, fn_paged) in entries.items():
+                sparse_attn._entry = (lambda paged=False, fn=fn, fn_paged=fn_paged:
+                                      (own_lib, fn_paged if paged else fn))
+                for label, call in calls.items():
+                    times[label].setdefault(name, []).append(
+                        bench_kernel(call, iters=5, hide_host=True))
+                    if r == 0 and name in ATTN_SAME_BITS and ring:
+                        bitwise[f'{name} {label}'] = torch.equal(call(), want[label])
+    finally:
+        sparse_attn._entry = own_entry
+    for label, t in times.items():
+        log(f'attn variants {label} [rows, topk, h, d = {x["shape"]}], device ms least/most: '
+            + ' '.join(f'{name}={min(v):.4f}/{max(v):.4f}' for name, v in t.items()))
+    log(f'attn variants: bitwise the kernel: {bitwise}')
+    require(all(bitwise.values()), f'attn variants: a variant changed the bits: {bitwise}')
+    return dict(times=times, bitwise=bitwise, body='ring' if ring else 'warp',
+                shape=x['shape'])
+
+
 # --variants: copies of csrc/gemm_sm90.cuh with one part of the contiguous
 # kernel removed (its output is then wrong: only its time is read) or one
 # setting changed, each edit a (text, replacement) that must match the
@@ -4359,10 +4691,10 @@ PAGED_VARIANTS = {
 }
 
 
-def variant_entries(label, header, source, variants, symbol, own):
-    """{'kernel': own, name: C entry} for copies of csrc/ with each variant's
-    (text, replacement) edits to ``header``, ``source`` built from each copy
-    (all compiled at once, into the build directory's ``label``)."""
+def variant_libs(label, header, source, variants):
+    """{name: library} for copies of csrc/ with each variant's (text,
+    replacement) edits to ``header``, ``source`` built from each copy (all
+    compiled at once, into the build directory's ``label``)."""
     import ctypes
     import shutil
     from deepgemm_tpu_torch.runtime import build
@@ -4379,11 +4711,19 @@ def variant_entries(label, header, source, variants, symbol, own):
         jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(d / 'lib.so'),
                                         str(d / source)], stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True), d / 'lib.so')
-    entries = {'kernel': own}
+    libs = {}
     for name, (proc, out) in jobs.items():
         text, _ = proc.communicate()
         require(proc.returncode == 0, f'{label} {name!r} does not build:\n{text[-3000:]}')
-        fn = getattr(ctypes.CDLL(str(out)), symbol)
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def variant_entries(label, header, source, variants, symbol, own):
+    """{'kernel': own, name: C entry} of :func:`variant_libs`' builds."""
+    entries = {'kernel': own}
+    for name, lib in variant_libs(label, header, source, variants).items():
+        fn = getattr(lib, symbol)
         fn.argtypes, fn.restype = own.argtypes, own.restype
         entries[name] = fn
     return entries
@@ -4627,6 +4967,13 @@ def main(argv=None) -> int:
     parser.add_argument('--mqa-times', action='store_true',
                         help='only build and time the MQA logits calls and the paged MQA '
                              'entries of --gemm-times, then print them as JSON')
+    parser.add_argument('--attn-times', action='store_true',
+                        help='only build and time the sparse attention entries at phase 7\'s '
+                             'decode shape and the gathered one at the prefill path\'s, beside '
+                             'SDPA, then print them as JSON')
+    parser.add_argument('--attn-variants', action='store_true',
+                        help='only build and time the sparse attention against its variant '
+                             'builds and ring shapes (what bounds it), then print them as JSON')
     parser.add_argument('--ep-times', action='store_true',
                         help='only build and run phase 11\'s main path (the 8-rank forward, '
                              'timed and profiled), then print its numbers as JSON')
@@ -4674,6 +5021,16 @@ def main(argv=None) -> int:
     if args.mqa_times:
         print(json.dumps({'mqa_times': mqa_times(args.seed, H100_SXM),
                           'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.attn_times:
+        print(json.dumps({'attn_times': attn_times(args.seed, H100_SXM),
+                          'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.attn_variants:
+        print(json.dumps({'attn_variants': attn_variant_times(args.seed),
+                          'package': os.path.abspath(args.package_root)}))
         print(card)
         return 0
     if args.ep_times:
@@ -4782,12 +5139,14 @@ def main(argv=None) -> int:
                        errors['zero_copy'][1], timing['paged'], design=PAGED_DESIGN),
         indexer_kernel('sparse_attention', 'sparse_attn.cu',
                        'deepgemm_tpu/kernels/sparse_attn.py:104', served['counts']['attn'],
-                       errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn']),
+                       errors['attn'][1], timing['attn'], prefill_launches=prefill_counts['attn'],
+                       design=ATTN_DESIGN),
         # the gather-fused attention: launches are the decode's under pallas
         indexer_kernel('sparse_attention_paged', 'sparse_attn.cu',
                        'deepgemm_tpu/kernels/sparse_attn.py:274', pallas['counts']['fused'],
                        pallas['fused']['max_abs_err'],
-                       {k: v for k, v in pallas['fused'].items() if k != 'max_abs_err'}),
+                       {k: v for k, v in pallas['fused'].items() if k != 'max_abs_err'},
+                       design=ATTN_DESIGN),
         # the bf16 instances (FP4 operands decoded): launches are their own
         # paths' (the FP4 op calls)
         indexer_kernel('mqa_logits_bf16', 'mqa_logits.cu', 'deepgemm_tpu/kernels/mqa_logits.py:133',

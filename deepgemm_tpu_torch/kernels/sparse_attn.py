@@ -15,12 +15,13 @@ Replaces:
     selected rows in place from the flat cache views through ``tok``:
     sparse_attn.py:_build_paged (``pl.pallas_call`` at sparse_attn.py:274,
     the decode's ``DGT_SPARSE_GATHER=pallas``).
-Kernel: csrc/sparse_attn.cu, two entries on one warp body: one warp per
-(row, head), CUDA-core f32 over bf16 loads with an online softmax; the
-entries differ only in a row's address, so on the same rows they give the
-same bits. Bound on the H100: the bytes of the valid selected k and v rows,
-read once; the gather-fused entry saves the gather's write and re-read of
-them.
+Kernel: csrc/sparse_attn.cu, two entries on one body: a block per (row,
+head group), one producer warp copying each valid position's k and v rows
+into a shared-memory ring with 1-D bulk async copies, consumer warps in
+CUDA-core f32 with an online softmax; the entries differ only in the
+address the producer computes, so on the same rows they give the same bits.
+Bound on the H100: the bytes of the valid selected k and v rows, read once;
+the gather-fused entry saves the gather's write and re-read of them.
 
 The JAX module's ``DGT_SPARSE_ATTN`` switch (the kernel, XLA einsums, or
 a VMEM-budget choice between them) has no counterpart: CUDA tensors always
@@ -61,9 +62,17 @@ def _entry(paged: bool = False):
 
 def fused_eligible(topk: int, num_heads: int, head_dim: int) -> bool:
     """The CUDA kernel's shape contract, both entries: any topk and head
-    count, head_dim 64, 128 or 256 (one warp's lanes split d evenly into 4,
-    8 or 16 bytes). The plain versions are held to the same contract."""
+    count, head_dim 64, 128 or 256 (d / 8 lanes hold a row, 16 bytes each).
+    The plain versions are held to the same contract."""
     return topk >= 1 and num_heads >= 1 and head_dim in HEAD_DIMS
+
+
+def _check_aligned(**tensors):
+    """The kernel copies and loads rows 16 bytes at a time."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f'{name}: the kernel takes 16-byte aligned rows, got an offset of '
+                             f'{x.data_ptr() % 16} bytes')
 
 
 def _check(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor, valid: torch.Tensor):
@@ -115,6 +124,7 @@ def gathered_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor
     q, k_sel, v_sel = q.contiguous(), k_sel.contiguous(), v_sel.contiguous()
     ok = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
+    _check_aligned(q=q, k_sel=k_sel, v_sel=v_sel, out=out)
     lib, fn = _entry()
     code = fn(q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), ok.data_ptr(), out.data_ptr(),
               rows, t, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
@@ -188,6 +198,7 @@ def sparse_attention_paged(q: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.
     tok = tok.to(torch.int32).contiguous()
     ok = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
+    _check_aligned(q=q, k_rows=k_rows, v_rows=v_rows, out=out)
     lib, fn = _entry(paged=True)
     code = fn(q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), tok.data_ptr(), ok.data_ptr(),
               out.data_ptr(), rows, tok.shape[1], h, d, k_rows.shape[0], float(scale),

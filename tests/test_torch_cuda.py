@@ -672,12 +672,24 @@ def test_paged_mqa_kernels_match_plain_and_each_other(gen, next_n, ctx_2d):
     assert torch.equal(got['paged'], got['gather'])
 
 
+# The ring body's edges (csrc/sparse_attn.cu): topk 1, one past a stage of 4
+# positions (5), one past a producer window of 32 (33), 300; h 1, 12 and 20
+# against head groups of 32, 16 and 8 heads at d 64, 128 and 256.
+_ATTN_EDGES = [(300, 12), (1, 1), (5, 20), (33, 12), (300, 20)]
+
+
+@pytest.mark.parametrize('t,h', _ATTN_EDGES)
 @pytest.mark.parametrize('d', [64, 128, 256])
-def test_sparse_attention_kernel_matches_plain(gen, d):
-    rows, t, h = 6, 300, 12
+def test_sparse_attention_kernel_matches_plain(gen, d, t, h):
+    """The gathered entry against its plain version, a row with no valid
+    position giving 0 and NaN/Inf in unselected rows never read; the
+    gather-fused entry over the same rows (the gathered copy as its cache,
+    tok the identity) bitwise equal."""
+    rows = 6
     q = _randn(gen, rows, h, d)
     k, v = _randn(gen, rows, t, h, d), _randn(gen, rows, t, h, d)
     valid = torch.rand(rows, t, generator=gen, device='cuda') > 0.3
+    valid[:, 0] |= torch.arange(rows, device='cuda') != 2
     valid[2] = False                                        # no valid position: 0
     k[1][~valid[1]] = float('nan')                          # unselected: never read
     v[3][~valid[3]] = float('inf')
@@ -685,22 +697,28 @@ def test_sparse_attention_kernel_matches_plain(gen, d):
     got = sparse_attn.gathered_attention(q, k, v, valid, d ** -0.5)
     with plain_versions():
         want = sparse_attn.gathered_attention(q, k, v, valid, d ** -0.5)
+    identity = torch.arange(rows * t, device='cuda', dtype=torch.int32).view(rows, t)
+    fused = sparse_attn.sparse_attention_paged(q, k.view(-1, h, d), v.view(-1, h, d), identity,
+                                               valid, d ** -0.5)
     torch.cuda.synchronize()
     assert sparse_attn.launches == before + 1
     assert torch.isfinite(got).all() and not got[2].any()
     assert calc_diff(got, want) < 1e-5
+    assert torch.equal(fused, got)
 
 
+@pytest.mark.parametrize('t,h', _ATTN_EDGES)
 @pytest.mark.parametrize('d', [64, 128, 256])
-def test_sparse_attention_paged_kernel_matches_plain_and_gather(gen, d):
+def test_sparse_attention_paged_kernel_matches_plain_and_gather(gen, d, t, h):
     """The gather-fused entry against its plain version, and bitwise equal
     to index_select + the gathered entry on the same rows; unselected cache
     rows hold NaN/Inf and invalid tok entries point out of range."""
-    rows, t, h, n = 6, 300, 12, 900
+    rows, n = 6, 900
     q = _randn(gen, rows, h, d)
     k_rows, v_rows = _randn(gen, n, h, d), _randn(gen, n, h, d)
     tok = torch.randint(0, n, (rows, t), generator=gen, device='cuda', dtype=torch.int32)
     valid = torch.rand(rows, t, generator=gen, device='cuda') > 0.3
+    valid[:, 0] |= torch.arange(rows, device='cuda') != 2
     valid[2] = False                                        # no valid position: 0
     tok[4][~valid[4]] = 10 * n                              # out of range, never read
     tok[5][~valid[5]] = -7
@@ -723,6 +741,32 @@ def test_sparse_attention_paged_kernel_matches_plain_and_gather(gen, d):
     assert torch.equal(got, gathered)
 
 
+@pytest.mark.parametrize('d', [64, 128, 256])
+def test_sparse_attention_rows_are_batch_invariant(gen, d):
+    """Each row computed alone is bitwise the same row inside a batch of 6,
+    through both entries, and the two entries agree bitwise."""
+    rows, t, h, n = 6, 300, 20, 900
+    q = _randn(gen, rows, h, d)
+    k_rows, v_rows = _randn(gen, n, h, d), _randn(gen, n, h, d)
+    tok = torch.randint(0, n, (rows, t), generator=gen, device='cuda', dtype=torch.int32)
+    valid = torch.rand(rows, t, generator=gen, device='cuda') > 0.3
+    flat = tok.long().view(-1)
+    k_sel = k_rows.index_select(0, flat).view(rows, t, h, d)
+    v_sel = v_rows.index_select(0, flat).view(rows, t, h, d)
+    scale = d ** -0.5
+    batch = sparse_attn.gathered_attention(q, k_sel, v_sel, valid, scale)
+    batch_paged = sparse_attn.sparse_attention_paged(q, k_rows, v_rows, tok, valid, scale)
+    assert torch.equal(batch_paged, batch)
+    for r in range(rows):
+        one = slice(r, r + 1)
+        alone = sparse_attn.gathered_attention(q[one].clone(), k_sel[one].clone(),
+                                               v_sel[one].clone(), valid[one].clone(), scale)
+        alone_paged = sparse_attn.sparse_attention_paged(q[one].clone(), k_rows, v_rows,
+                                                         tok[one].clone(), valid[one].clone(),
+                                                         scale)
+        assert torch.equal(alone, batch[one]) and torch.equal(alone_paged, batch[one]), r
+
+
 def test_sparse_attention_paged_refuses_what_it_does_not_take(gen):
     q = _randn(gen, 2, 4, 96)
     rows = _randn(gen, 10, 4, 96)
@@ -735,6 +779,12 @@ def test_sparse_attention_paged_refuses_what_it_does_not_take(gen):
     view = pages[:, :, :4].flatten(0, 1)                    # non-contiguous
     with pytest.raises(ValueError, match='contiguous'):
         sparse_attn.sparse_attention_paged(q, view, strided, tok, valid, 0.1)
+    shifted = _randn(gen, 3 * 16 * 4 * 64 + 1)[1:].view(-1, 4, 64)     # 2 bytes off 16
+    with pytest.raises(ValueError, match='aligned'):
+        sparse_attn.sparse_attention_paged(q, shifted, shifted, tok, valid, 0.1)
+    with pytest.raises(ValueError, match='aligned'):
+        sparse_attn.gathered_attention(q, shifted[:16].view(2, 8, 4, 64),
+                                       shifted[:16].view(2, 8, 4, 64), valid, 0.1)
 
 
 _OPERANDS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),

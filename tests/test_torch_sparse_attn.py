@@ -43,7 +43,13 @@ def _inputs(rows, t, h, d, seed):
     return q, k, v, valid
 
 
-@pytest.mark.parametrize('rows,t,h,d', [(5, 24, 4, 128), (3, 40, 2, 64)])
+# the CUDA kernel's edges, held here through the plain version, its oracle
+# on the card: ragged head groups (h 3 and 20), topk 1 and one past a
+# producer window (33), d 256
+_EDGES = [(2, 33, 3, 128), (2, 1, 20, 64), (2, 33, 20, 256)]
+
+
+@pytest.mark.parametrize('rows,t,h,d', [(5, 24, 4, 128), (3, 40, 2, 64)] + _EDGES)
 def test_gathered_attention_matches_jax(rows, t, h, d):
     q, k, v, valid = _inputs(rows, t, h, d, seed=11)
     scale = 1.0 / np.sqrt(d)
@@ -136,7 +142,8 @@ def _paged_inputs(rows, t, h, d, n, seed):
     return q, cache, tok, valid
 
 
-@pytest.mark.parametrize('rows,t,h,d,n', [(4, 64, 8, 128, 256), (3, 24, 2, 128, 100)])
+@pytest.mark.parametrize('rows,t,h,d,n', [(4, 64, 8, 128, 256), (3, 24, 2, 128, 100)] +
+                         [(rows, t, h, d, 50) for rows, t, h, d in _EDGES])
 def test_sparse_attention_paged_matches_jax(rows, t, h, d, n):
     """The gather-fused attention (its plain version here) against JAX's
     gather-fused kernel in interpret mode, at the JAX suite's shapes
