@@ -11,6 +11,9 @@
     python3 chip_smoke.py --widen-variants
     python3 chip_smoke.py --masked-variants
     python3 chip_smoke.py --attn-variants [--package-root DIR]
+    python3 chip_smoke.py --mega-times [--package-root DIR]
+    python3 chip_smoke.py --mega-variants
+    python3 chip_smoke.py --sass [--package-root DIR]
 
 The second form builds and times only phase 3, the training step's
 dense, contiguous and k-grouped calls, the MQA logits kernel's calls
@@ -62,6 +65,26 @@ its loads or its math), with the ring at 2 and 4 stages, 8 positions a
 stage and 16 consumer warps, the copies hinted to leave L2 first, and the
 blocks in group-major order, each of those bitwise the kernel.
 
+--mega-times times only the mega MoE block: the one-rank kernel's five
+instances at phase 8's full shape (E 256, cap 40, H 7168, I 2048, seeded
+weights and rows), each as the call and on the device with the host work
+hidden, beside phase 8's yardstick (two bf16 torch.bmm with F.silu
+between) timed in the same run and each bound at the operands' rate and at
+the bf16 rate, then the general kernel at phase 11's shape (8 ranks on this
+card, 32 experts a rank, cap 40, fp8 weights, bf16 act): the call (the
+least over the ranks) and its kernel's device time under the profiler; run
+it for two trees in one call as --mqa-times. --mega-variants times the
+one-rank kernel's e4m3 instances (bf16 and fp8 act) and its bf16 instance
+through copies of csrc/mega_sm90.cuh built without the weight loads, the
+token loads, both, both and the wgmma, without the wgmma, without the
+wgmma and the weights' widening, with a ring of 2 and 4 stages and tiles
+of 48 rows, in turns, on the device with the host hidden; the last three
+bitwise the kernel. --sass prints, for the libraries that hold the Hopper
+GEMM and mega instances, each kernel's SASS instruction count and a digest
+of its instructions (cuobjdump), so that two trees' builds compare without
+timing noise. --ep-times also times the host work of the general kernel's
+item list.
+
 Phases, one line each (a failure in any phase exits non-zero):
   1. the card: name and power limit as nvidia-smi prints them;
   2. the build: the twelve CUDA libraries with nvcc, in parallel, from csrc/,
@@ -77,7 +100,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      registers and spills (none may spill), then the sparse attention's
      ring body (csrc/sparse_attn.cu: d 64/128/256, gathered and paged),
      each named with its registers, static shared memory and spills (none
-     may spill);
+     may spill), then the mega MoE block's instances (csrc/mega_sm90.cuh in
+     mega_local and mega_ep), each named with its registers and spills
+     (the full run fails on a spill in them);
   3. the dense FP8 kernel (the Hopper mainloop) against its plain version at
      4096^3 and 128x4096x7168, then the library entry fp8_gemm_nt (launches
      counted, bitwise the wrapper's launch);
@@ -159,8 +184,10 @@ Phases, one line each (a failure in any phase exits non-zero):
      and no mega launch; then the kernel's five instances (bf16, fp8 and FP4 weights,
      bf16 and fp8 act) at one layer's full shapes: each against its plain
      version, twice bitwise, FP4 bitwise the fp8 instance fed the decoded
-     weights, packed bitwise raw, each timed beside its bound, its plain
-     version, the unfused layer and two bf16 torch.bmm with F.silu between.
+     weights, packed bitwise raw, each timed beside its bound (at the
+     operands' rate and at the 16-bit rate of the kernel's products), its
+     plain version, the unfused layer and two bf16 torch.bmm with F.silu
+     between.
   9. the entry points that no model path calls, at DeepSeek-V3 widths, each
      call its own path (its kernel's count 0 just before, read just after):
      the TF32 HC prenorm GEMM of mHC with 4 residual streams (k = 4 x 7168,
@@ -281,6 +308,8 @@ def compare(d_kernel, d_plain, rows=None):
 
 
 def phase_build():
+    """Build every library and report what ptxas made of it; returns the
+    mega MoE block's instances (the full run fails on a spill in them)."""
     from deepgemm_tpu_torch.runtime import build
     t0 = time.perf_counter()
     reports = build.build()
@@ -293,7 +322,8 @@ def phase_build():
         for line in text.splitlines():
             if any(word in line for word in ('entry function', 'registers', 'spill')):
                 log(f'  ptxas {name}: {line.strip()}')
-    hopper = hopper_instances(reports)
+    hopper = {key: v for key, v in hopper_instances(reports).items()
+              if not any(k in key[1] for k in MEGA_KERNELS)}
     if hopper:
         log(f'phase 2 Hopper mainloop (csrc/gemm_sm90.cuh): {len(hopper)} instances in '
             f'{sorted({lib for lib, _ in hopper})}; registers at entry '
@@ -341,6 +371,32 @@ def phase_build():
                       for name, v in sorted(attn.items())))
         spilled = [name for name, v in attn.items() if v['spill_stores'] or v['spill_loads']]
         require(not spilled, f'sparse attention instances spill: {spilled}')
+    mega = mega_instances(reports)
+    if mega:
+        log(f'phase 2 mega MoE block (csrc/mega_sm90.cuh, wgmma + TMA; mega_local #13 and '
+            f'mega_ep #14): {len(mega)} instances: ' +
+            '; '.join(f'{name} registers {v["registers"]} spill stores {v["spill_stores"]} '
+                      f'loads {v["spill_loads"]}' for name, v in sorted(mega.items())))
+    return mega
+
+
+MEGA_KERNELS = ('mega_local_kernel', 'mega_ep_kernel')
+MEGA_WEIGHTS = {'0': 'kBf16', '1': 'kE4m3', '2': 'kFp4'}
+
+
+def mega_instances(reports):
+    """{instance: registers, spill bytes} of the mega MoE block's kernels
+    (dgt::mega::mega_local_kernel in mega_local, dgt::ep::mega_ep_kernel in
+    mega_ep), from ptxas -v."""
+    import re
+    found = {}
+    for key, v in hopper_instances({lib: reports.get(lib, '')
+                                    for lib in ('mega_local', 'mega_ep')}).items():
+        name = re.search(r'(mega_local_kernel|mega_ep_kernel)I\w*?1WE(\d)ELb(\d)E', key[1])
+        if name:
+            kernel, w, act = name.groups()
+            found[f'{kernel}<W::{MEGA_WEIGHTS[w]}, act {"fp8" if act == "1" else "bf16"}>'] = v
+    return found
 
 
 def attn_instances(reports):
@@ -451,8 +507,9 @@ def masked_instances(reports):
 
 def hopper_instances(reports):
     """{(library, kernel): registers, static smem, spill bytes} of the
-    Hopper mainloop's instances (dgt::sm90::gemm_kernel, widen_kernel and
-    masked_kernel, dgt::ep::dispatch_gemm_kernel), from ptxas -v."""
+    Hopper instances (dgt::sm90::gemm_kernel, widen_kernel and
+    masked_kernel, dgt::ep::dispatch_gemm_kernel, the mega MoE block's
+    kernels), from ptxas -v."""
     import re
     found, current = {}, None
     for lib, text in reports.items():
@@ -461,11 +518,15 @@ def hopper_instances(reports):
             if entry:
                 hopper = any(k in entry.group(1) for k in (
                     'sm9011gemm_kernel', 'sm9012widen_kernel', 'sm9013masked_kernel',
-                    'ep20dispatch_gemm_kernel'))
+                    'ep20dispatch_gemm_kernel') + MEGA_KERNELS)
                 current = (lib, entry.group(1)) if hopper else None
                 if current:
                     found[current] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
                 continue
+            # a device function's properties (a spin the entry calls) are its own
+            props = re.search(r"Function properties for (\w+)", line)
+            if props and current is not None and props.group(1) != current[1]:
+                current = None
             if current is None:
                 continue
             spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
@@ -2245,15 +2306,20 @@ def mega_modes(w1, w2, gen, arch):
         unfused_ms = bench_kernel(unfused, iters=3)
         del d1, d2
         bound = arch.bound_ms(count_bytes(*args) + 2 * y.numel(), flops, 'fp8' if scaled else 'bf16')
+        # the kernel's products are 16-bit (f16 or bf16) whatever the operands: that
+        # rate's bound beside
+        bound_bf16 = arch.bound_ms(count_bytes(*args) + 2 * y.numel(), flops, 'bf16')
         out[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
-                         bound_ms=bound[0], bound_by=bound[1], unfused_ms=unfused_ms,
+                         bound_ms=bound[0], bound_by=bound[1], bound_ms_bf16=bound_bf16[0],
+                         bound_by_bf16=bound_bf16[1], unfused_ms=unfused_ms,
                          check_calc_diff=diff, shape=[e_count, cap, hidden, inter])
         log(f'phase 8 mode {mode} [E={e_count} cap={cap} H={hidden} I={inter}]: calc_diff={diff:.3e} '
             f'(limit {TOL}) max_abs_err={err:.4g}, {", ".join(checks)}; kernel_ms={ms:.4f} '
             f'plain_ms={plain_ms:.4f} unfused_layer_ms(masked L1 + swiglu_apply_weight + masked '
             f'L2{" on the decoded weights" if w_fp4 else ""})={unfused_ms:.4f} '
             f'library_ms(bf16 torch.bmm, F.silu(gate) * up, torch.bmm)={library_ms:.4f} '
-            f'bound_ms={bound[0]:.4f} ({bound[1]}) GB/s={(count_bytes(*args) + 2 * y.numel()) / ms / 1e6:.1f} '
+            f'bound_ms={bound[0]:.4f} ({bound[1]}; at the bf16 rate {bound_bf16[0]:.4f}) '
+            f'GB/s={(count_bytes(*args) + 2 * y.numel()) / ms / 1e6:.1f} '
             f'TFLOPS={flops / ms / 1e9:.1f}')
         del y, again, ref
         torch.cuda.empty_cache()
@@ -3772,16 +3838,19 @@ def ep_mega(mesh, layer, gen, arch):
     flops = 2 * rows * (2 * inter * hidden + hidden * inter)
     num_bytes = count_bytes(sq, ssf, rw, q1, s1, q2, s2) + 2 * sq.numel()
     bound = arch.bound_ms(num_bytes, flops, 'fp8')
+    # the kernel's products are 16-bit: the operations at that rate bound it
+    bound_bf16 = arch.bound_ms(num_bytes, flops, 'bf16')
     log(f'phase 11 mega_ep [8 ranks, E_local {e_local}, cap {cap}, H {hidden}, I {inter}; fp8 '
         f'weights, bf16 act, pool {default_pool}]: {", ".join(checks)}; calc_diff='
         f'{max(diffs):.3e} (limit {TOL}) max_abs_err={max(errs):.4g} against the plain version; '
         f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call '
-        f'dispatches, runs the block and combines) bound_ms={bound[0]:.4f} ({bound[1]}) '
-        f'TFLOPS={flops / ms / 1e9:.1f}')
+        f'dispatches, runs the block and combines) bound_ms={bound[0]:.4f} ({bound[1]}; at the '
+        f'bf16 rate {bound_bf16[0]:.4f} ({bound_bf16[1]})) TFLOPS={flops / ms / 1e9:.1f}')
     del q1, s1, q2, s2, sq, ssf, rw, weights, args
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=max(errs),
-                bound_ms=bound[0], bound_by=bound[1], check_calc_diff=max(diffs),
+                bound_ms=bound[0], bound_by=bound[1], bound_ms_bf16=bound_bf16[0],
+                bound_by_bf16=bound_bf16[1], check_calc_diff=max(diffs),
                 pool=default_pool, shape=[EP, e_local, cap, hidden, inter])
 
 
@@ -4919,12 +4988,285 @@ def masked_variant_times(seed, rounds=2):
     return {key: dict(min=min(v), max=max(v)) for key, v in times.items()}
 
 
+# --mega-times and --mega-variants: #13 at phase 8's full shape (one layer
+# of DeepSeek-V3: E 256, cap 40, H 7168, I 2048) on seeded weights and rows,
+# and #14 at phase 11's (8 ranks on this card, 32 experts a rank, cap 40).
+MEGA_TIMES_ITERS = 10
+
+
+def mega_inputs(seed):
+    """#13's operands: seeded bf16 rows x [E, cap, H] and weights w1 [E, 2I,
+    H], w2 [E, H, I] (N(0, 1/k)), row weights rw [E, cap] in [0, 1), the
+    rows cast per token to e4m3 (xq, xsf) and the weights per 128 x 128
+    block to e4m3 and to planar FP4. Returns (x, xq, xsf, rw, weights by
+    kind: (w1, w1_sf, w2, w2_sf))."""
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8, quantize_experts
+    gen = torch.Generator(device='cuda').manual_seed(seed + 29)
+    e, cap, hidden, inter = V3['num_experts'], MEGA_CAP, V3['hidden'], V3['moe_intermediate']
+    w1 = randn_bf16((e, 2 * inter, hidden), gen, hidden ** -0.5)
+    w2 = randn_bf16((e, hidden, inter), gen, inter ** -0.5)
+    x = randn_bf16((e, cap, hidden), gen, 1.0)
+    rw = torch.rand((e, cap), generator=gen, device='cuda')
+    xq, xsf = per_token_cast_to_fp8(x.view(-1, hidden), use_ue8m0=False)
+    weights = {'bf16': (w1, None, w2, None),
+               'fp8': (*quantize_experts(w1), *quantize_experts(w2)),
+               'fp4': (*fp4_blocks(w1), *fp4_blocks(w2))}
+    return x, xq.view(e, cap, hidden), xsf.view(e, cap, -1), rw, weights
+
+
+def mega_call(x, xq, xsf, rw, weights, mode):
+    """(the kernel call of instance ``mode`` on :func:`mega_inputs`, its
+    operands)."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    scaled, w_fp4, act_fp8 = MEGA_MODES[mode]
+    a1, s1, a2, s2 = weights['fp4' if w_fp4 else 'fp8' if scaled else 'bf16']
+    args = (xq, xsf, rw, a1, s1, a2, s2) if scaled else (x, None, rw, a1, None, a2, None)
+    kw = dict(w_fp4=w_fp4, act_fp8=act_fp8, silu_tanh=scaled and not act_fp8)
+    return (lambda: fused_moe.mega_local(*args, **kw)), args
+
+
+def mega_times(seed, arch):
+    """--mega-times: #13's five instances at phase 8's full shape, each as
+    the call and on the device with the host hidden, beside the yardstick
+    phase 8 times (two bf16 torch.bmm with F.silu between) in the same run
+    and each bound (at the operands' rate and at the bf16 rate, the rate of
+    the products the kernels run); then #14 at phase 11's shape (fp8
+    weights, bf16 act, the default pool): the call (the least over the
+    ranks) and its kernel's device time under the profiler. No checks, no
+    plain versions: run the parent's tree and this one in turns."""
+    import torch.nn.functional as F
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.parallel import dist
+    from deepgemm_tpu_torch.testing import count_bytes
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    from deepgemm_tpu_torch.utils.math import per_token_cast_to_fp8
+    x, xq, xsf, rw, weights = mega_inputs(seed)
+    e, cap, hidden = x.shape
+    inter = weights['bf16'][2].shape[2]
+    w1, w2 = weights['bf16'][0], weights['bf16'][2]
+    flops = 2 * e * cap * (2 * inter * hidden + hidden * inter)
+
+    def library():
+        gu = torch.bmm(x, w1.transpose(1, 2))
+        act = (F.silu(gu[..., :inter]) * gu[..., inter:]).to(torch.bfloat16)
+        return torch.bmm(act, w2.transpose(1, 2))
+    out = {'library': dict(ms=bench_kernel(library, iters=3),
+                           device_ms=bench_kernel(library, iters=3, hide_host=True))}
+    log(f'mega times library (bf16 torch.bmm, F.silu(gate) * up, torch.bmm): '
+        f'ms={out["library"]["ms"]:.4f} device_ms={out["library"]["device_ms"]:.4f}')
+    for mode in MEGA_MODES:
+        fn, args = mega_call(x, xq, xsf, rw, weights, mode)
+        scaled = MEGA_MODES[mode][0]
+        num_bytes = count_bytes(*args) + 2 * x.numel()
+        bound = arch.bound_ms(num_bytes, flops, 'fp8' if scaled else 'bf16')
+        out[mode] = dict(ms=bench_kernel(fn, iters=MEGA_TIMES_ITERS),
+                         device_ms=bench_kernel(fn, iters=MEGA_TIMES_ITERS, hide_host=True),
+                         bound_ms=bound[0], bound_by=bound[1],
+                         bound_ms_bf16=arch.bound_ms(num_bytes, flops, 'bf16')[0],
+                         library_ms=out['library']['ms'], shape=[e, cap, hidden, inter])
+        log(f'mega times #13 {mode} [E={e} cap={cap} H={hidden} I={inter}]: '
+            f'ms={out[mode]["ms"]:.4f} device_ms={out[mode]["device_ms"]:.4f} bound_ms='
+            f'{bound[0]:.4f} ({bound[1]}; at the bf16 rate {out[mode]["bound_ms_bf16"]:.4f}) '
+            f'library_ms={out["library"]["ms"]:.4f}')
+    del x, xq, xsf, rw, library
+    q1, s1, q2, s2 = weights['fp8']
+    del weights, w1, w2
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device='cuda').manual_seed(seed + 31)
+    e_local = EP_EXPERTS
+    send = randn_bf16((EP, EP, e_local, cap, hidden), gen, 1.0)
+    sq, ssf = per_token_cast_to_fp8(send.view(-1, hidden), use_ue8m0=False)
+    sq, ssf = sq.view(send.shape), ssf.view(*send.shape[:-1], -1)
+    del send
+    rws = torch.rand((EP, EP, e_local, cap), generator=gen, device='cuda')
+    cut = lambda t: [t[r * e_local:(r + 1) * e_local] for r in range(EP)]
+    pool = fused_moe.pick_wave_pool(EP, cap, hidden, inter, xb=1, wb=1, scaled=True,
+                                    act_fp8=False)
+    call = lambda s_, sf, r, a1, b1, a2, b2: fused_moe.mega_ep(
+        s_, sf, r, a1, b1, a2, b2, pool=pool, act_fp8=False, silu_tanh=True)
+    args = (list(sq), list(ssf), list(rws), cut(q1), cut(s1), cut(q2), cut(s2))
+    mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
+    rows = EP * EP * e_local * cap
+    ep_flops = 2 * rows * (2 * inter * hidden + hidden * inter)
+    num_bytes = count_bytes(sq, ssf, rws, q1, s1, q2, s2) + 2 * sq.numel()
+    bound = arch.bound_ms(num_bytes, ep_flops, 'fp8')
+    ms = mesh_bench(mesh, call, args, iters=3)
+    device = kernel_device_ms(mesh, call, args, 'mega_ep_kernel')
+    out['mega_ep'] = dict(ms=ms, device_ms=device, bound_ms=bound[0], bound_by=bound[1],
+                          bound_ms_bf16=arch.bound_ms(num_bytes, ep_flops, 'bf16')[0],
+                          pool=pool, shape=[EP, e_local, cap, hidden, inter])
+    log(f'mega times #14 [8 ranks, E_local {e_local}, cap {cap}, H {hidden}, I {inter}; fp8 '
+        f'weights, bf16 act, pool {pool}]: ms={ms:.4f} (the call, least over the ranks); under '
+        f'the profiler the kernel\'s device ms least / most / the call\'s other device ops: '
+        f'{device}; bound_ms={bound[0]:.4f} ({bound[1]}; at the bf16 rate '
+        f'{out["mega_ep"]["bound_ms_bf16"]:.4f})')
+    del mesh, args, sq, ssf, rws, q1, s1, q2, s2
+    torch.cuda.empty_cache()
+    return out
+
+
+# --mega-variants: edits of csrc/mega_sm90.cuh, each built into a copy of
+# mega_local.cu: (edits, token rows of an item, ring stages, bitwise the
+# kernel)
+WEIGHT_LOADS = (
+    'tma_load_3d(st, &map_w1, full + s, col, t1 * 128, it.e);',
+    'tma_load_3d(st + kWBytes / 2, &map_w1, full + s, col, I + t1 * 128, it.e);',
+    'tma_load_3d(st, &map_w2, full + s, col, u * 256, it.e);',
+    'tma_load_3d(st + kWBytes / 2, &map_w2, full + s, col, u * 256 + 128, it.e);')
+TOKEN_LOADS = (
+    ('tma_load_2d(st + kWBytes + (kRaw1 ? kXBytes : 0), &map_x,', 'if (0) tma_load_2d(st, &map_x,'),
+    ('tma_load_2d(st + kWBytes + (kRaw2 ? kXBytes : box * kN * kBK), &map_act,',
+     'if (0) tma_load_2d(st, &map_act,'))
+
+
+def mega_expect(l1, l2):
+    """Edits of the stages' expected bytes, L1's and L2's."""
+    return (('mbar_arrive_expect_tx(full + s, l1_bytes);',
+             f'mbar_arrive_expect_tx(full + s, {l1});'),
+            ('mbar_arrive_expect_tx(full + s, kWBytes + kBoxes2 * kN * kBK);',
+             f'mbar_arrive_expect_tx(full + s, {l2});'))
+
+
+MEGA_NO_LOADS = mega_expect('l1_bytes - kWBytes', 'kBoxes2 * kN * kBK') + tuple(
+    (line, '') for line in WEIGHT_LOADS)
+MEGA_NO_TOKENS = mega_expect('l1_bytes - kN * kBK', 'kWBytes') + TOKEN_LOADS
+# the wgmma turned into a PTX comment
+MEGA_NO_MMA = (('#define MEGA_WGMMA(n, t) "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32." t "." t " "',
+                '#define MEGA_WGMMA(n, t) "// "'),)
+# and the weights' codes taken as they are (no widening)
+MEGA_NO_WIDEN = MEGA_NO_MMA + (
+    ('return e4m3x2_to_f16x2(b);', 'return b;'),
+    ('return mul_bf16x2(sm90::e4m3x2_bits(lo, hi, sm90::pair_selector(q)), kUnitBf16x2);',
+     'return lo;'))
+MEGA_NO_ANY_LOADS = mega_expect('l1_bytes - kWBytes - kN * kBK', '0') + tuple(
+    (line, '') for line in WEIGHT_LOADS) + TOKEN_LOADS
+# the tile of 48 rows: its wgmma shape, m64n48k16, beside the kernel's
+_MEGA_MMA40 = 'template <> struct Mma<40, true> { MEGA_MMA40("f16") };\n'
+_MEGA_MMA48 = r'''#define MEGA_D24 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23}"
+#define MEGA_MMA48(T)                                                                          \
+    __device__ __forceinline__ static void rs(float (&d)[24], const uint32_t (&a)[4],           \
+                                              uint64_t db, int scale_d) {                      \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n" MEGA_WGMMA(48, T) MEGA_D24  \
+                     ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"                            \
+                     : MEGA_O20(d), MEGA_O4(d, 20)                                             \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));    \
+    }                                                                                          \
+    __device__ __forceinline__ static void ss(float (&d)[24], uint64_t da, uint64_t db,         \
+                                              int scale_d) {                                   \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n" MEGA_WGMMA(48, T) MEGA_D24  \
+                     ", %24, %25, p, 1, 1, 0, 0;\n}\n"                                          \
+                     : MEGA_O20(d), MEGA_O4(d, 20) : "l"(da), "l"(db), "r"(scale_d));          \
+    }
+template <> struct Mma<48, false> { MEGA_MMA48("bf16") };
+template <> struct Mma<48, true> { MEGA_MMA48("f16") };
+'''
+_MEGA_STAGES = 'constexpr int kStages = 3;'
+MEGA_VARIANTS = {
+    'no weight loads': (MEGA_NO_LOADS, 40, 3, False),
+    'no token loads': (MEGA_NO_TOKENS, 40, 3, False),
+    'no weight or token loads': (MEGA_NO_ANY_LOADS, 40, 3, False),
+    'no loads, no wgmma': (MEGA_NO_ANY_LOADS + MEGA_NO_MMA, 40, 3, False),
+    'no wgmma': (MEGA_NO_MMA, 40, 3, False),
+    'no wgmma, no widening': (MEGA_NO_WIDEN, 40, 3, False),
+    'stages 2': (((_MEGA_STAGES, 'constexpr int kStages = 2;'),), 40, 2, True),
+    'stages 4': (((_MEGA_STAGES, 'constexpr int kStages = 4;'),), 40, 4, True),
+    'tile N 48': ((('constexpr int kN = 40;', 'constexpr int kN = 48;'),
+                   (_MEGA_MMA40, _MEGA_MMA40 + _MEGA_MMA48)), 48, 3, True),
+}
+
+
+def mega_variant_times(seed, arch, rounds=2, modes=('fp8', 'fp8_act_fp8', 'bf16')):
+    """--mega-variants: #13 at phase 8's full shape in ``modes`` (the main
+    path's first) through its own build and through each MEGA_VARIANTS
+    build, in turns for ``rounds`` rounds, each on the device with the host
+    hidden: what bounds it (the weight loads, the wgmma, the weights'
+    widening), the ring depth and the tile it wants; the ring, tile and
+    round builds bitwise the kernel."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    from deepgemm_tpu_torch.testing.bench import bench_kernel
+    own = fused_moe._entry()
+    entries = variant_entries('mega_variants', 'mega_sm90.cuh', 'mega_local.cu',
+                              {k: v[0] for k, v in MEGA_VARIANTS.items()}, 'dgt_mega_local', own)
+    shape = {name: (v[1], v[2]) for name, v in MEGA_VARIANTS.items()}
+    shape['kernel'] = (fused_moe.ROWS, fused_moe.STAGES)
+    saved = fused_moe._entry, fused_moe.ROWS, fused_moe.STAGES
+
+    def use(name):
+        fused_moe._entry = lambda: entries[name]
+        fused_moe.ROWS, fused_moe.STAGES = shape[name]
+
+    x, xq, xsf, rw, weights = mega_inputs(seed)
+    times, bitwise = {}, {}
+    try:
+        for mode in modes:
+            fn, _ = mega_call(x, xq, xsf, rw, weights, mode)
+            use('kernel')
+            want = fn()
+            for _ in range(rounds):
+                for name in entries:
+                    if mode == 'bf16' and name in ('no wgmma', 'no wgmma, no widening'):
+                        continue      # the bf16 instance has no e4m3 A (and its own wgmma)
+                    use(name)
+                    ms = bench_kernel(fn, iters=5, hide_host=True)
+                    times.setdefault(f'{mode} {name}', []).append(ms)
+                    if name == 'kernel' or MEGA_VARIANTS[name][3]:
+                        bitwise[f'{mode} {name}'] = torch.equal(fn(), want)
+                    log(f'mega variants {mode} {name}: device_ms={ms:.4f}'
+                        + (f' bitwise the kernel: {bitwise[f"{mode} {name}"]}'
+                           if f'{mode} {name}' in bitwise else ''))
+            del want
+    finally:
+        fused_moe._entry, fused_moe.ROWS, fused_moe.STAGES = saved
+    del x, xq, xsf, rw, weights
+    torch.cuda.empty_cache()
+    return {key: dict(min=min(v), max=max(v), bitwise=bitwise.get(key))
+            for key, v in times.items()}
+
+
+SASS_LIBS = ('dense', 'dense_dequant', 'contiguous', 'k_grouped', 'masked', 'mega_ep')
+
+
+def sass_digests(libs=SASS_LIBS):
+    """--sass: {library: {kernel: [instructions, digest]}} of the SASS that
+    cuobjdump reads from each built library (addresses and encodings left
+    out), for telling two trees' builds apart in one call."""
+    import hashlib
+    import re
+    from deepgemm_tpu_torch.runtime import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    out = {}
+    for name in libs:
+        text = subprocess.run([tool, '-sass', str(build.library_path(name))], check=True,
+                              capture_output=True, text=True).stdout
+        funcs, current = {}, None
+        for line in text.splitlines():
+            head = re.match(r'\s*Function : (\S+)', line)
+            if head:
+                current = funcs.setdefault(head.group(1), [])
+                continue
+            ins = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;', line)
+            if ins and current is not None:
+                current.append(ins.group(1))
+        out[name] = {f: [len(v), hashlib.sha1('\n'.join(v).encode()).hexdigest()[:16]]
+                     for f, v in sorted(funcs.items())}
+        log(f'sass {name}: {len(funcs)} kernels, {sum(len(v) for v in funcs.values())} '
+            f'instructions')
+    return out
+
+
 def ep_times(seed):
     """--ep-times: phase 11's main path alone (:func:`ep_main_path`, then one
     batch under the profiler: wall time and the device's idle share), for
-    comparing two trees' end-to-end numbers in one call."""
+    comparing two trees' end-to-end numbers in one call; and the host work
+    of the general kernel's item list (:func:`live_rows`, where the tree has
+    one) at the forward's shape."""
+    from deepgemm_tpu_torch.kernels import fused_moe
     from deepgemm_tpu_torch.models.transformer import ModelConfig, forward, init_params
     from deepgemm_tpu_torch.parallel import dist
+    from deepgemm_tpu_torch.testing.bench import bench_host
     params = init_params(ModelConfig(**V3), seed=seed + 11, device='cuda')
     mesh = dist.make_mesh([('dp', 1), ('ep', EP)], ['cuda:0'] * EP)
     sharded, batches, cfg_fused, logits, numbers = ep_main_path(mesh, params, seed)
@@ -4934,7 +5276,13 @@ def ep_times(seed):
     del sharded, batches
     torch.cuda.empty_cache()
     dispatch = dispatch_times(mesh, params['layers'][0]['w1'], seed)
-    return dict(numbers, profile=prof, dispatch_gemm=dispatch)
+    live_ms = None
+    if hasattr(fused_moe, 'live_rows'):
+        rw = torch.rand((EP, EP_EXPERTS, EP_CAP), device='cuda')
+        live_ms = bench_host(lambda: fused_moe.live_rows(rw))
+        log(f'time live_rows [{EP}, {EP_EXPERTS}, {EP_CAP}]: host_ms={live_ms:.4f} a call '
+            f'(one a rank a layer on the forward)')
+    return dict(numbers, profile=prof, dispatch_gemm=dispatch, live_rows_host_ms=live_ms)
 
 
 def dispatch_times(mesh, w, seed):
@@ -4990,6 +5338,17 @@ def main(argv=None) -> int:
     parser.add_argument('--widen-variants', action='store_true',
                         help='only build and time the dense forms on bf16 products against '
                              'their variant builds (what bounds them), then print them as JSON')
+    parser.add_argument('--mega-times', action='store_true',
+                        help='only build and time the mega MoE block: #13\'s five instances at '
+                             'phase 8\'s shape beside two bf16 torch.bmm, #14 at phase 11\'s, '
+                             'then print them as JSON')
+    parser.add_argument('--mega-variants', action='store_true',
+                        help='only build and time #13 against its variant builds, ring depths '
+                             'and tiles (what bounds it), then print them as JSON')
+    parser.add_argument('--sass', action='store_true',
+                        help='only build and print each Hopper GEMM library\'s kernels with '
+                             'their SASS instruction counts and digests as JSON (compare two '
+                             'trees with --package-root)')
     parser.add_argument('--package-root', default=os.path.dirname(os.path.abspath(__file__)),
                         help='the directory that holds the deepgemm_tpu_torch to run (default: '
                              'the one beside this script)')
@@ -5012,7 +5371,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(f'phase 1 card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)})')
-    phase_build()
+    mega_built = phase_build()
     if args.gemm_times:
         print(json.dumps({'gemm_times': gemm_times(args.seed, H100_SXM),
                           'package': os.path.abspath(args.package_root)}, default=str))
@@ -5038,6 +5397,19 @@ def main(argv=None) -> int:
                           'package': os.path.abspath(args.package_root)}, default=str))
         print(card)
         return 0
+    if args.sass:
+        print(json.dumps({'sass': sass_digests(), 'package': os.path.abspath(args.package_root)}))
+        print(card)
+        return 0
+    if args.mega_times:
+        print(json.dumps({'mega_times': mega_times(args.seed, H100_SXM),
+                          'package': os.path.abspath(args.package_root)}, default=str))
+        print(card)
+        return 0
+    if args.mega_variants:
+        print(json.dumps({'mega_variants': mega_variant_times(args.seed, H100_SXM)}))
+        print(card)
+        return 0
     if args.mqa_variants:
         print(json.dumps({'mqa_variants': mqa_variant_times(args.seed, H100_SXM)}))
         print(card)
@@ -5054,6 +5426,8 @@ def main(argv=None) -> int:
         print(json.dumps({'variants': variant_times(args.seed)}))
         print(card)
         return 0
+    spilled = [name for name, v in mega_built.items() if v['spill_stores'] or v['spill_loads']]
+    require(not spilled, f'mega instances spill: {spilled}')
     gen = torch.Generator(device='cuda').manual_seed(args.seed)
     dense_entries = phase_dense(gen, H100_SXM)
     torch.cuda.synchronize()

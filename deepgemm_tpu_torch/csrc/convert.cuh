@@ -1,5 +1,5 @@
 // Register-level conversions of narrow operand types, shared by the Hopper
-// GEMM mainloop (gemm_sm90.cuh), the mega MoE block (mega_block.cuh) and the
+// GEMM mainloop (gemm_sm90.cuh), the mega MoE block (mega_sm90.cuh) and the
 // indexer logits body (mqa_sm90.cuh):
 //   * planar FP4 (e2m1) codes -> e4m3 bytes, exact (every e2m1 value is an
 //     e4m3 value), by one __byte_perm table lookup;

@@ -1,9 +1,9 @@
-// Shared mainloop of the port's mma.sync GEMM kernels: the bf16 k-grouped
-// kernel, and the helpers (cp.async, fragment loads, mma.sync) of the mega
-// MoE block (mega_block.cuh) and the HC prenorm kernel (hc_prenorm.cu).
-// Every dense form, the FP8 k-grouped kernel, the contiguous and masked
-// grouped kernels and the fused dispatch + L1 run the Hopper mainloop of
-// gemm_sm90.cuh; the indexer logits (prefill and paged) run mqa_sm90.cuh.
+// The mma.sync mainloop of the bf16 k-grouped kernel, and the cp.async
+// helpers of the HC prenorm kernel (hc_prenorm.cu). Every dense form, the
+// FP8 k-grouped kernel, the contiguous and masked grouped kernels, the fused
+// dispatch + L1 and the mega MoE block run the Hopper mainloop of
+// gemm_sm90.cuh (the mega block its own body on its helpers,
+// mega_sm90.cuh); the indexer logits (prefill and paged) run mqa_sm90.cuh.
 //
 // Replaces the Pallas mainloop of kernels/k_grouped.py (_build_k_grouped)
 // of deepgemm_tpu for bf16 operands:
@@ -95,27 +95,15 @@ __device__ __forceinline__ uint32_t ld_shared_u32(const uint8_t* p) {
     return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Both instructions take the same fragment bytes: per thread (group g = lane/4,
-// t = lane%4) A regs are rows {g, g+8} x byte offsets {4t, 16+4t} of a
-// 32-byte k slice, B regs are row n=g at byte offsets {4t, 16+4t}.
+// The fragment bytes of m16n8k16: per thread (group g = lane/4, t =
+// lane%4) A regs are rows {g, g+8} x byte offsets {4t, 16+4t} of a 32-byte
+// k slice, B regs are row n=g at byte offsets {4t, 16+4t}.
 struct MmaBf16 {     // m16n8k16, bf16 in, f32 accumulate
     static constexpr int kElemBytes = 2;
     __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
                                                const uint32_t b[2]) {
         asm volatile(
             "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-    }
-};
-
-struct MmaE4m3 {     // m16n8k32, e4m3 in, f32 accumulate
-    static constexpr int kElemBytes = 1;
-    __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
             "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
             : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

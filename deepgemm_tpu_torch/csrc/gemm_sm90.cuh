@@ -844,11 +844,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
                 }
             }
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            // after the wait, as widen_body fences: no read of the sums moves above it
             #pragma unroll
             for (int h = 0; h < kSub; ++h)
                 #pragma unroll
                 for (int i = 0; i < kBN / 2; ++i) fence_operand(kScaled ? part[h][i] : acc[h][i]);
-            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 
             if constexpr (kScaled) {
                 // promote: acc += p * (sfa[row] * sfb[col])

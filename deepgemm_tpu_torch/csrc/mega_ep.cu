@@ -8,10 +8,10 @@
 //   fused_moe.py:185, _call; entry fused_dispatch_gemm, :1217).
 //
 //   the general mega MoE (fused_mega_moe with D > 1, or force_general):
-//     dispatch of every slab to its rank, then per pool of P slabs and per
-//     local expert the fused block (L1 gate|up, SwiGLU with clamp and the
-//     row's top-k weight, fp8 requant when act is fp8, L2), each result row
-//     stored straight into its source rank's combine region:
+//     dispatch of every slab to its rank, then per local expert and per
+//     tile of its received rows the fused block (L1 gate|up, SwiGLU with
+//     clamp and the row's top-k weight, fp8 requant when act is fp8, L2),
+//     each result row stored straight into its source rank's combine region:
 //     combine_src[my, e, slot] = block(recv[src, e, slot])
 //   Replaces deepgemm_tpu/kernels/fused_moe.py:_mega_kernel (:343;
 //   pl.pallas_call at :1198, fused_mega_moe).
@@ -41,15 +41,28 @@
 // async reads). Bits: each row's sum is computed as the masked kernel
 // computes it, so ``out`` is bitwise the masked kernel on ``recv``.
 //
-// The mega items run mega_block.cuh, the body of the one-rank kernel
-// (mega_local.cu), on rows gathered from the pool's slabs (slab-major, each
-// 128-byte aligned, so no cache line holds bytes of two slabs), walked in
-// processing-step order (step s: the slab from rank (my - s) mod D, so the
-// first items compute on this rank's own tokens while the peers' slabs are
-// in flight; a pool waits for its P slabs); a row's result depends on that
-// row alone, so every slab's rows come out bitwise the one-rank kernel on
-// the same rows, at every pool size, and force_general at D = 1 is bitwise
-// the one-rank kernel.
+// The mega items run mega_sm90.cuh's body, the one-rank kernel's
+// (mega_local.cu), on the expert's received rows whose row weight is not 0
+// (live), in processing-step order (step s: the slab from rank (my - s) mod
+// D, so the first items compute on this rank's own tokens while the peers'
+// slabs are in flight): item (local expert e, tile j) is the live rows j kN
+// .. j kN + kN - 1 of expert e (kN = 40), a tile spanning slabs; the
+// wrapper lists them (order: each expert's received rows, live first, both
+// in step order; counts; prefix: each expert's first item), as rw_steps is
+// this rank's own before any slab lands. One consumer thread waits only for
+// the slabs its tile's rows read, before the consumers gather them into the
+// block's scratch; the tiles of an expert run on neighbouring blocks, so
+// the expert's weights are streamed ceil(live rows / kN) times, each tile
+// after the first from L2. A row of weight 0 is stored as +0 and not
+// computed: for finite weights the block gives it +0 too (the clamp keeps
+// silu(g) up finite, times 0 is +-0, and sums that start at +0 stay +0). A
+// row's result depends on that row alone (its column of every wgmma), so
+// every slab's rows come out bitwise the one-rank kernel on the same rows,
+// and force_general at D = 1 is bitwise the one-rank kernel. A wave pool
+// (pick_wave_pool, JAX's rule for the TPU kernel's VMEM) no longer groups
+// the work: the tiles run over every slab, so every pool gives the same
+// launch and the same bits; the entry validates it and keeps it in the
+// interface.
 //
 // Co-residency: a rank's blocks spin on its peers' blocks, so every rank's
 // grid must be on the card at once. G is the card's SMs shared out between
@@ -60,12 +73,13 @@
 // What bounds it on the H100: dispatch + L1 streams each local expert's
 // weights from HBM once (bytes; its wgmma rows are the received rows
 // rounded up to the tile); the mega items stream an expert's weights once
-// per 48-row item (bytes) on mma.sync, as the one-rank kernel does per
-// expert.
+// per 40 live received rows, from HBM for the first tile and from L2 for
+// its neighbours, with the wgmma work of every live row at the bf16 rate
+// (the operations bound them where the weights come from L2).
 
 #include "comm.cuh"
 #include "gemm_sm90.cuh"
-#include "mega_block.cuh"
+#include "mega_sm90.cuh"
 
 namespace dgt {
 namespace ep {
@@ -168,99 +182,121 @@ dispatch_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         map_a, map_b, map_d, a.p, nullptr, wait);
 }
 
+// The general kernel's rows: item t of local expert e (prefix[e] <= t <
+// prefix[e + 1]) is its live rows (t - prefix[e]) kN .. in step order; live
+// row k is received row q = order[e][k] (step q / cap, slot q % cap, from
+// rank (my - step) mod D), read from this rank's receive slots and stored
+// into the source rank's combine region.
+struct EpRows {
+    Peers c;
+    const float* rw_steps;     // [D, E, cap] f32, step order
+    const int* order;
+    const int* counts;
+    const int* prefix;
+    int64_t x_row_bytes, x_stride, sf_stride, sf_region, y_region;
+    int experts, cap, hidden;
+    struct State {
+        unsigned long long landed = 0;   // a bit a source rank
+    };
+    __device__ __forceinline__ int items() const { return __ldg(prefix + experts); }
+    __device__ __forceinline__ mega::Item item(int t) const {
+        int lo = 0, hi = experts;          // prefix[lo] <= t < prefix[hi]
+        while (hi - lo > 1) {
+            const int mid = (lo + hi) / 2;
+            if (__ldg(prefix + mid) <= t) lo = mid;
+            else hi = mid;
+        }
+        const int r0 = (t - __ldg(prefix + lo)) * mega::kN;
+        return {lo, r0, min(mega::kN, __ldg(counts + lo) - r0)};
+    }
+    __device__ __forceinline__ int q_of(const mega::Item& it, int n) const {
+        return __ldg(order + static_cast<int64_t>(it.e) * c.size * cap + it.r0 + n);
+    }
+    __device__ __forceinline__ int src_of(int step) const {
+        return (c.rank - step + c.size) % c.size;
+    }
+    // one consumer thread: rank src's blocks have all signalled their stores
+    // of this call, for each slab between the item's first and last rows'
+    // (in step order); the consumers' barrier after it orders their reads
+    __device__ __forceinline__ void wait(const mega::Item& it, State& st) const {
+        for (int step = q_of(it, 0) / cap; step <= q_of(it, it.live - 1) / cap; ++step) {
+            const int src = src_of(step);
+            if ((st.landed >> src) & 1ull) continue;
+            comm::spin_until(c, comm::kArrive, src, c.epoch * gridDim.x);
+            st.landed |= 1ull << src;
+        }
+    }
+    // received row q: (its source rank, its row of [E, cap] for expert e)
+    __device__ __forceinline__ int2 at(int e, int q) const {
+        const int step = q / cap;
+        return make_int2(src_of(step), e * cap + (q - step * cap));
+    }
+    __device__ __forceinline__ const uint8_t* x_row(const mega::Item& it, int n) const {
+        const int2 a = at(it.e, q_of(it, n));
+        return c.data(c.rank) + a.x * x_stride + static_cast<int64_t>(a.y) * x_row_bytes;
+    }
+    __device__ __forceinline__ const float* sf_row(const mega::Item& it, int n) const {
+        const int2 a = at(it.e, q_of(it, n));
+        return reinterpret_cast<const float*>(c.data(c.rank) + sf_region + a.x * sf_stride) +
+               static_cast<int64_t>(a.y) * (hidden / 128);
+    }
+    // peers' stores of this call: read through L2
+    __device__ __forceinline__ uint4 load16(const uint8_t* p) const {
+        return __ldcg(reinterpret_cast<const uint4*>(p));
+    }
+    __device__ __forceinline__ float sf_load(const float* p) const { return __ldcg(p); }
+    __device__ __forceinline__ float rw_of(const mega::Item& it, int n) const {
+        const int q = q_of(it, n), step = q / cap;
+        return __ldg(rw_steps + (static_cast<int64_t>(step) * experts + it.e) * cap +
+                     (q - step * cap));
+    }
+    __device__ __forceinline__ __nv_bfloat16* y_of(int e, int q) const {
+        const int2 a = at(e, q);
+        return reinterpret_cast<__nv_bfloat16*>(c.data(a.x) + y_region) +
+               (static_cast<int64_t>(c.rank) * experts * cap + a.y) * hidden;
+    }
+    __device__ __forceinline__ __nv_bfloat16* y_row(const mega::Item& it, int n) const {
+        return y_of(it.e, q_of(it, n));
+    }
+    // this block's share of the rows of weight 0: +0 in their combine rows
+    __device__ __forceinline__ void zero_dead_rows() const {
+        const int rows = c.size * cap;
+        for (int w = blockIdx.x; w < experts * rows; w += gridDim.x) {
+            const int e = w / rows, k = w - e * rows;
+            if (k < __ldg(counts + e)) continue;
+            uint4* dst = reinterpret_cast<uint4*>(
+                y_of(e, __ldg(order + static_cast<int64_t>(e) * rows + k)));
+            for (int i = threadIdx.x; i < hidden / 8; i += blockDim.x) dst[i] = make_uint4(0, 0, 0, 0);
+        }
+    }
+};
+
 struct MegaArgs {
-    mega::Args p;            // weights, scales, act scratch [G, kRows, I], widths, epilogue
     const uint8_t* send;     // [D, E, cap, H]
     const float* send_sf;    // [D, E, cap, H/128], or null
-    const float* rw_steps;   // [D, E, cap] f32, step order
-    int experts, cap, pool;
-    int64_t x_slab, x_stride, sf_slab, sf_stride, sf_region, y_region;   // bytes
-    Peers c;
+    int64_t x_slab, x_stride, sf_slab, sf_stride, sf_region;   // bytes
+    EpRows rows;             // the items and their rows
 };
-
-// An item's rows, from the tables the block writes in shared memory.
-struct EpRows {
-    static constexpr bool kLocal = false;
-    int r0;                    // unused: the tables give each row
-    const uint8_t* const* xr;
-    const float* const* sfr;
-    const float* rwv;
-    __nv_bfloat16* const* yr;
-    uint8_t* act_base;
-    int64_t act_row_bytes;
-    __device__ __forceinline__ bool live(int r) const { return xr[r] != nullptr; }
-    __device__ __forceinline__ const uint8_t* x_row(int r) const { return xr[r]; }
-    __device__ __forceinline__ float xsf_at(int r, int kt) const { return __ldcg(sfr[r] + kt); }
-    __device__ __forceinline__ float rw_at(int r) const { return rwv[r]; }
-    __device__ __forceinline__ uint8_t* act_row(int r) const {
-        return act_base + r * act_row_bytes;
-    }
-    __device__ __forceinline__ __nv_bfloat16* y_row(int r) const { return yr[r]; }
-};
-
-constexpr int kTableBytes = mega::kRows * (3 * 8 + 4);
 
 template <mega::W kW, bool kActFp8>
-__global__ void __launch_bounds__(kThreads) mega_ep_kernel(const MegaArgs a) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    constexpr int kRows = mega::kRows;
-    constexpr int kXBytes = kW == mega::W::kBf16 ? 2 : 1;
-    const Peers& c = a.c;
-    const int D = c.size, E = a.experts, cap = a.cap, P = a.pool;
-    const int H = a.p.hidden, ksf = H / 128;
-    uint8_t* tables = smem + mega::smem_bytes(a.p.inter);
-    const uint8_t** xr = reinterpret_cast<const uint8_t**>(tables);
-    const float** sfr = reinterpret_cast<const float**>(tables + kRows * 8);
-    __nv_bfloat16** yr = reinterpret_cast<__nv_bfloat16**>(tables + 2 * kRows * 8);
-    float* rwv = reinterpret_cast<float*>(tables + 3 * kRows * 8);
-
+__global__ void __launch_bounds__(mega::kThreads, 1)
+mega_ep_kernel(const __grid_constant__ CUtensorMap map_w1,
+               const __grid_constant__ CUtensorMap map_w2,
+               const __grid_constant__ CUtensorMap map_act,
+               const __grid_constant__ CUtensorMap map_x, const __grid_constant__ mega::Args p,
+               const __grid_constant__ MegaArgs a) {
+    const Peers& c = a.rows.c;
     comm::entry_barrier(c);
     push_slabs(c, a.send, a.x_slab, a.x_stride, 0);
     if (a.send_sf != nullptr)
         push_slabs(c, reinterpret_cast<const uint8_t*>(a.send_sf), a.sf_slab, a.sf_stride,
                    a.sf_region);
     comm::signal_all(c, comm::kArrive);
-
-    const int64_t act_row_bytes = static_cast<int64_t>(a.p.inter) * (kActFp8 ? 1 : 2);
-    const EpRows rows{0, xr, sfr, rwv, yr, a.p.act + blockIdx.x * kRows * act_row_bytes,
-                      act_row_bytes};
-    const uint8_t* recv = c.data(c.rank);
-    const int pool_rows = P * cap;
-    const int rbs = (pool_rows + kRows - 1) / kRows;
-    const int total = (D / P) * E * rbs;
-    int landed = 0;
-    for (int item = blockIdx.x; item < total; item += gridDim.x) {
-        const int sp = item / (E * rbs), e = item / rbs % E, rb = item % rbs;
-        for (; landed < (sp + 1) * P; ++landed)
-            comm::wait_from(c, comm::kArrive, (c.rank - landed + D) % D);
-        __syncthreads();     // the previous item is done with the tables and the ring
-        for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-            const int q = rb * kRows + r;
-            if (q < pool_rows) {
-                const int i = q / cap, slot = q % cap;
-                const int step = sp * P + i, src = (c.rank - step + D) % D;
-                const int64_t row = static_cast<int64_t>(e) * cap + slot;
-                xr[r] = recv + src * a.x_stride + row * H * kXBytes;
-                sfr[r] = a.send_sf == nullptr ? nullptr
-                    : reinterpret_cast<const float*>(recv + a.sf_region + src * a.sf_stride)
-                      + row * ksf;
-                rwv[r] = __ldg(a.rw_steps + static_cast<int64_t>(step) * E * cap + row);
-                yr[r] = reinterpret_cast<__nv_bfloat16*>(c.data(src) + a.y_region)
-                      + ((static_cast<int64_t>(c.rank) * E + e) * cap + slot) * H;
-            } else {
-                xr[r] = nullptr;
-                sfr[r] = nullptr;
-                rwv[r] = 0.f;
-                yr[r] = nullptr;
-            }
-        }
-        __syncthreads();
-        mega::mega_block<kW, kActFp8>(a.p, rows, e);
-    }
+    mega::mega_body<kW, kActFp8>(map_w1, map_w2, map_act, map_x, p, a.rows);
+    a.rows.zero_dead_rows();
     // combine: every result row is stored; then wait for every rank's
-    cp_async_wait<0>();
     comm::signal_all(c, comm::kCombine);
-    for (int p = 0; p < D; ++p) comm::wait_from(c, comm::kCombine, (c.rank - p + D) % D);
+    for (int r = 0; r < c.size; ++r) comm::wait_from(c, comm::kCombine, (c.rank - r + c.size) % c.size);
 }
 
 // Launch one block of `threads` per share of the card; refuse a grid that
@@ -372,59 +408,77 @@ extern "C" int dgt_dispatch_gemm(const void* send, const void* send_sf, const vo
 
 // The general mega MoE. send [D, E, cap, H] (e4m3 with send_sf, or bf16),
 // rw_steps [D, E, cap] f32 in step order, weights and scales as
-// dgt_mega_local takes them, act scratch [blocks, 48, I] (1 or 2 bytes an
-// element); the symmetric buffer holds D x slots (x_stride), at sf_region
-// D sf slots (sf_stride), at y_region the combine [D, E, cap, H] bf16.
-// Returns the launch's cudaError_t.
+// dgt_mega_local takes them, act the scratch of blocks x 40 rows
+// (dgt::mega::scratch_bytes); the live rows (weight not 0): order [E, D cap] int32 (each
+// expert's received rows q = step cap + slot, the live ones first, both in
+// step order), counts [E] and prefix [E + 1] (each expert's first tile of
+// 40 live rows, the total last); the symmetric buffer holds D x slots
+// (x_stride), at sf_region D sf slots (sf_stride), at y_region the combine
+// [D, E, cap, H] bf16. pool: a divisor of D (it moves no bit). Returns the
+// launch's cudaError_t.
 extern "C" int dgt_mega_ep(const void* send, const void* send_sf, const void* rw_steps,
                            const void* w1, const void* w1sf, const void* w2, const void* w2sf,
-                           void* act, int experts, int cap, int hidden, int inter, int pool,
+                           void* act, const void* order, const void* counts, const void* prefix,
+                           int experts, int cap, int hidden, int inter, int pool,
                            int weight_kind, int act_fp8, int silu_tanh, float clamp,
                            long long x_stride, long long sf_stride, long long sf_region,
                            long long y_region, const void* table, int rank, int size,
                            unsigned long long epoch, int blocks, long long timeout_ns,
                            void* diag, void* stream) {
     using dgt::mega::W;
+    if (pool < 1 || size % pool != 0 || weight_kind < 0 || weight_kind > 2 ||
+        (weight_kind == 0 && act_fp8) || size > 64)
+        return static_cast<int>(cudaErrorInvalidValue);
+    dgt::mega::Args p = {};
+    p.w1sf = static_cast<const float*>(w1sf);
+    p.w2sf = static_cast<const float*>(w2sf);
+    p.hidden = hidden;
+    p.inter = inter;
+    p.silu_tanh = silu_tanh;
+    p.clamp = clamp;
     dgt::ep::MegaArgs a = {};
-    a.p.x = static_cast<const uint8_t*>(send);
-    a.p.w1 = static_cast<const uint8_t*>(w1);
-    a.p.w1sf = static_cast<const float*>(w1sf);
-    a.p.w2 = static_cast<const uint8_t*>(w2);
-    a.p.w2sf = static_cast<const float*>(w2sf);
-    a.p.act = static_cast<uint8_t*>(act);
-    a.p.cap = cap;
-    a.p.hidden = hidden;
-    a.p.inter = inter;
-    a.p.silu_tanh = silu_tanh;
-    a.p.clamp = clamp;
     a.send = static_cast<const uint8_t*>(send);
     a.send_sf = static_cast<const float*>(send_sf);
-    a.rw_steps = static_cast<const float*>(rw_steps);
-    a.experts = experts;
-    a.cap = cap;
-    a.pool = pool;
     a.x_slab = static_cast<int64_t>(experts) * cap * hidden * (weight_kind == 0 ? 2 : 1);
     a.x_stride = x_stride;
     a.sf_slab = static_cast<int64_t>(experts) * cap * (hidden / 128) * 4;
     a.sf_stride = sf_stride;
     a.sf_region = sf_region;
-    a.y_region = y_region;
-    a.c = peers(table, rank, size, epoch, timeout_ns, diag);
-    if (pool < 1 || size % pool != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = dgt::mega::smem_bytes(inter) + dgt::ep::kTableBytes;
+    dgt::ep::EpRows& ep = a.rows;
+    ep.c = peers(table, rank, size, epoch, timeout_ns, diag);
+    ep.rw_steps = static_cast<const float*>(rw_steps);
+    ep.order = static_cast<const int*>(order);
+    ep.counts = static_cast<const int*>(counts);
+    ep.prefix = static_cast<const int*>(prefix);
+    ep.x_row_bytes = static_cast<int64_t>(hidden) * (weight_kind == 0 ? 2 : 1);
+    ep.x_stride = x_stride;
+    ep.sf_stride = sf_stride;
+    ep.sf_region = sf_region;
+    ep.y_region = y_region;
+    ep.experts = experts;
+    ep.cap = cap;
+    ep.hidden = hidden;
+    const int smem = dgt::mega::smem_bytes(inter);
+    if (smem > dgt::sm90::kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t rows = static_cast<int64_t>(blocks) * dgt::mega::kN;
+    dgt::mega::split_scratch(&p, act, rows, weight_kind == 0 ? 2 : 1, act_fp8 ? 1 : 2);
+    CUtensorMap m1, m2, ma, mx;
+    if (!dgt::mega::make_maps(&m1, &m2, &ma, &mx, w1, w2, p, experts, weight_kind, act_fp8,
+                              rows))
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    using dgt::kThreads;
     using dgt::ep::launch_persistent;
     using dgt::ep::mega_ep_kernel;
-    cudaError_t err = cudaErrorInvalidValue;
     auto go = [&](auto kernel) {
-        return launch_persistent(kernel, kThreads, smem, blocks, s, a);
+        return launch_persistent(kernel, dgt::mega::kThreads, smem, blocks, s, m1, m2, ma, mx, p,
+                                 a);
     };
-    if (weight_kind == 0 && !act_fp8)
+    cudaError_t err;
+    if (weight_kind == 0)
         err = go(mega_ep_kernel<W::kBf16, false>);
     else if (weight_kind == 1)
         err = act_fp8 ? go(mega_ep_kernel<W::kE4m3, true>) : go(mega_ep_kernel<W::kE4m3, false>);
-    else if (weight_kind == 2)
+    else
         err = act_fp8 ? go(mega_ep_kernel<W::kFp4, true>) : go(mega_ep_kernel<W::kFp4, false>);
     return static_cast<int>(err);
 }

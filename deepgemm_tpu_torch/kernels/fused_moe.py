@@ -8,20 +8,24 @@ Replaces: deepgemm_tpu/kernels/fused_moe.py:_mega_kernel_local
 arithmetic of ``_promote_dot``, ``_silu``, ``_l1_epilogue`` and
 ``_decode_fp4_chunk`` (fused_moe.py:204-340), and ``fused_mega_moe`` for
 one rank (fused_moe.py:984-1114).
-Kernel: csrc/mega_local.cu. One block owns one expert and 48 of its slot
-rows: the L1 tiles (128 gate and 128 up columns), SwiGLU with clamp and
-the row's top-k weight (and the per-128 fp8 requant when act is fp8) into
-a scratch in device memory that only that block reads, then the L2 tiles
-streaming act back beside the weights. Bound on the H100: each expert's
-weights are streamed once (~44 MB fp8 at DeepSeek-V3 widths against 40
-slot rows), so bytes bound it.
+Kernel: csrc/mega_local.cu on csrc/mega_sm90.cuh (wgmma + TMA, a producer
+warp, a widening warp and two consumer warpgroups, persistent). An item is
+an expert and 40 of its slot rows (wgmma's N; the weights on its M),
+gathered once into the block's scratch: the L1 tiles (128 gate and 128 up
+columns), SwiGLU with clamp and the row's top-k weight (and the per-128 fp8
+requant when act is fp8) into the scratch, then the L2 tiles streaming act
+back beside the weights. Bound on the H100: each item streams its expert's
+weights once (~44 MB fp8 at DeepSeek-V3 widths against 40 slot rows), so
+bytes bound it.
 
 Over a mesh of D ranks (parallel/dist.py), inside ``Mesh.map``:
 - ``fused_mega_moe`` with D > 1 (or ``force_general``) replaces
   ``_mega_kernel`` (``pl.pallas_call`` at fused_moe.py:1198): one launch a
   rank of csrc/mega_ep.cu dispatches every slab to its rank, runs the
-  expert block (the one-rank kernel's body, csrc/mega_block.cuh) on each
-  pool of P slabs, and stores each result row into its source rank's
+  expert block (the one-rank kernel's body, csrc/mega_sm90.cuh) on each
+  tile of 40 of a local expert's received rows of nonzero row weight across
+  the slabs (:func:`live_rows`; a row of weight 0 is stored as +0, what the
+  block gives it), and stores each result row into its source rank's
   combine buffer. Its plain version is the mesh's host all-to-all around
   the one-rank block's plain version.
 - ``fused_dispatch_gemm`` replaces ``_kernel`` (``pl.pallas_call`` at
@@ -71,15 +75,41 @@ def _entry():
     return fn
 
 
-ROWS = 48               # slot rows per block
+ROWS = 40               # token rows of an item (wgmma's N)
+STAGES = 3              # the ring
+
+
+def _align1024(v: int) -> int:
+    return (v + 1023) // 1024 * 1024
 
 
 def smem_bytes(inter: int) -> int:
-    """Shared memory of one block (csrc/mega_local.cu:smem_bytes): the
-    4-stage cp.async ring of 48 x rows and 256 weight rows, 144 bytes each,
-    then the act scales, the amax partials of 8 warps and the row weights."""
-    ring = 4 * (ROWS + 2 * TILE) * 144
-    return ring + ROWS * (inter // 128) * 4 + 8 * ROWS * 4 + ROWS * 4
+    """Shared memory of one block (csrc/mega_sm90.cuh:smem_bytes): the
+    3-stage ring (256 weight rows, a 16-bit token tile of two boxes of 40
+    rows, the box where e4m3 rows land, their scales; 128 bytes of k a row),
+    the amax partials of 8 warps (two sets), row weights, result rows,
+    barriers, then act's scales [40, I/128], whose room every instance
+    keeps."""
+    stage = _align1024(256 * 128 + 3 * ROWS * 128 + 256)
+    fixed = (1024 + STAGES * stage + 2 * 8 * ROWS * 4 + ROWS * 4 + ROWS * 8
+             + (3 * STAGES + 2) * 8)
+    return fixed + ROWS * (inter // 128) * 4
+
+
+def scratch_bytes(rows: int, hidden: int, inter: int, *, scaled: bool, act_fp8: bool) -> int:
+    """The kernels' scratch for ``rows`` token rows (:data:`ROWS` a block;
+    csrc/mega_sm90.cuh:scratch_bytes): act [rows, I] (bf16, e4m3 with fp8
+    act), the gathered rows [rows, H] (e4m3, bf16 unscaled) and their
+    scales k-first."""
+    return rows * ((1 if act_fp8 else 2) * inter + (1 if scaled else 2) * hidden
+                   + 4 * (hidden // 128))
+
+
+def items(num_experts: int, cap: int) -> int:
+    """The one-rank kernel's work items: each expert's ``cap`` slot rows in
+    tiles of :data:`ROWS`, each streaming the expert's weights once (the
+    general kernel's are :func:`live_rows`')."""
+    return num_experts * -(-cap // ROWS)
 
 
 def resolve_act_fp8(act_fp8: Optional[bool] = None) -> bool:
@@ -94,12 +124,13 @@ def resolve_act_fp8(act_fp8: Optional[bool] = None) -> bool:
 
 def check_shape(hidden: int, inter: int, *, w_fp4: bool = False) -> None:
     """Raise unless the kernel takes these widths. In the place of JAX's
-    VMEM-budgeted ``pick_mega_tiles`` there is one tile, 128 wide for L1
-    (gate and up each) and L2, so JAX's divisor contract (``inter % bn1 ==
-    0``, ``hidden % bh2 == 0``, ``bn1 % 128 == 0`` when scaled) is that both
-    widths are multiples of 128 (256 for planar FP4, which packs 256-code
-    groups), and a block's ring, act scales and row weights must fit the
-    H100's 227 KB."""
+    VMEM-budgeted ``pick_mega_tiles`` there is one tile, 128 columns of gate
+    and of up for L1, 256 output columns for L2 (the last one cut at
+    ``hidden``), so JAX's divisor contract (``inter % bn1 == 0``, ``hidden %
+    bh2 == 0``, ``bn1 % 128 == 0`` when scaled) is that both widths are
+    multiples of 128 (256 for planar FP4, which packs 256-code groups), and
+    a block's ring and act scales must fit the H100's 227 KB (intermediate
+    up to 64640)."""
     quantum = 2 * TILE if w_fp4 else TILE
     if inter % quantum or hidden % quantum:
         raise ValueError(f'hidden {hidden} and intermediate {inter} must be multiples of {quantum}')
@@ -251,9 +282,12 @@ def mega_local(x: torch.Tensor, xsf: Optional[torch.Tensor], rw: torch.Tensor,
     if min(e_count, cap) == 0:
         raise ValueError(f'the kernel takes non-empty shapes; got E={e_count}, cap={cap}')
     y = torch.empty((e_count, cap, hidden), dtype=torch.bfloat16, device=x.device)
-    # the act scratch: each block writes and reads back its own rows only
-    act = torch.empty(e_count * cap * inter * (1 if act_fp8 else 2), dtype=torch.uint8,
-                      device=x.device)
+    # the scratch: ROWS rows a block (one block an SM at most), each block
+    # writing and reading back its own rows only
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(items(e_count, cap), sms)
+    act = torch.empty(scratch_bytes(blocks * ROWS, hidden, inter, scaled=scaled,
+                                    act_fp8=act_fp8), dtype=torch.uint8, device=x.device)
     kind = 2 if w_fp4 else int(scaled)
     ptr = lambda t: None if t is None else t.data_ptr()
     code = _entry()(x.data_ptr(), ptr(xsf), rw.data_ptr(), w1.data_ptr(), ptr(w1_sf),
@@ -351,8 +385,9 @@ def pick_wave_pool(num_devices: int, cap: int, hidden: int, inter: int, *, xb: i
     """The general kernel's wave pool P (fused_moe.py:933-981, JAX's rule):
     the largest of 4 and 2 that divides D, keeps ``P * cap`` within 1024
     rows and keeps the pooled working set within budget; else 1.
-    ``DGT_MEGA_POOL`` pins it. In the CUDA kernel a pool is the slabs that
-    are waited for together and whose rows share the expert's items."""
+    ``DGT_MEGA_POOL`` pins it. The CUDA kernel takes and validates it, but
+    its items are tiles of an expert's received rows across every slab, so
+    every pool gives the same launch and the same bits."""
     pin = envs.mega_pool()
     if pin:
         p = int(pin)
@@ -379,7 +414,7 @@ def _ep_lib():
     lib = build.load('mega_ep')
     if lib.dgt_mega_ep.argtypes is None:
         lib.dgt_mega_ep.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float]
             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                          ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong,
                                          ctypes.c_void_p, ctypes.c_void_p])
@@ -403,6 +438,23 @@ def _slab_layout(d_dim: int, e_local: int, cap: int, hidden: int, xb: int, scale
     return x_stride, sf_stride, sf_region, sf_region + d_dim * sf_stride
 
 
+def live_rows(rw_steps: torch.Tensor):
+    """The general kernel's items from the row weights [D, E, cap] (step
+    order): the rows of weight 0 are left out (stored as +0, what the block
+    gives them). Returns (order [E, D cap] int32: each local expert's
+    received rows q = step cap + slot, those of nonzero weight first, both
+    in step order; counts [E] int32 of those; prefix [E + 1] int32: each
+    expert's first item, a tile of :data:`ROWS` of its live rows, the total
+    last)."""
+    d_dim, e_local, cap = rw_steps.shape
+    live = (rw_steps != 0).permute(1, 0, 2).reshape(e_local, d_dim * cap)
+    order = torch.argsort((~live).to(torch.uint8), dim=1, stable=True).to(torch.int32)
+    counts = live.sum(1, dtype=torch.int32)
+    prefix = torch.zeros(e_local + 1, dtype=torch.int32, device=rw_steps.device)
+    prefix[1:] = torch.cumsum((counts + ROWS - 1) // ROWS, 0)
+    return order, counts, prefix
+
+
 def _my_rank(axis_name: str) -> int:
     return dist.axis_index(axis_name) if dist.in_mesh() else 0
 
@@ -416,7 +468,7 @@ def mega_ep_plain(send_x, send_sf, rw_steps, w1, w1_sf, w2, w2_sf, *, pool=1, w_
     """The general kernel's function: the dispatch all-to-all, the one-rank
     block on each step's slab (step s: the slab from rank (my - s) mod D,
     with row weights ``rw_steps[s]``), the combine all-to-all. ``pool``
-    groups slabs and moves no bit."""
+    moves no bit."""
     del pool
     d_dim = send_x.shape[0]
     my = _my_rank(axis_name)
@@ -483,14 +535,16 @@ def mega_ep(send_x: torch.Tensor, send_sf: Optional[torch.Tensor], rw_steps: tor
     y_bytes = d_dim * e_local * cap * hidden * 2
     buf = dist.symmetric('mega', y_region + y_bytes)
     blocks = mesh.comm_blocks()
-    act = torch.empty(blocks * ROWS * inter * (1 if act_fp8 else 2), dtype=torch.uint8,
-                      device=send_x.device)
+    act = torch.empty(scratch_bytes(blocks * ROWS, hidden, inter, scaled=scaled,
+                                    act_fp8=act_fp8), dtype=torch.uint8, device=send_x.device)
+    order, counts, prefix = live_rows(rw_steps)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _ep_lib()
     from ..parallel.collectives import launch_spinning
     launch_spinning(lib, 'mega_ep', buf, lambda *comm: lib.dgt_mega_ep(
         send_x.data_ptr(), ptr(send_sf), rw_steps.data_ptr(), w1.data_ptr(), ptr(w1_sf),
-        w2.data_ptr(), ptr(w2_sf), act.data_ptr(), e_local, cap, hidden, inter, pool,
+        w2.data_ptr(), ptr(w2_sf), act.data_ptr(), order.data_ptr(), counts.data_ptr(),
+        prefix.data_ptr(), e_local, cap, hidden, inter, pool,
         2 if w_fp4 else int(scaled), int(act_fp8), int(silu_tanh), float(clamp), x_stride,
         sf_stride, sf_region, y_region, *comm))
     count_launch(ep_launches, instance_name(scaled, w_fp4, act_fp8))
@@ -521,8 +575,8 @@ def fused_mega_moe(send_x: torch.Tensor, rw_steps: torch.Tensor,
     path's reverse all-to-all.
 
     At one rank without ``force_general`` the one-rank kernel runs; else
-    the general kernel, with ``pool`` slabs a wave (``pick_wave_pool``,
-    ``DGT_MEGA_POOL``)."""
+    the general kernel; ``pool`` (``pick_wave_pool``, ``DGT_MEGA_POOL``) is
+    JAX's wave pool, validated and kept: it moves no bit."""
     d_dim, e_local, cap, hidden = send_x.shape
     num_devices = dist.axis_size(axis_name) if dist.in_mesh() else 1
     if d_dim != num_devices:

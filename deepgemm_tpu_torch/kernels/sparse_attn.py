@@ -68,11 +68,20 @@ def fused_eligible(topk: int, num_heads: int, head_dim: int) -> bool:
 
 
 def _check_aligned(**tensors):
-    """The kernel copies and loads rows 16 bytes at a time."""
+    """The kernel copies and loads rows 16 bytes at a time: the paged
+    entry's cache views, which are never copied, must start on a 16-byte
+    boundary."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f'{name}: the kernel takes 16-byte aligned rows, got an offset of '
                              f'{x.data_ptr() % 16} bytes')
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous from a 16-byte aligned base: a copy where its view
+    starts off one (as the MQA logits wrapper does)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor, valid: torch.Tensor):
@@ -121,10 +130,9 @@ def gathered_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor
     if use_plain(q, k_sel, v_sel, valid) or q.shape[0] == 0:
         return gathered_attention_plain(q, k_sel, v_sel, valid, scale)
     rows, t, h, d = k_sel.shape
-    q, k_sel, v_sel = q.contiguous(), k_sel.contiguous(), v_sel.contiguous()
+    q, k_sel, v_sel = _aligned(q), _aligned(k_sel), _aligned(v_sel)
     ok = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
-    _check_aligned(q=q, k_sel=k_sel, v_sel=v_sel, out=out)
     lib, fn = _entry()
     code = fn(q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), ok.data_ptr(), out.data_ptr(),
               rows, t, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
@@ -194,11 +202,11 @@ def sparse_attention_paged(q: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.
     if not (k_rows.is_contiguous() and v_rows.is_contiguous()):
         raise ValueError('k_rows/v_rows: the cache views must be contiguous (no copy is made)')
     rows, h, d = q.shape
-    q = q.contiguous()
+    q = _aligned(q)
     tok = tok.to(torch.int32).contiguous()
     ok = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
-    _check_aligned(q=q, k_rows=k_rows, v_rows=v_rows, out=out)
+    _check_aligned(k_rows=k_rows, v_rows=v_rows)
     lib, fn = _entry(paged=True)
     code = fn(q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), tok.data_ptr(), ok.data_ptr(),
               out.data_ptr(), rows, tok.shape[1], h, d, k_rows.shape[0], float(scale),

@@ -21,7 +21,8 @@ in JAX; the scoring and the attention are the port's kernels, on CUDA tensors
 always. The JAX module's selection and attention switches
 (``DGT_TOPK_METHOD``, ``DGT_SPARSE_ATTN``) and its '2level' gather have no
 counterpart: they choose between ways to the same function, and JAX's own
-measurements found the alternatives no faster (ROADMAP.md, Queue 1 #5).
+measurements found the alternatives no faster (ROADMAP.md, Queue 1, "Not carried
+over").
 """
 
 import math
@@ -101,7 +102,7 @@ def indexer_sparse_decode(q: torch.Tensor, kv_cache, index_cache, index_q: torch
         raise NotImplementedError(
             f'DGT_SPARSE_GATHER={gather_mode!r}: the port takes {GATHER_MODES} (the flat '
             f"token gather, or the gather-fused attention); JAX's '2level' gather is not "
-            f'carried over (ROADMAP.md Queue 1 #5)')
+            f'carried over (ROADMAP.md Queue 1, "Not carried over")')
 
     logits = attn_ops.fp8_fp4_paged_mqa_logits(
         (_index_q_fp8(index_q), None), index_cache, index_weights, context_lens,

@@ -782,9 +782,16 @@ def test_sparse_attention_paged_refuses_what_it_does_not_take(gen):
     shifted = _randn(gen, 3 * 16 * 4 * 64 + 1)[1:].view(-1, 4, 64)     # 2 bytes off 16
     with pytest.raises(ValueError, match='aligned'):
         sparse_attn.sparse_attention_paged(q, shifted, shifted, tok, valid, 0.1)
-    with pytest.raises(ValueError, match='aligned'):
-        sparse_attn.gathered_attention(q, shifted[:16].view(2, 8, 4, 64),
-                                       shifted[:16].view(2, 8, 4, 64), valid, 0.1)
+    # the cache views alone are refused off 16 bytes: q, out and the gathered
+    # rows are copied to an aligned base, as JAX's ops take such views
+    kv = shifted[:16].view(2, 8, 4, 64)
+    got = sparse_attn.gathered_attention(q, kv, kv, valid, 0.1)
+    assert torch.equal(got, sparse_attn.gathered_attention(q, kv.clone(), kv.clone(), valid, 0.1))
+    q_off = _randn(gen, 2 * 4 * 64 + 1)[1:].view(2, 4, 64)
+    flat = _randn(gen, 10, 4, 64)
+    assert torch.equal(sparse_attn.sparse_attention_paged(q_off, flat, flat, tok, valid, 0.1),
+                       sparse_attn.sparse_attention_paged(q_off.clone(), flat, flat, tok, valid,
+                                                          0.1))
 
 
 _OPERANDS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
@@ -1134,7 +1141,7 @@ def _mega_case(gen, mode, e=3, cap=40, hidden=256, inter=512):
     return (xq, xsf, rw, w1q, w1sf, w2q, w2sf), dict(w_fp4=w_fp4, act_fp8=act_fp8)
 
 
-@pytest.mark.parametrize('cap', [40, 100])           # one row block of 48; three, the last of 4
+@pytest.mark.parametrize('cap', [40, 100])           # one item of 40 rows; three, the last of 20
 @pytest.mark.parametrize('mode', list(_MEGA_MODES))
 def test_mega_kernel_matches_plain(gen, mode, cap):
     """Each instance against its plain version, both silu forms; the same
@@ -1169,7 +1176,7 @@ def test_mega_kernel_refusals_raise(gen):
     raises from the C entry's error code; the wrapper refuses it first."""
     from deepgemm_tpu_torch.kernels import fused_moe
     from deepgemm_tpu_torch.runtime import build
-    inter = 40960                     # the act scales of 48 rows overflow shared memory
+    inter = 64768                     # the act scales of 40 rows overflow shared memory
     (x, _, rw, w1, _, w2, _), _ = _mega_case(gen, 'bf16', hidden=128, inter=inter)
     with pytest.raises(ValueError, match='shared memory'):
         fused_moe.mega_local(x, None, rw, w1, None, w2, None)
@@ -1180,6 +1187,45 @@ def test_mega_kernel_refusals_raise(gen):
                               inter, 0, 0, 0, 256.0, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match='CUDA error'):
         build.check(build.load('mega_local'), code, 'mega_local')
+
+
+@pytest.mark.parametrize('inter', [32768, 64512])     # Grok-1's; the widest FP4 takes
+@pytest.mark.parametrize('mode', list(_MEGA_MODES))
+def test_mega_kernel_takes_wide_intermediates(gen, mode, inter):
+    """The widths the act scales' shared memory allows run and agree with
+    the plain version."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    args, kw = _mega_case(gen, mode, e=2, cap=8, inter=inter)
+    y = fused_moe.mega_local(*args, **kw)
+    ref = fused_moe.mega_local_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    assert calc_diff(y, ref) < 1e-5
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'fp8', 'fp8_act_fp8', 'fp4', 'fp4_act_fp8'])
+def test_mega_row_bits_do_not_depend_on_its_tile(gen, mode):
+    """A row's result is the same bits alone (cap 1), at other positions of
+    a tile among other rows, in a full tile of 40 and in the second and
+    third tiles of an expert (cap 100)."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    (x, xsf, rw, w1, w1sf, w2, w2sf), kw = _mega_case(gen, mode, cap=100)
+    scaled = xsf is not None
+    x[:, 95:] = _randn(gen, 3, 5, 256).to(x.dtype)          # every row live
+
+    def run(rows):
+        sub = lambda t: None if t is None else t[:, rows].contiguous()
+        return fused_moe.mega_local(sub(x), sub(xsf), sub(rw), w1, w1sf, w2, w2sf,
+                                    silu_tanh=scaled and not kw.get('act_fp8', False), **kw)
+
+    full = run(torch.arange(100))
+    for r in (0, 17, 39, 40, 57, 99):
+        assert torch.equal(run(torch.tensor([r]))[:, 0], full[:, r]), r
+        for pos, cap in ((0, 40), (39, 40), (13, 27), (45, 60)):
+            order = torch.randperm(100, generator=torch.Generator().manual_seed(pos + r))
+            rows = order[order != r][:cap - 1]
+            rows = torch.cat([rows[:pos], torch.tensor([r]), rows[pos:]])
+            assert torch.equal(run(rows)[:, pos], full[:, r]), (r, pos, cap)
 
 
 @pytest.mark.parametrize('comm', ['fused', 'xla'])
@@ -1938,6 +1984,48 @@ def test_mega_ep_kernel_is_bitwise_the_one_rank_kernel(gen, d, mode, placement):
         fp8 = _run_mega_ep(mesh, send, send_sf, rw, dec, dict(kw, w_fp4=False), 1)
         for r in range(d):
             assert torch.equal(fp8[r].cpu(), pools[1][r].cpu())
+
+
+@pytest.mark.parametrize('placement', ['one card', 'cards'])
+@pytest.mark.parametrize('d,mode,cap', [(2, 'fp8', 37), (4, 'fp8', 37), (4, 'fp8_act_fp8', 13),
+                                        (4, 'bf16', 23), (2, 'fp4', 61)])
+def test_mega_ep_tiles_across_uneven_slabs_are_bitwise_the_one_rank_kernel(gen, d, mode, cap,
+                                                                           placement):
+    """#14's tiles of 40 received rows span steps where cap is not a
+    multiple of 40, and each slab has its own count of live rows (the rest
+    zero, with weight 0), and some routed rows have weight 0: every combine
+    slab is bitwise #13 on the rows that slab sent, at every pool, and the
+    rows of weight 0, which #14 leaves out, are +0 in both."""
+    from deepgemm_tpu_torch.kernels import fused_moe
+    mesh = _ep_mesh(placement, d)
+    send, send_sf, rw, weights, kw = _ep_mega_inputs(gen, mode, d, cap=cap)
+    live = torch.randint(0, cap + 1, (d * d,), generator=gen, device='cuda')
+    dead = torch.arange(cap, device='cuda')[None, :] >= live[:, None]      # [D*D, cap]
+    bits = send.view(torch.uint8) if send.element_size() == 1 else send
+    bits.masked_fill_(dead[:, None, :, None], 0)
+    rw.masked_fill_(dead[:, None, :], 0)
+    if send_sf is not None:
+        send_sf.masked_fill_(dead[:, None, :, None], 0)
+    rw.masked_fill_(torch.rand(rw.shape, generator=gen, device='cuda') < 0.2, 0)
+    e_local = send.shape[1]
+    silu_tanh = send_sf is not None and not kw.get('act_fp8', False)
+    pools = {p: _run_mega_ep(mesh, send, send_sf, rw, weights, kw, p)
+             for p in (1, 2, 4) if d % p == 0}
+    torch.cuda.synchronize()
+    w1, w1sf, w2, w2sf = weights
+    experts = lambda t, s: None if t is None else t[s * e_local:(s + 1) * e_local]
+    for r in range(d):
+        for p, got in pools.items():
+            assert torch.equal(got[r].cpu(), pools[1][r].cpu()), (p, r)
+        for s in range(d):
+            # a slab's rows as the one-rank kernel takes them (16-byte aligned copies)
+            block = fused_moe.mega_local(
+                send[r * d + s].clone(), None if send_sf is None else send_sf[r * d + s].clone(),
+                rw[s * d + (s - r) % d].clone(), experts(w1, s), experts(w1sf, s),
+                experts(w2, s), experts(w2sf, s), silu_tanh=silu_tanh, **kw)
+            assert torch.equal(pools[1][r][s].cpu(), block.cpu()), (r, s)
+            left_out = pools[1][r][s].cpu()[(rw[s * d + (s - r) % d] == 0).cpu()]
+            assert (left_out.view(torch.int16) == 0).all(), (r, s)
 
 
 @pytest.mark.parametrize('comm', ['xla', 'pallas', 'fused'])

@@ -164,7 +164,8 @@ def test_decode_gathers_other_than_flat_raise(monkeypatch, mode):
     pages = torch.from_numpy(rng.randn(nb, bkv, h, d).astype(np.float32)).bfloat16()
     ivals = torch.from_numpy(rng.randn(nb, bkv, 32).astype(np.float32)).to(torch.float8_e4m3fn)
     monkeypatch.setenv('DGT_SPARSE_GATHER', mode)
-    with pytest.raises(NotImplementedError, match=r"takes \('flat', 'pallas'\).*Queue 1 #5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"takes \('flat', 'pallas'\).*Queue 1, \"Not carried over\""):
         indexer.indexer_sparse_decode(
             torch.zeros(b, 1, h, d, dtype=torch.bfloat16), (pages, pages),
             (ivals, torch.ones(nb, bkv)), torch.zeros(b, 1, 2, 32), torch.ones(b, 2),

@@ -181,7 +181,7 @@ def test_packed_is_bitwise_the_raw_call(mode):
 
 @pytest.mark.parametrize('hidden,inter,scaled', [
     (7168, 640, True), (7168, 1152, True), (7168, 2048, True), (6144, 1920, False),
-    (7168, 640, False), (4096, 768, False)])
+    (7168, 640, False), (4096, 768, False), (6144, 32768, False), (7168, 64640, True)])
 def test_tile_chooser_divisor_contract(hidden, inter, scaled):
     """tests/test_mega_moe.py's divisor contract, on the H100's shared
     memory: the widths the kernel takes are those its one 128-wide tile
@@ -199,7 +199,7 @@ def test_tile_chooser_refusals():
     with pytest.raises(ValueError, match='multiples of 256'):
         tfm.check_shape(7168, 384, w_fp4=True)
     with pytest.raises(ValueError, match='shared memory'):
-        tfm.check_shape(7168, 40960)
+        tfm.check_shape(7168, 64768)
     tfm.check_shape(7168, 4096)
     tfm.check_shape(7168, 2048, w_fp4=True)
     x = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
@@ -207,6 +207,33 @@ def test_tile_chooser_refusals():
     w2 = torch.zeros(2, 128, 1000, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='multiples of 128'):
         tfm.fused_mega_moe(x, torch.zeros(1, 2, 8), w1, w2)
+
+
+@pytest.mark.parametrize('d,cap', [(1, 40), (1, 100), (8, 40), (4, 37), (2, 61)])
+def test_kernel_items_cover_each_live_row_once(d, cap):
+    """The kernels' items: the one-rank kernel's tiles of ROWS slot rows,
+    and the general kernel's (tfm.live_rows, read by csrc/mega_ep.cu's
+    EpRows) tiles of ROWS of each local expert's received rows of nonzero
+    weight in step order (row q: step q // cap, slot q % cap), which cover
+    each such (step, slot) once and no other; JAX's wave pool for the shape
+    is the port's, and the pool moves no item."""
+    e_local = 3
+    rng = np.random.RandomState(d * 100 + cap)
+    rw = rng.rand(d, e_local, cap).astype(np.float32)
+    rw[rng.rand(d, e_local, cap) < 0.6] = 0
+    order, counts, prefix = tfm.live_rows(torch.from_numpy(rw))
+    assert tfm.items(e_local, cap) == e_local * -(-cap // tfm.ROWS)
+    assert prefix[0] == 0 and prefix[-1] == sum(-(-int(c) // tfm.ROWS) for c in counts)
+    for e in range(e_local):
+        live = [divmod(int(q), cap) for q in order[e, :counts[e]]]
+        assert live == sorted(live) == [(s, j) for s in range(d) for j in range(cap)
+                                        if rw[s, e, j] != 0]
+        assert sorted(order[e].tolist()) == list(range(d * cap))
+        tiles = int(prefix[e + 1] - prefix[e])
+        assert tiles == -(-int(counts[e]) // tfm.ROWS)
+    kw = dict(xb=1, wb=1, scaled=True, act_fp8=False)
+    assert tfm.pick_wave_pool(d, cap, 7168, 2048, **kw) == \
+        jfm.pick_wave_pool(d, cap, 7168, 2048, **kw)
 
 
 @pytest.mark.parametrize('num_chunks', [0, -1])
